@@ -1,0 +1,130 @@
+"""Build the CUDA kernels with nvcc and load them with ctypes.
+
+Each source in ``csrc/`` becomes one shared library with a plain C entry
+point (no PyTorch headers, so a build takes seconds). The libraries go to
+``build/repro_torch/<hash>/`` at the repository root, keyed by a hash of
+every source and the flags, and are built at first use: all missing sources
+at once, one nvcc process each, started together. Importing this module
+builds nothing.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+import time
+from typing import Dict, Sequence
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("w1a8_matmul.cu", "w1a8_conv3x3.cu", "w1a8_conv3x3_pool2.cu")
+# No --use_fast_math: the requant divides with IEEE rounding, as the
+# reference does. -Xptxas -v writes registers and spills to the build log.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = pathlib.Path(home) / "bin" / "nvcc"
+    if path.exists():
+        return str(path)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build_dir() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        if src.suffix in (".cu", ".cuh"):
+            h.update(src.name.encode())
+            h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def library_path(source: str) -> pathlib.Path:
+    return build_dir() / (pathlib.Path(source).stem + ".so")
+
+
+def build_all(sources: Sequence[str] = SOURCES) -> float:
+    """Compiles every source whose library is missing, all in parallel.
+    Returns the seconds spent; raises with nvcc's output on a failure."""
+    t0 = time.perf_counter()
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for src in sources:
+        lib = library_path(src)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        log = open(lib.with_suffix(".log"), "w")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        procs.append((src, lib, tmp, log,
+                      subprocess.Popen(cmd, stdout=log,
+                                       stderr=subprocess.STDOUT)))
+    failed = []
+    for src, lib, tmp, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, lib)
+        else:
+            failed.append(f"{src} (exit {rc}):\n"
+                          + lib.with_suffix(".log").read_text())
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def build_log(source: str) -> str:
+    p = library_path(source).with_suffix(".log")
+    return p.read_text() if p.exists() else ""
+
+
+def _load(source: str) -> ctypes.CDLL:
+    with _lock:
+        if source not in _libs:
+            if not library_path(source).exists():
+                build_all()
+            _libs[source] = ctypes.CDLL(str(library_path(source)))
+        return _libs[source]
+
+
+class Kernel:
+    """One CUDA kernel's C entry point and its launch count.
+
+    ``launches`` is a plain int: one is added each time the kernel is
+    launched and reports no error, and nowhere else, so a run can show
+    that its main path went through the kernel.
+    """
+
+    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+        self.source, self.symbol = source, symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(_load(self.source), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        err = self._fn(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.symbol} launch failed with CUDA error {err}")
+        self.launches += 1
+
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

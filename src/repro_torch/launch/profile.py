@@ -1,0 +1,106 @@
+"""Where a detection dispatch spends its time on the card:
+``python -m repro_torch.launch.profile [--dispatches 8 --slots 4 --seed 0]``.
+
+Serves ``dispatches × slots`` random 320×320 images through the
+`DetectionBackend` (depth 2, raw-head wire) with `torch.profiler` tracing
+the CPU and the card, after one warm-up pass, and prints one JSON line:
+
+  * ``device_busy_ms``: the union of the traced device intervals;
+  * ``wall_ms``: the host clock over the same window, ended by a
+    synchronize; ``device_idle_share`` = 1 − busy / wall;
+  * ``groups``: device ms per dispatch for the three W1A8 kernels, cuDNN
+    (conv1 / conv11), and everything else (decode, NMS, copies);
+  * ``top``: the kernels with the most device time, with their counts.
+
+Fails when the trace holds no device activity.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.launch.serve import make_images, serve
+from repro_torch.models import yolo
+from repro_torch.serve import DetectionBackend
+
+GROUPS = (("w1a8_conv3x3_pool2", "conv3x3_pool2_kernel"),
+          ("w1a8_conv3x3", "conv3x3_kernel"),
+          ("w1a8_matmul", "matmul_kernel"))
+
+
+def _group(name: str) -> str:
+    for group, key in GROUPS:
+        if key in name:
+            return group
+    if "cudnn" in name.lower() or "conv" in name.lower():
+        return "cudnn_conv"
+    return "other"
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, -float("inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dispatches", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    dev = torch.device("cuda")
+    imgs = make_images(args.dispatches * args.slots, args.seed)
+    _, art = yolo.build_detector(
+        args.seed, imgs[:1].astype(np.float32) / 256.0, device=dev)
+    backend = DetectionBackend(art, slots=args.slots, depth=2, device=dev)
+    backend.warmup()
+    serve(backend.spawn(), imgs)                  # warm pass, not traced
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        serve(backend.spawn(), imgs)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("the trace holds no device activity")
+    per_name = collections.defaultdict(lambda: [0.0, 0])
+    per_group = collections.defaultdict(float)
+    for e in events:
+        us = e.time_range.elapsed_us()
+        per_name[e.name][0] += us
+        per_name[e.name][1] += 1
+        per_group[_group(e.name)] += us
+    busy_us = _union_us((e.time_range.start, e.time_range.end)
+                        for e in events)
+    n = args.dispatches
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
+    record = {
+        "card": torch.cuda.get_device_name(0),
+        "dispatches": n, "slots": args.slots,
+        "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / wall_us,
+        "wall_ms_per_dispatch": wall_us / 1e3 / n,
+        "groups": {g: us / 1e3 / n for g, us in sorted(per_group.items())},
+        "device_launches_per_dispatch": len(events) / n,
+        "top": [{"name": name[:80], "ms_per_dispatch": us / 1e3 / n,
+                 "count": cnt} for name, (us, cnt) in top],
+    }
+    print(json.dumps(record))
+    return record
+
+
+if __name__ == "__main__":
+    main()

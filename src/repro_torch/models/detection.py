@@ -1,0 +1,119 @@
+"""Detection-head decode + NMS (paper §6.2 post-processing).
+
+The head emits (B, G, G, 75) raw values = 3 anchors × (tx, ty, tw, th, obj,
+20 cls) per cell, y/x/channel order. Decode follows YOLOv3:
+  bx = (σ(tx) + cx)/G, by = (σ(ty) + cy)/G, bw = pw·e^tw, bh = ph·e^th,
+confidence = σ(obj)·σ(cls). NMS is greedy per-class IoU suppression over a
+fixed number of iterations, batched over images. Counterpart of
+``repro/models/detection.py``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.yolo import NUM_ANCHORS, NUM_CLASSES
+
+# Anchor priors (fraction of image size), 3 anchors for the single head.
+ANCHORS = ((0.12, 0.18), (0.32, 0.42), (0.72, 0.78))
+
+
+def decode_head(raw: torch.Tensor) -> dict:
+    """raw (B, G, G, 75) → boxes (B, G·G·A, 4) cxcywh in [0,1], scores
+    (B, G·G·A, 20). G is read off the head, so every bucket shares one
+    decode."""
+    b, grid = raw.shape[0], raw.shape[1]
+    r = raw.reshape(b, grid, grid, NUM_ANCHORS, 5 + NUM_CLASSES)
+    ar = torch.arange(grid, dtype=torch.float32, device=raw.device)
+    cy, cx = torch.meshgrid(ar, ar, indexing="ij")
+    anchors = torch.tensor(ANCHORS, dtype=torch.float32, device=raw.device)
+    bx = (torch.sigmoid(r[..., 0]) + cx[None, :, :, None]) / grid
+    by = (torch.sigmoid(r[..., 1]) + cy[None, :, :, None]) / grid
+    bw = anchors[:, 0] * torch.exp(torch.clamp(r[..., 2], -8, 8))
+    bh = anchors[:, 1] * torch.exp(torch.clamp(r[..., 3], -8, 8))
+    obj = torch.sigmoid(r[..., 4])
+    cls_prob = torch.sigmoid(r[..., 5:])
+    boxes = torch.stack([bx, by, bw, bh], dim=-1).reshape(b, -1, 4)
+    scores = (obj[..., None] * cls_prob).reshape(b, -1, NUM_CLASSES)
+    return {"boxes": boxes, "scores": scores}
+
+
+def iou_cxcywh(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU between (..., 4) and (..., 4) cxcywh boxes."""
+    ax1, ay1 = a[..., 0] - a[..., 2] / 2, a[..., 1] - a[..., 3] / 2
+    ax2, ay2 = a[..., 0] + a[..., 2] / 2, a[..., 1] + a[..., 3] / 2
+    bx1, by1 = b[..., 0] - b[..., 2] / 2, b[..., 1] - b[..., 3] / 2
+    bx2, by2 = b[..., 0] + b[..., 2] / 2, b[..., 1] + b[..., 3] / 2
+    iw = torch.clamp(torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1), min=0)
+    ih = torch.clamp(torch.minimum(ay2, by2) - torch.maximum(ay1, by1), min=0)
+    inter = iw * ih
+    union = (ax2 - ax1) * (ay2 - ay1) + (bx2 - bx1) * (by2 - by1) - inter
+    return inter / torch.clamp(union, min=1e-9)
+
+
+def nms(boxes: torch.Tensor, scores: torch.Tensor, *,
+        iou_thresh: float = 0.45, score_thresh: float = 0.25,
+        max_out: int = 50):
+    """Greedy per-class NMS, batched: boxes (B, N, 4), scores (B, N, C) →
+    (B, max_out, 4), (B, max_out), (B, max_out) int32 class ids; empty
+    slots have score 0 and class -1.
+
+    Runs exactly ``max_out`` iterations, as the reference does; argmax
+    breaks ties on the first index.
+    """
+    nb = boxes.shape[0]
+    rows = torch.arange(nb, device=boxes.device)
+    cls_id = torch.argmax(scores, dim=-1)
+    score = torch.amax(scores, dim=-1)
+    score = torch.where(score >= score_thresh, score, 0.0)
+    out_b = torch.zeros((nb, max_out, 4), dtype=boxes.dtype,
+                        device=boxes.device)
+    out_s = torch.zeros((nb, max_out), dtype=score.dtype, device=boxes.device)
+    out_c = torch.full((nb, max_out), -1, dtype=torch.int32,
+                       device=boxes.device)
+    for i in range(max_out):
+        j = torch.argmax(score, dim=-1)
+        best = score[rows, j]
+        box = boxes[rows, j]
+        cj = cls_id[rows, j]
+        out_b[:, i] = box
+        out_s[:, i] = best
+        out_c[:, i] = torch.where(best > 0, cj, -1).to(torch.int32)
+        ious = iou_cxcywh(box[:, None, :], boxes)
+        suppress = (ious > iou_thresh) & (cls_id == cj[:, None])
+        score = torch.where(suppress, 0.0, score)
+        score[rows, j] = 0.0
+    out_s = torch.where(out_s > 0, out_s, 0.0)
+    return out_b, out_s, out_c
+
+
+def postprocess(raw: torch.Tensor, *, iou_thresh: float = 0.45,
+                score_thresh: float = 0.25, max_out: int = 50):
+    """Full post-processing for a batch of raw heads."""
+    dec = decode_head(raw)
+    return nms(dec["boxes"], dec["scores"], iou_thresh=iou_thresh,
+               score_thresh=score_thresh, max_out=max_out)
+
+
+def compact_detections(boxes: torch.Tensor, scores: torch.Tensor,
+                       classes: torch.Tensor):
+    """NMS output → the device-side emission wire: fp16 boxes, fp16 scores,
+    int8 classes and an int32 valid count (kept boxes are a prefix, in
+    descending score). Works per image or on a leading batch dim."""
+    valid = torch.sum((scores > 0).to(torch.int32), dim=-1, dtype=torch.int32)
+    return (boxes.to(torch.float16), scores.to(torch.float16),
+            classes.to(torch.int8), valid)
+
+
+def detections_to_list(boxes, scores, classes) -> list:
+    """NMS output for ONE image → host-side list of dicts (empty slots
+    dropped) — the wire form of a detection ServeResult."""
+    boxes, scores, classes = (_np(boxes), _np(scores), _np(classes))
+    keep = scores > 0
+    return [{"box_cxcywh": boxes[i].tolist(), "score": float(scores[i]),
+             "class_id": int(classes[i])} for i in np.flatnonzero(keep)]
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
