@@ -2,7 +2,8 @@
 
 `params_from_numpy` takes float params (``{layer: {w, b, act_step}}``, HWIO)
 and `artifact_from_numpy` takes a packed ``deploy_yolo_kernel`` artifact
-with its ``uint32`` sign words. Deploying the converted params with the
+with its ``uint32`` sign words, and folds the epilogue constants the port's
+artifact carries (`yolo.fold_epilogue`). Deploying the converted params with the
 port's `yolo.deploy_yolo_kernel` and converting the reference's artifact
 give the same sign words and steps, so both paths run the same detector.
 Nothing here imports the JAX package: the caller hands over numpy arrays.
@@ -13,7 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.yolo import YOLO_LAYERS
+from repro_torch.models.yolo import YOLO_LAYERS, fold_epilogue
 
 _SPECS = {s.name: s for s in YOLO_LAYERS}
 
@@ -42,7 +43,7 @@ def artifact_from_numpy(art_np: dict, device=None) -> dict:
         out = {"spec": _SPECS[getattr(spec, "name", spec)]}
         out.update({k: _tensor(v, dev) for k, v in entry.items()
                     if k != "spec"})
-        layers.append(out)
+        layers.append(fold_epilogue(out))
     art = {"layers": layers}
     if "buckets" in art_np:
         art["buckets"] = tuple(int(b) for b in art_np["buckets"])

@@ -1,23 +1,22 @@
 """KernelConfig — one frozen launch-config object for the W1A8 kernels.
 
 Counterpart of ``repro/kernels/config.py``. Resolution turns an (op, layer
-shape, accum, device) cell into a concrete config:
+shape, accum, device) cell into a concrete config: the exact autotune-table
+entry, else the heuristic default. The port keeps its own table
+(`DEFAULT_TABLE`); none has been measured yet, so every cell resolves to
+``accum="dot"``, ``fused=True``, ``rows=1``. The reference's nearest-shape
+fallback comes back with the table. Configs are resolved once per bucket
+and batch width (`models.yolo.kernel_configs`), never per forward.
 
-    exact autotune-table hit  →  nearest-shape fallback  →  heuristics
-
-The port keeps its own table (`DEFAULT_TABLE`); none has been measured yet,
-so every cell resolves to the heuristic default: ``accum="dot"``,
-``fused=True``, ``rows=1``. Whether a call runs a CUDA kernel or its plain
-PyTorch version is decided by the device of the tensors it is given, never
-by the config.
+Whether a call runs a CUDA kernel or its plain PyTorch version is decided
+by the device of the tensors it is given, never by the config.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import pathlib
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence
 
 OPS = ("matmul", "conv3x3", "conv3x3_pool")
 ACCUMS = ("dot", "popcount")
@@ -46,8 +45,7 @@ class KernelConfig:
     (pooled rows for the fused kernel) one block produces; the ops layer
     clips it to a divisor of the row count. ``fused`` routes
     ``w1a8_conv3x3_pool`` through the fused conv+pool kernel (True) or the
-    conv kernel followed by a 2×2 max (False). ``source`` is provenance
-    only. All validation happens here.
+    conv kernel followed by a 2×2 max (False). All validation happens here.
     """
 
     op: str = "matmul"
@@ -56,7 +54,6 @@ class KernelConfig:
     bk: Optional[int] = None
     rows: int = 1
     fused: bool = True
-    source: str = dataclasses.field(default="manual", compare=False)
 
     def __post_init__(self):
         if self.op not in OPS:
@@ -105,11 +102,6 @@ def shape_key(op: str, dims: Sequence[int], accum: str,
     return f"{op}/{'x'.join(str(int(d)) for d in dims)}/{accum}/{dev}"
 
 
-def parse_key(key: str) -> Tuple[str, Tuple[int, ...], str, str]:
-    op, dims, accum, dev = key.split("/", 3)
-    return op, tuple(int(d) for d in dims.split("x")), accum, dev
-
-
 # The port's own table: the reference's table was tuned for another target.
 DEFAULT_TABLE = pathlib.Path(__file__).resolve().parent / "AUTOTUNE_cuda.json"
 
@@ -128,51 +120,23 @@ def load_table() -> dict:
     return _table_cache[ck]
 
 
-def _shape_distance(a: Sequence[int], b: Sequence[int]) -> float:
-    if len(a) != len(b):
-        return math.inf
-    return sum(abs(math.log(max(x, 1) / max(y, 1))) for x, y in zip(a, b))
-
-
 def resolve(op: str, dims: Sequence[int], *, accum: str = "dot",
             device: Optional[str] = None,
             table: Optional[dict] = None) -> KernelConfig:
-    """Table lookup → nearest-shape fallback → heuristic default.
-
-    Nearest-shape: among same-(op, accum, device) entries, minimal
-    log-space distance over dims; ties break on the lexicographically
-    smallest key so resolution is deterministic.
-    """
+    """The table's entry for the exact cell, else the heuristic default."""
     dev = device if device is not None else device_key()
     entries = table if table is not None else load_table()
     hit = entries.get(shape_key(op, dims, accum, dev))
     if hit is not None:
-        return KernelConfig.from_dict({**hit["config"], "source": "table"})
-    best = None
-    for k, rec in entries.items():
-        try:
-            kop, kdims, kaccum, kdev = parse_key(k)
-        except ValueError:
-            continue
-        if (kop, kaccum, kdev) != (op, accum, dev):
-            continue
-        d = _shape_distance(dims, kdims)
-        if best is None or (d, k) < (best[0], best[1]):
-            best = (d, k, rec)
-    if best is not None and math.isfinite(best[0]):
-        return KernelConfig.from_dict({**best[2]["config"],
-                                       "source": "nearest"})
-    return KernelConfig(op=op, accum=accum, source="heuristic")
+        return KernelConfig.from_dict(hit["config"])
+    return KernelConfig(op=op, accum=accum)
 
 
 def resolve_tuned(op: str, dims: Sequence[int], *,
                   device: Optional[str] = None,
                   table: Optional[dict] = None) -> KernelConfig:
-    """Pick the fastest accum variant for the cell, then resolve its config.
-
-    Compares exact-key ``t_us`` across accum modes; without exact entries
-    it resolves the dot config.
-    """
+    """The accum mode with the lower timed entry for the cell (dot when
+    the table times neither), then its resolved config."""
     dev = device if device is not None else device_key()
     entries = table if table is not None else load_table()
     timed = []

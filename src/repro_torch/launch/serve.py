@@ -10,7 +10,8 @@ the device-NMS wire, each at depth 1 and at ``--depth``, and checks:
   * the served raw head lies within the `core.verify` envelope
     (max_abs < 0.02, within_1lsb == 1 at lsb 0.02) of the float forward.
 
-Prints one JSON summary line; writes no file.
+The summary also carries the kernel launches of the raw-wire depth-K serve
+and its dispatch count. Prints one JSON summary line; writes no file.
 """
 from __future__ import annotations
 
@@ -22,8 +23,19 @@ import torch
 
 from repro_torch.core import verify
 from repro_torch.device import resolve_device
+from repro_torch.kernels.w1a8_conv import fused_pool
+from repro_torch.kernels.w1a8_conv import ops as conv_ops
+from repro_torch.kernels.w1a8_matmul import ops as mm_ops
 from repro_torch.models import detection, yolo
 from repro_torch.serve import DetectionBackend, Scheduler, ServeRequest
+
+# The main path's kernels, by name: each counts its own launches.
+KERNELS = {"w1a8_conv3x3_pool2": fused_pool.KERNEL,
+           "w1a8_conv3x3": conv_ops.KERNEL, "w1a8_matmul": mm_ops.KERNEL}
+
+
+def launch_counts() -> dict:
+    return {name: k.launches for name, k in KERNELS.items()}
 
 
 def make_images(n: int, seed: int, size: int = yolo.INPUT_SIZE) -> np.ndarray:
@@ -83,9 +95,13 @@ def check_nms_wire(device_nms: dict, raw_wire: dict) -> None:
 def check_alignment(params: dict, imgs_u8: np.ndarray, raw_wire: dict,
                     device) -> verify.AlignmentReport:
     """Served raw heads vs the float forward, paper §6.3 statistics."""
-    imgs = torch.from_numpy(imgs_u8).to(device).to(torch.float32) / 256.0
-    with torch.no_grad():
-        ref = yolo.yolo_forward_float(params, imgs).cpu().numpy()
+    chunks = []
+    for i in range(0, len(imgs_u8), 64):         # bounds the float forward
+        imgs = torch.from_numpy(imgs_u8[i:i + 64]).to(device) \
+            .to(torch.float32) / 256.0
+        with torch.no_grad():
+            chunks.append(yolo.yolo_forward_float(params, imgs).cpu().numpy())
+    ref = np.concatenate(chunks)
     got = np.stack([raw_wire[i]["raw"] for i in range(len(imgs_u8))])
     rep = verify.compare("serve_detect_raw", got, ref, lsb=0.02)
     if not (rep.max_abs < 0.02 and rep.within_1lsb == 1.0):
@@ -104,7 +120,10 @@ def run_detect(args) -> dict:
     raw_t.warmup()
     dn_t.warmup()
     raw_1, _ = serve(raw_t.spawn(depth=1), imgs_u8)
-    raw_k, raw_summary = serve(raw_t.spawn(depth=args.depth), imgs_u8)
+    counted = raw_t.spawn(depth=args.depth)
+    before = launch_counts()
+    raw_k, raw_summary = serve(counted, imgs_u8)
+    launches = {k: n - before[k] for k, n in launch_counts().items()}
     dn_1, _ = serve(dn_t.spawn(depth=1), imgs_u8)
     dn_k, summary = serve(dn_t.spawn(depth=args.depth), imgs_u8)
     check_bit_exact(raw_k, raw_1, f"raw wire depth={args.depth}")
@@ -127,7 +146,10 @@ def run_detect(args) -> dict:
                                    "tick_p50_ms", "tick_p95_ms",
                                    "host_sync_bytes_per_sync")},
         "raw_wire": {k: raw_summary[k] for k in
-                     ("img_per_s", "tick_p50_ms", "host_sync_bytes_per_sync")},
+                     ("img_per_s", "wall_s", "tick_p50_ms", "tick_p95_ms",
+                      "host_sync_bytes_per_sync")},
+        "raw_wire_dispatches": counted.host_syncs,
+        "raw_wire_launches": launches,
     }
 
 

@@ -224,12 +224,22 @@ def deploy_yolo_kernel(params: dict) -> dict:
             nxt = YOLO_LAYERS[i + 1]
             entry["step_out"] = torch.broadcast_to(
                 params[nxt.name]["act_step"], (nxt.cin,)).to(torch.float32)
-        art["layers"].append(entry)
+        art["layers"].append(fold_epilogue(entry))
     return art
 
 
+def fold_epilogue(entry: dict) -> dict:
+    """Adds a W1A8 layer's requant epilogue constants to its artifact entry,
+    once at deploy: q = round(acc·div_eff + b_eff) with div_eff = α/s_next
+    and b_eff = b/s_next, so a forward does no scale arithmetic."""
+    if entry["spec"].kind == "w1a8":
+        entry["div_eff"] = entry["alpha"] / entry["step_out"]
+        entry["b_eff"] = entry["b"] / entry["step_out"]
+    return entry
+
+
 def build_detector(seed: int, calib_images, *, per_channel: bool = True,
-                   profile: str = None, buckets=None, device=None) -> tuple:
+                   buckets=None, device=None) -> tuple:
     """Init from a numpy seed + range-calibrate + pack.
 
     calib_images (B, S, S, 3) float in [0, 1], a tensor or an array.
@@ -238,8 +248,6 @@ def build_detector(seed: int, calib_images, *, per_channel: bool = True,
     ``buckets`` (image sides, multiples of 32) are recorded on the artifact
     for `DetectionBackend`; default: the calibration image size.
     """
-    if profile is not None and profile not in PROFILES:
-        raise ValueError(f"profile must be one of {PROFILES}, got {profile!r}")
     dev = resolve_device(device)
     calib = torch.as_tensor(calib_images, dtype=torch.float32).to(dev)
     if buckets is None:
@@ -270,8 +278,7 @@ def _layer_config(spec: ConvSpec, h: int, batch: int, *, profile: str,
         else:
             cfg = _cfg.resolve_tuned(op, dims, table=table)
     else:
-        cfg = KernelConfig(op=op, accum=accum or "dot", source=profile,
-                           fused=False)
+        cfg = KernelConfig(op=op, accum=accum or "dot", fused=False)
     if fuse_pool is not None:
         cfg = cfg.replace(fused=fuse_pool)
     if cfg.accum == "popcount":
@@ -281,55 +288,61 @@ def _layer_config(spec: ConvSpec, h: int, batch: int, *, profile: str,
     return cfg.replace(out_step=1.0)
 
 
+def kernel_configs(art: dict, bucket: int, batch: int, *,
+                   profile: str = "tuned", fuse_pool: bool = None,
+                   accum: str = None) -> tuple:
+    """The W1A8 layers' KernelConfigs for one (bucket, batch) shape, in
+    layer order. Resolve once per shape and pass them to
+    `yolo_forward_kernel`; `DetectionBackend` does so per bucket."""
+    if profile not in PROFILES:
+        raise ValueError(f"profile must be one of {PROFILES}, got {profile!r}")
+    table = _cfg.load_table() if profile == "tuned" else None
+    sizes = spatial_sizes(bucket)
+    return tuple(_layer_config(e["spec"], sizes[e["spec"].name], batch,
+                               profile=profile, accum=accum,
+                               fuse_pool=fuse_pool, table=table)
+                 for e in art["layers"][1:-1])
+
+
 def yolo_forward_kernel(art: dict, images: torch.Tensor, *,
                         profile: str = "tuned", fuse_pool: bool = None,
-                        accum: str = None) -> torch.Tensor:
+                        accum: str = None, configs: tuple = None
+                        ) -> torch.Tensor:
     """Packed path: images (B,S,S,3) in [0,1] → (B,S/32,S/32,75) f32 raw
     head, for any bucket S that is a multiple of 32. On CUDA tensors every
     W1A8 layer runs a CUDA kernel; on CPU tensors their plain versions.
 
     Between layers the activations are uint8-code QTensors, requantized in
-    each kernel's epilogue: q = round(acc·(α/s_next) + b/s_next) with
-    out_step = 1.
+    each kernel's epilogue with the constants `fold_epilogue` stored on the
+    artifact and out_step = 1. ``configs`` (from `kernel_configs` at this
+    shape) skips the per-call resolution of profile/accum/fuse_pool.
     """
-    if profile not in PROFILES:
-        raise ValueError(f"profile must be one of {PROFILES}, got {profile!r}")
+    if configs is None:
+        configs = kernel_configs(art, images.shape[1], images.shape[0],
+                                 profile=profile, fuse_pool=fuse_pool,
+                                 accum=accum)
     layers = art["layers"]
-    table = _cfg.load_table() if profile == "tuned" else None
-    sizes = spatial_sizes(images.shape[1])
-    batch = images.shape[0]
-    w1a8 = layers[1:-1]
-    cfgs = [_layer_config(e["spec"], sizes[e["spec"].name], batch,
-                          profile=profile, accum=accum, fuse_pool=fuse_pool,
-                          table=table)
-            for e in w1a8]
 
     # conv1 (fixed-point-rounded weights) in f32, pool, quantize to codes.
     first = layers[0]
     x = _maxpool2(_conv1(first, images))
     qx = QTensor.quantize_u8(x, first["step_out"], axis=-1)
 
-    for entry, cfg in zip(w1a8, cfgs):
+    for entry, cfg in zip(layers[1:-1], configs):
         spec: ConvSpec = entry["spec"]
-        mul_prev = qx.scale
-        s_next = entry["step_out"]
-        div_eff = entry["alpha"] / s_next
-        b_eff = entry["b"] / s_next
+        args = (entry["w_packed"], qx.scale, entry["div_eff"], entry["b_eff"])
         if spec.ksize == 3 and spec.pool:
-            out = conv_ops.w1a8_conv3x3_pool(
-                qx.data, entry["w_packed"], mul_prev, div_eff, b_eff,
-                cin=spec.cin, config=cfg)
+            out = conv_ops.w1a8_conv3x3_pool(qx.data, *args, cin=spec.cin,
+                                             config=cfg)
         elif spec.ksize == 3:
-            out = conv_ops.w1a8_conv3x3(
-                qx.data, entry["w_packed"], mul_prev, div_eff, b_eff,
-                cin=spec.cin, config=cfg)
+            out = conv_ops.w1a8_conv3x3(qx.data, *args, cin=spec.cin,
+                                        config=cfg)
         else:
             b, h, w, _ = qx.data.shape
-            out = mm_ops.w1a8_matmul(
-                qx.data.reshape(b * h * w, spec.cin), entry["w_packed"],
-                mul_prev, div_eff, b_eff, k=spec.cin, config=cfg)
+            out = mm_ops.w1a8_matmul(qx.data.reshape(b * h * w, spec.cin),
+                                     *args, k=spec.cin, config=cfg)
             out = out.reshape(b, h, w, spec.cout)
-        qx = QTensor.from_codes(out, s_next, axis=-1)
+        qx = QTensor.from_codes(out, entry["step_out"], axis=-1)
 
     # conv11 detection head (1×1, fixed-point weights) on dequantized codes.
     return _conv11(layers[-1], qx.dequantize())

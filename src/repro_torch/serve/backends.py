@@ -91,7 +91,7 @@ class DetectionBackend:
     dispatches a batch, not at the tick whose harvest blocks on it.
     """
 
-    def __init__(self, art: dict, *, slots: int = 4, profile: str = None,
+    def __init__(self, art: dict, *, slots: int = 4, profile: str = "tuned",
                  depth: Optional[int] = None, device_nms: bool = False,
                  buckets: Optional[Sequence[int]] = None,
                  iou_thresh: float = 0.45, score_thresh: float = 0.25,
@@ -105,11 +105,6 @@ class DetectionBackend:
             depth = 1
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
-        if profile is None:
-            profile = "tuned"
-        if profile not in yolo.PROFILES:
-            raise ValueError(
-                f"profile must be one of {yolo.PROFILES}, got {profile!r}")
         if buckets is None:
             buckets = art.get("buckets") or (yolo.INPUT_SIZE,)
         self.buckets = tuple(dict.fromkeys(int(b) for b in buckets))
@@ -124,6 +119,9 @@ class DetectionBackend:
         self.admit_width = len(self.buckets) * slots
         self.bucket_admit_width = slots           # per-bucket page per tick
         self.profile = profile
+        # kernel configs resolved once per bucket at the dispatch width
+        self._configs = {b: yolo.kernel_configs(art, b, slots, profile=profile)
+                         for b in self.buckets}
         self.device_nms = device_nms
         self.post = dict(iou_thresh=iou_thresh, score_thresh=score_thresh,
                          max_out=max_out)
@@ -149,7 +147,8 @@ class DetectionBackend:
                 ((w, n), torch.float32), ((w, n), torch.int32)]
 
     def _forward(self, imgs: torch.Tensor) -> tuple:
-        raw = yolo.yolo_forward_kernel(self.art, imgs, profile=self.profile)
+        raw = yolo.yolo_forward_kernel(self.art, imgs,
+                                       configs=self._configs[imgs.shape[1]])
         boxes, scores, classes = detection.postprocess(raw, **self.post)
         if self.device_nms:
             return detection.compact_detections(boxes, scores, classes)

@@ -136,19 +136,20 @@ def test_popcount_is_not_ported_yet():
 
 def test_config_resolution_without_table():
     """No port table yet: "tuned" resolves dot, fused, rows=1 everywhere;
-    exact → nearest → heuristic order holds on a given table."""
+    a given table's exact cell wins, any other cell takes the heuristic."""
     cfg = config.resolve_tuned("conv3x3_pool", (160, 160, 16, 32),
                                table={}, device="h100")
-    assert (cfg.accum, cfg.fused, cfg.rows, cfg.source) == \
-        ("dot", True, 1, "heuristic")
+    assert cfg == KernelConfig(op="conv3x3_pool", accum="dot", fused=True,
+                               rows=1)
     table = {config.shape_key("conv3x3", (20, 20, 128, 128), "dot", "h100"):
              {"config": {"op": "conv3x3", "rows": 4}, "t_us": 1.0}}
     exact = config.resolve("conv3x3", (20, 20, 128, 128), table=table,
                            device="h100")
-    near = config.resolve("conv3x3", (10, 10, 128, 128), table=table,
-                          device="h100")
-    assert (exact.rows, exact.source) == (4, "table")
-    assert (near.rows, near.source) == (4, "nearest")
-    assert near.conv_rows(10) == 2
+    other = config.resolve("conv3x3", (10, 10, 128, 128), table=table,
+                           device="h100")
+    assert (exact.rows, other.rows) == (4, 1)
+    assert exact.conv_rows(10) == 2
+    assert config.resolve_tuned("conv3x3", (20, 20, 128, 128), table=table,
+                                device="h100") == exact
     with pytest.raises(ValueError):
         KernelConfig(op="conv3x3", bk=48)

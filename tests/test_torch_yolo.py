@@ -11,9 +11,12 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.core import fixedpoint as jfxp  # noqa: E402
+from repro.core import quant as jquant  # noqa: E402
 from repro.core import verify as jverify  # noqa: E402
 from repro.models import yolo as jyolo  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.core import quant  # noqa: E402
 from repro_torch.core import verify  # noqa: E402
 from repro_torch.models import yolo  # noqa: E402
 
@@ -86,7 +89,7 @@ def test_convert_paths_agree(reference):
         for key in a:
             if key == "spec":
                 continue
-            if key == "alpha":           # a mean: summation order may differ
+            if key in ("alpha", "div_eff"):  # a mean: summation order differs
                 torch.testing.assert_close(a[key], b[key], rtol=1e-6, atol=0)
             else:
                 assert torch.equal(a[key], b[key]), (a["spec"].name, key)
@@ -95,12 +98,14 @@ def test_convert_paths_agree(reference):
                  yolo.yolo_forward_kernel(theirs, img))
 
 
-# A code that sits on a rounding tie (x/step within an ulp of k + 0.5) can
-# round the other way under the other framework's float32 conv order; one
-# flipped code moves a channel's max, hence its step, by about step·α —
-# ~3e-4 relative on this random-init net (measured up to 9e-4 from conv7
-# on). The first layers see too few codes for that, and match at 1e-5.
-SHALLOW = ("conv2", "conv3")
+# Every layer's step matches at 1e-5 except downstream of a code that the
+# two frameworks' float32 convs round to opposite sides of a tie. Under the
+# suite's XLA flags (tests/conftest.py) one code at conv6's input has
+# x/step = 195.49998 in the reference and 195.50015 here; the flipped code
+# moves later layers' maxima. The limits for conv7–conv9 sit just above
+# what that reads (3.21e-4, 9.03e-4, 4.94e-4);
+# test_calibrate_drift_is_a_rounding_tie shows the cause.
+STEP_RTOL = {"conv7": 4e-4, "conv8": 1.1e-3, "conv9": 6e-4}
 
 
 def test_calibrate_steps_match_reference(reference):
@@ -110,8 +115,87 @@ def test_calibrate_steps_match_reference(reference):
         if "act_step" in p:
             np.testing.assert_allclose(
                 ours[name]["act_step"].numpy(), p["act_step"], atol=0,
-                rtol=1e-5 if name in SHALLOW else 2e-3, err_msg=name)
+                rtol=STEP_RTOL.get(name, 1e-5), err_msg=name)
     assert "act_step" not in init["conv1"]
+
+
+def _jax_layer(spec, p, xq):
+    """One eval float layer of the reference, as its yolo_forward_float."""
+    if spec.name == "conv1":
+        x = jax.nn.relu(jyolo._conv2d(xq, jfxp.CONV1_W.roundtrip(p["w"]))
+                        + jfxp.CONV1_B.roundtrip(p["b"]))
+    elif spec.name == "conv11":
+        x = (jyolo._conv2d(xq, jfxp.CONV11_W.roundtrip(p["w"]))
+             + jfxp.CONV11_B.roundtrip(p["b"]))
+    else:
+        alpha = jnp.mean(jnp.abs(p["w"]), axis=(0, 1, 2))
+        x = jax.nn.relu(jyolo._conv2d(xq, jquant.binarize_weight(p["w"]))
+                        * alpha + p["b"])
+    return jyolo._maxpool2(x) if spec.pool else x
+
+
+def _port_layer(spec, p, xq):
+    if spec.name == "conv1":
+        x = yolo._conv1(p, xq)
+    elif spec.name == "conv11":
+        x = yolo._conv11(p, xq)
+    else:
+        alpha = torch.mean(torch.abs(p["w"]), dim=(0, 1, 2))
+        x = torch.relu(yolo._conv2d(xq, quant.binarize_weight(p["w"]))
+                       * alpha + p["b"])
+    return yolo._maxpool2(x) if spec.pool else x
+
+
+def _calibrate_side_by_side(reference, force: bool) -> dict:
+    """Both calibrations layer by layer on the same init. With ``force``,
+    every code the port rounds differently is set to the reference's, after
+    checking that it sits within 1e-3 of a rounding tie in both. Returns
+    {layer: (reference step, port step, codes forced)}."""
+    init_np = reference["init_np"]
+    init_t = convert.params_from_numpy(init_np, device="cpu")
+    jx, tx = jnp.asarray(reference["img"]), torch.from_numpy(reference["img"])
+    out = {}
+    for spec in yolo.YOLO_LAYERS:
+        if spec.name == "conv1":
+            jx = _jax_layer(spec, init_np[spec.name], jx)
+            tx = _port_layer(spec, init_t[spec.name], tx)
+            continue
+        js = jnp.maximum(jnp.max(jnp.abs(jx), axis=(0, 1, 2)) / 255, 1e-4)
+        ts = torch.clamp(torch.amax(torch.abs(tx), dim=(0, 1, 2)) / 255,
+                         min=1e-4)
+        jc = np.asarray(jquant.quantize_act(jx, js))
+        tc = quant.quantize_act(tx, ts).numpy()
+        flipped = jc != tc
+        if force and flipped.any():
+            for frac in (np.asarray(jx) / np.asarray(js),
+                         tx.numpy() / ts.numpy()):
+                tie = np.abs(frac[flipped] % 1.0 - 0.5)
+                assert tie.max() < 1e-3, (spec.name, tie)
+            tc = jc
+        out[spec.name] = (np.asarray(js), ts.numpy(),
+                          int(flipped.sum()) if force else 0)
+        jx = _jax_layer(spec, init_np[spec.name], jc * js)
+        tx = _port_layer(spec, init_t[spec.name],
+                         torch.from_numpy(tc.copy()) * ts)
+    return out
+
+
+def test_calibrate_drift_is_a_rounding_tie(reference):
+    """The side-by-side loop reproduces both calibrate_yolo functions
+    exactly; once the codes that round across a tie are forced to the
+    reference's, every layer's step matches at 1e-5."""
+    free = _calibrate_side_by_side(reference, force=False)
+    init = convert.params_from_numpy(reference["init_np"], device="cpu")
+    ours = yolo.calibrate_yolo(init, torch.from_numpy(reference["img"]))
+    for name, (js, ts, _) in free.items():
+        np.testing.assert_array_equal(js, reference["params_np"][name]
+                                      ["act_step"], err_msg=name)
+        np.testing.assert_array_equal(ts, ours[name]["act_step"].numpy(),
+                                      err_msg=name)
+    forced = _calibrate_side_by_side(reference, force=True)
+    for name, (js, ts, _) in forced.items():
+        np.testing.assert_allclose(ts, js, atol=0, rtol=1e-5, err_msg=name)
+    assert sum(n for _, _, n in forced.values()) <= 2, forced
 
 
 def test_model_structure():
