@@ -5,16 +5,23 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Prints the card's name and power limit (nvidia-smi), builds the three
+1. Prints the card's name and power limit (nvidia-smi), builds the seven
    CUDA kernels from ``src/repro_torch/csrc`` with nvcc (in parallel) and
    prints the build seconds and each kernel's register use.
-2. Holds each kernel against its plain PyTorch version on the card, at
+2. Holds each dot kernel against its plain PyTorch version on the card, at
    every W1A8 layer shape of the 320×320 detector with B = 4: f32 outputs
    within 6e-3·max|y|, uint8 codes within 1 LSB, the fused conv+pool kernel
    equal to the conv kernel plus a 2×2 max exactly, and results unchanged
    by the row blocking. Times each kernel, its plain version and one
    PyTorch library call (CUDA events).
-3. Drives the main path through the serving launcher
+3. The same for the binary domain, at every layer shape: each popcount
+   kernel equal to its plain version (f32 outputs and codes), unchanged by
+   `rows=2`, the fused popcount pool equal to the popcount conv plus a 2×2
+   max, and each popcount kernel bit-exact with the dot kernel of the layer
+   under canonical operands (mul ≡ 1, div·m). At conv9's shape the int
+   kernel equals its plain version and the popcount matmul's sum under
+   div ≡ 1, bias ≡ 0. Times each as in phase 2.
+4. Drives the dot main path through the serving launcher
    (``repro_torch.launch.serve``: 16 random 320×320 uint8 images,
    `slots=4`, `depth=2`), with every launch count set to 0 just before and
    read just after. The launcher checks zero drops, depth-K payloads
@@ -22,7 +29,20 @@ Phases (any failure raises and the script exits non-zero):
    raw-wire set, and the raw head within the `core.verify` envelope of the
    float forward; this script checks launches = dispatches × (4, 4, 1) for
    (conv3x3_pool2, conv3x3, matmul) on its raw-wire depth-2 serve.
-4. Prints one ``{"kernels": [...]}`` line, and as the last line
+5. Drives the popcount forward, ``yolo_forward_kernel(accum="popcount")``,
+   at full width (B = 4, 320×320) on a per-channel artifact, once per pool
+   route, with every launch count zeroed before and read after: launches
+   (4, 4, 1) for (conv3x3_pool2_popcount, conv3x3_popcount,
+   matmul_popcount) on the fused route and (0, 8, 1) on the unfused one,
+   the two raw heads bit-identical and within the `core.verify` envelope of
+   the float forward. On a per-tensor artifact the popcount and dot raw
+   heads differ by less than 0.02. Then the int path: one
+   `w1a8_matmul_int` call at conv9's shape on the detector's conv9 sign
+   words, counted the same way and checked against the integer product.
+   Prints each route's ms per forward beside the dot forward's: the
+   CUDA-event time of back-to-back forwards, and from torch.profiler the
+   device busy time, which excludes the host's gaps between launches.
+6. Prints one ``{"kernels": [...]}`` line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
@@ -47,6 +67,8 @@ SEED = 0
 BATCH = 4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
+CANONICAL_M = 0.05             # the uniform step of the canonical operands
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -56,8 +78,25 @@ KERNELS = {
                      "src/repro/kernels/w1a8_conv/kernel.py:80"),
     "w1a8_matmul": ("src/repro_torch/csrc/w1a8_matmul.cu",
                     "src/repro/kernels/w1a8_matmul/kernel.py:168"),
+    "w1a8_conv3x3_pool2_popcount": (
+        "src/repro_torch/csrc/w1a8_conv3x3_pool2_popcount.cu",
+        "src/repro/kernels/w1a8_conv/fused_pool.py:56"),
+    "w1a8_conv3x3_popcount": (
+        "src/repro_torch/csrc/w1a8_conv3x3_popcount.cu",
+        "src/repro/kernels/w1a8_conv/kernel.py:63"),
+    "w1a8_matmul_popcount": (
+        "src/repro_torch/csrc/w1a8_matmul_popcount.cu",
+        "src/repro/kernels/w1a8_matmul/kernel.py:135"),
+    "w1a8_matmul_int": ("src/repro_torch/csrc/w1a8_matmul_int.cu",
+                        "src/repro/kernels/w1a8_matmul/kernel.py:228"),
 }
+DOT = ("w1a8_conv3x3_pool2", "w1a8_conv3x3", "w1a8_matmul")
 PER_DISPATCH = {"w1a8_conv3x3_pool2": 4, "w1a8_conv3x3": 4, "w1a8_matmul": 1}
+# popcount forward, per route: (pool2_popcount, conv3x3_popcount,
+# matmul_popcount) launches of one forward
+POPCOUNT = ("w1a8_conv3x3_pool2_popcount", "w1a8_conv3x3_popcount",
+            "w1a8_matmul_popcount")
+PER_FORWARD = {True: (4, 4, 1), False: (0, 8, 1)}
 
 
 def cuda_ms(torch, fn, reps: int = 7, n: int = 20) -> float:
@@ -77,8 +116,8 @@ def cuda_ms(torch, fn, reps: int = 7, n: int = 20) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: int, ops: int) -> tuple:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+def bound(nbytes: int, ops: int, ops_per_s: float = BF16_OPS_PER_S) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -95,7 +134,7 @@ def layer_operands(torch, np, rng, b, h, cin, cout, dev, *, ksize=3):
 
 
 def check_kernels(torch, np, dev) -> tuple:
-    """Phase 2: every kernel against its plain version at the main path's
+    """Phase 2: every dot kernel against its plain version at the main path's
     shapes. Returns the per-layer records and, per kernel, the worst codes
     difference and f32 error over every call that launched it."""
     import torch.nn.functional as F
@@ -224,13 +263,334 @@ def check_kernels(torch, np, dev) -> tuple:
     return layers, errs
 
 
+def _exact(torch, got, want, what: str) -> float:
+    """Raises unless ``got`` equals ``want`` bit for bit; returns the
+    largest absolute difference (0.0 when it returns)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    diff = float((got.double() - want.double()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what}: not bit-exact (max diff {diff})")
+    return diff
+
+
+def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
+    """Phase 3: the popcount kernels and the int kernel at every W1A8 layer
+    shape, exactly against their plain versions and, under canonical
+    operands, against the dot kernels. Returns the per-layer records and,
+    per kernel, the largest difference over every check (0 when it
+    returns)."""
+    import torch.nn.functional as F
+    from repro_torch.core import packing
+    from repro_torch.kernels.config import KernelConfig
+    from repro_torch.kernels.w1a8_conv import fused_pool
+    from repro_torch.kernels.w1a8_conv import ops as conv_ops
+    from repro_torch.kernels.w1a8_conv import ref as conv_ref
+    from repro_torch.kernels.w1a8_matmul import ops as mm_ops
+    from repro_torch.kernels.w1a8_matmul import ref as mm_ref
+    from repro_torch.models import yolo
+
+    MM, INT = "w1a8_matmul_popcount", "w1a8_matmul_int"
+    CONV, POOL = "w1a8_conv3x3_popcount", "w1a8_conv3x3_pool2_popcount"
+    rng = np.random.default_rng(SEED + 1)
+    sizes = yolo.spatial_sizes(size or yolo.INPUT_SIZE)
+    records = []
+    errs = {name: 0.0 for name in (MM, INT, CONV, POOL)}
+
+    def exact(kernel, got, want, what):
+        errs[kernel] = max(errs[kernel], _exact(torch, got, want, what))
+
+    for spec in yolo.YOLO_LAYERS:
+        if spec.kind != "w1a8":
+            continue
+        first = len(records)
+        h, cin, cout = sizes[spec.name], spec.cin, spec.cout
+        name = spec.name
+        a, w, _, div, bias = layer_operands(torch, np, rng, BATCH, h, cin,
+                                            cout, dev, ksize=spec.ksize)
+        # canonical operands: a uniform step m̄ against mul ≡ 1 and div·m̄
+        ones = torch.ones(cin, device=dev)
+        mul_m = torch.full((cin,), CANONICAL_M, device=dev)
+        div_m = div * torch.tensor(CANONICAL_M, device=dev)
+        shape = [BATCH, h, h, cin, cout]
+        if spec.ksize == 1:
+            a2 = a.reshape(-1, cin)
+            m = a2.shape[0]
+            wp = mm_ops.w1a8_pack_weights(w)
+            cfg = KernelConfig(op="matmul", accum="popcount")
+
+            def mm(x, mul, d, c):
+                return mm_ops.w1a8_matmul(x, wp, mul, d, bias, k=cin,
+                                          config=c)
+            y = mm(a2, None, div, cfg)
+            exact(MM, y, mm_ref.w1a8_matmul_popcount_ref(
+                a2, wp, cin, div, bias), f"{name} matmul f32")
+            step = float(y.abs().max()) / 255.0
+            qcfg = cfg.replace(out_step=step)
+            exact(MM, mm(a2, None, div, qcfg),
+                  mm_ref.w1a8_matmul_popcount_ref(a2, wp, cin, div, bias,
+                                                  step),
+                  f"{name} matmul codes")
+            for c in (cfg, qcfg):
+                exact(MM, mm(a2, mul_m, div, c),
+                      mm(a2, ones, div_m, c.replace(accum="dot")),
+                      f"{name} matmul popcount vs dot")
+            signs = packing.unpack_signs(wp, cin, dtype=torch.float32)
+            colsum = signs.sum(dim=0).to(torch.int32)
+            yi = mm_ops.w1a8_matmul_int(a2, wp, colsum)
+            exact(INT, yi, mm_ref.w1a8_matmul_int_ref(a2, wp, colsum),
+                  f"{name} int")
+            sums = mm_ops.w1a8_matmul(
+                a2, wp, None, torch.ones(cout, device=dev),
+                torch.zeros(cout, device=dev), k=cin, config=cfg)
+            exact(INT, yi.to(torch.float32), sums,
+                  f"{name} int vs popcount sum")
+            ops = 2 * m * cin * cout
+            nbytes = m * cin + wp.numel() * 4 + 8 * cout + m * cout
+            a_bf, s_bf = a2.to(torch.bfloat16), signs.to(torch.bfloat16)
+            records.append(dict(
+                layer=name, kernel=MM, shape=shape,
+                run=lambda: mm(a2, None, div, qcfg),
+                plain=lambda: mm_ref.w1a8_matmul_popcount_ref(
+                    a2, wp, cin, div, bias, step),
+                library=lambda: torch.matmul(a_bf, s_bf),
+                bound=bound(nbytes, ops, INT8_OPS_PER_S), bytes=nbytes,
+                ops=ops))
+            nbytes = m * cin + wp.numel() * 4 + 4 * cout + 4 * m * cout
+            a8 = (a2.to(torch.int16) - 128).to(torch.int8)
+            s8 = signs.to(torch.int8)
+            records.append(dict(
+                layer=name, kernel=INT, shape=shape,
+                run=lambda: mm_ops.w1a8_matmul_int(a2, wp, colsum),
+                plain=lambda: mm_ref.w1a8_matmul_int_ref(a2, wp, colsum),
+                library=lambda: torch._int_mm(a8, s8),
+                bound=bound(nbytes, ops, INT8_OPS_PER_S), bytes=nbytes,
+                ops=ops))
+        else:
+            wp = conv_ops.conv_pack_weights(w.reshape(3, 3, cin, cout))
+            cfg = KernelConfig(op="conv3x3", accum="popcount")
+
+            def conv(mul, d, c, fn=conv_ops.w1a8_conv3x3):
+                return fn(a, wp, mul, d, bias, cin=cin, config=c)
+            y = conv(None, div, cfg)
+            exact(CONV, y, conv_ref.w1a8_conv3x3_popcount_ref(
+                a, wp, cin, div, bias), f"{name} conv f32")
+            step = float(y.abs().max()) / 255.0
+            qcfg = cfg.replace(out_step=step)
+            q = conv(None, div, qcfg)
+            exact(CONV, q, conv_ref.w1a8_conv3x3_popcount_ref(
+                a, wp, cin, div, bias, step), f"{name} conv codes")
+            exact(CONV, conv(None, div, qcfg.replace(rows=2)), q,
+                  f"{name} conv rows=2")
+            for c in (cfg, qcfg):
+                exact(CONV, conv(mul_m, div, c),
+                      conv(ones, div_m, c.replace(accum="dot")),
+                      f"{name} conv popcount vs dot")
+            ops = 2 * BATCH * h * h * 9 * cin * cout
+            in_bytes = a.numel() + wp.numel() * 4 + 8 * cout
+            a_bf = a.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous()
+            w_bf = torch.where(w >= 0, 1.0, -1.0).reshape(3, 3, cin, cout) \
+                .permute(3, 2, 0, 1).contiguous().to(torch.bfloat16)
+            library = lambda: F.conv2d(a_bf, w_bf, padding=1)  # noqa: E731
+            if spec.pool:
+                def pool(rows=1):
+                    return fused_pool.w1a8_conv3x3_pool2(
+                        a, wp, None, div, bias, cin=cin, out_step=step,
+                        accum="popcount", rows=rows)
+                p = pool()
+                exact(POOL, p, conv_ref.w1a8_conv3x3_pool2_popcount_ref(
+                    a, wp, cin, div, bias, step), f"{name} pool codes")
+                exact(POOL, p, conv_ref.maxpool2_codes(q),
+                      f"{name} fused pool vs conv + max")
+                exact(POOL, pool(rows=2), p, f"{name} pool rows=2")
+                pcfg = KernelConfig(op="conv3x3_pool", accum="popcount",
+                                    out_step=step)
+                exact(POOL, conv(mul_m, div, pcfg, conv_ops.w1a8_conv3x3_pool),
+                      conv(ones, div_m, pcfg.replace(accum="dot"),
+                           conv_ops.w1a8_conv3x3_pool),
+                      f"{name} pool popcount vs dot")
+                nbytes = in_bytes + p.numel()
+                records.append(dict(
+                    layer=name, kernel=POOL, shape=shape, run=pool,
+                    plain=lambda: conv_ref.w1a8_conv3x3_pool2_popcount_ref(
+                        a, wp, cin, div, bias, step),
+                    library=library, bound=bound(nbytes, ops, INT8_OPS_PER_S),
+                    bytes=nbytes, ops=ops))
+            else:
+                nbytes = in_bytes + q.numel()
+                records.append(dict(
+                    layer=name, kernel=CONV, shape=shape,
+                    run=lambda: conv(None, div, qcfg),
+                    plain=lambda: conv_ref.w1a8_conv3x3_popcount_ref(
+                        a, wp, cin, div, bias, step),
+                    library=library, bound=bound(nbytes, ops, INT8_OPS_PER_S),
+                    bytes=nbytes, ops=ops))
+        torch.cuda.synchronize()
+        for rec in records[first:]:
+            rec["ms"] = cuda_ms(torch, rec.pop("run"))
+            rec["plain_ms"] = cuda_ms(torch, rec.pop("plain"), reps=2, n=2)
+            rec["library_ms"] = cuda_ms(torch, rec.pop("library"))
+            rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
+            print(f"[popcount] {rec['layer']} {rec['kernel']} "
+                  f"{rec['shape']}: bit-exact with its plain version and "
+                  f"the dot kernel; {rec['ms']:.4f} ms (plain "
+                  f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, "
+                  f"bound {rec['bound_ms']:.6f} by {rec['bound_by']})",
+                  flush=True)
+    return records, errs
+
+
+def device_profile(torch, fn, n: int = 10) -> dict:
+    """torch.profiler over ``n`` calls of ``fn`` after a warm one: device
+    busy ms per call (the union of the traced device intervals), host ms per
+    call (profiled, so above the unprofiled time) and device launches per
+    call."""
+    from repro_torch.launch.profile import union_us
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        raise RuntimeError("the trace holds no device activity")
+    busy_us = union_us((e.time_range.start, e.time_range.end)
+                       for e in events)
+    return {"device_busy_ms": busy_us / 1e3 / n, "wall_ms": wall_ms / n,
+            "device_launches": len(events) / n}
+
+
+def _zero(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def drive_popcount(torch, np, dev, size: int = None) -> dict:
+    """Phase 5: the popcount forward at full width on a per-channel
+    artifact, once per pool route, and the int path; every launch count
+    zeroed just before each run and read just after. Returns the record
+    with the popcount kernels' and the int kernel's launches."""
+    from repro_torch.core import packing, verify
+    from repro_torch.kernels.w1a8_matmul import ops as mm_ops
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import yolo
+
+    size = size or yolo.INPUT_SIZE
+    rng = np.random.default_rng(SEED + 2)
+    imgs = torch.from_numpy(rng.integers(0, 256, (BATCH, size, size, 3),
+                                         dtype=np.uint8)).to(dev) \
+        .to(torch.float32) / 256.0
+    params, art = yolo.build_detector(SEED, imgs, device=dev)
+    with torch.no_grad():
+        ref = yolo.yolo_forward_float(params, imgs).cpu().numpy()
+    launches = {name: 0 for name in POPCOUNT}
+    raws, record = {}, {"routes": {}}
+    for fused in (True, False):
+        configs = yolo.kernel_configs(art, size, BATCH, accum="popcount",
+                                      fuse_pool=fused)
+        _zero(launch.KERNELS)
+        with torch.no_grad():
+            raws[fused] = yolo.yolo_forward_kernel(art, imgs,
+                                                   configs=configs)
+        torch.cuda.synchronize()
+        counts = launch.launch_counts()
+        got = tuple(counts[name] for name in POPCOUNT)
+        if got != PER_FORWARD[fused] or any(
+                counts[name] for name in DOT + ("w1a8_matmul_int",)):
+            raise AssertionError(f"popcount forward fused={fused}: launches "
+                                 f"{counts}, want {PER_FORWARD[fused]}")
+        for name in POPCOUNT:
+            launches[name] += counts[name]
+        rep = verify.compare("popcount_vs_float", raws[fused].cpu().numpy(),
+                             ref, lsb=0.02)
+        if not (rep.max_abs < 0.02 and rep.within_1lsb == 1.0):
+            raise AssertionError(f"popcount raw head fused={fused} outside "
+                                 f"the envelope: {rep.row()}")
+        with torch.no_grad():
+            forward = lambda: yolo.yolo_forward_kernel(  # noqa: E731
+                art, imgs, configs=configs)
+            ms = cuda_ms(torch, forward, reps=5, n=10)
+            prof = device_profile(torch, forward)
+        record["routes"]["fused" if fused else "unfused"] = {
+            "launches": dict(zip(POPCOUNT, got)), "ms_per_forward": ms,
+            "profile": prof, "max_abs": rep.max_abs,
+            "within_1lsb": rep.within_1lsb}
+    _exact(torch, raws[True], raws[False], "popcount fused vs unfused route")
+    dot_configs = yolo.kernel_configs(art, size, BATCH)
+    with torch.no_grad():
+        forward = lambda: yolo.yolo_forward_kernel(  # noqa: E731
+            art, imgs, configs=dot_configs)
+        record["dot_ms_per_forward"] = cuda_ms(torch, forward, reps=5, n=10)
+        record["dot_profile"] = device_profile(torch, forward)
+
+    # per-tensor artifact: popcount and dot differ by the dot path's bf16
+    # prologue rounding only
+    _, art_t = yolo.build_detector(SEED, imgs, per_channel=False,
+                                   device=dev)
+    with torch.no_grad():
+        pc = yolo.yolo_forward_kernel(art_t, imgs, accum="popcount")
+        dot = yolo.yolo_forward_kernel(art_t, imgs, accum="dot")
+    record["per_tensor_popcount_vs_dot"] = float((pc - dot).abs().max())
+    if not record["per_tensor_popcount_vs_dot"] < 0.02:
+        raise AssertionError(f"per-tensor popcount vs dot: {record}")
+
+    # the int path: one call at conv9's shape on conv9's sign words
+    conv9 = next(e for e in art["layers"] if e["spec"].name == "conv9")
+    spec = conv9["spec"]
+    h = yolo.spatial_sizes(size)["conv9"]
+    a = torch.from_numpy(rng.integers(0, 256, (BATCH * h * h, spec.cin),
+                                      dtype=np.uint8)).to(dev)
+    signs = packing.unpack_signs(conv9["w_packed"], spec.cin,
+                                 dtype=torch.float32)
+    colsum = signs.sum(dim=0).to(torch.int32)
+    _zero(launch.KERNELS)
+    out = mm_ops.w1a8_matmul_int(a, conv9["w_packed"], colsum)
+    torch.cuda.synchronize()
+    launches["w1a8_matmul_int"] = launch.launch_counts()["w1a8_matmul_int"]
+    with torch.no_grad():
+        want = (a.to(torch.float64) @ signs.to(torch.float64)) \
+            .to(torch.int32)
+    _exact(torch, out, want, "int path vs the integer product")
+    if launches["w1a8_matmul_int"] != 1:
+        raise AssertionError(f"int path launches: {launches}")
+    record["launches"] = launches
+    print(f"[popcount forward] B={BATCH} {size}x{size}, per-channel "
+          f"artifact: launches {record['routes']['fused']['launches']} "
+          f"fused, {record['routes']['unfused']['launches']} unfused, raw "
+          f"heads bit-identical, max_abs vs float "
+          f"{record['routes']['fused']['max_abs']:.3g}; per-tensor "
+          f"popcount vs dot {record['per_tensor_popcount_vs_dot']:.3g}; "
+          f"int path launches {launches['w1a8_matmul_int']}", flush=True)
+    for name, ms, prof in (
+            ("popcount fused", record["routes"]["fused"]["ms_per_forward"],
+             record["routes"]["fused"]["profile"]),
+            ("popcount unfused",
+             record["routes"]["unfused"]["ms_per_forward"],
+             record["routes"]["unfused"]["profile"]),
+            ("dot fused", record["dot_ms_per_forward"],
+             record["dot_profile"])):
+        print(f"[forward ms] {name}: {ms:.4f} ms per forward back to back "
+              f"(CUDA events); profiled: device busy "
+              f"{prof['device_busy_ms']:.4f} ms, host "
+              f"{prof['wall_ms']:.4f} ms, "
+              f"{prof['device_launches']:.0f} device launches per forward",
+              flush=True)
+    return record
+
+
 def drive_main_path() -> tuple:
-    """Phase 3: the serving launcher, with every launch count zeroed just
+    """Phase 4: the serving launcher, with every launch count zeroed just
     before and read just after; returns (its record, the counts)."""
     from repro_torch.launch import serve as launch
 
-    for k in launch.KERNELS.values():
-        k.launches = 0
+    _zero(launch.KERNELS)
     record = launch.main(["--workload", "detect", "--requests", "16",
                           "--slots", "4", "--depth", "2"])
     launches = launch.launch_counts()
@@ -277,35 +637,63 @@ def main() -> int:
     layers, errs = check_kernels(torch, np, dev)
     print(f"[check] {len(layers)} layer shapes in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    pc_layers, pc_errs = check_popcount_kernels(torch, np, dev)
+    print(f"[popcount] {len(pc_layers)} kernel calls checked in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     record, launches = drive_main_path()
+    pc_record = drive_popcount(torch, np, dev)
+    launches.update(pc_record["launches"])
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        rows = [r for r in layers if r["kernel"] == name]
-        t_ops = sum(r["ops"] / BF16_OPS_PER_S for r in rows)
+        popcount = name not in DOT
+        rows = [r for r in (pc_layers if popcount else layers)
+                if r["kernel"] == name]
+        peak = INT8_OPS_PER_S if popcount else BF16_OPS_PER_S
+        t_ops = sum(r["ops"] / peak for r in rows)
         t_bytes = sum(r["bytes"] / HBM_BYTES_PER_S for r in rows)
-        e = errs[name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "launches_per_dispatch": PER_DISPATCH[name],
-            # f32 error where the kernel has an f32 output; the pool
-            # kernel writes codes only, so its error is in codes
-            "max_abs_err": e["f32"] if e["f32"] is not None else e["codes"],
-            "max_codes_diff": e["codes"], "max_f32_err": e["f32"],
+            "replaces": replaces, "launches": launches[name]}
+        if popcount:
+            # every call is held bit for bit: the worst difference found
+            entry["max_abs_err"] = pc_errs[name]
+            if name in POPCOUNT:
+                entry["launches_per_forward"] = {
+                    route: r["launches"][name]
+                    for route, r in pc_record["routes"].items()}
+        else:
+            e = errs[name]
+            entry.update({
+                "launches_per_dispatch": PER_DISPATCH[name],
+                # f32 error where the kernel has an f32 output; the pool
+                # kernel writes codes only, so its error is in codes
+                "max_abs_err": (e["f32"] if e["f32"] is not None
+                                else e["codes"]),
+                "max_codes_diff": e["codes"], "max_f32_err": e["f32"]})
+        entry.update({
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": sum(r["library_ms"] for r in rows),
             "layers": [r["layer"] for r in rows]})
+        if not entry["launches"]:
+            raise AssertionError(f"{name}: no launch on its path")
+        kernels.append(entry)
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "layers": layers, "kernels": kernels,
-         "launcher": record}, indent=1))
+        {"card": smi, "layers": layers, "popcount_layers": pc_layers,
+         "kernels": kernels, "launcher": record,
+         "popcount_forward": pc_record}, indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
-                      "requests": record["requests"], "card": smi}))
+                      "requests": record["requests"],
+                      "popcount_forward": pc_record["routes"],
+                      "dot_ms_per_forward": pc_record["dot_ms_per_forward"],
+                      "dot_profile": pc_record["dot_profile"],
+                      "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

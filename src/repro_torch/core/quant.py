@@ -34,7 +34,31 @@ def requant_epilogue(y: torch.Tensor, out_step: float,
     """f32 post-scale accumulator → next-layer uint8 codes.
 
     Divides by the step (never multiplies by its reciprocal): the reference
-    does, and the two differ in the last bit.
+    does, and the two differ in the last bit. On CUDA, PyTorch multiplies
+    by the reciprocal when the divisor is a Python number, so the step goes
+    in as a tensor on y's device.
     """
-    q = round_half_away(y / out_step)
+    step = torch.as_tensor(out_step, dtype=y.dtype, device=y.device)
+    q = round_half_away(y / step)
     return torch.clamp(q, 0, ACT_QMAX).to(out_dtype)
+
+
+def fold_codes_to_uniform_step(a_u8: torch.Tensor,
+                               mul_prev: torch.Tensor) -> tuple:
+    """(codes, per-input-channel steps) → (codes', uniform scalar step m̄).
+
+    The popcount contraction cannot carry a per-input-channel Mul_prev, so
+    the codes are requantized onto the coarsest channel's grid,
+    m̄ = max(max_k m_k, 1e-20):
+
+        a'_k = clip(round_half_away(a_k · (m_k / m̄)), 0, 255)
+
+    in f32, ratio first, as the reference does; m̄ then folds into
+    Div_current. Under uniform steps the ratio is exactly 1.0 and the fold
+    is the identity. ``mul_prev`` broadcasts against the trailing axis.
+    """
+    m = mul_prev.to(torch.float32)
+    mbar = torch.clamp(torch.max(m), min=1e-20)
+    codes = torch.clamp(round_half_away(a_u8.to(torch.float32) * (m / mbar)),
+                        0, ACT_QMAX).to(torch.uint8)
+    return codes, mbar

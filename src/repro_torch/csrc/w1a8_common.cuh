@@ -1,10 +1,13 @@
 // Arithmetic shared by the W1A8 CUDA kernels: the bf16 Mul_prev prologue,
-// the 3x3 per-output accumulation and the Div/bias/requant epilogue.
+// the 3x3 per-output accumulations (bf16 dot and XNOR-popcount) and the
+// Div/bias/requant epilogue.
 //
-// Both conv kernels (w1a8_conv3x3.cu, w1a8_conv3x3_pool2.cu) compute every
-// conv output through `conv3x3_output`, in the same order and with the same
-// roundings, so the fused conv+pool kernel equals the conv kernel followed
-// by a 2x2 max bit for bit.
+// Both dot conv kernels (w1a8_conv3x3.cu, w1a8_conv3x3_pool2.cu) compute
+// every conv output through `conv3x3_output`, and both popcount conv kernels
+// (w1a8_conv3x3_popcount.cu, w1a8_conv3x3_pool2_popcount.cu) through
+// `conv3x3_popcount_output`, in the same order and with the same roundings,
+// so each fused conv+pool kernel equals its conv kernel followed by a 2x2
+// max bit for bit.
 //
 // Every rounding is spelled out (__fmul_rn, __fadd_rn, __fdiv_rn): nvcc
 // would otherwise contract `acc * div + bias` into one FMA, while the
@@ -110,6 +113,83 @@ __device__ __forceinline__ void stage_words(const uint32_t* __restrict__ w,
     const int j = i / ct;
     const int co = co0 + i % ct;
     wsm[i] = co < cout ? w[static_cast<size_t>(j) * cout + co] : 0u;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Binary domain: exact int32 sum over the bit-planes of uint8 codes.
+// ---------------------------------------------------------------------------
+
+// Adds one 32-lane K word to `acc`: lane l of the calling warp holds the
+// code of lane l of the word (0 past the end of K), `w` is this thread's
+// sign word for the same 32 lanes (bit l = 1 <=> +1). Bit b of the 32
+// codes, gathered by __ballot_sync, is plane word b, LSB first as in
+// core/packing.py; over a plane, sum_l s_l * a_{b,l} =
+// 2 * popc(w & plane) - popc(plane). Zero codes add 0 to both terms, so
+// pad lanes and their +1 pad bits add nothing. |acc| <= 255 * K stays far
+// inside int32 and, below 2^24, converts to float exactly. All 32 lanes of
+// the warp must call it together.
+__device__ __forceinline__ int popcount_word(int acc, uint32_t code,
+                                             uint32_t w) {
+#pragma unroll
+  for (int b = 0; b < 8; ++b) {
+    const uint32_t plane = __ballot_sync(0xffffffffu, (code >> b) & 1u);
+    acc += (2 * __popc(w & plane) - __popc(plane)) * (1 << b);
+  }
+  return acc;
+}
+
+// One 3x3 SAME conv output through popcount, and its epilogue.
+//
+// rows: staged codes of three consecutive zero-padded input rows, the first
+//       being the row above the output row; each row holds
+//       (width + 2) * cin codes, pixel-major.
+// x:    output column. The window starts at padded column x.
+// wsm:  sign words (ceil(9 * cin / 32), ct) of this block's cout tile;
+//       col is this thread's column in it (lane of the warp).
+// The warp's 32 lanes compute the 32 output channels of one pixel: word j
+// takes lane l's code at k = 32 * j + l, in the im2col order
+// k = (dy * 3 + dx) * cin + ci of the reference.
+__device__ __forceinline__ float conv3x3_popcount_output(
+    const uint8_t* rows, int row_len, int x, int cin, const uint32_t* wsm,
+    int ct, int col, float div, float bias, bool quant, float out_step) {
+  const int lane = threadIdx.x & (kPack - 1);
+  const int k9 = 9 * cin;
+  const int n_words = (k9 + kPack - 1) / kPack;
+  int acc = 0;
+  for (int j = 0; j < n_words; ++j) {
+    const int k = j * kPack + lane;
+    uint32_t code = 0;
+    if (k < k9) {
+      const int tap = k / cin;
+      const int ci = k - tap * cin;
+      const int dy = tap / 3;
+      const int dx = tap - dy * 3;
+      code = rows[dy * row_len + (x + dx) * cin + ci];
+    }
+    acc = popcount_word(acc, code, wsm[j * ct + col]);
+  }
+  return epilogue(static_cast<float>(acc), div, bias, quant, out_step);
+}
+
+// Stages `n_rows` zero-padded input rows of codes, starting at input row
+// `r0` (which may be -1): out-of-range rows and the two pad columns hold 0.
+// `a_img` is one image, (h, width, cin) uint8.
+__device__ __forceinline__ void stage_codes(const uint8_t* __restrict__ a_img,
+                                            uint8_t* act, int r0, int n_rows,
+                                            int h, int width, int cin) {
+  const int row_len = (width + 2) * cin;
+  const int total = n_rows * row_len;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int r = r0 + i / row_len;
+    const int rem = i % row_len;
+    const int c = rem / cin - 1;
+    const int ci = rem % cin;
+    uint8_t v = 0;
+    if (r >= 0 && r < h && c >= 0 && c < width) {
+      v = a_img[(static_cast<size_t>(r) * width + c) * cin + ci];
+    }
+    act[i] = v;
   }
 }
 

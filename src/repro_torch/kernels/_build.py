@@ -21,7 +21,9 @@ from typing import Dict, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("w1a8_matmul.cu", "w1a8_conv3x3.cu", "w1a8_conv3x3_pool2.cu")
+SOURCES = ("w1a8_matmul.cu", "w1a8_conv3x3.cu", "w1a8_conv3x3_pool2.cu",
+           "w1a8_matmul_popcount.cu", "w1a8_conv3x3_popcount.cu",
+           "w1a8_conv3x3_pool2_popcount.cu", "w1a8_matmul_int.cu")
 # No --use_fast_math: the requant divides with IEEE rounding, as the
 # reference does. -Xptxas -v writes registers and spills to the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

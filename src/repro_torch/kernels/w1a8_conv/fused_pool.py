@@ -1,11 +1,15 @@
 """Fused W1A8 conv3x3 + requant + 2×2 MaxPool (the paper's §5.2
-Post+MaxPool stage chain) as one CUDA kernel, ``csrc/w1a8_conv3x3_pool2.cu``.
+Post+MaxPool stage chain) as one CUDA kernel per accum mode:
+``csrc/w1a8_conv3x3_pool2.cu`` (dot) and
+``csrc/w1a8_conv3x3_pool2_popcount.cu`` (popcount).
 
 Only the pooled uint8 codes leave the kernel: activation traffic for a pool
 layer drops from (write HW + read HW + write HW/4) to (write HW/4). A CPU
 tensor runs the plain version (conv, requant, 2×2 max).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -15,32 +19,50 @@ from repro_torch.kernels.w1a8_conv import ref as _ref
 KERNEL = _build.Kernel(
     "w1a8_conv3x3_pool2.cu", "w1a8_conv3x3_pool2",
     [_build.P] * 6 + [_build.I] * 6 + [_build.F, _build.P])
+POPCOUNT_KERNEL = _build.Kernel(
+    "w1a8_conv3x3_pool2_popcount.cu", "w1a8_conv3x3_pool2_popcount",
+    [_build.P] * 5 + [_build.I] * 6 + [_build.F, _build.P])
 
 
 def w1a8_conv3x3_pool2(a_u8: torch.Tensor, w_packed: torch.Tensor,
-                       mul_prev: torch.Tensor, div_post: torch.Tensor,
-                       bias: torch.Tensor, *, cin: int, out_step: float,
+                       mul_prev: Optional[torch.Tensor],
+                       div_post: torch.Tensor, bias: torch.Tensor, *,
+                       cin: int, out_step: float, accum: str = "dot",
                        rows: int = 1) -> torch.Tensor:
     """a_u8 (B,H,W,Cin) uint8 (H, W even) → (B,H/2,W/2,Cout) uint8 codes.
 
-    ``rows`` pooled rows per block, (H/2) % rows == 0; the result does not
-    depend on it.
+    ``accum="popcount"`` contracts codes already on one grid, with the
+    uniform step folded into ``div_post`` by the caller; ``mul_prev`` is
+    then unused. ``rows`` pooled rows per block, (H/2) % rows == 0; the
+    result does not depend on it.
     """
     b, h, wd, _ = a_u8.shape
+    if accum not in ("dot", "popcount"):
+        raise ValueError(f"accum must be 'dot' or 'popcount', got {accum!r}")
     if h % 2 or wd % 2:
         raise ValueError(f"H and W must be even, got {h}x{wd}")
     if (h // 2) % rows:
         raise ValueError(f"rows={rows} must divide H/2={h // 2}")
+    popcount = accum == "popcount"
+    if not popcount and mul_prev is None:
+        raise ValueError("accum='dot' needs mul_prev")
     if not a_u8.is_cuda:
+        if popcount:
+            return _ref.w1a8_conv3x3_pool2_popcount_ref(
+                a_u8, w_packed, cin, div_post, bias, out_step)
         return _ref.w1a8_conv3x3_pool2_ref(a_u8, w_packed, cin, mul_prev,
                                            div_post, bias, out_step)
     from repro_torch.kernels.w1a8_conv.ops import cuda_operands
-    a, w, mul, div, bs = cuda_operands(a_u8, w_packed, mul_prev, div_post,
-                                       bias, cin)
+    a, w, mul, div, bs = cuda_operands(a_u8, w_packed,
+                                       None if popcount else mul_prev,
+                                       div_post, bias, cin)
     cout = w.shape[1]
     out = torch.empty((b, h // 2, wd // 2, cout), dtype=torch.uint8,
                       device=a.device)
-    KERNEL(a.data_ptr(), w.data_ptr(), mul.data_ptr(), div.data_ptr(),
-           bs.data_ptr(), out.data_ptr(), b, h, wd, cin, cout, rows,
-           float(out_step), torch.cuda.current_stream(a.device).cuda_stream)
+    ptrs = [a.data_ptr(), w.data_ptr()] + ([] if popcount
+                                           else [mul.data_ptr()])
+    kernel = POPCOUNT_KERNEL if popcount else KERNEL
+    kernel(*ptrs, div.data_ptr(), bs.data_ptr(), out.data_ptr(), b, h, wd,
+           cin, cout, rows, float(out_step),
+           torch.cuda.current_stream(a.device).cuda_stream)
     return out

@@ -3,7 +3,10 @@
 Mirrors the reference's Pallas dot body (``repro/kernels/w1a8_conv/
 kernel.py``): im2col in (dy, dx, cin) order with zeroed K-pad lanes, the
 ``conv_mul9`` prologue rounded to bf16, a float32 product with the ±1 signs,
-then Div/bias and the optional requant. Weight layout: w (3, 3, Cin, Cout)
+then Div/bias and the optional requant. The popcount versions contract the
+same im2col codes, zero codes in the K-pad lanes, with `xnor_accumulate`
+(the reference's ``_conv_popcount_kernel`` and fused ``_popcount_kernel``).
+Weight layout: w (3, 3, Cin, Cout)
 flattened to (9·Cin, Cout) in (dy, dx, cin) order and packed along it.
 """
 from __future__ import annotations
@@ -16,7 +19,9 @@ import torch.nn.functional as F
 from repro_torch.core import packing
 from repro_torch.core.quant import requant_epilogue
 from repro_torch.device import full_f32
-from repro_torch.kernels.w1a8_matmul.ref import bf16_prologue
+from repro_torch.kernels.w1a8_matmul.ref import (bf16_prologue,
+                                                 popcount_epilogue,
+                                                 xnor_accumulate)
 
 
 def im2col_3x3(x: torch.Tensor) -> torch.Tensor:
@@ -65,3 +70,28 @@ def w1a8_conv3x3_pool2_ref(a_u8, w_packed, cin: int, mul_prev, div_post,
     """Fused kernel's plain version: conv, requant, then the 2×2 max."""
     return maxpool2_codes(w1a8_conv3x3_ref(a_u8, w_packed, cin, mul_prev,
                                            div_post, bias, out_step))
+
+
+def w1a8_conv3x3_popcount_ref(a_u8: torch.Tensor, w_packed: torch.Tensor,
+                              cin: int, div_post: torch.Tensor,
+                              bias: torch.Tensor,
+                              out_step: Optional[float] = None
+                              ) -> torch.Tensor:
+    """Binary-domain conv on codes already on one grid (the consumer-side
+    fold is the caller's): the im2col of SAME-padded codes, K-pad lanes as
+    zero codes, exact int32 `xnor_accumulate`, then the f32 epilogue.
+    a_u8 (B,H,W,Cin) → (B,H,W,Cout) f32, or uint8 codes."""
+    b, h, w, _ = a_u8.shape
+    k9p = packing.packed_dim(9 * cin) * packing.PACK
+    cols = im2col_3x3(a_u8)
+    cols = F.pad(cols, (0, k9p - cols.shape[-1]))       # K-pad lanes: 0
+    acc = xnor_accumulate(cols.reshape(b * h * w, k9p), w_packed)
+    y = popcount_epilogue(acc, div_post, bias, out_step)
+    return y.reshape(b, h, w, -1)
+
+
+def w1a8_conv3x3_pool2_popcount_ref(a_u8, w_packed, cin: int, div_post,
+                                    bias, out_step: float) -> torch.Tensor:
+    """Fused popcount kernel's plain version: conv, requant, 2×2 max."""
+    return maxpool2_codes(w1a8_conv3x3_popcount_ref(
+        a_u8, w_packed, cin, div_post, bias, out_step))

@@ -1,9 +1,16 @@
-"""Public wrapper for the W1A8 packed matmul.
+"""Public wrappers for the W1A8 packed matmul kernels.
 
-A CUDA tensor launches the kernel in ``csrc/w1a8_matmul.cu`` (or raises);
-a CPU tensor runs the plain version in ``ref.py``. Leading dims of ``a_u8``
-fold into M. The kernel masks the ragged M and N edges itself, so nothing
-is padded.
+`w1a8_matmul` runs the kernel of ``config.accum``: ``csrc/w1a8_matmul.cu``
+(dot: bf16(a·Mul_prev) against ±1, f32 sum) or
+``csrc/w1a8_matmul_popcount.cu`` (popcount: exact int32 sum over the codes'
+bit-planes, after folding a per-channel Mul_prev into the codes and the
+uniform step m̄ into Div; ``mul_prev=None`` means the caller has done so).
+`w1a8_matmul_int` runs ``csrc/w1a8_matmul_int.cu``, the exact int32 sum as
+(a − 128)·(±1) plus 128·colsum.
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
+version in ``ref.py``. Leading dims of ``a_u8`` fold into M. The kernels
+mask the ragged M and N edges themselves, so nothing is padded.
 """
 from __future__ import annotations
 
@@ -12,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.packing import pack_signs, packed_dim
+from repro_torch.core.quant import fold_codes_to_uniform_step
 from repro_torch.kernels import _build
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.kernels.w1a8_matmul import ref as _ref
@@ -19,59 +27,123 @@ from repro_torch.kernels.w1a8_matmul import ref as _ref
 KERNEL = _build.Kernel(
     "w1a8_matmul.cu", "w1a8_matmul",
     [_build.P] * 6 + [_build.I] * 4 + [_build.F, _build.I, _build.P])
+POPCOUNT_KERNEL = _build.Kernel(
+    "w1a8_matmul_popcount.cu", "w1a8_matmul_popcount",
+    [_build.P] * 5 + [_build.I] * 3 + [_build.F, _build.I, _build.P])
+INT_KERNEL = _build.Kernel(
+    "w1a8_matmul_int.cu", "w1a8_matmul_int",
+    [_build.P] * 4 + [_build.I] * 3 + [_build.P])
 
 
 def w1a8_matmul(a_u8: torch.Tensor, w_packed: torch.Tensor,
-                mul_prev: torch.Tensor, div_post: torch.Tensor,
+                mul_prev: Optional[torch.Tensor], div_post: torch.Tensor,
                 bias: torch.Tensor, *, k: int,
                 config: Optional[KernelConfig] = None) -> torch.Tensor:
     """y = ((a ⊙ mul_prev) @ unpack(w_packed)) ⊙ div_post + bias [+ requant].
 
     a_u8: (..., ≥k) uint8 codes; w_packed: (ceil(k/32), N) int32 words;
-    mul_prev: (k,) f32; div_post, bias: (N,) f32. Returns (..., N) f32, or
-    uint8 codes when ``config.out_step`` is set.
+    mul_prev: (k,) f32 (None: popcount on folded operands); div_post,
+    bias: (N,) f32. Returns (..., N) f32, or uint8 codes when
+    ``config.out_step`` is set.
     """
     cfg = config if config is not None else KernelConfig(op="matmul")
     if cfg.op != "matmul":
         raise ValueError(f"config.op={cfg.op!r} does not match 'matmul'")
-    if cfg.accum != "dot":
-        raise NotImplementedError(
-            f"accum={cfg.accum!r} is not ported yet (ROADMAP.md, Queue 2)")
     lead = a_u8.shape[:-1]
     n = w_packed.shape[1]
     a2 = a_u8.reshape(-1, a_u8.shape[-1])[:, :k]
-    if not a2.is_cuda:
+    if cfg.accum == "popcount":
+        a2, div_post = fold_operands(a2, mul_prev, div_post)
+        if not a2.is_cuda:
+            y = _ref.w1a8_matmul_popcount_ref(a2, w_packed, k, div_post,
+                                              bias, cfg.out_step)
+        else:
+            y = _launch(POPCOUNT_KERNEL, a2, w_packed, None, div_post, bias,
+                        k, cfg)
+    elif mul_prev is None:
+        raise ValueError("accum='dot' needs mul_prev")
+    elif not a2.is_cuda:
         y = _ref.w1a8_matmul_ref(a2, w_packed, k, mul_prev, div_post, bias,
                                  cfg.out_step)
     else:
-        y = _launch(a2, w_packed, mul_prev, div_post, bias, k, cfg)
+        y = _launch(KERNEL, a2, w_packed, mul_prev, div_post, bias, k, cfg)
     return y.reshape(lead + (n,))
 
 
-def _launch(a2, w_packed, mul_prev, div_post, bias, k: int,
-            cfg: KernelConfig) -> torch.Tensor:
-    m = a2.shape[0]
-    n = w_packed.shape[1]
-    dev = a2.device
+def fold_operands(a_u8: torch.Tensor, mul_prev: Optional[torch.Tensor],
+                  div_post: torch.Tensor) -> tuple:
+    """Popcount's consumer-side fold: the codes onto the uniform step m̄
+    (`core.quant.fold_codes_to_uniform_step`, along the last axis) and
+    div·m̄, in the reference's order; ``mul_prev=None`` means done."""
+    if mul_prev is None:
+        return a_u8, div_post
+    codes, mbar = fold_codes_to_uniform_step(a_u8, mul_prev.to(a_u8.device))
+    return codes, div_post.to(a_u8.device, torch.float32) * mbar
+
+
+def _check(a2: torch.Tensor, w_packed: torch.Tensor, k: int) -> None:
     if a2.dtype != torch.uint8:
         raise TypeError(f"a_u8 must be uint8, got {a2.dtype}")
     if w_packed.dtype != torch.int32 or w_packed.shape[0] != packed_dim(k):
         raise ValueError(f"w_packed must be int32 ({packed_dim(k)}, N), got "
                          f"{w_packed.dtype} {tuple(w_packed.shape)}")
+
+
+def _launch(kernel: _build.Kernel, a2, w_packed, mul_prev, div_post, bias,
+            k: int, cfg: KernelConfig) -> torch.Tensor:
+    """Launches the dot kernel, or the popcount kernel when ``mul_prev`` is
+    None."""
+    m = a2.shape[0]
+    n = w_packed.shape[1]
+    dev = a2.device
+    _check(a2, w_packed, k)
     a2 = a2.contiguous()
     w = w_packed.to(dev).contiguous()
-    mul = mul_prev.to(dev, torch.float32).reshape(-1).contiguous()
-    div = div_post.to(dev, torch.float32).reshape(-1).contiguous()
-    bs = bias.to(dev, torch.float32).reshape(-1).contiguous()
-    if mul.numel() != k or div.numel() != n or bs.numel() != n:
+
+    def vec(x):
+        return x.to(dev, torch.float32).reshape(-1).contiguous()
+    div, bs = vec(div_post), vec(bias)
+    mul = None if mul_prev is None else vec(mul_prev)
+    if (mul is not None and mul.numel() != k) or div.numel() != n \
+            or bs.numel() != n:
         raise ValueError("mul_prev must be (k,), div_post and bias (N,)")
     quant = cfg.out_step is not None
     out = torch.empty((m, n), dtype=torch.uint8 if quant else torch.float32,
                       device=dev)
-    KERNEL(a2.data_ptr(), w.data_ptr(), mul.data_ptr(), div.data_ptr(),
-           bs.data_ptr(), out.data_ptr(), m, k, n, cfg.matmul_bk(k),
-           float(cfg.out_step if quant else 1.0), int(quant),
-           torch.cuda.current_stream(dev).cuda_stream)
+    step = float(cfg.out_step if quant else 1.0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if mul is None:
+        kernel(a2.data_ptr(), w.data_ptr(), div.data_ptr(), bs.data_ptr(),
+               out.data_ptr(), m, k, n, step, int(quant), stream)
+    else:
+        kernel(a2.data_ptr(), w.data_ptr(), mul.data_ptr(), div.data_ptr(),
+               bs.data_ptr(), out.data_ptr(), m, k, n, cfg.matmul_bk(k),
+               step, int(quant), stream)
+    return out
+
+
+def w1a8_matmul_int(a_u8: torch.Tensor, w_packed: torch.Tensor,
+                    colsum: torch.Tensor) -> torch.Tensor:
+    """Exact Σ_k sign[k, n]·a[m, k] in int32, as (a − 128)·(±1) plus
+    128·colsum (counterpart of ``w1a8_matmul_int_pallas``).
+
+    a_u8 (M, K) uint8; w_packed (ceil(K/32), N) int32; colsum (N,) or
+    (1, N) int32 = Σ_{k<K} sign[k, n]. Returns (M, N) int32.
+    """
+    k = a_u8.shape[1]
+    if not a_u8.is_cuda:
+        return _ref.w1a8_matmul_int_ref(a_u8, w_packed, colsum)
+    _check(a_u8, w_packed, k)
+    m, n = a_u8.shape[0], w_packed.shape[1]
+    dev = a_u8.device
+    a = a_u8.contiguous()
+    w = w_packed.to(dev).contiguous()
+    cs = colsum.to(dev, torch.int32).reshape(-1).contiguous()
+    if cs.numel() != n:
+        raise ValueError(f"colsum must hold N={n} sums, got {cs.numel()}")
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    INT_KERNEL(a.data_ptr(), w.data_ptr(), cs.data_ptr(), out.data_ptr(), m,
+               k, n, torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 

@@ -1,4 +1,4 @@
-"""Plain PyTorch version of the W1A8 packed matmul kernel.
+"""Plain PyTorch versions of the W1A8 packed matmul kernels.
 
     y[m, n] = (Σ_k sign[k, n] · bf16(mul_prev[k] · a[m, k])) · div_post[n] + bias[n]
 
@@ -6,6 +6,10 @@ optionally requantized to uint8 codes with step ``out_step``. The bf16
 rounding of the prologue mirrors the reference's Pallas body
 (``repro/kernels/w1a8_matmul/kernel.py``), which rounds there; the sum is a
 float32 product with ±1.
+
+The popcount version forms the same sum as an exact integer from the 8
+bit-planes of the codes (``w1a8_matmul_popcount_pallas``); the int version
+as (a − 128)·(±1) plus 128·colsum (``w1a8_matmul_int_pallas``).
 """
 from __future__ import annotations
 
@@ -38,3 +42,102 @@ def w1a8_matmul_ref(a_u8: torch.Tensor, w_packed: torch.Tensor, k: int,
     if out_step is None:
         return y
     return requant_epilogue(y, out_step)
+
+
+# ---------------------------------------------------------------------------
+# Binary domain: exact integer Σ_k s_k·a_k from bit-planes and popcounts.
+# torch has no popcount, and integer matmuls do not run on CUDA, so the
+# plain versions count bits with shifts and masks (SWAR) in int64. Sign
+# words are held as int32, so a word with bit 31 set is negative: every
+# word is masked to its 32 bits before a shift.
+# ---------------------------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of the low 32 bits of each int64 element (SWAR)."""
+    x = x & _M32
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return x & 0x3F
+
+
+def pack_act_bitplane(a_u8: torch.Tensor, bit: int) -> torch.Tensor:
+    """Bit-plane ``bit`` of codes (M, Kp) → (M, Kp/32) int64 words, LSB
+    first as in `core.packing` (counterpart of ``_pack_act_bitplane``)."""
+    m, kp = a_u8.shape
+    bits = (a_u8.to(torch.int64) >> bit) & 1
+    shifts = torch.arange(packing.PACK, dtype=torch.int64, device=a_u8.device)
+    return torch.sum(bits.reshape(m, kp // packing.PACK, packing.PACK)
+                     << shifts, dim=2)
+
+
+def xnor_accumulate(a_u8: torch.Tensor, w_words: torch.Tensor) -> torch.Tensor:
+    """Σ_k sign_k·a_k, exact int32 (counterpart of ``_xnor_accumulate``).
+
+    a_u8 (M, Kp) codes, Kp = 32·rows of w_words; w_words (Kp/32, N) sign
+    words. Per bit-plane a_b, Σ_k s_k·a_{b,k} = 2·popc(w ∧ a_b) − popc(a_b),
+    shifted left by b. Zero codes add 0 to both terms, so K-pad lanes
+    (zero codes against +1 pad bits) are free.
+    """
+    w = w_words.to(torch.int64) & _M32                     # (Kp/32, N)
+    acc = torch.zeros((a_u8.shape[0], w.shape[1]), dtype=torch.int64,
+                      device=a_u8.device)
+    for bit in range(8):
+        planes = pack_act_bitplane(a_u8, bit)              # (M, Kp/32)
+        pc = torch.sum(popcount32(planes[:, :, None] & w[None]), dim=1)
+        cnt = torch.sum(popcount32(planes), dim=1, keepdim=True)
+        acc = acc + ((2 * pc - cnt) << bit)
+    return acc.to(torch.int32)
+
+
+def pad_codes(a_u8: torch.Tensor, k: int) -> torch.Tensor:
+    """(M, ≥k) codes → (M, Kp) with zero codes in lanes k..Kp."""
+    kp = packing.packed_dim(k) * packing.PACK
+    a = a_u8[:, :k]
+    if kp == k:
+        return a
+    return torch.cat([a, a.new_zeros((a.shape[0], kp - k))], dim=1)
+
+
+def popcount_epilogue(acc: torch.Tensor, div_post: torch.Tensor,
+                      bias: torch.Tensor,
+                      out_step: Optional[float]) -> torch.Tensor:
+    """f32(acc)·div + bias (two roundings), optionally requantized. The
+    sum is below 2^24, so its conversion to f32 is exact."""
+    y = acc.to(torch.float32) * div_post.to(torch.float32) \
+        + bias.to(torch.float32)
+    if out_step is None:
+        return y
+    return requant_epilogue(y, out_step)
+
+
+def w1a8_matmul_popcount_ref(a_u8: torch.Tensor, w_packed: torch.Tensor,
+                             k: int, div_post: torch.Tensor,
+                             bias: torch.Tensor,
+                             out_step: Optional[float] = None
+                             ) -> torch.Tensor:
+    """Binary-domain matmul on codes already on one grid (the consumer-side
+    fold is the caller's): a_u8 (M, ≥k); w_packed (ceil(k/32), N) int32;
+    div_post, bias (N,) → (M, N) f32, or uint8 codes."""
+    acc = xnor_accumulate(pad_codes(a_u8, k), w_packed)
+    return popcount_epilogue(acc, div_post, bias, out_step)
+
+
+def w1a8_matmul_int_ref(a_u8: torch.Tensor, w_packed: torch.Tensor,
+                        colsum: torch.Tensor) -> torch.Tensor:
+    """Exact Σ_k s·a as (a − 128)·(±1) plus 128·colsum, int32.
+
+    a_u8 (M, K); w_packed (ceil(K/32), N) int32; colsum (N,) int32 =
+    Σ_{k<K} sign[k, n]. The product runs in float64, where every partial
+    sum (|Σ| ≤ 128·K) is an exact integer.
+    """
+    k = a_u8.shape[1]
+    signs = packing.unpack_signs(w_packed, k, axis=0, dtype=torch.float64)
+    centred = a_u8.to(torch.float64) - 128.0
+    acc = (centred @ signs).to(torch.int32)
+    return acc + 128 * colsum.to(torch.int32).reshape(1, -1)

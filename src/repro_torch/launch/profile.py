@@ -42,7 +42,7 @@ def _group(name: str) -> str:
     return "other"
 
 
-def _union_us(intervals) -> float:
+def union_us(intervals) -> float:
     total, end = 0.0, -float("inf")
     for s, e in sorted(intervals):
         if e > end:
@@ -83,7 +83,7 @@ def main(argv=None) -> dict:
         per_name[e.name][0] += us
         per_name[e.name][1] += 1
         per_group[_group(e.name)] += us
-    busy_us = _union_us((e.time_range.start, e.time_range.end)
+    busy_us = union_us((e.time_range.start, e.time_range.end)
                         for e in events)
     n = args.dispatches
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]

@@ -29,9 +29,15 @@ from repro_torch.kernels.w1a8_matmul import ops as mm_ops
 from repro_torch.models import detection, yolo
 from repro_torch.serve import DetectionBackend, Scheduler, ServeRequest
 
-# The main path's kernels, by name: each counts its own launches.
+# Every CUDA kernel of the port, by name: each counts its own launches.
+# The launcher serves through the first three (dot); the popcount forward
+# runs the next three, and `w1a8_matmul_int` is called directly.
 KERNELS = {"w1a8_conv3x3_pool2": fused_pool.KERNEL,
-           "w1a8_conv3x3": conv_ops.KERNEL, "w1a8_matmul": mm_ops.KERNEL}
+           "w1a8_conv3x3": conv_ops.KERNEL, "w1a8_matmul": mm_ops.KERNEL,
+           "w1a8_conv3x3_pool2_popcount": fused_pool.POPCOUNT_KERNEL,
+           "w1a8_conv3x3_popcount": conv_ops.POPCOUNT_KERNEL,
+           "w1a8_matmul_popcount": mm_ops.POPCOUNT_KERNEL,
+           "w1a8_matmul_int": mm_ops.INT_KERNEL}
 
 
 def launch_counts() -> dict:

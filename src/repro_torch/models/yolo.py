@@ -181,7 +181,9 @@ def calibrate_yolo(params: dict, images: torch.Tensor, *,
         if spec.kind == "w1a8" or spec.name == "conv11":
             cmax = (torch.amax(torch.abs(x), dim=(0, 1, 2)) if per_channel
                     else torch.amax(torch.abs(x)))
-            step = torch.clamp(cmax / ACT_QMAX, min=1e-4)
+            # a tensor divisor: CUDA would multiply by 1/255 for a number
+            qmax = torch.tensor(float(ACT_QMAX), device=cmax.device)
+            step = torch.clamp(cmax / qmax, min=1e-4)
             p["act_step"] = torch.broadcast_to(
                 step, (x.shape[-1],)).to(torch.float32).contiguous()
         if spec.name == "conv1":
@@ -281,10 +283,6 @@ def _layer_config(spec: ConvSpec, h: int, batch: int, *, profile: str,
         cfg = KernelConfig(op=op, accum=accum or "dot", fused=False)
     if fuse_pool is not None:
         cfg = cfg.replace(fused=fuse_pool)
-    if cfg.accum == "popcount":
-        raise NotImplementedError(
-            "accum='popcount' is not ported yet; it is the next slice "
-            "(ROADMAP.md, Queue 2)")
     return cfg.replace(out_step=1.0)
 
 
@@ -292,16 +290,67 @@ def kernel_configs(art: dict, bucket: int, batch: int, *,
                    profile: str = "tuned", fuse_pool: bool = None,
                    accum: str = None) -> tuple:
     """The W1A8 layers' KernelConfigs for one (bucket, batch) shape, in
-    layer order. Resolve once per shape and pass them to
-    `yolo_forward_kernel`; `DetectionBackend` does so per bucket."""
+    layer order, with their epilogue constants folded (`fold_boundaries`).
+    Resolve once per shape and pass them to `yolo_forward_kernel`;
+    `DetectionBackend` does so per bucket."""
     if profile not in PROFILES:
         raise ValueError(f"profile must be one of {PROFILES}, got {profile!r}")
     table = _cfg.load_table() if profile == "tuned" else None
     sizes = spatial_sizes(bucket)
-    return tuple(_layer_config(e["spec"], sizes[e["spec"].name], batch,
-                               profile=profile, accum=accum,
-                               fuse_pool=fuse_pool, table=table)
-                 for e in art["layers"][1:-1])
+    configs = tuple(_layer_config(e["spec"], sizes[e["spec"].name], batch,
+                                  profile=profile, accum=accum,
+                                  fuse_pool=fuse_pool, table=table)
+                    for e in art["layers"][1:-1])
+    fold_boundaries(art, configs)
+    return configs
+
+
+def fold_boundaries(art: dict, configs: tuple) -> dict:
+    """The constants of a forward under ``configs``, folded once and kept
+    on the artifact (``art["folded"]``, keyed by the configs).
+
+    Producer-side fold: when a layer's consumer contracts with popcount,
+    the producer's epilogue (conv1's quantizer for conv2) quantizes onto
+    the uniform step s̄ = max_c s_c instead of the per-channel s_c, so the
+    codes reaching the bit-packed sum already sit on one grid. conv10 feeds
+    conv11 and keeps its per-channel step. Each W1A8 layer then gets
+    q = round(acc·div + bias) with div = α/s_next and bias = b/s_next, and
+    a popcount layer's div also carries its input step m̄ = max(s_in)
+    (the consumer-side fold, the identity on codes already on one grid),
+    in the reference's order: (α/s_next)·m̄. Layers whose boundaries keep
+    their deployed steps reuse `fold_epilogue`'s constants, so the dot
+    path's constants are the deployed ones bit for bit.
+
+    Returns {"step1": conv1's quantizer step, "layers": [(div, bias,
+    step_out)] in layer order}.
+    """
+    cache = art.setdefault("folded", {})
+    if configs in cache:
+        return cache[configs]
+    layers = art["layers"]
+    w1a8 = layers[1:-1]
+    if len(configs) != len(w1a8):
+        raise ValueError(f"{len(configs)} configs for {len(w1a8)} layers")
+
+    def boundary_step(step_out, i):
+        if i < len(configs) and configs[i].accum == "popcount":
+            return torch.broadcast_to(torch.max(step_out), step_out.shape)
+        return step_out
+
+    s_in = boundary_step(layers[0]["step_out"], 0)
+    folded = {"step1": s_in, "layers": []}
+    for i, (entry, cfg) in enumerate(zip(w1a8, configs)):
+        s_next = boundary_step(entry["step_out"], i + 1)
+        if s_next is entry["step_out"]:
+            div, bias = entry["div_eff"], entry["b_eff"]
+        else:
+            div, bias = entry["alpha"] / s_next, entry["b"] / s_next
+        if cfg.accum == "popcount":
+            div = div * torch.clamp(torch.max(s_in), min=1e-20)
+        folded["layers"].append((div, bias, s_next))
+        s_in = s_next
+    cache[configs] = folded
+    return folded
 
 
 def yolo_forward_kernel(art: dict, images: torch.Tensor, *,
@@ -312,25 +361,31 @@ def yolo_forward_kernel(art: dict, images: torch.Tensor, *,
     head, for any bucket S that is a multiple of 32. On CUDA tensors every
     W1A8 layer runs a CUDA kernel; on CPU tensors their plain versions.
 
-    Between layers the activations are uint8-code QTensors, requantized in
-    each kernel's epilogue with the constants `fold_epilogue` stored on the
-    artifact and out_step = 1. ``configs`` (from `kernel_configs` at this
-    shape) skips the per-call resolution of profile/accum/fuse_pool.
+    ``accum="popcount"`` contracts every W1A8 layer in the binary domain
+    (XNOR-popcount); a per-channel artifact serves through it by the
+    producer-side step fold of `fold_boundaries`. Between layers the
+    activations are uint8-code QTensors, requantized in each kernel's
+    epilogue with constants folded once per configs, and out_step = 1.
+    ``configs`` (from `kernel_configs` at this shape) skips the per-call
+    resolution of profile/accum/fuse_pool.
     """
     if configs is None:
         configs = kernel_configs(art, images.shape[1], images.shape[0],
                                  profile=profile, fuse_pool=fuse_pool,
                                  accum=accum)
+    folded = fold_boundaries(art, configs)
     layers = art["layers"]
 
     # conv1 (fixed-point-rounded weights) in f32, pool, quantize to codes.
-    first = layers[0]
-    x = _maxpool2(_conv1(first, images))
-    qx = QTensor.quantize_u8(x, first["step_out"], axis=-1)
+    x = _maxpool2(_conv1(layers[0], images))
+    qx = QTensor.quantize_u8(x, folded["step1"], axis=-1)
 
-    for entry, cfg in zip(layers[1:-1], configs):
+    for entry, cfg, (div, bias, step_out) in zip(layers[1:-1], configs,
+                                                  folded["layers"]):
         spec: ConvSpec = entry["spec"]
-        args = (entry["w_packed"], qx.scale, entry["div_eff"], entry["b_eff"])
+        # Mul_prev is the input codes' step; popcount's is folded into div
+        mul = None if cfg.accum == "popcount" else qx.scale
+        args = (entry["w_packed"], mul, div, bias)
         if spec.ksize == 3 and spec.pool:
             out = conv_ops.w1a8_conv3x3_pool(qx.data, *args, cin=spec.cin,
                                              config=cfg)
@@ -342,7 +397,7 @@ def yolo_forward_kernel(art: dict, images: torch.Tensor, *,
             out = mm_ops.w1a8_matmul(qx.data.reshape(b * h * w, spec.cin),
                                      *args, k=spec.cin, config=cfg)
             out = out.reshape(b, h, w, spec.cout)
-        qx = QTensor.from_codes(out, entry["step_out"], axis=-1)
+        qx = QTensor.from_codes(out, step_out, axis=-1)
 
     # conv11 detection head (1×1, fixed-point weights) on dequantized codes.
     return _conv11(layers[-1], qx.dequantize())

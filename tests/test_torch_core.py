@@ -96,3 +96,28 @@ def test_compare_identical():
     want = jverify.compare("x", test, ref, lsb=0.02)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
     assert got.row() == want.row()
+
+
+@pytest.mark.parametrize("per_channel", [True, False])
+def test_fold_codes_to_uniform_step_bit_exact(per_channel):
+    """Codes onto the coarsest step, exactly as the reference; under
+    uniform steps the fold is the identity and m̄ is the step itself."""
+    rng = np.random.default_rng(5)
+    c = 24
+    step = (rng.uniform(0.005, 0.2, c) if per_channel
+            else np.full(c, 0.0371)).astype(np.float32)
+    a = rng.integers(0, 256, (2, 5, 7, c), dtype=np.uint8)
+    a[0, 0, 0] = 255
+    want_codes, want_mbar = jquant.fold_codes_to_uniform_step(
+        jnp.asarray(a), jnp.asarray(step))
+    codes, mbar = quant.fold_codes_to_uniform_step(torch.from_numpy(a),
+                                                   torch.from_numpy(step))
+    assert codes.dtype == torch.uint8
+    assert np.array_equal(codes.numpy(), np.asarray(want_codes))
+    assert mbar.numpy().tobytes() == np.asarray(want_mbar).tobytes()
+    if per_channel:
+        assert not np.array_equal(codes.numpy(), a)
+        assert int(codes.max()) == 255            # the coarsest channel
+    else:
+        assert np.array_equal(codes.numpy(), a)
+        assert float(mbar) == float(step[0])

@@ -2,9 +2,11 @@
 versions of the CUDA kernels) against the reference's Pallas kernels in
 interpret mode, on the same numpy inputs.
 
-Tolerances are the reference suite's own (tests/test_kernels.py): f32
-within 6e-3·max|y| (both sides round the prologue to bf16, then sum in f32
-in different orders), uint8 codes within 1 LSB and ≥ 99% identical.
+Tolerances are the reference suite's own (tests/test_kernels.py): on the
+dot path f32 within 6e-3·max|y| (both sides round the prologue to bf16,
+then sum in f32 in different orders), uint8 codes within 1 LSB and ≥ 99%
+identical. The popcount and int paths form exact integer sums and share
+one f32 epilogue, so they are held bit for bit.
 """
 import numpy as np
 import pytest
@@ -15,11 +17,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.config import KernelConfig as JConfig  # noqa: E402
 from repro.kernels.w1a8_conv import ops as jconv  # noqa: E402
+from repro.kernels.w1a8_matmul import kernel as jmmk  # noqa: E402
 from repro.kernels.w1a8_matmul import ops as jmm  # noqa: E402
 from repro_torch.kernels import config  # noqa: E402
 from repro_torch.kernels.config import KernelConfig  # noqa: E402
 from repro_torch.kernels.w1a8_conv import ops as conv  # noqa: E402
 from repro_torch.kernels.w1a8_matmul import ops as mm  # noqa: E402
+from repro_torch.kernels.w1a8_matmul import ref as mmref  # noqa: E402
 
 
 def _operands(seed, a_shape, k, cin, cout):
@@ -123,15 +127,181 @@ def test_conv3x3_pool_plain_matches_pallas(b, h, w, cin, cout):
     _assert_codes_close(fused.numpy(), want)
 
 
-def test_popcount_is_not_ported_yet():
-    a = torch.zeros((1, 4, 4, 16), dtype=torch.uint8)
-    wp = conv.conv_pack_weights(torch.ones((3, 3, 16, 32)))
-    ones = torch.ones(32)
+# ---------------------------------------------------------------------------
+# Binary domain (popcount) and the exact int path: bit-exact, as the
+# reference's integer sums are.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,kp,n", [(7, 64, 33), (40, 160, 64)])
+def test_xnor_accumulate_bit_exact(m, kp, n):
+    """SWAR popcount on int32-held words, bit 31 set in many, against the
+    reference's `_xnor_accumulate` (uint32 words, lax.population_count)."""
+    rng = np.random.default_rng(kp + n)
+    a = rng.integers(0, 256, (m, kp), dtype=np.uint8)
+    words = rng.integers(0, 2 ** 32, (kp // 32, n), dtype=np.uint64) \
+        .astype(np.uint32)
+    words[0, 0] = 0xFFFFFFFF
+    words[-1, -1] = 0x80000000
+    assert (words >= 2 ** 31).mean() > 0.3
+    want = np.asarray(jmmk._xnor_accumulate(
+        jnp.asarray(a).astype(jnp.uint32), jnp.asarray(words), kp))
+    got = mmref.xnor_accumulate(torch.from_numpy(a),
+                                torch.from_numpy(words.view(np.int32)))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    for bit in (0, 7):
+        plane = mmref.pack_act_bitplane(torch.from_numpy(a), bit).numpy()
+        jplane = np.asarray(jmmk._pack_act_bitplane(
+            jnp.asarray(a).astype(jnp.uint32), bit, kp))
+        assert np.array_equal(plane.astype(np.uint32), jplane)
+
+
+def _assert_epilogue_match(got, want, epilogue, bias):
+    """``sum`` (bias ≡ 0) and ``codes`` bit for bit. ``f32`` within one
+    rounding of the product and one of the result: the reference compiled
+    on the CPU contracts ``acc·div + bias`` into one FMA, where its Pallas
+    source, the port and its CUDA kernels round the product and the sum
+    separately. With bias ≡ 0 the two agree exactly."""
+    if epilogue == "f32":
+        prod = np.abs(want - bias).astype(np.float32)      # ≈ acc·div
+        tol = np.spacing(prod) + np.spacing(np.abs(want))
+        assert np.all(np.abs(got - want) <= tol)
+        assert (got == want).mean() > 0.5
+    else:
+        assert got.tobytes() == want.tobytes()
+
+
+EPILOGUES = ["sum", "f32", "codes"]
+
+
+@pytest.mark.parametrize("m,k,n", [(5, 70, 12), (33, 200, 64),
+                                   (100, 128, 64)])
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+def test_popcount_matmul_matches_pallas(m, k, n, epilogue):
+    """Ragged M, N and K, a per-channel Mul_prev folded at the consumer,
+    against the reference's popcount matmul."""
+    a, w, mul, div, bias = _operands(m + k, (m, k), k, k, n)
+    if epilogue == "sum":
+        bias = np.zeros_like(bias)
+    jwp = jmm.w1a8_pack_weights(jnp.asarray(w))
+    wp = mm.w1a8_pack_weights(torch.from_numpy(w))
+    jcfg = JConfig(op="matmul", accum="popcount", interpret=True)
+    cfg = KernelConfig(op="matmul", accum="popcount")
+    if epilogue == "codes":
+        y = jmm.w1a8_matmul(*_j(a), jwp, *_j(mul, div, bias), k=k,
+                            config=jcfg)
+        step = float(jnp.max(jnp.abs(y))) / 255.0
+        jcfg, cfg = jcfg.replace(out_step=step), cfg.replace(out_step=step)
+    want = np.asarray(jmm.w1a8_matmul(*_j(a), jwp, *_j(mul, div, bias), k=k,
+                                      config=jcfg))
+    got = mm.w1a8_matmul(*_t(a), wp, *_t(mul, div, bias), k=k, config=cfg)
+    assert got.dtype == (torch.uint8 if epilogue == "codes"
+                         else torch.float32)
+    _assert_epilogue_match(got.numpy(), want, epilogue, bias)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 64, 128), (256, 512, 256),
+                                   (32, 1024, 128)])
+def test_int_matmul_matches_pallas(m, k, n):
+    """`w1a8_matmul_int` against `w1a8_matmul_int_pallas`, at the shapes of
+    the reference's own test, and against the integer product."""
+    rng = np.random.default_rng(k)
+    a = rng.integers(0, 256, (m, k), dtype=np.uint8)
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    jwp = jmm.w1a8_pack_weights(jnp.asarray(w))
+    signs = np.where(w >= 0, 1, -1).astype(np.int32)
+    colsum = signs.sum(axis=0, dtype=np.int32)
+    want = np.asarray(jmmk.w1a8_matmul_int_pallas(
+        jnp.asarray(a), jwp, jnp.asarray(colsum.reshape(1, n)),
+        bm=max(8, min(m, 256)), bk=min(k, 512), bn=min(n, 256),
+        interpret=True))
+    got = mm.w1a8_matmul_int(torch.from_numpy(a),
+                             mm.w1a8_pack_weights(torch.from_numpy(w)),
+                             torch.from_numpy(colsum))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(want, a.astype(np.int64) @ signs)
+
+
+# cin = 16 gives K9 = 144: the last sign word holds 16 lanes against pad bits
+POPCOUNT_CONV_SHAPES = [(1, 8, 8, 16, 32), (2, 6, 10, 24, 40),
+                        (1, 4, 4, 64, 75)]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", POPCOUNT_CONV_SHAPES)
+@pytest.mark.parametrize("epilogue", EPILOGUES)
+def test_popcount_conv_matches_pallas(b, h, w, cin, cout, epilogue):
+    """Popcount conv, and for codes conv+pool fused and unfused, on a
+    per-channel Mul_prev, against the reference's popcount conv."""
+    a, wt, mul, div, bias = _operands(cin * cout, (b, h, w, cin), 9 * cin,
+                                      cin, cout)
+    if epilogue == "sum":
+        bias = np.zeros_like(bias)
+    wt = wt.reshape(3, 3, cin, cout)
+    jwp = jconv.conv_pack_weights(jnp.asarray(wt))
+    wp = conv.conv_pack_weights(torch.from_numpy(wt))
+    jcfg = JConfig(op="conv3x3", accum="popcount", interpret=True)
+    cfg = KernelConfig(op="conv3x3", accum="popcount")
+    want = np.asarray(jconv.w1a8_conv3x3(*_j(a), jwp, *_j(mul, div, bias),
+                                         cin=cin, config=jcfg))
+    if epilogue != "codes":
+        got = conv.w1a8_conv3x3(*_t(a), wp, *_t(mul, div, bias), cin=cin,
+                                config=cfg)
+        _assert_epilogue_match(got.numpy(), want, epilogue, bias)
+        return
+    step = float(np.abs(want).max()) / 255.0
+    want_q = np.asarray(jconv.w1a8_conv3x3(
+        *_j(a), jwp, *_j(mul, div, bias), cin=cin,
+        config=jcfg.replace(out_step=step)))
+    got_q = conv.w1a8_conv3x3(*_t(a), wp, *_t(mul, div, bias), cin=cin,
+                              config=cfg.replace(out_step=step))
+    assert np.array_equal(got_q.numpy(), want_q)
+    pcfg = KernelConfig(op="conv3x3_pool", accum="popcount", out_step=step)
+    want_p = np.asarray(jconv.w1a8_conv3x3_pool(
+        *_j(a), jwp, *_j(mul, div, bias), cin=cin,
+        config=JConfig(op="conv3x3_pool", accum="popcount", out_step=step,
+                       fused=True, interpret=True)))
+    for fused in (True, False):
+        got_p = conv.w1a8_conv3x3_pool(*_t(a), wp, *_t(mul, div, bias),
+                                       cin=cin,
+                                       config=pcfg.replace(fused=fused))
+        assert np.array_equal(got_p.numpy(), want_p), fused
+    rows = conv.w1a8_conv3x3_pool(*_t(a), wp, *_t(mul, div, bias), cin=cin,
+                                  config=pcfg.replace(rows=h // 2))
+    assert np.array_equal(rows.numpy(), want_p)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", POPCOUNT_CONV_SHAPES)
+def test_popcount_bit_exact_vs_dot(b, h, w, cin, cout):
+    """The port's popcount against its own dot path under canonical
+    operands (mul ≡ 1, div·m0): the dot path's bf16 operands are then exact
+    integers and both run one f32 epilogue, so they agree bit for bit."""
+    a, wt, _, div, bias = _operands(b + cin, (b, h, w, cin), 9 * cin, cin,
+                                    cout)
+    wp = conv.conv_pack_weights(torch.from_numpy(wt.reshape(3, 3, cin, cout)))
+    a, div, bias = _t(a, div, bias)
+    m0 = 0.05
+    mul, ones = torch.full((cin,), m0), torch.ones(cin)
+    pc = KernelConfig(op="conv3x3", accum="popcount")
+    assert torch.equal(conv.w1a8_conv3x3(a, wp, mul, div, bias, cin=cin,
+                                         config=pc),
+                       conv.w1a8_conv3x3(a, wp, ones, div * m0, bias,
+                                         cin=cin))
+    step = 2.0
     for op, fn in (("conv3x3", conv.w1a8_conv3x3),
                    ("conv3x3_pool", conv.w1a8_conv3x3_pool)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fn(a, wp, torch.ones(16), ones, ones, cin=16,
-               config=KernelConfig(op=op, accum="popcount"))
+        cfg = KernelConfig(op=op, accum="popcount", out_step=step)
+        assert torch.equal(
+            fn(a, wp, mul, div, bias, cin=cin, config=cfg),
+            fn(a, wp, ones, div * m0, bias, cin=cin,
+               config=cfg.replace(accum="dot"))), op
+    m, k, n = b * h * w, 9 * cin, cout
+    a2 = a.reshape(m, cin)[:, :min(cin, k)]
+    wpm = mm.w1a8_pack_weights(torch.from_numpy(wt[:cin]))
+    mcfg = KernelConfig(op="matmul", accum="popcount")
+    assert torch.equal(
+        mm.w1a8_matmul(a2, wpm, mul, div, bias, k=cin, config=mcfg),
+        mm.w1a8_matmul(a2, wpm, ones, div * m0, bias, k=cin))
 
 
 def test_config_resolution_without_table():

@@ -1,8 +1,9 @@
 """Port parity, detector: calibrated in the reference at bucket 64 and
 carried across with `repro_torch.convert`; the port's packed forward (fused
-and unfused pool routes) and the reference's interpret-mode Pallas forward
-must sit in the `core.verify` envelope (max_abs < 0.02, 100% within 1 LSB
-of 0.02) of each other and of the reference's float forward."""
+and unfused pool routes, dot and popcount) and the reference's
+interpret-mode Pallas forward must sit in the `core.verify` envelope
+(max_abs < 0.02, 100% within 1 LSB of 0.02) of each other and of the
+reference's float forward."""
 import numpy as np
 import pytest
 
@@ -210,8 +211,76 @@ def test_model_structure():
     assert params["conv11"]["act_step"].shape == (64,)
 
 
-def test_popcount_raises_not_implemented(reference):
+@pytest.fixture(scope="module")
+def popcount_reference(reference):
+    """The reference's popcount forward, once per pool route, on the
+    per-channel artifact of `reference`."""
+    jart = jyolo.deploy_yolo_kernel(
+        {n: {k: jnp.asarray(v) for k, v in p.items()}
+         for n, p in reference["params_np"].items()})
+    return {fuse: np.asarray(jyolo.yolo_forward_kernel(
+        jart, jnp.asarray(reference["img"]), profile="interpret",
+        accum="popcount", fuse_pool=fuse)) for fuse in (True, False)}
+
+
+@pytest.fixture(scope="module")
+def popcount_port(reference):
     art = convert.artifact_from_numpy(reference["art_np"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        yolo.yolo_forward_kernel(art, torch.from_numpy(reference["img"]),
-                                 accum="popcount")
+    img = torch.from_numpy(reference["img"])
+    return {fuse: yolo.yolo_forward_kernel(art, img, accum="popcount",
+                                           fuse_pool=fuse)
+            for fuse in (True, False)}
+
+
+@pytest.mark.parametrize("fuse_pool", [True, False])
+def test_popcount_forward_in_envelope(reference, popcount_reference,
+                                      popcount_port, fuse_pool):
+    """The binary-domain forward on a per-channel artifact (producer-side
+    step fold) sits in the envelope of the float forward and of the
+    reference's popcount forward."""
+    raw = popcount_port[fuse_pool].numpy()
+    assert raw.shape == (2, BUCKET // 32, BUCKET // 32, 75)
+    _in_envelope("popcount_vs_float", raw, reference["raw_float"])
+    _in_envelope("popcount_vs_pallas_popcount", raw,
+                 popcount_reference[fuse_pool])
+
+
+def test_popcount_routes_bit_exact(popcount_port):
+    assert torch.equal(popcount_port[True], popcount_port[False])
+
+
+def test_popcount_folds_boundaries_once(reference):
+    """Popcount consumers get uniform boundary steps, conv10 keeps its
+    per-channel one; the dot configs keep the deployed constants; each
+    configs tuple is folded once."""
+    art = convert.artifact_from_numpy(reference["art_np"], device="cpu")
+    dot = yolo.kernel_configs(art, BUCKET, 2, accum="dot")
+    pc = yolo.kernel_configs(art, BUCKET, 2, accum="popcount")
+    f_dot, f_pc = art["folded"][dot], art["folded"][pc]
+    assert yolo.fold_boundaries(art, pc) is f_pc
+    layers = art["layers"]
+    assert f_dot["step1"] is layers[0]["step_out"]
+    for entry, (div, bias, step) in zip(layers[1:-1], f_dot["layers"]):
+        assert div is entry["div_eff"] and bias is entry["b_eff"]
+        assert step is entry["step_out"]
+    steps = [f_pc["step1"]] + [s for _, _, s in f_pc["layers"]]
+    for step, entry in zip(steps[:-1], layers[:-2]):
+        assert torch.equal(step, torch.full_like(step, float(step.max())))
+        assert float(step.max()) == float(entry["step_out"].max())
+    assert steps[-1] is layers[-2]["step_out"]
+    assert any(len(torch.unique(e["step_out"])) > 1 for e in layers[:-2])
+
+
+def test_popcount_per_tensor_artifact_matches_dot(reference):
+    """On a per-tensor artifact the popcount forward differs from the dot
+    forward only by the dot path's bf16 prologue rounding (the reference's
+    test_kernel_path_popcount_alignment), and sits in the float envelope."""
+    params = convert.params_from_numpy(reference["params_np"], device="cpu")
+    img = torch.from_numpy(reference["img"])
+    pt = yolo.calibrate_yolo(params, img, per_channel=False)
+    art = yolo.deploy_yolo_kernel(pt)
+    pc = yolo.yolo_forward_kernel(art, img, accum="popcount").numpy()
+    dot = yolo.yolo_forward_kernel(art, img, accum="dot").numpy()
+    assert np.abs(pc - dot).max() < 0.02
+    _in_envelope("per_tensor_popcount_vs_float", pc,
+                 yolo.yolo_forward_float(pt, img).numpy())
