@@ -7,13 +7,19 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Prints the card's name and power limit (nvidia-smi), builds the seven
    CUDA kernels from ``src/repro_torch/csrc`` with nvcc (in parallel) and
-   prints the build seconds and each kernel's register use.
+   prints the build seconds, each kernel's register use and the count of
+   tensor-core instructions (HMMA, HGMMA) in each library's SASS
+   (cuobjdump); the two dot conv libraries must hold some.
 2. Holds each dot kernel against its plain PyTorch version on the card, at
-   every W1A8 layer shape of the 320×320 detector with B = 4: f32 outputs
-   within 6e-3·max|y|, uint8 codes within 1 LSB, the fused conv+pool kernel
-   equal to the conv kernel plus a 2×2 max exactly, and results unchanged
-   by the row blocking. Times each kernel, its plain version and one
-   PyTorch library call (CUDA events).
+   every W1A8 layer shape of the 320×320 detector with B = 4 and at one
+   shape off its grid (B = 2, 18×18, Cin 24, Cout 40: Cin % 16 != 0, Cout
+   % 32 != 0): f32 outputs within 6e-3·max|y|, uint8 codes within 1 LSB,
+   the fused conv+pool kernel equal to the conv kernel plus a 2×2 max
+   exactly, and results unchanged by the row blocking. Times each kernel,
+   its plain version and one PyTorch library call at the layer shapes:
+   the CUDA-event time of back-to-back calls and, for the kernel and the
+   library call, the device time from torch.profiler (the union of the
+   call's device intervals), which leaves out the host's cost.
 3. The same for the binary domain, at every layer shape: each popcount
    kernel equal to its plain version (f32 outputs and codes), unchanged by
    `rows=2`, the fused popcount pool equal to the popcount conv plus a 2×2
@@ -69,6 +75,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 CANONICAL_M = 0.05             # the uniform step of the canonical operands
+OFF_GRID = (2, 18, 18, 24, 40)  # (B, H, W, Cin, Cout) off the detector's grid
+TENSOR_CORE_OPS = ("HMMA", "HGMMA")
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -91,6 +99,7 @@ KERNELS = {
                         "src/repro/kernels/w1a8_matmul/kernel.py:228"),
 }
 DOT = ("w1a8_conv3x3_pool2", "w1a8_conv3x3", "w1a8_matmul")
+TENSOR_CORE_KERNELS = ("w1a8_conv3x3_pool2", "w1a8_conv3x3")
 PER_DISPATCH = {"w1a8_conv3x3_pool2": 4, "w1a8_conv3x3": 4, "w1a8_matmul": 1}
 # popcount forward, per route: (pool2_popcount, conv3x3_popcount,
 # matmul_popcount) launches of one forward
@@ -122,6 +131,28 @@ def bound(nbytes: int, ops: int, ops_per_s: float = BF16_OPS_PER_S) -> tuple:
                                        else "operations")
 
 
+def tensor_core_counts(_build) -> dict:
+    """Phase 1: tensor-core instructions in each library's SASS, by name
+    of its kernel; raises if a tensor-core kernel's library has none."""
+    import re
+    tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    counts = {}
+    for name, (source, _) in KERNELS.items():
+        lib = _build.library_path(pathlib.Path(source).name)
+        sass = subprocess.run([str(tool), "--dump-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass))
+                        for op in TENSOR_CORE_OPS}
+        print(f"[sass] {lib.name}: " + ", ".join(
+            f"{n} {op}" for op, n in counts[name].items()), flush=True)
+    for name in TENSOR_CORE_KERNELS:
+        if not sum(counts[name].values()):
+            raise AssertionError(f"{name}: no tensor-core instruction in "
+                                 f"its SASS")
+    return counts
+
+
 def layer_operands(torch, np, rng, b, h, cin, cout, dev, *, ksize=3):
     a = torch.from_numpy(rng.integers(0, 256, (b, h, h, cin),
                                       dtype=np.uint8)).to(dev)
@@ -135,8 +166,9 @@ def layer_operands(torch, np, rng, b, h, cin, cout, dev, *, ksize=3):
 
 def check_kernels(torch, np, dev) -> tuple:
     """Phase 2: every dot kernel against its plain version at the main path's
-    shapes. Returns the per-layer records and, per kernel, the worst codes
-    difference and f32 error over every call that launched it."""
+    shapes, and the conv kernels at OFF_GRID. Returns the per-layer records,
+    the off-grid record and, per kernel, the worst codes difference and f32
+    error over every call that launched it."""
     import torch.nn.functional as F
     from repro_torch.core import packing
     from repro_torch.kernels.config import KernelConfig
@@ -149,7 +181,7 @@ def check_kernels(torch, np, dev) -> tuple:
 
     rng = np.random.default_rng(SEED)
     sizes = yolo.spatial_sizes(yolo.INPUT_SIZE)
-    layers = []
+    layers, off_grid = [], None
     errs = {name: {"codes": 0, "f32": None} for name in KERNELS}
 
     def note(kernel, got, want):
@@ -161,14 +193,16 @@ def check_kernels(torch, np, dev) -> tuple:
             d = float((got - want).abs().max())
             e["f32"] = d if e["f32"] is None else max(e["f32"], d)
         return d
-    for spec in yolo.YOLO_LAYERS:
-        if spec.kind != "w1a8":
-            continue
-        h, cin, cout = sizes[spec.name], spec.cin, spec.cout
-        a, w, mul, div, bias = layer_operands(torch, np, rng, BATCH, h, cin,
-                                              cout, dev, ksize=spec.ksize)
-        rec = {"layer": spec.name, "shape": [BATCH, h, h, cin, cout]}
-        if spec.ksize == 1:
+    cases = [(spec.name, BATCH, sizes[spec.name], spec.cin, spec.cout,
+              spec.ksize, spec.pool)
+             for spec in yolo.YOLO_LAYERS if spec.kind == "w1a8"]
+    b, h, _, cin, cout = OFF_GRID
+    cases.append(("off_grid", b, h, cin, cout, 3, True))
+    for name, b, h, cin, cout, ksize, pool in cases:
+        a, w, mul, div, bias = layer_operands(torch, np, rng, b, h, cin,
+                                              cout, dev, ksize=ksize)
+        rec = {"layer": name, "shape": [b, h, h, cin, cout]}
+        if ksize == 1:
             rec["kernel"] = "w1a8_matmul"
             a2 = a.reshape(-1, cin)
             wp = mm_ops.w1a8_pack_weights(w)
@@ -202,15 +236,15 @@ def check_kernels(torch, np, dev) -> tuple:
             q_rows = conv_ops.w1a8_conv3x3(a, wp, mul, div, bias, cin=cin,
                                            config=cfg.replace(rows=2))
             if not torch.equal(q_rows, q):
-                raise AssertionError(f"{spec.name}: conv3x3 rows=2 differs")
-            ops = 2 * BATCH * h * h * 9 * cin * cout
+                raise AssertionError(f"{name}: conv3x3 rows=2 differs")
+            ops = 2 * b * h * h * 9 * cin * cout
             a_bf = mm_ref.bf16_prologue(a, mul).to(torch.bfloat16) \
                 .permute(0, 3, 1, 2).contiguous()
             w_bf = torch.where(w >= 0, 1.0, -1.0).reshape(3, 3, cin, cout) \
                 .permute(3, 2, 0, 1).contiguous().to(torch.bfloat16)
             library = lambda: F.conv2d(a_bf, w_bf, padding=1)  # noqa: E731
             in_bytes = a.numel() + wp.numel() * 4 + 4 * cin + 8 * cout
-            if spec.pool:
+            if pool:
                 rec["kernel"] = "w1a8_conv3x3_pool2"
                 p = fused_pool.w1a8_conv3x3_pool2(a, wp, mul, div, bias,
                                                   cin=cin, out_step=step)
@@ -218,11 +252,11 @@ def check_kernels(torch, np, dev) -> tuple:
                                                         bias, step)
                 if not torch.equal(p, conv_ref.maxpool2_codes(q)):
                     raise AssertionError(
-                        f"{spec.name}: fused pool != conv3x3 kernel + max")
+                        f"{name}: fused pool != conv3x3 kernel + max")
                 p_rows = fused_pool.w1a8_conv3x3_pool2(
                     a, wp, mul, div, bias, cin=cin, out_step=step, rows=2)
                 if not torch.equal(p_rows, p):
-                    raise AssertionError(f"{spec.name}: pool rows=2 differs")
+                    raise AssertionError(f"{name}: pool rows=2 differs")
                 rec["pool_codes_max_diff"] = note(rec["kernel"], p, p_ref)
                 nbytes = in_bytes + p.numel()
                 run = lambda: fused_pool.w1a8_conv3x3_pool2(  # noqa: E731
@@ -237,30 +271,44 @@ def check_kernels(torch, np, dev) -> tuple:
                 plain = lambda: conv_ref.w1a8_conv3x3_ref(  # noqa: E731
                     a, wp, cin, mul, div, bias, step)
         torch.cuda.synchronize()
-        base = "w1a8_matmul" if spec.ksize == 1 else "w1a8_conv3x3"
+        base = "w1a8_matmul" if ksize == 1 else "w1a8_conv3x3"
         scale = float(y_ref.abs().max())
         rec["f32_max_abs_err"] = note(base, y, y_ref)
         rec["f32_tol"] = 6e-3 * scale
         rec["codes_max_diff"] = note(base, q, q_ref)
         rec["codes_identical"] = float((q == q_ref).float().mean())
         if rec["f32_max_abs_err"] > rec["f32_tol"]:
-            raise AssertionError(f"{spec.name}: f32 error {rec}")
+            raise AssertionError(f"{name}: f32 error {rec}")
         if rec["codes_max_diff"] > 1 or rec.get("pool_codes_max_diff", 0) > 1:
-            raise AssertionError(f"{spec.name}: codes differ by > 1 LSB {rec}")
+            raise AssertionError(f"{name}: codes differ by > 1 LSB {rec}")
+        if name == "off_grid":
+            off_grid = rec
+            print(f"[check] off the grid {rec['shape']}: conv3x3 and "
+                  f"conv3x3_pool2 codes max diff {rec['codes_max_diff']}, "
+                  f"{rec['pool_codes_max_diff']} "
+                  f"({100 * rec['codes_identical']:.3f}% identical), f32 "
+                  f"err {rec['f32_max_abs_err']:.3g} <= "
+                  f"{rec['f32_tol']:.3g}; fused = conv + max and rows=2 "
+                  f"exact", flush=True)
+            continue
         rec["ms"] = cuda_ms(torch, run)
         rec["plain_ms"] = cuda_ms(torch, plain, reps=3, n=3)
         rec["library_ms"] = cuda_ms(torch, library)
+        rec["device_ms"] = device_profile(torch, run)["device_busy_ms"]
+        rec["library_device_ms"] = device_profile(torch,
+                                                  library)["device_busy_ms"]
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops)
         rec["bytes"], rec["ops"] = nbytes, ops
-        print(f"[check] {spec.name} {rec['kernel']} {rec['shape']}: codes "
+        print(f"[check] {name} {rec['kernel']} {rec['shape']}: codes "
               f"max diff {rec['codes_max_diff']} "
               f"({100 * rec['codes_identical']:.3f}% identical), f32 err "
               f"{rec['f32_max_abs_err']:.3g} <= {rec['f32_tol']:.3g}; "
-              f"{rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, library "
-              f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.5f} "
-              f"by {rec['bound_by']})", flush=True)
+              f"{rec['ms']:.4f} ms, device {rec['device_ms']:.4f} ms (plain "
+              f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, "
+              f"device {rec['library_device_ms']:.4f}, bound "
+              f"{rec['bound_ms']:.5f} by {rec['bound_by']})", flush=True)
         layers.append(rec)
-    return layers, errs
+    return layers, off_grid, errs
 
 
 def _exact(torch, got, want, what: str) -> float:
@@ -428,39 +476,50 @@ def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
                     bytes=nbytes, ops=ops))
         torch.cuda.synchronize()
         for rec in records[first:]:
-            rec["ms"] = cuda_ms(torch, rec.pop("run"))
+            run, library = rec.pop("run"), rec.pop("library")
+            rec["ms"] = cuda_ms(torch, run)
             rec["plain_ms"] = cuda_ms(torch, rec.pop("plain"), reps=2, n=2)
-            rec["library_ms"] = cuda_ms(torch, rec.pop("library"))
+            rec["library_ms"] = cuda_ms(torch, library)
+            rec["device_ms"] = device_profile(torch, run)["device_busy_ms"]
+            rec["library_device_ms"] = device_profile(
+                torch, library)["device_busy_ms"]
             rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
             print(f"[popcount] {rec['layer']} {rec['kernel']} "
                   f"{rec['shape']}: bit-exact with its plain version and "
-                  f"the dot kernel; {rec['ms']:.4f} ms (plain "
-                  f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, "
-                  f"bound {rec['bound_ms']:.6f} by {rec['bound_by']})",
+                  f"the dot kernel; {rec['ms']:.4f} ms, device "
+                  f"{rec['device_ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
+                  f"library {rec['library_ms']:.4f}, device "
+                  f"{rec['library_device_ms']:.4f}, bound "
+                  f"{rec['bound_ms']:.6f} by {rec['bound_by']})",
                   flush=True)
     return records, errs
 
 
-def device_profile(torch, fn, n: int = 10) -> dict:
+def device_profile(torch, fn, n: int = 10, tries: int = 5) -> dict:
     """torch.profiler over ``n`` calls of ``fn`` after a warm one: device
     busy ms per call (the union of the traced device intervals), host ms per
     call (profiled, so above the unprofiled time) and device launches per
-    call."""
+    call. Every call launches at least one kernel, so a trace with fewer
+    device events than calls has lost some, as one now and then does; it is
+    taken again, up to ``tries`` times."""
     from repro_torch.launch.profile import union_us
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not events:
-        raise RuntimeError("the trace holds no device activity")
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(events) >= n:
+            break
+    else:
+        raise RuntimeError(f"{tries} traces lost device activity")
     busy_us = union_us((e.time_range.start, e.time_range.end)
                        for e in events)
     return {"device_busy_ms": busy_us / 1e3 / n, "wall_ms": wall_ms / n,
@@ -632,9 +691,11 @@ def main() -> int:
         for line in _build.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {src}: {line.strip()}")
+    sass = tensor_core_counts(_build)
+
 
     t0 = time.perf_counter()
-    layers, errs = check_kernels(torch, np, dev)
+    layers, off_grid, errs = check_kernels(torch, np, dev)
     print(f"[check] {len(layers)} layer shapes in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -674,18 +735,22 @@ def main() -> int:
                 "max_codes_diff": e["codes"], "max_f32_err": e["f32"]})
         entry.update({
             "ms": sum(r["ms"] for r in rows),
+            "device_ms": sum(r["device_ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": sum(r["library_ms"] for r in rows),
+            "library_device_ms": sum(r["library_device_ms"] for r in rows),
             "layers": [r["layer"] for r in rows]})
+        entry["tensor_core_instructions"] = sass[name]
         if not entry["launches"]:
             raise AssertionError(f"{name}: no launch on its path")
         kernels.append(entry)
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "layers": layers, "popcount_layers": pc_layers,
+        {"card": smi, "layers": layers, "off_grid": off_grid,
+         "popcount_layers": pc_layers,
          "kernels": kernels, "launcher": record,
          "popcount_forward": pc_record}, indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],

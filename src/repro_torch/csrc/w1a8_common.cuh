@@ -1,18 +1,22 @@
 // Arithmetic shared by the W1A8 CUDA kernels: the bf16 Mul_prev prologue,
-// the 3x3 per-output accumulations (bf16 dot and XNOR-popcount) and the
-// Div/bias/requant epilogue.
+// the Div/bias/requant epilogue, the 3x3 conv tile on the tensor cores
+// (bf16 dot) and the per-output XNOR-popcount accumulation.
 //
 // Both dot conv kernels (w1a8_conv3x3.cu, w1a8_conv3x3_pool2.cu) compute
-// every conv output through `conv3x3_output`, and both popcount conv kernels
-// (w1a8_conv3x3_popcount.cu, w1a8_conv3x3_pool2_popcount.cu) through
-// `conv3x3_popcount_output`, in the same order and with the same roundings,
-// so each fused conv+pool kernel equals its conv kernel followed by a 2x2
-// max bit for bit.
+// every conv output through `conv3x3_mma_tile`, and both popcount conv
+// kernels (w1a8_conv3x3_popcount.cu, w1a8_conv3x3_pool2_popcount.cu)
+// through `conv3x3_popcount_output`, in the same order and with the same
+// roundings, so each fused conv+pool kernel equals its conv kernel followed
+// by a 2x2 max bit for bit.
 //
 // Every rounding is spelled out (__fmul_rn, __fadd_rn, __fdiv_rn): nvcc
 // would otherwise contract `acc * div + bias` into one FMA, while the
 // reference rounds the product and the sum separately. Build without
 // --use_fast_math, which would replace the IEEE division of the requant.
+//
+// The tensor-core tile's two PTX instructions (ldmatrix, mma.sync) sit in
+// two small functions, `ldmatrix_x4` and `mma_bf16_16816`, so that a host
+// emulation of the warp can stand in for them.
 #pragma once
 
 #include <cstdint>
@@ -43,76 +47,295 @@ __device__ __forceinline__ float epilogue(float acc, float div, float bias,
   return fminf(fmaxf(q, 0.f), 255.f);
 }
 
-// Adds +v where the sign bit `k` of `word` is 1 and -v where it is 0.
+// Adds +v where the sign bit `k` of `word` is 1 and -v where it is 0 (the
+// matmul kernel's accumulation).
 __device__ __forceinline__ float signed_add(float acc, float v, uint32_t word,
                                             int k) {
   return ((word >> (k & (kPack - 1))) & 1u) ? __fadd_rn(acc, v)
                                             : __fsub_rn(acc, v);
 }
 
-// One 3x3 SAME conv output and its epilogue.
+// Stages the sign words of output channels [co0, co0 + ct) as (n_words +
+// n_pad, ct): columns past cout and the n_pad rows after the last word
+// hold 0.
+__device__ __forceinline__ void stage_words(const uint32_t* __restrict__ w,
+                                            uint32_t* wsm, int n_words,
+                                            int cout, int co0, int ct,
+                                            int n_pad = 0) {
+  for (int i = threadIdx.x; i < (n_words + n_pad) * ct; i += blockDim.x) {
+    const int j = i / ct;
+    const int co = co0 + i % ct;
+    wsm[i] = j < n_words && co < cout ? w[static_cast<size_t>(j) * cout + co]
+                                      : 0u;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Dot route: the 3x3 conv as an implicit GEMM on the tensor cores.
 //
-// rows: staged prologue values of three consecutive zero-padded input rows,
-//       the first being the row above the output row; each row holds
-//       (width + 2) * cin values, pixel-major.
-// x:    output column. The window starts at padded column x.
-// wsm:  sign words (ceil(9 * cin / 32), ct) of this block's cout tile;
-//       col is this output's column in it.
-// The sum runs over k = (dy * 3 + dx) * cin + ci in increasing order, the
-// im2col order of the reference. Pad bits beyond 9 * cin are never read:
-// the reference gives them zero scales, so they add exactly 0 there too.
-__device__ __forceinline__ float conv3x3_output(
-    const __nv_bfloat16* rows, int row_len, int x, int cin,
-    const uint32_t* wsm, int ct, int col, float div, float bias, bool quant,
-    float out_step) {
-  float acc = 0.f;
-  uint32_t word = 0;
-  int k = 0;
-  for (int dy = 0; dy < 3; ++dy) {
-    for (int dx = 0; dx < 3; ++dx) {
-      const __nv_bfloat16* a = rows + dy * row_len + (x + dx) * cin;
-      for (int ci = 0; ci < cin; ++ci, ++k) {
-        if ((k & (kPack - 1)) == 0) word = wsm[(k / kPack) * ct + col];
-        acc = signed_add(acc, __bfloat162float(a[ci]), word, k);
+// M is conv outputs (pixels), N output channels, K = 9 * cin in the
+// reference's im2col order k = (dy * 3 + dx) * cin + ci. The activations
+// sit in shared memory as bf16(code * Mul_prev): each staged pixel holds
+// padded_cin(cin) channels (zeros past cin) and 16 spare bytes, so that the
+// eight row addresses of an ldmatrix fall on eight different 16-byte bank
+// groups. One mma.sync.m16n8k16 takes a 16-wide K chunk of one tap: its A
+// rows are 16 pixels' 16 channels, read straight from the staged strip by
+// ldmatrix; its B column is 16 sign bits of one output channel, turned
+// into +-1 bf16 in registers. Pad channels have A = 0 and add exactly 0
+// whatever their bits say. A product of a bf16 prologue value and +-1 is
+// exact, so only the order of the f32 sums differs from the reference's.
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 16;     // K per mma.sync
+constexpr int kPixPad = 8;     // spare bf16 after each staged pixel
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+__host__ __device__ constexpr int padded_cin(int cin) {
+  return ceil_div(cin, kChunk) * kChunk;
+}
+
+// bf16 elements from one staged pixel to the next.
+__host__ __device__ constexpr int pixel_stride(int cin) {
+  return padded_cin(cin) + kPixPad;
+}
+
+__host__ __device__ constexpr int words_of(int k) { return ceil_div(k, kPack); }
+
+// Dynamic shared memory of a dot conv block: its sign words,
+// (words_of(9 * cin) + 1, bn), then `staged_rows` rows of `row_px` staged
+// pixels (kernels/w1a8_conv/geometry.py computes the same).
+__host__ __device__ constexpr size_t dot_conv_smem(int cin, int bn,
+                                                   int staged_rows,
+                                                   int row_px) {
+  return (sizeof(uint32_t) * (words_of(9 * cin) + 1) * bn + 15) / 16 * 16 +
+         sizeof(__nv_bfloat16) * staged_rows * row_px * pixel_stride(cin);
+}
+
+// Loads the four 8x8 bf16 matrices of a 16x16 A fragment; `p` is this
+// lane's row address: row lane % 16, columns 8 * (lane / 16) on.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const __nv_bfloat16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a * b on one 16x8x16 tile: bf16 operands, f32 accumulation.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two +-1 bf16 values in one register from bits 0 and 1 of `bits` (1 <=>
+// +1), bit 0's value in the low half: 0x3F80 is bf16 1.0, bit 15 its sign.
+__device__ __forceinline__ uint32_t sign_pair(uint32_t bits) {
+  const uint32_t neg = ~bits;
+  return 0x3F803F80u | ((neg & 1u) << 15) | ((neg & 2u) << 30);
+}
+
+// Accumulates WM M tiles of 16 conv outputs against WN N tiles of 8
+// output channels over the whole 3x3 window: acc[mt][nt] is the m16n8
+// accumulator fragment of M tile mt and channels col0 + 8 * nt on.
+//
+// act:   staged prologue values; a_off[mt] is the offset of this lane's
+//        ldmatrix row in M tile mt: its output's window corner (dy = dx =
+//        0) plus 8 * (lane / 16) channels.
+// row_stride, pix_stride: staged elements per row and per pixel.
+// wsm:   sign words (words_of(9 * cin) + 1, ldw), the last row zero.
+//
+// The K chunks run tap by tap and channel chunk by channel chunk, the same
+// for every output, and mma computes each output from its own A row and B
+// column only: an output's value depends neither on the M row or the tile
+// it lands in nor on the kernel that asks for it.
+template <int WM, int WN>
+__device__ __forceinline__ void conv3x3_mma_tile(
+    const __nv_bfloat16* act, const int (&a_off)[WM], int row_stride,
+    int pix_stride, int cin, const uint32_t* wsm, int ldw, int col0,
+    float (&acc)[WM][WN][4]) {
+  const int lane = threadIdx.x & 31;
+  const int t2 = 2 * (lane & 3);
+  const uint32_t* wcol = wsm + col0 + (lane >> 2);
+  const int chunks = padded_cin(cin) / kChunk;
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < WN; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const __nv_bfloat16* at =
+        act + (tap / 3) * row_stride + (tap % 3) * pix_stride;
+    int k0 = tap * cin;
+    for (int c = 0; c < chunks; ++c, k0 += kChunk, at += kChunk) {
+      // sign bits k0 .. k0 + 15 of this chunk, which start at any bit of a
+      // word when cin % 16 != 0; this lane needs k0 + t2 + {0, 1, 8, 9}
+      const uint32_t* wj = wcol + (k0 / kPack) * ldw;
+      uint32_t b[WN][2];
+#pragma unroll
+      for (int nt = 0; nt < WN; ++nt) {
+        const uint32_t bits =
+            __funnelshift_r(wj[8 * nt], wj[ldw + 8 * nt], k0 & (kPack - 1));
+        b[nt][0] = sign_pair(bits >> t2);
+        b[nt][1] = sign_pair(bits >> (t2 + 8));
+      }
+#pragma unroll
+      for (int mt = 0; mt < WM; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4(a, at + a_off[mt]);
+#pragma unroll
+        for (int nt = 0; nt < WN; ++nt) mma_bf16_16816(acc[mt][nt], a, b[nt]);
       }
     }
   }
-  return epilogue(acc, div, bias, quant, out_step);
 }
 
-// Stages `n_rows` zero-padded input rows, starting at input row `r0` (which
-// may be -1), as prologue values: out-of-range rows and the two pad columns
-// hold 0. `a_img` is one image, (h, width, cin) uint8.
-__device__ __forceinline__ void stage_rows(const uint8_t* __restrict__ a_img,
-                                           const float* __restrict__ mul,
-                                           __nv_bfloat16* act, int r0,
-                                           int n_rows, int h, int width,
-                                           int cin) {
-  const int row_len = (width + 2) * cin;
-  const int total = n_rows * row_len;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int r = r0 + i / row_len;
-    const int rem = i % row_len;
-    const int c = rem / cin - 1;
-    const int ci = rem % cin;
-    __nv_bfloat16 v = __float2bfloat16_rn(0.f);
-    if (r >= 0 && r < h && c >= 0 && c < width) {
-      v = prologue(a_img[(static_cast<size_t>(r) * width + c) * cin + ci],
-                   __ldg(mul + ci));
-    }
-    act[i] = v;
+// Copies 16 bytes from global to shared memory without waiting; with
+// src_bytes = 0 it writes 16 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(d), "l"(src), "r"(src_bytes));
+}
+
+// Waits for every cp_async_16 this thread issued.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
+
+// stage_words(w, wsm, n_words, cout, co0, ct, 1) for the dot conv kernels:
+// with cout % 4 == 0 and `w` 16-byte aligned, 16 bytes at a time, all in
+// flight together (cp_async_wait_all before reading them).
+__device__ __forceinline__ void stage_conv_words(
+    const uint32_t* __restrict__ w, uint32_t* wsm, int n_words, int cout,
+    int co0, int ct) {
+  if (cout % 4 || (reinterpret_cast<uintptr_t>(w) & 15)) {
+    stage_words(w, wsm, n_words, cout, co0, ct, 1);
+    return;
+  }
+  const int q = ct / 4;
+  for (int i = threadIdx.x; i < (n_words + 1) * q; i += blockDim.x) {
+    const int j = i / q;
+    const int co = co0 + 4 * (i - j * q);
+    const bool in = j < n_words && co < cout;
+    cp_async_16(wsm + 4 * i, in ? w + static_cast<size_t>(j) * cout + co : w,
+                in ? 16 : 0);
   }
 }
 
-// Stages the sign words of output channels [co0, co0 + ct) as (n_words, ct);
-// columns past cout hold 0 and are never read.
-__device__ __forceinline__ void stage_words(const uint32_t* __restrict__ w,
-                                            uint32_t* wsm, int n_words,
-                                            int cout, int co0, int ct) {
-  for (int i = threadIdx.x; i < n_words * ct; i += blockDim.x) {
-    const int j = i / ct;
-    const int co = co0 + i % ct;
-    wsm[i] = co < cout ? w[static_cast<size_t>(j) * cout + co] : 0u;
+// Two bf16 values in one register, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return static_cast<uint32_t>(__bfloat16_as_ushort(p.x)) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(p.y)) << 16;
+}
+
+// Stages `n_rows` zero-padded input rows, starting at input row `r0` (which
+// may be -1), as prologue values bf16(code * Mul_prev). Staged pixel s of a
+// row is input column s - 1; pixels 0 and width + 1, rows outside the image
+// and channels past cin hold 0. A row holds row_px >= width + 2 pixels of
+// pixel_stride(cin) elements; the spare ones are never read. `a_img` is
+// one image, (h, width, cin) uint8.
+//
+// A unit is 16 channels of one pixel. A thread issues the loads of kBatch
+// units (one 16-byte load each when cin % 16 == 0 and `a_img` is 16-byte
+// aligned) before it converts any, so that a strip's loads are in flight
+// together; when blockDim.x % chunks == 0 all its units share one channel
+// chunk, whose 16 Mul_prev values it keeps in registers.
+constexpr int kBatch = 4;
+
+__device__ __forceinline__ void stage_act(const uint8_t* __restrict__ a_img,
+                                          const float* __restrict__ mul,
+                                          __nv_bfloat16* act, int r0,
+                                          int n_rows, int h, int width,
+                                          int cin, int row_px) {
+  const int chunks = padded_cin(cin) / kChunk;
+  const int ps = pixel_stride(cin);
+  const int units = n_rows * (width + 2) * chunks;
+  const bool vec = cin % kChunk == 0 &&
+                   (reinterpret_cast<uintptr_t>(a_img) & 15) == 0;
+  const bool fixed = blockDim.x % chunks == 0;
+  float m[kChunk];
+  for (int i0 = threadIdx.x; i0 < units; i0 += kBatch * blockDim.x) {
+    uint32_t v[kBatch][4];
+    int src[kBatch], dst[kBatch], chunk[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = i0 + u * blockDim.x;
+      const int pix = i / chunks;
+      const int c = i - pix * chunks;
+      const int rr = pix / (width + 2);
+      const int s = pix - rr * (width + 2);
+      const int r = r0 + rr;
+      const bool inside = i < units && r >= 0 && r < h && s >= 1 &&
+                          s <= width;
+      chunk[u] = c;
+      dst[u] = i < units ? (rr * row_px + s) * ps + c * kChunk : -1;
+      src[u] = inside ? (r * width + s - 1) * cin + c * kChunk : -1;
+      v[u][0] = v[u][1] = v[u][2] = v[u][3] = 0u;
+      if (vec && src[u] >= 0) {
+        const uint4 q = *reinterpret_cast<const uint4*>(a_img + src[u]);
+        v[u][0] = q.x;
+        v[u][1] = q.y;
+        v[u][2] = q.z;
+        v[u][3] = q.w;
+      }
+    }
+    if (fixed && i0 == threadIdx.x) {
+      // after the first batch's loads are issued, so both are in flight
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        const int ci = chunk[0] * kChunk + j;
+        m[j] = ci < cin ? __ldg(mul + ci) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (dst[u] < 0) break;
+      const int c = chunk[u];
+      if (!vec && src[u] >= 0) {
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          if (c * kChunk + j < cin) {
+            v[u][j / 4] |= static_cast<uint32_t>(a_img[src[u] + j])
+                           << (8 * (j % 4));
+          }
+        }
+      }
+      if (!fixed) {
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          const int ci = c * kChunk + j;
+          m[j] = ci < cin ? __ldg(mul + ci) : 0.f;
+        }
+      }
+      uint32_t packed[kChunk / 2];
+#pragma unroll
+      for (int j = 0; j < kChunk / 2; ++j) {
+        const uint32_t two = v[u][j / 2] >> (16 * (j & 1));
+        packed[j] = pack_bf16x2(
+            __fmul_rn(static_cast<float>(two & 0xffu), m[2 * j]),
+            __fmul_rn(static_cast<float>((two >> 8) & 0xffu), m[2 * j + 1]));
+      }
+      uint4* out = reinterpret_cast<uint4*>(act + dst[u]);
+      out[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      out[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
+    }
   }
 }
 

@@ -3,70 +3,132 @@
 // Replaces the dot body of the TPU kernel
 // repro/kernels/w1a8_conv/kernel.py::w1a8_conv3x3_pallas (_conv_kernel,
 // _im2col_rows): bf16(a * Mul_prev) against +-1 signs unpacked from 32-bit
-// words, f32 accumulation in (dy, dx, cin) order, then Div/bias and, when
-// requested, the requant to uint8 codes.
+// words, f32 accumulation, then Div/bias and, when requested, the requant
+// to uint8 codes. The TPU kernel's jnp.dot on the MXU becomes an implicit
+// GEMM on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate).
 //
 // What bounds it on the H100: at the detector's shapes (B = 4, Cin <= 128,
-// K = 9 * Cin <= 1152) the bytes are small (one uint8 read per input
-// element, one write per output) and the work is 2 * M * K * N sign-adds
-// done on the CUDA cores, not on the tensor cores; so the instruction rate
-// of the inner loop bounds it, far above the memory bound.
+// K = 9 * Cin <= 1152, at most 1 GFLOP a layer) neither the bytes (one
+// uint8 read per input element, one write per output) nor the tensor-core
+// rate, but latency: one warp issues mma.sync far below a tensor core's
+// rate however many it has ready, so a layer needs many warps in flight;
+// the block's staging (a global round trip and the bf16 prologue) and the
+// requant epilogue come on top of the launch.
 //
-// Design: one block per (Cout tile of 32, `rows` output rows, image). The
-// block stages the rows + 2 padded input rows it needs once in shared
-// memory, already multiplied by Mul_prev and rounded to bf16 (each staged
-// value feeds 9 * 32 outputs), and the sign words of its 32 output channels
-// (at most 36 * 32 words). Each thread then produces whole outputs: a warp
-// spans the 32 output channels of one pixel, so its reads of the staged
-// activations are broadcasts and its reads of the sign words hit 32
-// consecutive words. The accumulation and epilogue live in
-// w1a8_common.cuh, shared with the fused conv+pool kernel.
+// Design: one block per (Cout tile of `bn` channels, `rows` output rows,
+// image), with the grid, warp tile and shared memory size taken from the
+// caller (kernels/w1a8_conv/geometry.py, which picks the tile that keeps
+// enough warps busy). The block stages the rows + 2 padded input rows it
+// needs once in shared memory, already multiplied by Mul_prev and rounded
+// to bf16, and the sign words of its channels. M is the block's outputs in
+// row-major order; each warp takes items of WM M tiles of 16 outputs by WN
+// N tiles of 8 channels and runs them through w1a8::conv3x3_mma_tile,
+// shared with the fused conv+pool kernel, then the epilogue on the
+// accumulator fragments.
 #include "w1a8_common.cuh"
 
 namespace {
 
-constexpr int kCoutTile = 32;
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
+template <int WM, int WN>
+__global__ void __launch_bounds__(kMaxThreads)
 conv3x3_kernel(const uint8_t* __restrict__ a, const uint32_t* __restrict__ w,
                const float* __restrict__ mul, const float* __restrict__ div,
                const float* __restrict__ bias, void* __restrict__ out, int h,
-               int width, int cin, int cout, int rows, float out_step,
-               int quant) {
+               int width, int cin, int cout, int rows, int bn, int row_px,
+               float out_step, int quant) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int co0 = blockIdx.x * kCoutTile;
+  const int co0 = blockIdx.x * bn;
   const int y0 = blockIdx.y * rows;
   const int b = blockIdx.z;
-  const int n_words = (9 * cin + w1a8::kPack - 1) / w1a8::kPack;
-  const int row_len = (width + 2) * cin;
+  const int n_rows = min(rows, h - y0);
+  const int n_words = w1a8::words_of(9 * cin);
+  const int ps = w1a8::pixel_stride(cin);
+  const int row_stride = row_px * ps;
 
   uint32_t* wsm = reinterpret_cast<uint32_t*>(smem);
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(
-      smem + sizeof(uint32_t) * n_words * kCoutTile);
-  const uint8_t* a_img = a + static_cast<size_t>(b) * h * width * cin;
-  w1a8::stage_words(w, wsm, n_words, cout, co0, kCoutTile);
-  w1a8::stage_rows(a_img, mul, act, y0 - 1, rows + 2, h, width, cin);
+      smem + (sizeof(uint32_t) * (n_words + 1) * bn + 15) / 16 * 16);
+  w1a8::stage_conv_words(w, wsm, n_words, cout, co0, bn);
+  w1a8::stage_act(a + static_cast<size_t>(b) * h * width * cin, mul, act,
+                  y0 - 1, n_rows + 2, h, width, cin, row_px);
+  w1a8::cp_async_wait_all();
   __syncthreads();
 
-  const int n_out = rows * width * kCoutTile;
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
-    const int col = i % kCoutTile;
-    const int x = (i / kCoutTile) % width;
-    const int r = i / (kCoutTile * width);
-    const int co = co0 + col;
-    if (co >= cout) continue;
-    const float v = w1a8::conv3x3_output(act + r * row_len, row_len, x, cin,
-                                         wsm, kCoutTile, col, __ldg(div + co),
-                                         __ldg(bias + co), quant != 0,
-                                         out_step);
-    const size_t o =
-        ((static_cast<size_t>(b) * h + y0 + r) * width + x) * cout + co;
-    if (quant) {
-      static_cast<uint8_t*>(out)[o] = static_cast<uint8_t>(v);
-    } else {
-      static_cast<float*>(out)[o] = v;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t2 = 2 * (lane & 3);
+  const int m_blk = n_rows * width;
+  const int m_items = w1a8::ceil_div(w1a8::ceil_div(m_blk, 16), WM);
+  const int items = m_items * (bn / (8 * WN));
+  for (int item = threadIdx.x / 32; item < items; item += blockDim.x / 32) {
+    const int m0 = (item % m_items) * WM * 16;
+    const int col0 = (item / m_items) * 8 * WN;
+    int a_off[WM];
+#pragma unroll
+    for (int mt = 0; mt < WM; ++mt) {
+      // rows past the block's outputs read a valid pixel; never stored
+      const int i = min(m0 + mt * 16 + (lane & 15), m_blk - 1);
+      a_off[mt] =
+          (i / width) * row_stride + (i % width) * ps + (lane >> 4) * 8;
     }
+    float acc[WM][WN][4];
+    w1a8::conv3x3_mma_tile<WM, WN>(act, a_off, row_stride, ps, cin, wsm, bn,
+                                   col0, acc);
+
+    // this lane holds rows g and g + 8 of each M tile, columns t2 and
+    // t2 + 1 of each 8-wide N tile
+    float dv[WN][2], bs[WN][2];
+#pragma unroll
+    for (int nt = 0; nt < WN; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int co = co0 + col0 + 8 * nt + t2 + e;
+        dv[nt][e] = co < cout ? __ldg(div + co) : 0.f;
+        bs[nt][e] = co < cout ? __ldg(bias + co) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < WM; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = m0 + mt * 16 + g + 8 * half;
+        if (i >= m_blk) continue;
+        const size_t o =
+            ((static_cast<size_t>(b) * h + y0 + i / width) * width +
+             i % width) * cout;
+#pragma unroll
+        for (int nt = 0; nt < WN; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int co = co0 + col0 + 8 * nt + t2 + e;
+            if (co >= cout) continue;
+            const float v = w1a8::epilogue(acc[mt][nt][2 * half + e],
+                                           dv[nt][e], bs[nt][e], quant != 0,
+                                           out_step);
+            if (quant) {
+              static_cast<uint8_t*>(out)[o + co] = static_cast<uint8_t>(v);
+            } else {
+              static_cast<float*>(out)[o + co] = v;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The kernel's instantiation for warp tile (wm, wn), or nullptr.
+auto pick(int wm, int wn) -> decltype(&conv3x3_kernel<1, 1>) {
+  switch (wm * 10 + wn) {
+    case 11: return conv3x3_kernel<1, 1>;
+    case 12: return conv3x3_kernel<1, 2>;
+    case 14: return conv3x3_kernel<1, 4>;
+    case 21: return conv3x3_kernel<2, 1>;
+    case 22: return conv3x3_kernel<2, 2>;
+    case 24: return conv3x3_kernel<2, 4>;
+    default: return nullptr;
   }
 }
 
@@ -76,22 +138,36 @@ extern "C" {
 
 // a (b, h, width, cin) uint8; w (ceil(9 * cin / 32), cout) sign words;
 // mul (cin,), div and bias (cout,) f32; out (b, h, width, cout), uint8 codes
-// when quant != 0, else f32. h % rows == 0. Returns cudaGetLastError().
+// when quant != 0, else f32. The launch geometry (grid_x * grid_y * b
+// blocks of `threads`, `smem` bytes of dynamic shared memory, `rows` output
+// rows and `bn` channels a block, a warp tile of `wm` x `wn` mma tiles,
+// `row_px` staged pixels a row) comes from kernels/w1a8_conv/geometry.py;
+// one that does not cover the output exactly or does not hold the block's
+// staging is refused with cudaErrorInvalidValue. Returns
+// cudaGetLastError() otherwise.
 int w1a8_conv3x3(const void* a, const void* w, const void* mul,
                  const void* div, const void* bias, void* out, int b, int h,
                  int width, int cin, int cout, int rows, float out_step,
-                 int quant, void* stream) {
-  const int n_words = (9 * cin + w1a8::kPack - 1) / w1a8::kPack;
-  const size_t smem = sizeof(uint32_t) * n_words * kCoutTile +
-                      sizeof(__nv_bfloat16) * (rows + 2) * (width + 2) * cin;
-  cudaError_t err = w1a8::allow_smem(conv3x3_kernel, smem);
+                 int quant, int grid_x, int grid_y, int bn, int wm, int wn,
+                 int row_px, int threads, int smem, void* stream) {
+  if (rows < 1 || bn < 8 * wn || bn % (8 * wn) ||
+      grid_x * bn < cout || (grid_x - 1) * bn >= cout ||
+      grid_y * rows < h || (grid_y - 1) * rows >= h || threads < 32 ||
+      threads > kMaxThreads || threads % 32 || row_px < width + 2 ||
+      !pick(wm, wn) || smem < 0 ||
+      static_cast<size_t>(smem) <
+          w1a8::dot_conv_smem(cin, bn, rows + 2, row_px)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = pick(wm, wn);
+  cudaError_t err = w1a8::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((cout + kCoutTile - 1) / kCoutTile, h / rows, b);
-  conv3x3_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(grid_x, grid_y, b), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint32_t*>(w),
       static_cast<const float*>(mul), static_cast<const float*>(div),
-      static_cast<const float*>(bias), out, h, width, cin, cout, rows,
-      out_step, quant);
+      static_cast<const float*>(bias), out, h, width, cin, cout, rows, bn,
+      row_px, out_step, quant);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,72 +3,158 @@
 //
 // Replaces the dot body of the TPU kernel
 // repro/kernels/w1a8_conv/fused_pool.py::w1a8_conv3x3_pool2 (_kernel,
-// _pool_epilogue).
+// _pool_epilogue). The TPU kernel's jnp.dot on the MXU becomes an implicit
+// GEMM on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate).
 //
-// What bounds it on the H100: as for the conv kernel, the inner loop's
-// instruction rate (2 * M * K * N sign-adds on the CUDA cores); the bytes
-// are one uint8 read per input element and one write per pooled output,
-// a quarter of what the conv kernel followed by a pool would write.
+// What bounds it on the H100: as for the conv kernel, latency rather than
+// bytes (one uint8 read per input element, one write per pooled output, a
+// quarter of what the conv kernel followed by a pool would write) or the
+// tensor-core rate: the warps in flight, the block's staging and the
+// launch.
 //
-// Design: one block per (Cout tile of 32, `rows` pooled rows, image). The
-// block stages the 2 * rows + 2 padded input rows of its 2 * rows conv rows
-// as bf16 prologue values, and the sign words of its 32 output channels.
-// Each thread computes the four conv outputs under one pooled output
-// through w1a8::conv3x3_output, the function the conv kernel uses, so each
-// code equals the conv kernel's bit for bit; the max of four codes does not
-// depend on the order it is taken in.
+// Design: the conv kernel's, with `rows` pooled rows a block and its
+// 2 * rows + 2 padded input rows staged. M is ordered (pooled pixel, quad
+// member): M row 4p + q is conv output (2 * py + q / 2, 2 * px + q % 2) of
+// pooled pixel p = (py, px), so the four conv outputs under a pooled
+// output sit in rows g, g ^ 1, g ^ 2, g ^ 3 of an accumulator fragment,
+// held by the lanes whose bits 2 and 3 differ. Each output's accumulator
+// comes from w1a8::conv3x3_mma_tile, the function the conv kernel uses.
+// The requant is monotone in the accumulator, so two __shfl_xor_sync take
+// the quad's largest (or, where the requant falls, smallest) accumulator,
+// whose code is the max of the four codes the conv kernel would write, bit
+// for bit; each lane of the quad then requants a quarter of the results.
 #include "w1a8_common.cuh"
 
 namespace {
 
-constexpr int kCoutTile = 32;
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
+template <int WM, int WN>
+__global__ void __launch_bounds__(kMaxThreads)
 conv3x3_pool2_kernel(const uint8_t* __restrict__ a,
                      const uint32_t* __restrict__ w,
                      const float* __restrict__ mul,
                      const float* __restrict__ div,
                      const float* __restrict__ bias,
                      uint8_t* __restrict__ out, int h, int width, int cin,
-                     int cout, int rows, float out_step) {
+                     int cout, int rows, int bn, int row_px, float out_step) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int co0 = blockIdx.x * kCoutTile;
+  const int co0 = blockIdx.x * bn;
   const int py0 = blockIdx.y * rows;
   const int b = blockIdx.z;
-  const int n_words = (9 * cin + w1a8::kPack - 1) / w1a8::kPack;
-  const int row_len = (width + 2) * cin;
+  const int ph = h / 2;
   const int pw = width / 2;
+  const int n_rows = min(rows, ph - py0);
+  const int n_words = w1a8::words_of(9 * cin);
+  const int ps = w1a8::pixel_stride(cin);
+  const int row_stride = row_px * ps;
 
   uint32_t* wsm = reinterpret_cast<uint32_t*>(smem);
   __nv_bfloat16* act = reinterpret_cast<__nv_bfloat16*>(
-      smem + sizeof(uint32_t) * n_words * kCoutTile);
-  const uint8_t* a_img = a + static_cast<size_t>(b) * h * width * cin;
-  w1a8::stage_words(w, wsm, n_words, cout, co0, kCoutTile);
-  w1a8::stage_rows(a_img, mul, act, 2 * py0 - 1, 2 * rows + 2, h, width, cin);
+      smem + (sizeof(uint32_t) * (n_words + 1) * bn + 15) / 16 * 16);
+  w1a8::stage_conv_words(w, wsm, n_words, cout, co0, bn);
+  w1a8::stage_act(a + static_cast<size_t>(b) * h * width * cin, mul, act,
+                  2 * py0 - 1, 2 * n_rows + 2, h, width, cin, row_px);
+  w1a8::cp_async_wait_all();
   __syncthreads();
 
-  const int n_out = rows * pw * kCoutTile;
-  for (int i = threadIdx.x; i < n_out; i += blockDim.x) {
-    const int col = i % kCoutTile;
-    const int px = (i / kCoutTile) % pw;
-    const int r = i / (kCoutTile * pw);
-    const int co = co0 + col;
-    if (co >= cout) continue;
-    const float d = __ldg(div + co);
-    const float bs = __ldg(bias + co);
-    float best = 0.f;  // codes are >= 0
-    for (int dy = 0; dy < 2; ++dy) {
-      for (int dx = 0; dx < 2; ++dx) {
-        const float q = w1a8::conv3x3_output(
-            act + (2 * r + dy) * row_len, row_len, 2 * px + dx, cin, wsm,
-            kCoutTile, col, d, bs, true, out_step);
-        best = fmaxf(best, q);
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t2 = 2 * (lane & 3);
+  const int m_blk = 4 * n_rows * pw;
+  const int m_items = w1a8::ceil_div(w1a8::ceil_div(m_blk, 16), WM);
+  const int items = m_items * (bn / (8 * WN));
+  for (int item = threadIdx.x / 32; item < items; item += blockDim.x / 32) {
+    const int m0 = (item % m_items) * WM * 16;
+    const int col0 = (item / m_items) * 8 * WN;
+    int a_off[WM];
+#pragma unroll
+    for (int mt = 0; mt < WM; ++mt) {
+      // rows past the block's outputs read a valid pixel; never stored
+      const int i = min(m0 + mt * 16 + (lane & 15), m_blk - 1);
+      const int p = i >> 2;
+      const int sr = 2 * (p / pw) + ((i >> 1) & 1);
+      const int sc = 2 * (p % pw) + (i & 1);
+      a_off[mt] = sr * row_stride + sc * ps + (lane >> 4) * 8;
+    }
+    float acc[WM][WN][4];
+    w1a8::conv3x3_mma_tile<WM, WN>(act, a_off, row_stride, ps, cin, wsm, bn,
+                                   col0, acc);
+
+    // This lane holds rows g and g + 8 of each M tile, columns t2 and
+    // t2 + 1 of each 8-wide N tile; the lanes of its quad (lane bits 2 and
+    // 3) hold the three other conv outputs under the same pooled outputs.
+    // The requant is monotone in acc (each of its IEEE steps is), rising
+    // where div and out_step share a sign and falling elsewhere, so the max
+    // of the four codes is the code of the quad's largest or smallest acc:
+    // reduce acc over the quad, then let each quad lane requant a quarter
+    // of the results.
+    float dv[WN][2], bs[WN][2];
+#pragma unroll
+    for (int nt = 0; nt < WN; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int co = co0 + col0 + 8 * nt + t2 + e;
+        dv[nt][e] = co < cout ? __ldg(div + co) : 0.f;
+        bs[nt][e] = co < cout ? __ldg(bias + co) : 0.f;
       }
     }
-    const size_t o =
-        ((static_cast<size_t>(b) * (h / 2) + py0 + r) * pw + px) * cout + co;
-    out[o] = static_cast<uint8_t>(best);
+#pragma unroll
+    for (int mt = 0; mt < WM; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < WN; ++nt) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool rising = (dv[nt][i & 1] >= 0.f) == (out_step >= 0.f);
+          float x = acc[mt][nt][i];
+#pragma unroll
+          for (int m = 4; m <= 8; m *= 2) {
+            const float y = __shfl_xor_sync(0xffffffffu, x, m);
+            x = rising ? fmaxf(x, y) : fminf(x, y);
+          }
+          acc[mt][nt][i] = x;
+        }
+      }
+    }
+    // result j = ((mt * 2 + half) * WN + nt) * 2 + e goes to quad lane j % 4
+    const int q = g & 3;
+#pragma unroll
+    for (int r = 0; r < WM * WN; ++r) {
+      float x = 0.f, d = 0.f, bb = 0.f;
+      int co = 0, i = 0;
+#pragma unroll
+      for (int qq = 0; qq < 4; ++qq) {
+        const int j = 4 * r + qq;
+        const int mt = j / (4 * WN), half = (j / (2 * WN)) % 2;
+        const int nt = (j / 2) % WN, e = j % 2;
+        if (q == qq) {
+          x = acc[mt][nt][2 * half + e];
+          d = dv[nt][e];
+          bb = bs[nt][e];
+          co = co0 + col0 + 8 * nt + t2 + e;
+          i = m0 + mt * 16 + (g & ~3) + 8 * half;
+        }
+      }
+      if (i >= m_blk || co >= cout) continue;
+      const int p = i >> 2;
+      const size_t o =
+          ((static_cast<size_t>(b) * ph + py0 + p / pw) * pw + p % pw) * cout;
+      out[o + co] =
+          static_cast<uint8_t>(w1a8::epilogue(x, d, bb, true, out_step));
+    }
+  }
+}
+
+// The kernel's instantiation for warp tile (wm, wn), or nullptr.
+auto pick(int wm, int wn) -> decltype(&conv3x3_pool2_kernel<1, 1>) {
+  switch (wm * 10 + wn) {
+    case 11: return conv3x3_pool2_kernel<1, 1>;
+    case 12: return conv3x3_pool2_kernel<1, 2>;
+    case 14: return conv3x3_pool2_kernel<1, 4>;
+    case 21: return conv3x3_pool2_kernel<2, 1>;
+    case 22: return conv3x3_pool2_kernel<2, 2>;
+    case 24: return conv3x3_pool2_kernel<2, 4>;
+    default: return nullptr;
   }
 }
 
@@ -77,25 +163,37 @@ conv3x3_pool2_kernel(const uint8_t* __restrict__ a,
 extern "C" {
 
 // a (b, h, width, cin) uint8 with h and width even; w, mul, div, bias as for
-// w1a8_conv3x3; out (b, h / 2, width / 2, cout) uint8 codes.
-// (h / 2) % rows == 0. Returns cudaGetLastError().
+// w1a8_conv3x3; out (b, h / 2, width / 2, cout) uint8 codes. The launch
+// geometry comes from kernels/w1a8_conv/geometry.py as for w1a8_conv3x3,
+// with `rows` counting pooled rows; one that does not cover the output
+// exactly or does not hold the block's staging is refused with
+// cudaErrorInvalidValue. Returns cudaGetLastError() otherwise.
 int w1a8_conv3x3_pool2(const void* a, const void* w, const void* mul,
                        const void* div, const void* bias, void* out, int b,
                        int h, int width, int cin, int cout, int rows,
-                       float out_step, void* stream) {
-  const int n_words = (9 * cin + w1a8::kPack - 1) / w1a8::kPack;
-  const size_t smem =
-      sizeof(uint32_t) * n_words * kCoutTile +
-      sizeof(__nv_bfloat16) * (2 * rows + 2) * (width + 2) * cin;
-  cudaError_t err = w1a8::allow_smem(conv3x3_pool2_kernel, smem);
+                       float out_step, int grid_x, int grid_y, int bn,
+                       int wm, int wn, int row_px, int threads, int smem,
+                       void* stream) {
+  const int ph = h / 2;
+  if (h % 2 || width % 2 || rows < 1 || bn < 8 * wn ||
+      bn % (8 * wn) || grid_x * bn < cout ||
+      (grid_x - 1) * bn >= cout || grid_y * rows < ph ||
+      (grid_y - 1) * rows >= ph || threads < 32 || threads > kMaxThreads ||
+      threads % 32 || row_px < width + 2 || !pick(wm, wn) ||
+      smem < 0 ||
+      static_cast<size_t>(smem) <
+          w1a8::dot_conv_smem(cin, bn, 2 * rows + 2, row_px)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto kernel = pick(wm, wn);
+  cudaError_t err = w1a8::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((cout + kCoutTile - 1) / kCoutTile, (h / 2) / rows, b);
-  conv3x3_pool2_kernel<<<grid, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(grid_x, grid_y, b), threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint32_t*>(w),
       static_cast<const float*>(mul), static_cast<const float*>(div),
       static_cast<const float*>(bias), static_cast<uint8_t*>(out), h, width,
-      cin, cout, rows, out_step);
+      cin, cout, rows, bn, row_px, out_step);
   return static_cast<int>(cudaGetLastError());
 }
 

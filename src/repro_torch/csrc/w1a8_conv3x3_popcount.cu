@@ -11,16 +11,14 @@
 // one grid; the wrapper folds a per-channel Mul_prev into them and its
 // uniform step into div.
 //
-// What bounds it on the H100: as for the dot conv kernel, the inner loop's
-// instruction rate on the CUDA cores, far above the memory bound (one
-// uint8 read per input element, one write per output). Per 32 K-lanes of
-// one output it issues 8 ballots and 8 AND + 2 popc, against 32 bf16
-// loads and adds on the dot route.
+// What bounds it on the H100: the inner loop's instruction rate on the
+// CUDA cores, far above the memory bound (one uint8 read per input
+// element, one write per output). Per 32 K-lanes of one output it issues
+// 8 ballots and 8 AND + 2 popc.
 //
-// Design: the dot conv kernel's blocking (one block per Cout tile of 32,
-// `rows` output rows, image; rows + 2 padded rows staged in shared memory,
-// here as raw codes, and the tile's sign words), with a warp per output
-// pixel: lane l loads the code of K lane l of each word, __ballot_sync
+// Design: one block per (Cout tile of 32, `rows` output rows, image), the
+// rows + 2 padded input rows staged in shared memory as raw codes beside
+// the tile's sign words, and a warp per output pixel: lane l loads the code of K lane l of each word, __ballot_sync
 // turns the 32 codes into the 8 plane words every lane needs, and each lane
 // ANDs them with its own output channel's sign word. The accumulation and
 // epilogue live in w1a8_common.cuh, shared with the fused conv+pool kernel.

@@ -25,13 +25,15 @@ from repro_torch.core.packing import pack_signs, packed_dim
 from repro_torch.kernels import _build
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.kernels.w1a8_conv import ref as _ref
+from repro_torch.kernels.w1a8_conv.geometry import conv_launch
 from repro_torch.kernels.w1a8_conv.fused_pool import w1a8_conv3x3_pool2
 from repro_torch.kernels.w1a8_conv.ref import conv_mul9  # noqa: F401
 from repro_torch.kernels.w1a8_matmul.ops import fold_operands
 
 KERNEL = _build.Kernel(
     "w1a8_conv3x3.cu", "w1a8_conv3x3",
-    [_build.P] * 6 + [_build.I] * 6 + [_build.F, _build.I, _build.P])
+    [_build.P] * 6 + [_build.I] * 6 + [_build.F] + [_build.I] * 9
+    + [_build.P])
 POPCOUNT_KERNEL = _build.Kernel(
     "w1a8_conv3x3_popcount.cu", "w1a8_conv3x3_popcount",
     [_build.P] * 5 + [_build.I] * 6 + [_build.F, _build.I, _build.P])
@@ -94,10 +96,12 @@ def w1a8_conv3x3(a_u8: torch.Tensor, w_packed: torch.Tensor,
     a, w, mul, div, bs = cuda_operands(a_u8, w_packed, mul_prev, div_post,
                                        bias, cin)
     out = _conv_out(a, w, cfg)
+    g = conv_launch(*a.shape[:3], cin, w.shape[1], cfg.conv_rows(a.shape[1]),
+                    pool=False)
     KERNEL(a.data_ptr(), w.data_ptr(), mul.data_ptr(), div.data_ptr(),
            bs.data_ptr(), out.data_ptr(), *a.shape[:3], cin, w.shape[1],
-           cfg.conv_rows(a.shape[1]), _step(cfg),
-           int(out.dtype == torch.uint8),
+           g.rows, _step(cfg), int(out.dtype == torch.uint8), *g.grid[:2],
+           g.bn, g.wm, g.wn, g.row_px, g.threads, g.smem,
            torch.cuda.current_stream(a.device).cuda_stream)
     return out
 

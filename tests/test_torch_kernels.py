@@ -21,6 +21,7 @@ from repro.kernels.w1a8_matmul import kernel as jmmk  # noqa: E402
 from repro.kernels.w1a8_matmul import ops as jmm  # noqa: E402
 from repro_torch.kernels import config  # noqa: E402
 from repro_torch.kernels.config import KernelConfig  # noqa: E402
+from repro_torch.kernels.w1a8_conv import geometry  # noqa: E402
 from repro_torch.kernels.w1a8_conv import ops as conv  # noqa: E402
 from repro_torch.kernels.w1a8_matmul import ops as mm  # noqa: E402
 from repro_torch.kernels.w1a8_matmul import ref as mmref  # noqa: E402
@@ -125,6 +126,67 @@ def test_conv3x3_pool_plain_matches_pallas(b, h, w, cin, cout):
                                    config=cfg.replace(rows=2))
     assert torch.equal(rows2, fused)
     _assert_codes_close(fused.numpy(), want)
+
+
+# The dot conv kernels' launch geometry (kernels/w1a8_conv/geometry.py) at
+# every 3×3 layer shape of the 320×320 detector with B = 4, at one shape off
+# its grid (Cin % 16 != 0, Cout % 32 != 0) and at CONV_SHAPES.
+DETECTOR_CONV_SHAPES = [(4, 160, 160, 16, 32), (4, 80, 80, 32, 64),
+                        (4, 40, 40, 64, 128), (4, 20, 20, 128, 128),
+                        (4, 10, 10, 128, 128), (4, 10, 10, 64, 64)]
+OFF_GRID_SHAPE = (2, 18, 18, 24, 40)
+
+
+def _covered(g, h_out, w_out, cout, pool):
+    """How often the kernel's blocks and warp items store each output of
+    one image, walked as the kernel walks them: block (bx, by) holds
+    channels [bx·bn, (bx+1)·bn) and rows [by·rows, ...) (the last block
+    fewer); its M rows run row-major over those outputs, four per pooled
+    pixel when pooling, and warp item i takes M tiles [wm·(i % m_items),
+    ...) of channels 8·wn·(i // m_items) on."""
+    count = np.zeros((h_out, w_out, cout), np.int64)
+    cols = 8 * g.wn
+    for by in range(g.grid[1]):
+        n_rows = min(g.rows, h_out - by * g.rows)
+        assert n_rows >= 1
+        m_blk = n_rows * g.m_row
+        m_items = -(-(-(-m_blk // 16)) // g.wm)
+        for bx in range(g.grid[0]):
+            for item in range(m_items * g.bn // cols):
+                m0 = (item % m_items) * g.wm * 16
+                c0 = bx * g.bn + (item // m_items) * cols
+                i = np.arange(m0, min(m0 + g.wm * 16, m_blk))
+                if pool:
+                    i = i[i % 4 == 0] // 4
+                rows = by * g.rows + i // w_out
+                count[rows, i % w_out, c0:min(c0 + cols, cout)] += 1
+    return count
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout",
+                         DETECTOR_CONV_SHAPES + [OFF_GRID_SHAPE]
+                         + CONV_SHAPES)
+@pytest.mark.parametrize("pool", [False, True])
+def test_conv_launch_geometry_covers_outputs_once(b, h, w, cin, cout, pool):
+    """Every output stored exactly once, at rows 1 and 2; the dynamic
+    shared memory within a block's 227 KB; the staging inside it."""
+    h_out, w_out = (h // 2, w // 2) if pool else (h, w)
+    for rows in (1, 2):
+        g = geometry.conv_launch(b, h, w, cin, cout, rows, pool)
+        assert g.grid[2] == b
+        assert g.threads % 32 == 0 and 32 <= g.threads <= 256
+        assert g.bn % geometry.BN_STEP == 0 and g.wm in (1, 2) and g.wn in (1, 2, 4)
+        assert g.row_px >= w + 2
+        assert g.staged_rows == (2 * g.rows + 2 if pool else g.rows + 2)
+        words = -(-9 * cin // 32) + 1
+        staging = 2 * g.staged_rows * g.row_px * geometry.pixel_stride(cin)
+        assert 4 * words * g.bn + staging <= g.smem <= geometry.MAX_SMEM
+        assert (_covered(g, h_out, w_out, cout, pool) == 1).all()
+
+
+def test_conv_launch_geometry_refuses_too_much_shared_memory():
+    with pytest.raises(ValueError, match="shared memory"):
+        geometry.conv_launch(1, 160, 160, 128, 128, 160, pool=False)
 
 
 # ---------------------------------------------------------------------------
