@@ -7,9 +7,10 @@ Phases (any failure raises and the script exits non-zero):
 
 1. Prints the card's name and power limit (nvidia-smi), builds the seven
    CUDA kernels from ``src/repro_torch/csrc`` with nvcc (in parallel) and
-   prints the build seconds, each kernel's register use and the count of
-   tensor-core instructions (HMMA, HGMMA) in each library's SASS
-   (cuobjdump); the two dot conv libraries must hold some.
+   prints the build seconds, each kernel's register use and spills and the
+   count of tensor-core instructions (HMMA, HGMMA, IMMA) in each library's
+   SASS (cuobjdump); the four conv libraries (dot and popcount) must hold
+   some and spill no register.
 2. Holds each dot kernel against its plain PyTorch version on the card, at
    every W1A8 layer shape of the 320×320 detector with B = 4 and at one
    shape off its grid (B = 2, 18×18, Cin 24, Cout 40: Cin % 16 != 0, Cout
@@ -20,13 +21,16 @@ Phases (any failure raises and the script exits non-zero):
    the CUDA-event time of back-to-back calls and, for the kernel and the
    library call, the device time from torch.profiler (the union of the
    call's device intervals), which leaves out the host's cost.
-3. The same for the binary domain, at every layer shape: each popcount
-   kernel equal to its plain version (f32 outputs and codes), unchanged by
-   `rows=2`, the fused popcount pool equal to the popcount conv plus a 2×2
-   max, and each popcount kernel bit-exact with the dot kernel of the layer
-   under canonical operands (mul ≡ 1, div·m). At conv9's shape the int
-   kernel equals its plain version and the popcount matmul's sum under
-   div ≡ 1, bias ≡ 0. Times each as in phase 2.
+3. The same for the binary domain, at every layer shape and the popcount
+   convs also at the shape off the grid: each popcount kernel equal to its
+   plain version (f32 outputs and codes), unchanged by `rows` 2, 3 and 4
+   (each shape has a ragged last block under one of them), the fused
+   popcount pool equal to the popcount conv plus a 2×2 max, and each
+   popcount kernel bit-exact with the dot kernel of the layer under
+   canonical operands (mul ≡ 1, div·m). At conv9's shape the int kernel
+   equals its plain version and the popcount matmul's sum under div ≡ 1,
+   bias ≡ 0. Times each as in phase 2 at the layer shapes, and prints each
+   layer's device ms.
 4. Drives the dot main path through the serving launcher
    (``repro_torch.launch.serve``: 16 random 320×320 uint8 images,
    `slots=4`, `depth=2`), with every launch count set to 0 just before and
@@ -76,7 +80,9 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 CANONICAL_M = 0.05             # the uniform step of the canonical operands
 OFF_GRID = (2, 18, 18, 24, 40)  # (B, H, W, Cin, Cout) off the detector's grid
-TENSOR_CORE_OPS = ("HMMA", "HGMMA")
+ROWS = (2, 3, 4)               # popcount row blockings; each shape has a
+                               # ragged last block under one of them
+TENSOR_CORE_OPS = ("HMMA", "HGMMA", "IMMA")
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -99,7 +105,8 @@ KERNELS = {
                         "src/repro/kernels/w1a8_matmul/kernel.py:228"),
 }
 DOT = ("w1a8_conv3x3_pool2", "w1a8_conv3x3", "w1a8_matmul")
-TENSOR_CORE_KERNELS = ("w1a8_conv3x3_pool2", "w1a8_conv3x3")
+TENSOR_CORE_KERNELS = ("w1a8_conv3x3_pool2", "w1a8_conv3x3",
+                       "w1a8_conv3x3_pool2_popcount", "w1a8_conv3x3_popcount")
 PER_DISPATCH = {"w1a8_conv3x3_pool2": 4, "w1a8_conv3x3": 4, "w1a8_matmul": 1}
 # popcount forward, per route: (pool2_popcount, conv3x3_popcount,
 # matmul_popcount) launches of one forward
@@ -133,7 +140,8 @@ def bound(nbytes: int, ops: int, ops_per_s: float = BF16_OPS_PER_S) -> tuple:
 
 def tensor_core_counts(_build) -> dict:
     """Phase 1: tensor-core instructions in each library's SASS, by name
-    of its kernel; raises if a tensor-core kernel's library has none."""
+    of its kernel; raises if a tensor-core kernel's library has none or
+    its build log (ptxas -v) reports a spill."""
     import re
     tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     counts = {}
@@ -150,6 +158,11 @@ def tensor_core_counts(_build) -> dict:
         if not sum(counts[name].values()):
             raise AssertionError(f"{name}: no tensor-core instruction in "
                                  f"its SASS")
+        log = _build.build_log(pathlib.Path(KERNELS[name][0]).name)
+        spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
+        if not spills or any(int(n) for n in spills):
+            raise AssertionError(f"{name}: spills registers or its build "
+                                 f"log is missing: {spills}")
     return counts
 
 
@@ -349,6 +362,57 @@ def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
     def exact(kernel, got, want, what):
         errs[kernel] = max(errs[kernel], _exact(torch, got, want, what))
 
+    def conv_checks(name, a, wp, div, bias, cin, pooled):
+        """The popcount conv (and, where ``pooled``, the fused pool) on
+        one layer's operands, exactly against the plain versions, across
+        `rows`, against conv + max and against dot under canonical
+        operands. Returns the requant step, the conv codes and the fused
+        pool's call (None where not pooled)."""
+        # canonical operands: a uniform step m̄ against mul ≡ 1 and div·m̄
+        cin_ones = torch.ones(cin, device=dev)
+        mul_m = torch.full((cin,), CANONICAL_M, device=dev)
+        div_m = div * torch.tensor(CANONICAL_M, device=dev)
+        cfg = KernelConfig(op="conv3x3", accum="popcount")
+
+        def conv(mul, d, c, fn=conv_ops.w1a8_conv3x3):
+            return fn(a, wp, mul, d, bias, cin=cin, config=c)
+        y = conv(None, div, cfg)
+        exact(CONV, y, conv_ref.w1a8_conv3x3_popcount_ref(
+            a, wp, cin, div, bias), f"{name} conv f32")
+        step = float(y.abs().max()) / 255.0
+        qcfg = cfg.replace(out_step=step)
+        q = conv(None, div, qcfg)
+        exact(CONV, q, conv_ref.w1a8_conv3x3_popcount_ref(
+            a, wp, cin, div, bias, step), f"{name} conv codes")
+        for rows in ROWS:
+            exact(CONV, conv(None, div, qcfg.replace(rows=rows)), q,
+                  f"{name} conv rows={rows}")
+        for c in (cfg, qcfg):
+            exact(CONV, conv(mul_m, div, c),
+                  conv(cin_ones, div_m, c.replace(accum="dot")),
+                  f"{name} conv popcount vs dot")
+        if not pooled:
+            return step, q, None
+
+        def pool(rows=1):
+            return fused_pool.w1a8_conv3x3_pool2(
+                a, wp, None, div, bias, cin=cin, out_step=step,
+                accum="popcount", rows=rows)
+        p = pool()
+        exact(POOL, p, conv_ref.w1a8_conv3x3_pool2_popcount_ref(
+            a, wp, cin, div, bias, step), f"{name} pool codes")
+        exact(POOL, p, conv_ref.maxpool2_codes(q),
+              f"{name} fused pool vs conv + max")
+        for rows in ROWS:
+            exact(POOL, pool(rows), p, f"{name} pool rows={rows}")
+        pcfg = KernelConfig(op="conv3x3_pool", accum="popcount",
+                            out_step=step)
+        exact(POOL, conv(mul_m, div, pcfg, conv_ops.w1a8_conv3x3_pool),
+              conv(cin_ones, div_m, pcfg.replace(accum="dot"),
+                   conv_ops.w1a8_conv3x3_pool),
+              f"{name} pool popcount vs dot")
+        return step, q, pool
+
     for spec in yolo.YOLO_LAYERS:
         if spec.kind != "w1a8":
             continue
@@ -357,12 +421,12 @@ def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
         name = spec.name
         a, w, _, div, bias = layer_operands(torch, np, rng, BATCH, h, cin,
                                             cout, dev, ksize=spec.ksize)
-        # canonical operands: a uniform step m̄ against mul ≡ 1 and div·m̄
-        ones = torch.ones(cin, device=dev)
-        mul_m = torch.full((cin,), CANONICAL_M, device=dev)
-        div_m = div * torch.tensor(CANONICAL_M, device=dev)
         shape = [BATCH, h, h, cin, cout]
         if spec.ksize == 1:
+            # canonical operands: a uniform step m̄ against mul ≡ 1, div·m̄
+            ones = torch.ones(cin, device=dev)
+            mul_m = torch.full((cin,), CANONICAL_M, device=dev)
+            div_m = div * torch.tensor(CANONICAL_M, device=dev)
             a2 = a.reshape(-1, cin)
             m = a2.shape[0]
             wp = mm_ops.w1a8_pack_weights(w)
@@ -417,24 +481,10 @@ def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
                 ops=ops))
         else:
             wp = conv_ops.conv_pack_weights(w.reshape(3, 3, cin, cout))
-            cfg = KernelConfig(op="conv3x3", accum="popcount")
-
-            def conv(mul, d, c, fn=conv_ops.w1a8_conv3x3):
-                return fn(a, wp, mul, d, bias, cin=cin, config=c)
-            y = conv(None, div, cfg)
-            exact(CONV, y, conv_ref.w1a8_conv3x3_popcount_ref(
-                a, wp, cin, div, bias), f"{name} conv f32")
-            step = float(y.abs().max()) / 255.0
-            qcfg = cfg.replace(out_step=step)
-            q = conv(None, div, qcfg)
-            exact(CONV, q, conv_ref.w1a8_conv3x3_popcount_ref(
-                a, wp, cin, div, bias, step), f"{name} conv codes")
-            exact(CONV, conv(None, div, qcfg.replace(rows=2)), q,
-                  f"{name} conv rows=2")
-            for c in (cfg, qcfg):
-                exact(CONV, conv(mul_m, div, c),
-                      conv(ones, div_m, c.replace(accum="dot")),
-                      f"{name} conv popcount vs dot")
+            step, q, pool = conv_checks(name, a, wp, div, bias, cin,
+                                        spec.pool)
+            qcfg = KernelConfig(op="conv3x3", accum="popcount",
+                                out_step=step)
             ops = 2 * BATCH * h * h * 9 * cin * cout
             in_bytes = a.numel() + wp.numel() * 4 + 8 * cout
             a_bf = a.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous()
@@ -442,23 +492,7 @@ def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
                 .permute(3, 2, 0, 1).contiguous().to(torch.bfloat16)
             library = lambda: F.conv2d(a_bf, w_bf, padding=1)  # noqa: E731
             if spec.pool:
-                def pool(rows=1):
-                    return fused_pool.w1a8_conv3x3_pool2(
-                        a, wp, None, div, bias, cin=cin, out_step=step,
-                        accum="popcount", rows=rows)
-                p = pool()
-                exact(POOL, p, conv_ref.w1a8_conv3x3_pool2_popcount_ref(
-                    a, wp, cin, div, bias, step), f"{name} pool codes")
-                exact(POOL, p, conv_ref.maxpool2_codes(q),
-                      f"{name} fused pool vs conv + max")
-                exact(POOL, pool(rows=2), p, f"{name} pool rows=2")
-                pcfg = KernelConfig(op="conv3x3_pool", accum="popcount",
-                                    out_step=step)
-                exact(POOL, conv(mul_m, div, pcfg, conv_ops.w1a8_conv3x3_pool),
-                      conv(ones, div_m, pcfg.replace(accum="dot"),
-                           conv_ops.w1a8_conv3x3_pool),
-                      f"{name} pool popcount vs dot")
-                nbytes = in_bytes + p.numel()
+                nbytes = in_bytes + q.numel() // 4
                 records.append(dict(
                     layer=name, kernel=POOL, shape=shape, run=pool,
                     plain=lambda: conv_ref.w1a8_conv3x3_pool2_popcount_ref(
@@ -469,7 +503,8 @@ def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
                 nbytes = in_bytes + q.numel()
                 records.append(dict(
                     layer=name, kernel=CONV, shape=shape,
-                    run=lambda: conv(None, div, qcfg),
+                    run=lambda: conv_ops.w1a8_conv3x3(
+                        a, wp, None, div, bias, cin=cin, config=qcfg),
                     plain=lambda: conv_ref.w1a8_conv3x3_popcount_ref(
                         a, wp, cin, div, bias, step),
                     library=library, bound=bound(nbytes, ops, INT8_OPS_PER_S),
@@ -492,6 +527,17 @@ def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
                   f"{rec['library_device_ms']:.4f}, bound "
                   f"{rec['bound_ms']:.6f} by {rec['bound_by']})",
                   flush=True)
+
+    # off the detector's grid: Cin % 16 != 0, Cout % 32 != 0
+    b, h, _, cin, cout = OFF_GRID
+    a, w, _, div, bias = layer_operands(torch, np, rng, b, h, cin, cout, dev)
+    conv_checks("off_grid", a,
+                conv_ops.conv_pack_weights(w.reshape(3, 3, cin, cout)), div,
+                bias, cin, True)
+    print(f"[popcount] off the grid {list(OFF_GRID)}: conv3x3_popcount and "
+          f"conv3x3_pool2_popcount bit-exact with their plain versions, "
+          f"with conv + max, across rows {ROWS} and with the dot kernels",
+          flush=True)
     return records, errs
 
 

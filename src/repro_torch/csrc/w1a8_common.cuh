@@ -1,22 +1,24 @@
 // Arithmetic shared by the W1A8 CUDA kernels: the bf16 Mul_prev prologue,
-// the Div/bias/requant epilogue, the 3x3 conv tile on the tensor cores
-// (bf16 dot) and the per-output XNOR-popcount accumulation.
+// the Div/bias/requant epilogue, the 3x3 conv tiles on the tensor cores
+// (bf16 dot and exact int8 popcount) and the per-word XNOR-popcount
+// accumulation of the popcount matmul.
 //
-// Both dot conv kernels (w1a8_conv3x3.cu, w1a8_conv3x3_pool2.cu) compute
-// every conv output through `conv3x3_mma_tile`, and both popcount conv
-// kernels (w1a8_conv3x3_popcount.cu, w1a8_conv3x3_pool2_popcount.cu)
-// through `conv3x3_popcount_output`, in the same order and with the same
-// roundings, so each fused conv+pool kernel equals its conv kernel followed
-// by a 2x2 max bit for bit.
+// Both dot conv kernels (w1a8_conv3x3.cu, w1a8_conv3x3_pool2.cu) take
+// every accumulator from `conv3x3_mma_tile`, and both popcount conv kernels
+// (w1a8_conv3x3_popcount.cu, w1a8_conv3x3_pool2_popcount.cu) from
+// `conv3x3_imma_tile`; the four write their outputs through
+// `store_conv_tile` or `store_pool_tile`. So each fused conv+pool kernel
+// equals its conv kernel followed by a 2x2 max bit for bit.
 //
 // Every rounding is spelled out (__fmul_rn, __fadd_rn, __fdiv_rn): nvcc
 // would otherwise contract `acc * div + bias` into one FMA, while the
 // reference rounds the product and the sum separately. Build without
 // --use_fast_math, which would replace the IEEE division of the requant.
 //
-// The tensor-core tile's two PTX instructions (ldmatrix, mma.sync) sit in
-// two small functions, `ldmatrix_x4` and `mma_bf16_16816`, so that a host
-// emulation of the warp can stand in for them.
+// The tiles' PTX (ldmatrix, mma.sync, cp.async) sits in small functions,
+// `ldmatrix_x4`, `mma_bf16_16816`, `mma_u8s8_16832`, `cp_async_16` and
+// `cp_async_wait_all`, so that a host emulation of the warp can stand in
+// for them.
 #pragma once
 
 #include <cstdint>
@@ -114,10 +116,10 @@ __host__ __device__ constexpr size_t dot_conv_smem(int cin, int bn,
          sizeof(__nv_bfloat16) * staged_rows * row_px * pixel_stride(cin);
 }
 
-// Loads the four 8x8 bf16 matrices of a 16x16 A fragment; `p` is this
-// lane's row address: row lane % 16, columns 8 * (lane / 16) on.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const __nv_bfloat16* p) {
+// Loads the four 8-row x 16-byte matrices of an A fragment (16x16 bf16 or
+// 16x32 int8, whose register layouts agree byte for byte); `p` is this
+// lane's row address: row lane % 16, bytes 16 * (lane / 16) on.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -340,7 +342,376 @@ __device__ __forceinline__ void stage_act(const uint8_t* __restrict__ a_img,
 }
 
 // ---------------------------------------------------------------------------
-// Binary domain: exact int32 sum over the bit-planes of uint8 codes.
+// Popcount route: the 3x3 conv's exact int32 sum sum_k s_k * a_k as an
+// implicit GEMM on the int8 tensor cores.
+//
+// M, N and the im2col order of K are the dot route's. The codes sit in
+// shared memory raw: a staged pixel holds code_units(cin) units of 16
+// channels (zeros past cin) and, where that count is even, one spare unit,
+// so that a pixel spans an odd number of 16-byte units and the eight row
+// addresses of an ldmatrix fall on eight different bank groups, as for the
+// dot route. One mma.sync.m16n8k32 (u8 codes, s8 signs, s32 accumulate)
+// takes a pair of units, 2j and 2j + 1, in the order (tap, unit) of the
+// window, so a pair spans two taps where a pixel has an odd number of
+// units (cin = 16: two taps a pair). Its A rows are 16 pixels' codes:
+// lanes 0-15 post the row addresses of unit 2j, lanes 16-31 those of unit
+// 2j + 1, and ldmatrix loads them unchanged. Its B column is the 32 sign
+// bits of the pair (`stage_pair_words`), turned into +-1 bytes in
+// registers. Pad channels have code 0 and add exactly 0 whatever their
+// bits say; an odd last unit is paired with B = 0. The products are exact
+// integers and |acc| <= 255 * 9 * cin < 2^24, so the sum is the one the
+// bit-plane popcount forms, and its float conversion is exact.
+// ---------------------------------------------------------------------------
+
+// 16-channel units a staged pixel holds, and its bytes (an odd number of
+// 16-byte units).
+__host__ __device__ constexpr int code_units(int cin) {
+  return ceil_div(cin, kChunk);
+}
+
+__host__ __device__ constexpr int code_stride(int cin) {
+  return kChunk * (code_units(cin) | 1);
+}
+
+// Sign words of the pairs of units, one 32-bit word per pair: bits 0-15
+// are the signs of unit 2j's 16 channels, bits 16-31 those of unit 2j + 1.
+__host__ __device__ constexpr int pair_words(int cin) {
+  return ceil_div(9 * code_units(cin), 2);
+}
+
+// Dynamic shared memory of a popcount conv block: its pair words,
+// (pair_words(cin) + 1, bn), the byte offsets of the window's units,
+// (2 * pair_words(cin),) ints, then `staged_rows` rows of `row_px` staged
+// pixels (kernels/w1a8_conv/geometry.py computes the same).
+__host__ __device__ constexpr size_t popcount_conv_smem(int cin, int bn,
+                                                        int staged_rows,
+                                                        int row_px) {
+  return (sizeof(uint32_t) * (pair_words(cin) + 1) * bn + 15) / 16 * 16 +
+         (sizeof(int) * 2 * pair_words(cin) + 15) / 16 * 16 +
+         static_cast<size_t>(staged_rows) * row_px * code_stride(cin);
+}
+
+// d += a * b on one 16x8x32 tile: u8 A, s8 B, s32 accumulation (exact: no
+// sum here comes near the int32 range).
+__device__ __forceinline__ void mma_u8s8_16832(int (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four s8 values in one register from bits 0-3 of `bits`, bit i's value in
+// byte i: +1 (0x01) where the bit is 1, -1 (0xFF) where it is 0. The
+// multiply spreads the four bits to bit 0 of the four bytes; t * 0xFE then
+// holds 0xFE or 0 in each byte, with no carry, and its complement 0x01 or
+// 0xFF.
+__device__ __forceinline__ uint32_t sign_bytes(uint32_t bits) {
+  const uint32_t t = ((bits & 0xFu) * 0x00204081u) & 0x01010101u;
+  return ~(t * 0xFEu);
+}
+
+// Accumulates WM M tiles of 16 conv outputs against WN N tiles of 8 output
+// channels over the whole 3x3 window, exactly: acc[mt][nt] is the m16n8
+// accumulator fragment of M tile mt and channels col0 + 8 * nt on.
+//
+// act:   staged codes; a_off[mt] is the byte offset of this lane's
+//        ldmatrix row in M tile mt: its output's window corner.
+// uoff:  byte offset of unit u of the window from the corner,
+//        (2 * pair_words(cin),), the entry past an odd last unit 0.
+// units: 9 * code_units(cin).
+// wsm:   pair words (pair_words(cin), ldw).
+//
+// The pairs run in one order for every output, and mma computes each
+// output from its own A row and B column only, as in conv3x3_mma_tile.
+template <int WM, int WN>
+__device__ __forceinline__ void conv3x3_imma_tile(
+    const uint8_t* act, const int (&a_off)[WM], const int* uoff, int units,
+    const uint32_t* wsm, int ldw, int col0, int (&acc)[WM][WN][4]) {
+  const int lane = threadIdx.x & 31;
+  const int t4 = 4 * (lane & 3);
+  const int hi = lane >> 4;
+  const uint32_t* wcol = wsm + col0 + (lane >> 2);
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < WN; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0;
+    }
+  }
+  for (int u = 0; u < units; u += 2) {
+    const uint8_t* at = act + uoff[u + hi];
+    // B rows k = t4 + {0..3} from unit u, k = 16 + t4 + {0..3} from unit
+    // u + 1, which past the last unit adds 0
+    const uint32_t keep = u + 1 < units ? ~0u : 0u;
+    const uint32_t* wj = wcol + (u >> 1) * ldw;
+    uint32_t b[WN][2];
+#pragma unroll
+    for (int nt = 0; nt < WN; ++nt) {
+      const uint32_t bits = wj[8 * nt] >> t4;
+      b[nt][0] = sign_bytes(bits);
+      b[nt][1] = sign_bytes(bits >> 16) & keep;
+    }
+#pragma unroll
+    for (int mt = 0; mt < WM; ++mt) {
+      uint32_t a[4];
+      ldmatrix_x4(a, at + a_off[mt]);
+#pragma unroll
+      for (int nt = 0; nt < WN; ++nt) mma_u8s8_16832(acc[mt][nt], a, b[nt]);
+    }
+  }
+}
+
+// Stages `n_rows` zero-padded input rows of raw codes, starting at input
+// row `r0` (which may be -1): staged pixel s of a row is input column
+// s - 1; pixels 0 and width + 1, rows outside the image and channels past
+// cin hold 0. A row holds row_px >= width + 2 pixels of code_stride(cin)
+// bytes; the spare ones, and a pixel's spare unit, are never read. `a_img`
+// is one image, (h, width, cin) uint8. With cin % 16 == 0 and `a_img`
+// 16-byte aligned each 16-channel unit is one cp_async_16, all in flight
+// together (cp_async_wait_all before reading them); otherwise it is
+// gathered byte by byte.
+__device__ __forceinline__ void stage_raw_codes(
+    const uint8_t* __restrict__ a_img, uint8_t* act, int r0, int n_rows,
+    int h, int width, int cin, int row_px) {
+  const int cu = code_units(cin);
+  const int ps = code_stride(cin);
+  const int total = n_rows * (width + 2) * cu;
+  const bool vec = cin % kChunk == 0 &&
+                   (reinterpret_cast<uintptr_t>(a_img) & 15) == 0;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int pix = i / cu;
+    const int c = i - pix * cu;
+    const int rr = pix / (width + 2);
+    const int s = pix - rr * (width + 2);
+    const int r = r0 + rr;
+    const bool inside = r >= 0 && r < h && s >= 1 && s <= width;
+    uint8_t* dst = act + (rr * row_px + s) * ps + c * kChunk;
+    const uint8_t* src =
+        inside ? a_img + (static_cast<size_t>(r) * width + s - 1) * cin +
+                     c * kChunk
+               : a_img;
+    if (vec) {
+      cp_async_16(dst, src, inside ? 16 : 0);
+      continue;
+    }
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+    if (inside) {
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        if (c * kChunk + j < cin) {
+          v[j / 4] |= static_cast<uint32_t>(src[j]) << (8 * (j % 4));
+        }
+      }
+    }
+    *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// Stages the pair words of output channels [co0, co0 + ct) as
+// (pair_words(cin) + 1, ct), from the sign words w (words_of(9 * cin),
+// cout); columns past cout and the last row hold 0. Unit u = (tap, c)
+// holds the signs of k = tap * cin + 16 * c on. With cin % 16 == 0 unit u
+// starts at bit 16 * u, so pair word j is sign word j and the words are
+// staged as for the dot route; otherwise each unit's 16 bits are cut from
+// the words (the bits past cin belong to the next tap, and meet zero
+// codes).
+__device__ __forceinline__ void stage_pair_words(
+    const uint32_t* __restrict__ w, uint32_t* wsm, int cin, int cout,
+    int co0, int ct) {
+  const int n_words = words_of(9 * cin);
+  if (cin % kChunk == 0) {
+    stage_conv_words(w, wsm, n_words, cout, co0, ct);
+    return;
+  }
+  const int cu = code_units(cin);
+  const int units = 9 * cu;
+  const int pairs = pair_words(cin);
+  for (int i = threadIdx.x; i < (pairs + 1) * ct; i += blockDim.x) {
+    const int j = i / ct;
+    const int co = co0 + i % ct;
+    uint32_t v = 0u;
+    for (int half = 0; half < 2 && j < pairs && co < cout; ++half) {
+      const int u = 2 * j + half;
+      if (u >= units) break;
+      const int tap = u / cu;
+      const int k = tap * cin + (u - tap * cu) * kChunk;
+      const int q = k / kPack;
+      const uint32_t lo = w[static_cast<size_t>(q) * cout + co];
+      const uint32_t up =
+          q + 1 < n_words ? w[static_cast<size_t>(q + 1) * cout + co] : 0u;
+      v |= (__funnelshift_r(lo, up, k & (kPack - 1)) & 0xFFFFu)
+           << (16 * half);
+    }
+    wsm[i] = v;
+  }
+}
+
+// Fills uoff (2 * pair_words(cin),) for conv3x3_imma_tile: unit u = (tap,
+// c) of the window lies tap / 3 staged rows and tap % 3 staged pixels from
+// the corner, c units into the pixel.
+__device__ __forceinline__ void stage_unit_offsets(int* uoff, int cin,
+                                                   int row_stride) {
+  const int cu = code_units(cin);
+  for (int u = threadIdx.x; u < 2 * pair_words(cin); u += blockDim.x) {
+    const int tap = u / cu;
+    uoff[u] = tap < 9 ? (tap / 3) * row_stride +
+                            (tap % 3) * code_stride(cin) +
+                            (u - tap * cu) * kChunk
+                      : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Epilogues of the four conv kernels, on the m16n8 accumulator fragments of
+// one warp item (f32 sums on the dot route, exact int32 on the popcount
+// one): this lane holds rows g and g + 8 of each M tile and columns t2 and
+// t2 + 1 of each 8-wide N tile.
+// ---------------------------------------------------------------------------
+
+// Div and bias of this lane's columns of the item whose first channel is
+// co_base; 0 past cout.
+template <int WN>
+__device__ __forceinline__ void lane_constants(const float* __restrict__ div,
+                                               const float* __restrict__ bias,
+                                               int co_base, int cout,
+                                               float (&dv)[WN][2],
+                                               float (&bs)[WN][2]) {
+  const int t2 = 2 * (threadIdx.x & 3);
+#pragma unroll
+  for (int nt = 0; nt < WN; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int co = co_base + 8 * nt + t2 + e;
+      dv[nt][e] = co < cout ? __ldg(div + co) : 0.f;
+      bs[nt][e] = co < cout ? __ldg(bias + co) : 0.f;
+    }
+  }
+}
+
+// The conv kernels' epilogue: M row i of the block is output pixel
+// (y0 + i / width, i % width) of image b; rows from m_blk on and columns
+// from cout on are not stored.
+template <int WM, int WN, typename Acc>
+__device__ __forceinline__ void store_conv_tile(
+    const Acc (&acc)[WM][WN][4], const float* __restrict__ div,
+    const float* __restrict__ bias, void* __restrict__ out, int b, int h,
+    int width, int cout, int y0, int co_base, int m0, int m_blk,
+    float out_step, int quant) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t2 = 2 * (lane & 3);
+  float dv[WN][2], bs[WN][2];
+  lane_constants<WN>(div, bias, co_base, cout, dv, bs);
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = m0 + mt * 16 + g + 8 * half;
+      if (i >= m_blk) continue;
+      const size_t o =
+          ((static_cast<size_t>(b) * h + y0 + i / width) * width +
+           i % width) * cout;
+#pragma unroll
+      for (int nt = 0; nt < WN; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = co_base + 8 * nt + t2 + e;
+          if (co >= cout) continue;
+          const float v =
+              epilogue(static_cast<float>(acc[mt][nt][2 * half + e]),
+                       dv[nt][e], bs[nt][e], quant != 0, out_step);
+          if (quant) {
+            static_cast<uint8_t*>(out)[o + co] = static_cast<uint8_t>(v);
+          } else {
+            static_cast<float*>(out)[o + co] = v;
+          }
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_pick(float x, float y, bool rising) {
+  return rising ? fmaxf(x, y) : fminf(x, y);
+}
+
+__device__ __forceinline__ int quad_pick(int x, int y, bool rising) {
+  return rising ? max(x, y) : min(x, y);
+}
+
+// The fused conv+pool kernels' epilogue. M row 4p + q of the block is conv
+// output (2 * py + q / 2, 2 * px + q % 2) of pooled pixel p = (py, px),
+// py counted from py0, so the four conv outputs under a pooled output sit
+// in rows g, g ^ 1, g ^ 2, g ^ 3 of a fragment, held by the lanes whose
+// bits 2 and 3 differ. The requant is monotone in acc (each of its IEEE
+// steps is), rising where div and out_step share a sign and falling
+// elsewhere, so the max of the four codes is the code of the quad's
+// largest or smallest acc: two __shfl_xor_sync reduce acc over the quad,
+// then each quad lane requants a quarter of the results, one requant per
+// pooled output. M rows from m_blk on and columns from cout on are not
+// stored.
+template <int WM, int WN, typename Acc>
+__device__ __forceinline__ void store_pool_tile(
+    Acc (&acc)[WM][WN][4], const float* __restrict__ div,
+    const float* __restrict__ bias, uint8_t* __restrict__ out, int b, int ph,
+    int pw, int cout, int py0, int co_base, int m0, int m_blk,
+    float out_step) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t2 = 2 * (lane & 3);
+  float dv[WN][2], bs[WN][2];
+  lane_constants<WN>(div, bias, co_base, cout, dv, bs);
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < WN; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool rising = (dv[nt][i & 1] >= 0.f) == (out_step >= 0.f);
+        Acc x = acc[mt][nt][i];
+#pragma unroll
+        for (int m = 4; m <= 8; m *= 2) {
+          x = quad_pick(x, __shfl_xor_sync(0xffffffffu, x, m), rising);
+        }
+        acc[mt][nt][i] = x;
+      }
+    }
+  }
+  // result j = ((mt * 2 + half) * WN + nt) * 2 + e goes to quad lane j % 4
+  const int q = g & 3;
+#pragma unroll
+  for (int r = 0; r < WM * WN; ++r) {
+    Acc x = 0;
+    float d = 0.f, bb = 0.f;
+    int co = 0, i = 0;
+#pragma unroll
+    for (int qq = 0; qq < 4; ++qq) {
+      const int j = 4 * r + qq;
+      const int mt = j / (4 * WN), half = (j / (2 * WN)) % 2;
+      const int nt = (j / 2) % WN, e = j % 2;
+      if (q == qq) {
+        x = acc[mt][nt][2 * half + e];
+        d = dv[nt][e];
+        bb = bs[nt][e];
+        co = co_base + 8 * nt + t2 + e;
+        i = m0 + mt * 16 + (g & ~3) + 8 * half;
+      }
+    }
+    if (i >= m_blk || co >= cout) continue;
+    const int p = i >> 2;
+    const size_t o =
+        ((static_cast<size_t>(b) * ph + py0 + p / pw) * pw + p % pw) * cout;
+    out[o + co] = static_cast<uint8_t>(
+        epilogue(static_cast<float>(x), d, bb, true, out_step));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The popcount matmul: exact int32 sum over the bit-planes of uint8 codes.
 // ---------------------------------------------------------------------------
 
 // Adds one 32-lane K word to `acc`: lane l of the calling warp holds the
@@ -360,60 +731,6 @@ __device__ __forceinline__ int popcount_word(int acc, uint32_t code,
     acc += (2 * __popc(w & plane) - __popc(plane)) * (1 << b);
   }
   return acc;
-}
-
-// One 3x3 SAME conv output through popcount, and its epilogue.
-//
-// rows: staged codes of three consecutive zero-padded input rows, the first
-//       being the row above the output row; each row holds
-//       (width + 2) * cin codes, pixel-major.
-// x:    output column. The window starts at padded column x.
-// wsm:  sign words (ceil(9 * cin / 32), ct) of this block's cout tile;
-//       col is this thread's column in it (lane of the warp).
-// The warp's 32 lanes compute the 32 output channels of one pixel: word j
-// takes lane l's code at k = 32 * j + l, in the im2col order
-// k = (dy * 3 + dx) * cin + ci of the reference.
-__device__ __forceinline__ float conv3x3_popcount_output(
-    const uint8_t* rows, int row_len, int x, int cin, const uint32_t* wsm,
-    int ct, int col, float div, float bias, bool quant, float out_step) {
-  const int lane = threadIdx.x & (kPack - 1);
-  const int k9 = 9 * cin;
-  const int n_words = (k9 + kPack - 1) / kPack;
-  int acc = 0;
-  for (int j = 0; j < n_words; ++j) {
-    const int k = j * kPack + lane;
-    uint32_t code = 0;
-    if (k < k9) {
-      const int tap = k / cin;
-      const int ci = k - tap * cin;
-      const int dy = tap / 3;
-      const int dx = tap - dy * 3;
-      code = rows[dy * row_len + (x + dx) * cin + ci];
-    }
-    acc = popcount_word(acc, code, wsm[j * ct + col]);
-  }
-  return epilogue(static_cast<float>(acc), div, bias, quant, out_step);
-}
-
-// Stages `n_rows` zero-padded input rows of codes, starting at input row
-// `r0` (which may be -1): out-of-range rows and the two pad columns hold 0.
-// `a_img` is one image, (h, width, cin) uint8.
-__device__ __forceinline__ void stage_codes(const uint8_t* __restrict__ a_img,
-                                            uint8_t* act, int r0, int n_rows,
-                                            int h, int width, int cin) {
-  const int row_len = (width + 2) * cin;
-  const int total = n_rows * row_len;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int r = r0 + i / row_len;
-    const int rem = i % row_len;
-    const int c = rem / cin - 1;
-    const int ci = rem % cin;
-    uint8_t v = 0;
-    if (r >= 0 && r < h && c >= 0 && c < width) {
-      v = a_img[(static_cast<size_t>(r) * width + c) * cin + ci];
-    }
-    act[i] = v;
-  }
 }
 
 // Sets a kernel's dynamic shared memory limit where it needs more than the

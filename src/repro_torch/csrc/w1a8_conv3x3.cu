@@ -23,7 +23,7 @@
 // to bf16, and the sign words of its channels. M is the block's outputs in
 // row-major order; each warp takes items of WM M tiles of 16 outputs by WN
 // N tiles of 8 channels and runs them through w1a8::conv3x3_mma_tile,
-// shared with the fused conv+pool kernel, then the epilogue on the
+// shared with the fused conv+pool kernel, then w1a8::store_conv_tile on the
 // accumulator fragments.
 #include "w1a8_common.cuh"
 
@@ -57,8 +57,6 @@ conv3x3_kernel(const uint8_t* __restrict__ a, const uint32_t* __restrict__ w,
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t2 = 2 * (lane & 3);
   const int m_blk = n_rows * width;
   const int m_items = w1a8::ceil_div(w1a8::ceil_div(m_blk, 16), WM);
   const int items = m_items * (bn / (8 * WN));
@@ -77,45 +75,8 @@ conv3x3_kernel(const uint8_t* __restrict__ a, const uint32_t* __restrict__ w,
     w1a8::conv3x3_mma_tile<WM, WN>(act, a_off, row_stride, ps, cin, wsm, bn,
                                    col0, acc);
 
-    // this lane holds rows g and g + 8 of each M tile, columns t2 and
-    // t2 + 1 of each 8-wide N tile
-    float dv[WN][2], bs[WN][2];
-#pragma unroll
-    for (int nt = 0; nt < WN; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int co = co0 + col0 + 8 * nt + t2 + e;
-        dv[nt][e] = co < cout ? __ldg(div + co) : 0.f;
-        bs[nt][e] = co < cout ? __ldg(bias + co) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < WM; ++mt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int i = m0 + mt * 16 + g + 8 * half;
-        if (i >= m_blk) continue;
-        const size_t o =
-            ((static_cast<size_t>(b) * h + y0 + i / width) * width +
-             i % width) * cout;
-#pragma unroll
-        for (int nt = 0; nt < WN; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int co = co0 + col0 + 8 * nt + t2 + e;
-            if (co >= cout) continue;
-            const float v = w1a8::epilogue(acc[mt][nt][2 * half + e],
-                                           dv[nt][e], bs[nt][e], quant != 0,
-                                           out_step);
-            if (quant) {
-              static_cast<uint8_t*>(out)[o + co] = static_cast<uint8_t>(v);
-            } else {
-              static_cast<float*>(out)[o + co] = v;
-            }
-          }
-        }
-      }
-    }
+    w1a8::store_conv_tile<WM, WN>(acc, div, bias, out, b, h, width, cout,
+                                  y0, co0 + col0, m0, m_blk, out_step, quant);
   }
 }
 

@@ -19,10 +19,10 @@
 // output sit in rows g, g ^ 1, g ^ 2, g ^ 3 of an accumulator fragment,
 // held by the lanes whose bits 2 and 3 differ. Each output's accumulator
 // comes from w1a8::conv3x3_mma_tile, the function the conv kernel uses.
-// The requant is monotone in the accumulator, so two __shfl_xor_sync take
-// the quad's largest (or, where the requant falls, smallest) accumulator,
-// whose code is the max of the four codes the conv kernel would write, bit
-// for bit; each lane of the quad then requants a quarter of the results.
+// The requant is monotone in the accumulator, so w1a8::store_pool_tile
+// takes the quad's largest (or, where the requant falls, smallest)
+// accumulator with two __shfl_xor_sync, whose code is the max of the four
+// codes the conv kernel would write, bit for bit, and requants once.
 #include "w1a8_common.cuh"
 
 namespace {
@@ -59,8 +59,6 @@ conv3x3_pool2_kernel(const uint8_t* __restrict__ a,
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t2 = 2 * (lane & 3);
   const int m_blk = 4 * n_rows * pw;
   const int m_items = w1a8::ceil_div(w1a8::ceil_div(m_blk, 16), WM);
   const int items = m_items * (bn / (8 * WN));
@@ -81,67 +79,8 @@ conv3x3_pool2_kernel(const uint8_t* __restrict__ a,
     w1a8::conv3x3_mma_tile<WM, WN>(act, a_off, row_stride, ps, cin, wsm, bn,
                                    col0, acc);
 
-    // This lane holds rows g and g + 8 of each M tile, columns t2 and
-    // t2 + 1 of each 8-wide N tile; the lanes of its quad (lane bits 2 and
-    // 3) hold the three other conv outputs under the same pooled outputs.
-    // The requant is monotone in acc (each of its IEEE steps is), rising
-    // where div and out_step share a sign and falling elsewhere, so the max
-    // of the four codes is the code of the quad's largest or smallest acc:
-    // reduce acc over the quad, then let each quad lane requant a quarter
-    // of the results.
-    float dv[WN][2], bs[WN][2];
-#pragma unroll
-    for (int nt = 0; nt < WN; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int co = co0 + col0 + 8 * nt + t2 + e;
-        dv[nt][e] = co < cout ? __ldg(div + co) : 0.f;
-        bs[nt][e] = co < cout ? __ldg(bias + co) : 0.f;
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < WM; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < WN; ++nt) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const bool rising = (dv[nt][i & 1] >= 0.f) == (out_step >= 0.f);
-          float x = acc[mt][nt][i];
-#pragma unroll
-          for (int m = 4; m <= 8; m *= 2) {
-            const float y = __shfl_xor_sync(0xffffffffu, x, m);
-            x = rising ? fmaxf(x, y) : fminf(x, y);
-          }
-          acc[mt][nt][i] = x;
-        }
-      }
-    }
-    // result j = ((mt * 2 + half) * WN + nt) * 2 + e goes to quad lane j % 4
-    const int q = g & 3;
-#pragma unroll
-    for (int r = 0; r < WM * WN; ++r) {
-      float x = 0.f, d = 0.f, bb = 0.f;
-      int co = 0, i = 0;
-#pragma unroll
-      for (int qq = 0; qq < 4; ++qq) {
-        const int j = 4 * r + qq;
-        const int mt = j / (4 * WN), half = (j / (2 * WN)) % 2;
-        const int nt = (j / 2) % WN, e = j % 2;
-        if (q == qq) {
-          x = acc[mt][nt][2 * half + e];
-          d = dv[nt][e];
-          bb = bs[nt][e];
-          co = co0 + col0 + 8 * nt + t2 + e;
-          i = m0 + mt * 16 + (g & ~3) + 8 * half;
-        }
-      }
-      if (i >= m_blk || co >= cout) continue;
-      const int p = i >> 2;
-      const size_t o =
-          ((static_cast<size_t>(b) * ph + py0 + p / pw) * pw + p % pw) * cout;
-      out[o + co] =
-          static_cast<uint8_t>(w1a8::epilogue(x, d, bb, true, out_step));
-    }
+    w1a8::store_pool_tile<WM, WN>(acc, div, bias, out, b, ph, pw, cout, py0,
+                                  co0 + col0, m0, m_blk, out_step);
   }
 }
 

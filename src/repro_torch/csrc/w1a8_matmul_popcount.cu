@@ -18,7 +18,7 @@
 // is padded. Per 32-lane K word, lane l loads the row's code at K lane l
 // (a coalesced 32-byte read, 0 past K), __ballot_sync turns the 32 codes
 // into the 8 plane words, and each lane ANDs them with its column's sign
-// word (w1a8::popcount_word, shared with the conv kernels).
+// word (w1a8::popcount_word).
 #include "w1a8_common.cuh"
 
 namespace {

@@ -42,8 +42,8 @@ class KernelConfig:
 
     ``bk`` is the matmul's K chunk staged in shared memory per pass (None:
     `pick_tile`). ``rows`` is the conv row-blocking factor: output rows
-    (pooled rows for the fused kernel) one block produces; the ops layer
-    clips it to a divisor of the row count. ``fused`` routes
+    (pooled rows for the fused kernels) one block produces; the last block
+    of a layer may hold fewer. ``fused`` routes
     ``w1a8_conv3x3_pool`` through the fused conv+pool kernel (True) or the
     conv kernel followed by a 2×2 max (False). All validation happens here.
     """
@@ -69,13 +69,6 @@ class KernelConfig:
 
     def matmul_bk(self, k: int) -> int:
         return self.bk if self.bk is not None else pick_tile(k, DEF_BK, PACK)
-
-    def conv_rows(self, h: int) -> int:
-        """Largest divisor of `h` that is ≤ self.rows (≥ 1)."""
-        r = max(1, min(self.rows, h))
-        while h % r:
-            r -= 1
-        return r
 
     def replace(self, **kw) -> "KernelConfig":
         return dataclasses.replace(self, **kw)

@@ -23,7 +23,8 @@ KERNEL = _build.Kernel(
     + [_build.P])
 POPCOUNT_KERNEL = _build.Kernel(
     "w1a8_conv3x3_pool2_popcount.cu", "w1a8_conv3x3_pool2_popcount",
-    [_build.P] * 5 + [_build.I] * 6 + [_build.F, _build.P])
+    [_build.P] * 5 + [_build.I] * 6 + [_build.F] + [_build.I] * 8
+    + [_build.P])
 
 
 def w1a8_conv3x3_pool2(a_u8: torch.Tensor, w_packed: torch.Tensor,
@@ -35,18 +36,17 @@ def w1a8_conv3x3_pool2(a_u8: torch.Tensor, w_packed: torch.Tensor,
 
     ``accum="popcount"`` contracts codes already on one grid, with the
     uniform step folded into ``div_post`` by the caller; ``mul_prev`` is
-    then unused. ``rows`` pooled rows per block (popcount: (H/2) % rows
-    == 0; dot: the last block may hold fewer); the result does not depend
-    on it.
+    then unused. ``rows`` pooled rows per block (the last block may hold
+    fewer); the result does not depend on it.
     """
     b, h, wd, _ = a_u8.shape
     if accum not in ("dot", "popcount"):
         raise ValueError(f"accum must be 'dot' or 'popcount', got {accum!r}")
     if h % 2 or wd % 2:
         raise ValueError(f"H and W must be even, got {h}x{wd}")
+    if rows < 1:
+        raise ValueError(f"rows must be ≥ 1, got {rows}")
     popcount = accum == "popcount"
-    if rows < 1 or (popcount and (h // 2) % rows):
-        raise ValueError(f"rows={rows} must divide H/2={h // 2}")
     if not popcount and mul_prev is None:
         raise ValueError("accum='dot' needs mul_prev")
     if not a_u8.is_cuda:
@@ -62,15 +62,14 @@ def w1a8_conv3x3_pool2(a_u8: torch.Tensor, w_packed: torch.Tensor,
     cout = w.shape[1]
     out = torch.empty((b, h // 2, wd // 2, cout), dtype=torch.uint8,
                       device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
+    g = conv_launch(b, h, wd, cin, cout, rows, pool=True, accum=accum)
+    geometry = (b, h, wd, cin, cout, g.rows, float(out_step), *g.grid[:2],
+                g.bn, g.wm, g.wn, g.row_px, g.threads, g.smem,
+                torch.cuda.current_stream(a.device).cuda_stream)
     if popcount:
         POPCOUNT_KERNEL(a.data_ptr(), w.data_ptr(), div.data_ptr(),
-                        bs.data_ptr(), out.data_ptr(), b, h, wd, cin, cout,
-                        rows, float(out_step), stream)
-        return out
-    g = conv_launch(b, h, wd, cin, cout, rows, pool=True)
-    KERNEL(a.data_ptr(), w.data_ptr(), mul.data_ptr(), div.data_ptr(),
-           bs.data_ptr(), out.data_ptr(), b, h, wd, cin, cout, g.rows,
-           float(out_step), *g.grid[:2], g.bn, g.wm, g.wn, g.row_px, g.threads,
-           g.smem, stream)
+                        bs.data_ptr(), out.data_ptr(), *geometry)
+    else:
+        KERNEL(a.data_ptr(), w.data_ptr(), mul.data_ptr(), div.data_ptr(),
+               bs.data_ptr(), out.data_ptr(), *geometry)
     return out

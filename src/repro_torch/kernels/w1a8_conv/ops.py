@@ -36,7 +36,8 @@ KERNEL = _build.Kernel(
     + [_build.P])
 POPCOUNT_KERNEL = _build.Kernel(
     "w1a8_conv3x3_popcount.cu", "w1a8_conv3x3_popcount",
-    [_build.P] * 5 + [_build.I] * 6 + [_build.F, _build.I, _build.P])
+    [_build.P] * 5 + [_build.I] * 6 + [_build.F] + [_build.I] * 9
+    + [_build.P])
 
 
 def conv_pack_weights(w: torch.Tensor) -> torch.Tensor:
@@ -85,41 +86,34 @@ def w1a8_conv3x3(a_u8: torch.Tensor, w_packed: torch.Tensor,
     (B,H,W,Cout) f32, or uint8 codes when ``config.out_step`` is set.
     """
     cfg = _config(config, "conv3x3")
-    if cfg.accum == "popcount":
+    popcount = cfg.accum == "popcount"
+    if popcount:
         a_u8, div_post = fold_operands(a_u8, mul_prev, div_post)
-        return _conv3x3_popcount(a_u8, w_packed, div_post, bias, cin, cfg)
-    if mul_prev is None:
+        mul_prev = None
+        if not a_u8.is_cuda:
+            return _ref.w1a8_conv3x3_popcount_ref(a_u8, w_packed, cin,
+                                                  div_post, bias,
+                                                  cfg.out_step)
+    elif mul_prev is None:
         raise ValueError("accum='dot' needs mul_prev")
-    if not a_u8.is_cuda:
+    elif not a_u8.is_cuda:
         return _ref.w1a8_conv3x3_ref(a_u8, w_packed, cin, mul_prev, div_post,
                                      bias, cfg.out_step)
     a, w, mul, div, bs = cuda_operands(a_u8, w_packed, mul_prev, div_post,
                                        bias, cin)
     out = _conv_out(a, w, cfg)
-    g = conv_launch(*a.shape[:3], cin, w.shape[1], cfg.conv_rows(a.shape[1]),
-                    pool=False)
-    KERNEL(a.data_ptr(), w.data_ptr(), mul.data_ptr(), div.data_ptr(),
-           bs.data_ptr(), out.data_ptr(), *a.shape[:3], cin, w.shape[1],
-           g.rows, _step(cfg), int(out.dtype == torch.uint8), *g.grid[:2],
-           g.bn, g.wm, g.wn, g.row_px, g.threads, g.smem,
-           torch.cuda.current_stream(a.device).cuda_stream)
-    return out
-
-
-def _conv3x3_popcount(a_u8, w_packed, div_post, bias, cin: int,
-                      cfg: KernelConfig) -> torch.Tensor:
-    """The binary-domain conv on codes already on one grid."""
-    if not a_u8.is_cuda:
-        return _ref.w1a8_conv3x3_popcount_ref(a_u8, w_packed, cin, div_post,
-                                              bias, cfg.out_step)
-    a, w, _, div, bs = cuda_operands(a_u8, w_packed, None, div_post, bias,
-                                     cin)
-    out = _conv_out(a, w, cfg)
-    POPCOUNT_KERNEL(a.data_ptr(), w.data_ptr(), div.data_ptr(),
-                    bs.data_ptr(), out.data_ptr(), *a.shape[:3], cin,
-                    w.shape[1], cfg.conv_rows(a.shape[1]), _step(cfg),
-                    int(out.dtype == torch.uint8),
-                    torch.cuda.current_stream(a.device).cuda_stream)
+    g = conv_launch(*a.shape[:3], cin, w.shape[1], cfg.rows, pool=False,
+                    accum=cfg.accum)
+    geometry = (*a.shape[:3], cin, w.shape[1], g.rows, _step(cfg),
+                int(out.dtype == torch.uint8), *g.grid[:2], g.bn, g.wm, g.wn,
+                g.row_px, g.threads, g.smem,
+                torch.cuda.current_stream(a.device).cuda_stream)
+    if popcount:
+        POPCOUNT_KERNEL(a.data_ptr(), w.data_ptr(), div.data_ptr(),
+                        bs.data_ptr(), out.data_ptr(), *geometry)
+    else:
+        KERNEL(a.data_ptr(), w.data_ptr(), mul.data_ptr(), div.data_ptr(),
+               bs.data_ptr(), out.data_ptr(), *geometry)
     return out
 
 
@@ -153,5 +147,4 @@ def w1a8_conv3x3_pool(a_u8: torch.Tensor, w_packed: torch.Tensor,
         mul_prev = None
     return w1a8_conv3x3_pool2(a_u8, w_packed, mul_prev, div_post, bias,
                               cin=cin, out_step=cfg.out_step,
-                              accum=cfg.accum,
-                              rows=cfg.conv_rows(a_u8.shape[1] // 2))
+                              accum=cfg.accum, rows=cfg.rows)

@@ -1,12 +1,14 @@
-"""Device time of the dot conv kernels for each warp tile, at every 3×3
-layer shape of the 320×320 detector with B = 4.
+"""Device time of the conv kernels on the tensor cores, dot and popcount,
+for each warp tile, at every 3×3 layer shape of the 320×320 detector with
+B = 4.
 
     PYTHONPATH=src python -m repro_torch.launch.tile_sweep
 
-For each layer the kernel the served path runs there (the fused conv+pool
-kernel at pool layers, the conv kernel elsewhere) is timed once per warp
-tile (wm, wn) with the rest of the geometry as `geometry.conv_launch` picks
-it, and marked with the tile the geometry's heuristic chooses. A time is
+For each layer and accum mode the kernel the fused-pool route runs there
+(the fused conv+pool kernel at pool layers, the conv kernel elsewhere) is
+timed once per warp tile (wm, wn) with the rest of the geometry as
+`geometry.conv_launch` picks it, and marked with the tile the geometry's
+heuristic chooses. A time is
 the device time per call: the union of the calls' traced device intervals
 (torch.profiler) over 20 calls, divided by 20. Prints one JSON object with
 the card's name and power limit. Needs the card.
@@ -21,7 +23,7 @@ import subprocess
 import numpy as np
 import torch
 
-from repro_torch.kernels.config import KernelConfig
+from repro_torch.kernels.config import ACCUMS, KernelConfig
 from repro_torch.kernels.w1a8_conv import fused_pool, geometry
 from repro_torch.kernels.w1a8_conv import ops as conv_ops
 from repro_torch.launch.profile import union_us
@@ -86,27 +88,34 @@ def main(argv=None) -> dict:
                                     rng.uniform(0.5, 1.5, cout),
                                     rng.standard_normal(cout)))
         wp = conv_ops.conv_pack_weights(w)
-        step = float(conv_ops.w1a8_conv3x3(a, wp, mul, div, bias, cin=cin)
-                     .abs().max()) / 255.0
-        if spec.pool:
-            kernel = "w1a8_conv3x3_pool2"
-            run = lambda: fused_pool.w1a8_conv3x3_pool2(  # noqa: E731
-                a, wp, mul, div, bias, cin=cin, out_step=step)
-        else:
-            kernel = "w1a8_conv3x3"
-            cfg = KernelConfig(op="conv3x3", out_step=step)
-            run = lambda: conv_ops.w1a8_conv3x3(  # noqa: E731
-                a, wp, mul, div, bias, cin=cin, config=cfg)
-        picked = geometry.conv_launch(b, h, h, cin, cout, 1, spec.pool)
-        times = {}
-        for tile in TILES:
-            with only_tile(tile):
-                times[f"{tile[0]}x{tile[1]}"] = device_ms(run)
-        rec = {"layer": spec.name, "kernel": kernel,
-               "shape": [b, h, h, cin, cout],
-               "picked": f"{picked.wm}x{picked.wn}", "device_ms": times}
-        print(json.dumps(rec), flush=True)
-        layers.append(rec)
+        for accum in ACCUMS:
+            # popcount contracts the codes as they are (Mul_prev folded)
+            m = mul if accum == "dot" else None
+            cfg = KernelConfig(op="conv3x3", accum=accum)
+            step = float(conv_ops.w1a8_conv3x3(a, wp, m, div, bias, cin=cin,
+                                               config=cfg)
+                         .abs().max()) / 255.0
+            suffix = "" if accum == "dot" else "_popcount"
+            if spec.pool:
+                kernel = "w1a8_conv3x3_pool2" + suffix
+                run = lambda: fused_pool.w1a8_conv3x3_pool2(  # noqa: E731
+                    a, wp, m, div, bias, cin=cin, out_step=step, accum=accum)
+            else:
+                kernel = "w1a8_conv3x3" + suffix
+                qcfg = cfg.replace(out_step=step)
+                run = lambda: conv_ops.w1a8_conv3x3(  # noqa: E731
+                    a, wp, m, div, bias, cin=cin, config=qcfg)
+            picked = geometry.conv_launch(b, h, h, cin, cout, 1, spec.pool,
+                                          accum)
+            times = {}
+            for tile in TILES:
+                with only_tile(tile):
+                    times[f"{tile[0]}x{tile[1]}"] = device_ms(run)
+            rec = {"layer": spec.name, "kernel": kernel,
+                   "shape": [b, h, h, cin, cout],
+                   "picked": f"{picked.wm}x{picked.wn}", "device_ms": times}
+            print(json.dumps(rec), flush=True)
+            layers.append(rec)
     record = {"card": card, "layers": layers}
     print(json.dumps(record))
     return record

@@ -167,26 +167,39 @@ def _covered(g, h_out, w_out, cout, pool):
                          DETECTOR_CONV_SHAPES + [OFF_GRID_SHAPE]
                          + CONV_SHAPES)
 @pytest.mark.parametrize("pool", [False, True])
-def test_conv_launch_geometry_covers_outputs_once(b, h, w, cin, cout, pool):
-    """Every output stored exactly once, at rows 1 and 2; the dynamic
-    shared memory within a block's 227 KB; the staging inside it."""
+@pytest.mark.parametrize("accum", ["dot", "popcount"])
+def test_conv_launch_geometry_covers_outputs_once(b, h, w, cin, cout, pool,
+                                                  accum):
+    """Every output stored exactly once, at rows 1, 2 and 3 (a ragged last
+    block where 3 does not divide the rows); the dynamic shared memory
+    within a block's 227 KB; the staging inside it, each staged pixel an
+    odd number of 16-byte units (conflict-free ldmatrix rows)."""
     h_out, w_out = (h // 2, w // 2) if pool else (h, w)
-    for rows in (1, 2):
-        g = geometry.conv_launch(b, h, w, cin, cout, rows, pool)
+    units = -(-cin // 16)
+    if accum == "dot":
+        pixel, words, offsets = 32 * units + 16, -(-9 * cin // 32) + 1, 0
+    else:   # pair words, then the window's unit offsets
+        pairs = -(-9 * units // 2)
+        pixel, words, offsets = 16 * (units | 1), pairs + 1, 4 * 2 * pairs
+    for rows in (1, 2, 3):
+        g = geometry.conv_launch(b, h, w, cin, cout, rows, pool, accum)
         assert g.grid[2] == b
         assert g.threads % 32 == 0 and 32 <= g.threads <= 256
         assert g.bn % geometry.BN_STEP == 0 and g.wm in (1, 2) and g.wn in (1, 2, 4)
         assert g.row_px >= w + 2
         assert g.staged_rows == (2 * g.rows + 2 if pool else g.rows + 2)
-        words = -(-9 * cin // 32) + 1
-        staging = 2 * g.staged_rows * g.row_px * geometry.pixel_stride(cin)
-        assert 4 * words * g.bn + staging <= g.smem <= geometry.MAX_SMEM
+        assert geometry.pixel_bytes(cin, accum) == pixel and (pixel // 16) % 2
+        staging = g.staged_rows * g.row_px * pixel
+        assert (4 * words * g.bn + offsets + staging <= g.smem
+                <= geometry.MAX_SMEM)
         assert (_covered(g, h_out, w_out, cout, pool) == 1).all()
 
 
-def test_conv_launch_geometry_refuses_too_much_shared_memory():
+@pytest.mark.parametrize("accum", ["dot", "popcount"])
+def test_conv_launch_geometry_refuses_too_much_shared_memory(accum):
     with pytest.raises(ValueError, match="shared memory"):
-        geometry.conv_launch(1, 160, 160, 128, 128, 160, pool=False)
+        geometry.conv_launch(1, 160, 160, 128, 128, 160, pool=False,
+                             accum=accum)
 
 
 # ---------------------------------------------------------------------------
@@ -380,7 +393,8 @@ def test_config_resolution_without_table():
     other = config.resolve("conv3x3", (10, 10, 128, 128), table=table,
                            device="h100")
     assert (exact.rows, other.rows) == (4, 1)
-    assert exact.conv_rows(10) == 2
+    g = geometry.conv_launch(4, 10, 10, 128, 128, exact.rows, False)
+    assert (g.rows, g.grid[1]) == (4, 3)    # a ragged last block of 2 rows
     assert config.resolve_tuned("conv3x3", (20, 20, 128, 128), table=table,
                                 device="h100") == exact
     with pytest.raises(ValueError):
