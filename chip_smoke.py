@@ -9,14 +9,18 @@ Phases (any failure raises and the script exits non-zero):
    CUDA kernels from ``src/repro_torch/csrc`` with nvcc (in parallel) and
    prints the build seconds, each kernel's register use and spills and the
    count of tensor-core instructions (HMMA, HGMMA, IMMA) in each library's
-   SASS (cuobjdump); the four conv libraries (dot and popcount) must hold
-   some and spill no register.
+   SASS (cuobjdump); the three dot libraries must hold HMMA and the three
+   popcount ones IMMA (the convs and the matmuls), and spill no register.
 2. Holds each dot kernel against its plain PyTorch version on the card, at
    every W1A8 layer shape of the 320×320 detector with B = 4 and at one
    shape off its grid (B = 2, 18×18, Cin 24, Cout 40: Cin % 16 != 0, Cout
    % 32 != 0): f32 outputs within 6e-3·max|y|, uint8 codes within 1 LSB,
    the fused conv+pool kernel equal to the conv kernel plus a 2×2 max
-   exactly, and results unchanged by the row blocking. Times each kernel,
+   exactly, and results unchanged by the row blocking. The dot matmul also
+   at three shapes off the grid, MATMUL_OFF_GRID (ragged M, N and K); at
+   every matmul shape the rows of a call on a prefix of M, on
+   ``a2[1:]`` and on a copy whose rows are not 16-byte aligned equal the
+   full call's bit for bit (`row_checks`). Times each kernel,
    its plain version and one PyTorch library call at the layer shapes:
    the CUDA-event time of back-to-back calls and, for the kernel and the
    library call, the device time from torch.profiler (the union of the
@@ -27,10 +31,12 @@ Phases (any failure raises and the script exits non-zero):
    (each shape has a ragged last block under one of them), the fused
    popcount pool equal to the popcount conv plus a 2×2 max, and each
    popcount kernel bit-exact with the dot kernel of the layer under
-   canonical operands (mul ≡ 1, div·m). At conv9's shape the int kernel
-   equals its plain version and the popcount matmul's sum under div ≡ 1,
-   bias ≡ 0. Times each as in phase 2 at the layer shapes, and prints each
-   layer's device ms.
+   canonical operands (mul ≡ 1, div·m). The popcount matmul also at
+   MATMUL_OFF_GRID, with the same row checks; at every matmul shape the int
+   kernel equals its plain version and the popcount matmul's sum under
+   div ≡ 1, bias ≡ 0. Times each as in phase 2 at the layer shapes, and
+   prints each layer's device ms; then the device time of a one-element
+   ``torch.add`` (the smallest launch, a floor for the kernels' times).
 4. Drives the dot main path through the serving launcher
    (``repro_torch.launch.serve``: 16 random 320×320 uint8 images,
    `slots=4`, `depth=2`), with every launch count set to 0 just before and
@@ -80,6 +86,9 @@ BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor-core peak
 CANONICAL_M = 0.05             # the uniform step of the canonical operands
 OFF_GRID = (2, 18, 18, 24, 40)  # (B, H, W, Cin, Cout) off the detector's grid
+# (M, K, N) off the grid: ragged M, N and K; K % 16 != 0 (byte gathers),
+# K % 32 == 16 (a half-filled last span of 16-byte loads)
+MATMUL_OFF_GRID = ((5, 70, 12), (33, 200, 64), (40, 176, 40))
 ROWS = (2, 3, 4)               # popcount row blockings; each shape has a
                                # ragged last block under one of them
 TENSOR_CORE_OPS = ("HMMA", "HGMMA", "IMMA")
@@ -105,8 +114,11 @@ KERNELS = {
                         "src/repro/kernels/w1a8_matmul/kernel.py:228"),
 }
 DOT = ("w1a8_conv3x3_pool2", "w1a8_conv3x3", "w1a8_matmul")
-TENSOR_CORE_KERNELS = ("w1a8_conv3x3_pool2", "w1a8_conv3x3",
-                       "w1a8_conv3x3_pool2_popcount", "w1a8_conv3x3_popcount")
+# name: the tensor-core instruction its library's SASS must hold
+TENSOR_CORE_KERNELS = {
+    "w1a8_conv3x3_pool2": "HMMA", "w1a8_conv3x3": "HMMA",
+    "w1a8_matmul": "HMMA", "w1a8_conv3x3_pool2_popcount": "IMMA",
+    "w1a8_conv3x3_popcount": "IMMA", "w1a8_matmul_popcount": "IMMA"}
 PER_DISPATCH = {"w1a8_conv3x3_pool2": 4, "w1a8_conv3x3": 4, "w1a8_matmul": 1}
 # popcount forward, per route: (pool2_popcount, conv3x3_popcount,
 # matmul_popcount) launches of one forward
@@ -140,8 +152,8 @@ def bound(nbytes: int, ops: int, ops_per_s: float = BF16_OPS_PER_S) -> tuple:
 
 def tensor_core_counts(_build) -> dict:
     """Phase 1: tensor-core instructions in each library's SASS, by name
-    of its kernel; raises if a tensor-core kernel's library has none or
-    its build log (ptxas -v) reports a spill."""
+    of its kernel; raises if a tensor-core kernel's library has none of its
+    kind or its build log (ptxas -v) reports a spill."""
     import re
     tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     counts = {}
@@ -154,10 +166,9 @@ def tensor_core_counts(_build) -> dict:
                         for op in TENSOR_CORE_OPS}
         print(f"[sass] {lib.name}: " + ", ".join(
             f"{n} {op}" for op, n in counts[name].items()), flush=True)
-    for name in TENSOR_CORE_KERNELS:
-        if not sum(counts[name].values()):
-            raise AssertionError(f"{name}: no tensor-core instruction in "
-                                 f"its SASS")
+    for name, op in TENSOR_CORE_KERNELS.items():
+        if not counts[name][op]:
+            raise AssertionError(f"{name}: no {op} instruction in its SASS")
         log = _build.build_log(pathlib.Path(KERNELS[name][0]).name)
         spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
         if not spills or any(int(n) for n in spills):
@@ -175,6 +186,69 @@ def layer_operands(torch, np, rng, b, h, cin, cout, dev, *, ksize=3):
     bias = rng.standard_normal(cout).astype(np.float32)
     return a, torch.from_numpy(w).to(dev), *(torch.from_numpy(x).to(dev)
                                              for x in (mul, div, bias))
+
+
+def matmul_operands(torch, np, rng, m, k, n, dev):
+    """(m, k) codes, (k, n) float weights, Mul_prev, Div and bias."""
+    a = torch.from_numpy(rng.integers(0, 256, (m, k), dtype=np.uint8))
+    w = rng.standard_normal((k, n)).astype(np.float32)
+    mul = rng.uniform(0.01, 0.1, k).astype(np.float32)
+    div = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    bias = rng.standard_normal(n).astype(np.float32)
+    return a.to(dev), *(torch.from_numpy(x).to(dev)
+                        for x in (w, mul, div, bias))
+
+
+def unaligned(torch, x):
+    """A copy of the uint8 tensor ``x`` whose data starts one byte past a
+    16-byte boundary, so that no row of it is 16-byte aligned."""
+    buf = torch.empty(x.numel() + 32, dtype=torch.uint8, device=x.device)
+    off = (1 - buf.data_ptr()) % 16
+    y = buf[off:off + x.numel()].view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == 1
+    return y
+
+
+def row_checks(torch, run, a2, full, what: str) -> None:
+    """Raises unless the rows of ``run`` on a prefix of M (several lengths,
+    so several launch geometries), on ``a2[1:]`` (whose row pointer is not
+    16-byte aligned where K % 16 != 0) and on an unaligned copy of ``a2``
+    equal the same rows of ``full`` = run(a2) bit for bit."""
+    m = a2.shape[0]
+    for mp in sorted({1, min(17, m), m // 2, m - 1} - {0}):
+        _exact(torch, run(a2[:mp]), full[:mp], f"{what} rows [:{mp}]")
+    if m > 1:
+        _exact(torch, run(a2[1:]), full[1:], f"{what} rows [1:]")
+    _exact(torch, run(unaligned(torch, a2)), full, f"{what} unaligned")
+
+
+def dot_matmul_case(torch, a2, wp, mul, div, bias, k, note, what):
+    """Phase 2 on one matmul operand set: the dot matmul within 6e-3·max|y|
+    (f32) and 1 LSB (codes) of its plain version, and `row_checks` on
+    both. Returns (y, y_ref, q, q_ref, step)."""
+    from repro_torch.kernels.config import KernelConfig
+    from repro_torch.kernels.w1a8_matmul import ops as mm_ops
+    from repro_torch.kernels.w1a8_matmul import ref as mm_ref
+
+    def run(c):
+        return lambda x: mm_ops.w1a8_matmul(x, wp, mul, div, bias, k=k,
+                                            config=c)
+    y_ref = mm_ref.w1a8_matmul_ref(a2, wp, k, mul, div, bias)
+    y = run(None)(a2)
+    step = float(y_ref.abs().max()) / 255.0
+    cfg = KernelConfig(op="matmul", out_step=step)
+    q = run(cfg)(a2)
+    q_ref = mm_ref.w1a8_matmul_ref(a2, wp, k, mul, div, bias, step)
+    torch.cuda.synchronize()
+    err, tol = note("w1a8_matmul", y, y_ref), 6e-3 * float(y_ref.abs().max())
+    codes = note("w1a8_matmul", q, q_ref)
+    if err > tol or codes > 1:
+        raise AssertionError(f"{what}: dot matmul f32 err {err} > {tol} or "
+                             f"codes differ by {codes} > 1 LSB")
+    row_checks(torch, run(None), a2, y, f"{what} dot matmul f32")
+    row_checks(torch, run(cfg), a2, q, f"{what} dot matmul codes")
+    return y, y_ref, q, q_ref, step
 
 
 def check_kernels(torch, np, dev) -> tuple:
@@ -219,12 +293,9 @@ def check_kernels(torch, np, dev) -> tuple:
             rec["kernel"] = "w1a8_matmul"
             a2 = a.reshape(-1, cin)
             wp = mm_ops.w1a8_pack_weights(w)
-            y_ref = mm_ref.w1a8_matmul_ref(a2, wp, cin, mul, div, bias)
-            y = mm_ops.w1a8_matmul(a2, wp, mul, div, bias, k=cin)
-            step = float(y_ref.abs().max()) / 255.0
+            y, y_ref, q, q_ref, step = dot_matmul_case(
+                torch, a2, wp, mul, div, bias, cin, note, name)
             cfg = KernelConfig(op="matmul", out_step=step)
-            q = mm_ops.w1a8_matmul(a2, wp, mul, div, bias, k=cin, config=cfg)
-            q_ref = mm_ref.w1a8_matmul_ref(a2, wp, cin, mul, div, bias, step)
             m = a2.shape[0]
             nbytes = (m * cin + wp.numel() * 4 + 4 * cin + 8 * cout
                       + m * cout)
@@ -321,6 +392,13 @@ def check_kernels(torch, np, dev) -> tuple:
               f"device {rec['library_device_ms']:.4f}, bound "
               f"{rec['bound_ms']:.5f} by {rec['bound_by']})", flush=True)
         layers.append(rec)
+    for m, k, n in MATMUL_OFF_GRID:
+        a2, w, mul, div, bias = matmul_operands(torch, np, rng, m, k, n, dev)
+        dot_matmul_case(torch, a2, mm_ops.w1a8_pack_weights(w), mul, div,
+                        bias, k, note, f"off the grid {(m, k, n)}")
+    print(f"[check] dot matmul off the grid {list(MATMUL_OFF_GRID)} and at "
+          f"conv9: within the tolerances; rows of prefixes of M, of a2[1:] "
+          f"and of unaligned rows bit-exact with the full call", flush=True)
     return layers, off_grid, errs
 
 
@@ -413,6 +491,48 @@ def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
               f"{name} pool popcount vs dot")
         return step, q, pool
 
+    def matmul_checks(a2, wp, div, bias, k, name):
+        """The popcount matmul on one operand set, exactly: against its
+        plain version (f32 and codes), against the dot matmul under
+        canonical operands, and its sum under div ≡ 1, bias ≡ 0 against
+        the int kernel, which is held against its plain version; then
+        `row_checks`. Returns the call, the requant step, the signs and
+        their column sums."""
+        n = wp.shape[1]
+        ones = torch.ones(k, device=dev)
+        mul_m = torch.full((k,), CANONICAL_M, device=dev)
+        div_m = div * torch.tensor(CANONICAL_M, device=dev)
+        cfg = KernelConfig(op="matmul", accum="popcount")
+
+        def mm(x, d, c, mul=None):
+            return mm_ops.w1a8_matmul(x, wp, mul, d, bias, k=k, config=c)
+        y = mm(a2, div, cfg)
+        exact(MM, y, mm_ref.w1a8_matmul_popcount_ref(a2, wp, k, div, bias),
+              f"{name} matmul f32")
+        step = float(y.abs().max()) / 255.0
+        qcfg = cfg.replace(out_step=step)
+        q = mm(a2, div, qcfg)
+        exact(MM, q, mm_ref.w1a8_matmul_popcount_ref(a2, wp, k, div, bias,
+                                                     step),
+              f"{name} matmul codes")
+        for c in (cfg, qcfg):
+            exact(MM, mm(a2, div, c, mul_m),
+                  mm(a2, div_m, c.replace(accum="dot"), ones),
+                  f"{name} matmul popcount vs dot")
+        signs = packing.unpack_signs(wp, k, dtype=torch.float32)
+        colsum = signs.sum(dim=0).to(torch.int32)
+        yi = mm_ops.w1a8_matmul_int(a2, wp, colsum)
+        exact(INT, yi, mm_ref.w1a8_matmul_int_ref(a2, wp, colsum),
+              f"{name} int")
+        sums = mm_ops.w1a8_matmul(a2, wp, None, torch.ones(n, device=dev),
+                                  torch.zeros(n, device=dev), k=k, config=cfg)
+        exact(INT, yi.to(torch.float32), sums, f"{name} int vs popcount sum")
+        row_checks(torch, lambda x: mm(x, div, cfg), a2, y,
+                   f"{name} popcount matmul f32")
+        row_checks(torch, lambda x: mm(x, div, qcfg), a2, q,
+                   f"{name} popcount matmul codes")
+        return mm, step, signs, colsum
+
     for spec in yolo.YOLO_LAYERS:
         if spec.kind != "w1a8":
             continue
@@ -423,47 +543,18 @@ def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
                                             cout, dev, ksize=spec.ksize)
         shape = [BATCH, h, h, cin, cout]
         if spec.ksize == 1:
-            # canonical operands: a uniform step m̄ against mul ≡ 1, div·m̄
-            ones = torch.ones(cin, device=dev)
-            mul_m = torch.full((cin,), CANONICAL_M, device=dev)
-            div_m = div * torch.tensor(CANONICAL_M, device=dev)
             a2 = a.reshape(-1, cin)
             m = a2.shape[0]
             wp = mm_ops.w1a8_pack_weights(w)
-            cfg = KernelConfig(op="matmul", accum="popcount")
-
-            def mm(x, mul, d, c):
-                return mm_ops.w1a8_matmul(x, wp, mul, d, bias, k=cin,
-                                          config=c)
-            y = mm(a2, None, div, cfg)
-            exact(MM, y, mm_ref.w1a8_matmul_popcount_ref(
-                a2, wp, cin, div, bias), f"{name} matmul f32")
-            step = float(y.abs().max()) / 255.0
-            qcfg = cfg.replace(out_step=step)
-            exact(MM, mm(a2, None, div, qcfg),
-                  mm_ref.w1a8_matmul_popcount_ref(a2, wp, cin, div, bias,
-                                                  step),
-                  f"{name} matmul codes")
-            for c in (cfg, qcfg):
-                exact(MM, mm(a2, mul_m, div, c),
-                      mm(a2, ones, div_m, c.replace(accum="dot")),
-                      f"{name} matmul popcount vs dot")
-            signs = packing.unpack_signs(wp, cin, dtype=torch.float32)
-            colsum = signs.sum(dim=0).to(torch.int32)
-            yi = mm_ops.w1a8_matmul_int(a2, wp, colsum)
-            exact(INT, yi, mm_ref.w1a8_matmul_int_ref(a2, wp, colsum),
-                  f"{name} int")
-            sums = mm_ops.w1a8_matmul(
-                a2, wp, None, torch.ones(cout, device=dev),
-                torch.zeros(cout, device=dev), k=cin, config=cfg)
-            exact(INT, yi.to(torch.float32), sums,
-                  f"{name} int vs popcount sum")
+            mm, step, signs, colsum = matmul_checks(a2, wp, div, bias, cin,
+                                                    name)
+            qcfg = KernelConfig(op="matmul", accum="popcount", out_step=step)
             ops = 2 * m * cin * cout
             nbytes = m * cin + wp.numel() * 4 + 8 * cout + m * cout
             a_bf, s_bf = a2.to(torch.bfloat16), signs.to(torch.bfloat16)
             records.append(dict(
                 layer=name, kernel=MM, shape=shape,
-                run=lambda: mm(a2, None, div, qcfg),
+                run=lambda: mm(a2, div, qcfg),
                 plain=lambda: mm_ref.w1a8_matmul_popcount_ref(
                     a2, wp, cin, div, bias, step),
                 library=lambda: torch.matmul(a_bf, s_bf),
@@ -538,6 +629,14 @@ def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
           f"conv3x3_pool2_popcount bit-exact with their plain versions, "
           f"with conv + max, across rows {ROWS} and with the dot kernels",
           flush=True)
+    for m, k, n in MATMUL_OFF_GRID:
+        a2, w, _, div, bias = matmul_operands(torch, np, rng, m, k, n, dev)
+        matmul_checks(a2, mm_ops.w1a8_pack_weights(w), div, bias, k,
+                      f"off the grid {(m, k, n)}")
+    print(f"[popcount] matmul off the grid {list(MATMUL_OFF_GRID)} and at "
+          f"conv9: bit-exact with its plain version, with the dot matmul "
+          f"and with the int kernel's sum; rows of prefixes of M, of a2[1:] "
+          f"and of unaligned rows bit-exact with the full call", flush=True)
     return records, errs
 
 
@@ -748,6 +847,11 @@ def main() -> int:
     pc_layers, pc_errs = check_popcount_kernels(torch, np, dev)
     print(f"[popcount] {len(pc_layers)} kernel calls checked in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    one = torch.zeros(1, device=dev)
+    floor_ms = device_profile(torch, lambda: torch.add(one, 1.0))[
+        "device_busy_ms"]
+    print(f"[floor] one-element torch.add: device {floor_ms:.4f} ms a call",
+          flush=True)
     record, launches = drive_main_path()
     pc_record = drive_popcount(torch, np, dev)
     launches.update(pc_record["launches"])
@@ -798,13 +902,14 @@ def main() -> int:
         {"card": smi, "layers": layers, "off_grid": off_grid,
          "popcount_layers": pc_layers,
          "kernels": kernels, "launcher": record,
-         "popcount_forward": pc_record}, indent=1))
+         "popcount_forward": pc_record, "floor_device_ms": floor_ms},
+        indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],
                       "popcount_forward": pc_record["routes"],
                       "dot_ms_per_forward": pc_record["dot_ms_per_forward"],
                       "dot_profile": pc_record["dot_profile"],
-                      "card": smi}))
+                      "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,19 @@
 // Arithmetic shared by the W1A8 CUDA kernels: the bf16 Mul_prev prologue,
-// the Div/bias/requant epilogue, the 3x3 conv tiles on the tensor cores
-// (bf16 dot and exact int8 popcount) and the per-word XNOR-popcount
-// accumulation of the popcount matmul.
+// the Div/bias/requant epilogue, and the tiles on the tensor cores: the 3x3
+// conv tiles and the matmul tiles, each in a bf16 dot form (mma.sync
+// m16n8k16, f32 accumulation) and an exact int8 popcount form (mma.sync
+// m16n8k32, u8 codes times s8 signs, s32 accumulation).
 //
 // Both dot conv kernels (w1a8_conv3x3.cu, w1a8_conv3x3_pool2.cu) take
 // every accumulator from `conv3x3_mma_tile`, and both popcount conv kernels
 // (w1a8_conv3x3_popcount.cu, w1a8_conv3x3_pool2_popcount.cu) from
 // `conv3x3_imma_tile`; the four write their outputs through
 // `store_conv_tile` or `store_pool_tile`. So each fused conv+pool kernel
-// equals its conv kernel followed by a 2x2 max bit for bit.
+// equals its conv kernel followed by a 2x2 max bit for bit. The dot matmul
+// (w1a8_matmul.cu) takes its accumulators from `matmul_mma_tile`, the
+// popcount matmul (w1a8_matmul_popcount.cu) from `matmul_imma_tile`, both
+// on operands that `load_span` brings from device memory straight into
+// registers; both store through `store_tile`, as `store_conv_tile` does.
 //
 // Every rounding is spelled out (__fmul_rn, __fadd_rn, __fdiv_rn): nvcc
 // would otherwise contract `acc * div + bias` into one FMA, while the
@@ -29,11 +34,6 @@ namespace w1a8 {
 
 constexpr int kPack = 32;  // sign bits per 32-bit word, LSB first
 
-// bf16(a * m): the prologue value the reference feeds its bf16 dot.
-__device__ __forceinline__ __nv_bfloat16 prologue(uint8_t a, float m) {
-  return __float2bfloat16_rn(__fmul_rn(static_cast<float>(a), m));
-}
-
 // trunc(x + (x >= 0 ? 0.5 : -0.5)) with the add rounded in f32.
 __device__ __forceinline__ float round_half_away(float x) {
   return truncf(__fadd_rn(x, x >= 0.f ? 0.5f : -0.5f));
@@ -47,14 +47,6 @@ __device__ __forceinline__ float epilogue(float acc, float div, float bias,
   if (!quant) return y;
   const float q = round_half_away(__fdiv_rn(y, out_step));
   return fminf(fmaxf(q, 0.f), 255.f);
-}
-
-// Adds +v where the sign bit `k` of `word` is 1 and -v where it is 0 (the
-// matmul kernel's accumulation).
-__device__ __forceinline__ float signed_add(float acc, float v, uint32_t word,
-                                            int k) {
-  return ((word >> (k & (kPack - 1))) & 1u) ? __fadd_rn(acc, v)
-                                            : __fsub_rn(acc, v);
 }
 
 // Stages the sign words of output channels [co0, co0 + ct) as (n_words +
@@ -592,35 +584,34 @@ __device__ __forceinline__ void lane_constants(const float* __restrict__ div,
   }
 }
 
-// The conv kernels' epilogue: M row i of the block is output pixel
-// (y0 + i / width, i % width) of image b; rows from m_blk on and columns
-// from cout on are not stored.
-template <int WM, int WN, typename Acc>
-__device__ __forceinline__ void store_conv_tile(
-    const Acc (&acc)[WM][WN][4], const float* __restrict__ div,
-    const float* __restrict__ bias, void* __restrict__ out, int b, int h,
-    int width, int cout, int y0, int co_base, int m0, int m_blk,
-    float out_step, int quant) {
+// Stores one warp item's accumulators through the epilogue into the
+// row-major (rows, ld) output `out`: M row i of the item's block is output
+// row row0 + i, and columns run from co_base; rows from m_blk on and
+// columns from ld on are not stored. dv and bs are the item's
+// lane_constants. With KQ > 1 (the matmuls' kSplit) only the fragment
+// elements 2 * half + e that are part modulo KQ are stored (reduce_split).
+template <int WM, int WN, int KQ = 1, typename Acc>
+__device__ __forceinline__ void store_tile(
+    const Acc (&acc)[WM][WN][4], const float (&dv)[WN][2],
+    const float (&bs)[WN][2], void* __restrict__ out, size_t row0, int m0,
+    int m_blk, int ld, int co_base, float out_step, int quant,
+    int part = 0) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t2 = 2 * (lane & 3);
-  float dv[WN][2], bs[WN][2];
-  lane_constants<WN>(div, bias, co_base, cout, dv, bs);
 #pragma unroll
   for (int mt = 0; mt < WM; ++mt) {
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int i = m0 + mt * 16 + g + 8 * half;
       if (i >= m_blk) continue;
-      const size_t o =
-          ((static_cast<size_t>(b) * h + y0 + i / width) * width +
-           i % width) * cout;
+      const size_t o = (row0 + i) * ld;
 #pragma unroll
       for (int nt = 0; nt < WN; ++nt) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int co = co_base + 8 * nt + t2 + e;
-          if (co >= cout) continue;
+          if (co >= ld || (2 * half + e) % KQ != part) continue;
           const float v =
               epilogue(static_cast<float>(acc[mt][nt][2 * half + e]),
                        dv[nt][e], bs[nt][e], quant != 0, out_step);
@@ -633,6 +624,23 @@ __device__ __forceinline__ void store_conv_tile(
       }
     }
   }
+}
+
+// The conv kernels' epilogue: M row i of the block is output pixel
+// (y0 + i / width, i % width) of image b, which is row (b * h + y0) *
+// width + i of the (b * h * width, cout) output; rows from m_blk on and
+// columns from cout on are not stored.
+template <int WM, int WN, typename Acc>
+__device__ __forceinline__ void store_conv_tile(
+    const Acc (&acc)[WM][WN][4], const float* __restrict__ div,
+    const float* __restrict__ bias, void* __restrict__ out, int b, int h,
+    int width, int cout, int y0, int co_base, int m0, int m_blk,
+    float out_step, int quant) {
+  float dv[WN][2], bs[WN][2];
+  lane_constants<WN>(div, bias, co_base, cout, dv, bs);
+  store_tile<WM, WN>(acc, dv, bs, out,
+                     (static_cast<size_t>(b) * h + y0) * width, m0, m_blk,
+                     cout, co_base, out_step, quant);
 }
 
 __device__ __forceinline__ float quad_pick(float x, float y, bool rising) {
@@ -711,26 +719,251 @@ __device__ __forceinline__ void store_pool_tile(
 }
 
 // ---------------------------------------------------------------------------
-// The popcount matmul: exact int32 sum over the bit-planes of uint8 codes.
+// The matmuls: y = a @ signs for (m, k) uint8 codes and (ceil(k / 32), n)
+// sign words, as a GEMM on the tensor cores, in the dot form (bf16
+// prologue values, mma.sync m16n8k16) and the popcount form (raw codes,
+// mma.sync m16n8k32 u8 * s8, exact). Each item of WM M tiles of 16 rows by
+// WN N tiles of 8 columns is computed by kSplit warps straight from device
+// memory: no shared memory but for the partial sums, so an item's time
+// is one round of loads, all in flight together, a short chain of
+// mma.sync and one barrier.
+//
+// K runs in spans of kSpan = 128 codes. In a span, lane 4g + t of an item
+// covers the 32 codes 32t .. 32t + 31 of its rows g and g + 8 and sign
+// word 4s + t of its columns: the mma.sync take the span's k in a fixed
+// permutation, the same for A and B, under which each lane's share of an
+// mma's K is the next 4 (dot) or 8 (popcount) of its own codes, already in
+// its registers. Warp q of the item's two takes codes 16q .. 16q + 15 of
+// each lane's 32, and `reduce_split` adds the two partial sums in the
+// order q = 0, 1. Codes past k load as 0 and add exactly 0 whatever their
+// sign bits say (the last sign word's pad bits are +1). An output's K runs
+// in one order, span by span, mma by mma and warp by warp, whatever its
+// row, its tile or the call's M, and mma computes it from its own A row
+// and B column only: a row's result does not depend on the rows beside
+// it.
 // ---------------------------------------------------------------------------
 
-// Adds one 32-lane K word to `acc`: lane l of the calling warp holds the
-// code of lane l of the word (0 past the end of K), `w` is this thread's
-// sign word for the same 32 lanes (bit l = 1 <=> +1). Bit b of the 32
-// codes, gathered by __ballot_sync, is plane word b, LSB first as in
-// core/packing.py; over a plane, sum_l s_l * a_{b,l} =
-// 2 * popc(w & plane) - popc(plane). Zero codes add 0 to both terms, so
-// pad lanes and their +1 pad bits add nothing. |acc| <= 255 * K stays far
-// inside int32 and, below 2^24, converts to float exactly. All 32 lanes of
-// the warp must call it together.
-__device__ __forceinline__ int popcount_word(int acc, uint32_t code,
-                                             uint32_t w) {
+constexpr int kSpan = 4 * kPack;  // K codes of one span: 32 per lane of a quad
+constexpr int kSplit = 2;         // warps that split an item's K
+constexpr int kLaneCodes = kPack / kSplit;  // a lane's codes per row and span
+constexpr int kMatmulThreads = 256;         // the kernels' __launch_bounds__
+
+// The 16 codes p[0 .. 15] as 4 words, code j in byte j % 4 of word j / 4,
+// 0 from `valid` on: one 16-byte load with `vec` (p 16-byte aligned and
+// valid a multiple of 16), else a byte gather.
+__device__ __forceinline__ void load_codes(uint32_t (&v)[kLaneCodes / 4],
+                                           const uint8_t* __restrict__ p,
+                                           int valid, bool vec) {
 #pragma unroll
-  for (int b = 0; b < 8; ++b) {
-    const uint32_t plane = __ballot_sync(0xffffffffu, (code >> b) & 1u);
-    acc += (2 * __popc(w & plane) - __popc(plane)) * (1 << b);
+  for (int i = 0; i < kLaneCodes / 4; ++i) v[i] = 0u;
+  if (vec) {
+    if (valid > 0) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p);
+      v[0] = q.x;
+      v[1] = q.y;
+      v[2] = q.z;
+      v[3] = q.w;
+    }
+    return;
   }
-  return acc;
+#pragma unroll
+  for (int j = 0; j < kLaneCodes; ++j) {
+    if (j < valid) v[j / 4] |= static_cast<uint32_t>(p[j]) << (8 * (j % 4));
+  }
+}
+
+// The 16 Mul_prev values p[0 .. 15], 0 from `valid` on: 16-byte loads
+// with `vec` (p 16-byte aligned and valid % 4 == 0), else one by one.
+__device__ __forceinline__ void load_mul(float (&m)[kLaneCodes],
+                                         const float* __restrict__ p,
+                                         int valid, bool vec) {
+  if (vec) {
+#pragma unroll
+    for (int q = 0; q < kLaneCodes / 4; ++q) {
+      const float4 f = 4 * q < valid
+                           ? __ldg(reinterpret_cast<const float4*>(p) + q)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+      m[4 * q] = f.x;
+      m[4 * q + 1] = f.y;
+      m[4 * q + 2] = f.z;
+      m[4 * q + 3] = f.w;
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kLaneCodes; ++j) m[j] = j < valid ? __ldg(p + j) : 0.f;
+}
+
+// rows[mt][r]: the first code of row g + 8r of M tile mt of this lane's
+// item, for a block whose rows start at row0 and hold m_blk outputs. Rows
+// past them point at the last one: they are loaded, never stored.
+template <int WM>
+__device__ __forceinline__ void row_pointers(const uint8_t* a, int k, int row0,
+                                             int m_blk,
+                                             const uint8_t* (&rows)[WM][2]) {
+  const int g = (threadIdx.x & 31) >> 2;
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = min(mt * 16 + g + 8 * r, m_blk - 1);
+      rows[mt][r] = a + static_cast<size_t>(row0 + i) * k;
+    }
+  }
+}
+
+// Loads one span's operands of warp q of an item: this lane's codes of
+// rows rows[mt][r] (pointers to each row's first code) and the sign words
+// of its columns col + 8 * nt (0 past n or past the last word).
+template <int WM, int WN>
+__device__ __forceinline__ void load_span(
+    const uint8_t* const (&rows)[WM][2], const uint32_t* __restrict__ w,
+    int k, int n, int s, int q, int col, bool vec,
+    uint32_t (&code)[WM][2][kLaneCodes / 4], uint32_t (&word)[WN]) {
+  const int t = threadIdx.x & 3;
+  const int kb = s * kSpan + kPack * t + kLaneCodes * q;
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      load_codes(code[mt][r], rows[mt][r] + kb, k - kb, vec);
+    }
+  }
+  const int j = s * (kSpan / kPack) + t;
+#pragma unroll
+  for (int nt = 0; nt < WN; ++nt) {
+    const int c = col + 8 * nt;
+    word[nt] = j < words_of(k) && c < n
+                   ? __ldg(w + static_cast<size_t>(j) * n + c)
+                   : 0u;
+  }
+}
+
+// float(byte i of x), exactly, without a conversion instruction: the byte
+// as the low mantissa bits of 2^23, less 2^23.
+__device__ __forceinline__ float byte_to_float(uint32_t x, int i) {
+  return __fsub_rn(__uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540 + i)),
+                   8388608.f);
+}
+
+// Adds warp q's share of one span to acc[mt][nt] (the m16n8 accumulator
+// fragment of M tile mt and columns 8 * nt on of the item) on the bf16
+// tensor cores: code[mt][r] holds this lane's codes 16q .. 16q + 15 of row
+// g + 8r of M tile mt, mul their Mul_prev values and word[nt] the span's
+// sign word of column 8 * nt + g. mma c takes codes 4c .. 4c + 3 of them,
+// the first two as the lane's A columns 2t, 2t + 1 (and the sign bits of
+// the same k as its B rows 2t, 2t + 1), the last two as columns and rows
+// 2t + 8, 2t + 9; each A value is the prologue bf16(code * Mul_prev).
+template <int WM, int WN>
+__device__ __forceinline__ void matmul_mma_tile(
+    const uint32_t (&code)[WM][2][kLaneCodes / 4],
+    const float (&mul)[kLaneCodes], const uint32_t (&word)[WN], int q,
+    float (&acc)[WM][WN][4]) {
+#pragma unroll
+  for (int c = 0; c < kLaneCodes / 4; ++c) {
+    const int shift = kLaneCodes * q + 4 * c;
+    uint32_t b[WN][2];
+#pragma unroll
+    for (int nt = 0; nt < WN; ++nt) {
+      b[nt][0] = sign_pair(word[nt] >> shift);
+      b[nt][1] = sign_pair(word[nt] >> (shift + 2));
+    }
+#pragma unroll
+    for (int mt = 0; mt < WM; ++mt) {
+      uint32_t a[4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint32_t four = code[mt][r][c];
+        a[r] = pack_bf16x2(__fmul_rn(byte_to_float(four, 0), mul[4 * c]),
+                           __fmul_rn(byte_to_float(four, 1), mul[4 * c + 1]));
+        a[2 + r] =
+            pack_bf16x2(__fmul_rn(byte_to_float(four, 2), mul[4 * c + 2]),
+                        __fmul_rn(byte_to_float(four, 3), mul[4 * c + 3]));
+      }
+#pragma unroll
+      for (int nt = 0; nt < WN; ++nt) mma_bf16_16816(acc[mt][nt], a, b[nt]);
+    }
+  }
+}
+
+// The exact int32 counterpart, on the int8 tensor cores: mma p takes codes
+// 8p .. 8p + 7 of the lane's 16, the first four as its A columns
+// 4t .. 4t + 3 (and their sign bits as its B rows), the last four as
+// columns and rows 16 + 4t .. 16 + 4t + 3: the A registers are the code
+// words as loaded.
+template <int WM, int WN>
+__device__ __forceinline__ void matmul_imma_tile(
+    const uint32_t (&code)[WM][2][kLaneCodes / 4], const uint32_t (&word)[WN],
+    int q, int (&acc)[WM][WN][4]) {
+#pragma unroll
+  for (int p = 0; p < kLaneCodes / 8; ++p) {
+    const int shift = kLaneCodes * q + 8 * p;
+    uint32_t b[WN][2];
+#pragma unroll
+    for (int nt = 0; nt < WN; ++nt) {
+      b[nt][0] = sign_bytes(word[nt] >> shift);
+      b[nt][1] = sign_bytes(word[nt] >> (shift + 4));
+    }
+#pragma unroll
+    for (int mt = 0; mt < WM; ++mt) {
+      const uint32_t a[4] = {code[mt][0][2 * p], code[mt][1][2 * p],
+                             code[mt][0][2 * p + 1], code[mt][1][2 * p + 1]};
+#pragma unroll
+      for (int nt = 0; nt < WN; ++nt) mma_u8s8_16832(acc[mt][nt], a, b[nt]);
+    }
+  }
+}
+
+// Sums the partial accumulators of an item's two warps for the outputs
+// that warp q stores: its elements i % 2 == q of each fragment (i = 2 *
+// half + e: row g + 8 * half, column t2 + e). Both warps post their
+// partial sums in `red` (two tiles of 32 lanes per item of the block),
+// then add, for their own elements, warp 0's and warp 1's in that order,
+// so that an output's sum does not depend on the warp that stores it.
+// Every thread of the block calls it (a barrier).
+template <int WM, int WN, typename Acc>
+__device__ __forceinline__ void reduce_split(Acc (&acc)[WM][WN][4],
+                                             Acc* red) {
+  constexpr int kTile = WM * WN * 4;
+  const int lane = threadIdx.x & 31;
+  const int q = (threadIdx.x / 32) % kSplit;
+  Acc* item = red + (threadIdx.x / 32 / kSplit) * kSplit * kTile * 32 + lane;
+  Acc* flat = &acc[0][0][0];
+#pragma unroll
+  for (int i = 0; i < kTile; ++i) item[(q * kTile + i) * 32] = flat[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kTile; ++i) {
+    if (i % kSplit != q) continue;
+    Acc sum = item[i * 32];
+    for (int j = 1; j < kSplit; ++j) sum += item[(j * kTile + i) * 32];
+    flat[i] = sum;
+  }
+}
+
+// The instantiation Kernels::get<WM, WN>() of a matmul kernel, dot or
+// popcount, for warp tile (wm, wn), one of the library's Tiles (10 * WM +
+// WN each: its route's WARP_TILES in kernels/w1a8_matmul/geometry.py), or
+// nullptr.
+template <typename Kernels, int... Tiles>
+auto pick_matmul(int wm, int wn) -> decltype(Kernels::template get<1, 1>()) {
+  decltype(Kernels::template get<1, 1>()) kernel = nullptr;
+  ((kernel = 10 * wm + wn == Tiles
+                 ? Kernels::template get<Tiles / 10, Tiles % 10>()
+                 : kernel),
+   ...);
+  return kernel;
+}
+
+// True when a matmul launch covers the (m, n) output exactly: grid_x row
+// blocks of bm = 16 * wm rows by grid_y column blocks of bn = 8 * wn *
+// threads / (32 * kSplit) columns, no block past the output.
+inline bool matmul_geometry_ok(int m, int k, int n, int grid_x, int grid_y,
+                               int bm, int bn, int wm, int wn, int threads) {
+  return m >= 1 && k >= 1 && n >= 1 && bm == 16 * wm && threads >= 32 &&
+         threads <= kMatmulThreads && threads % (32 * kSplit) == 0 &&
+         bn == 8 * wn * (threads / (32 * kSplit)) && grid_x * bm >= m &&
+         (grid_x - 1) * bm < m && grid_y * bn >= n && (grid_y - 1) * bn < n;
 }
 
 // Sets a kernel's dynamic shared memory limit where it needs more than the

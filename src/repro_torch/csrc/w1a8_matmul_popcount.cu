@@ -1,81 +1,101 @@
-// Binary-domain W1A8 matmul: uint8 codes contracted against packed 1-bit
-// weights with AND + popcount over the codes' 8 bit-planes, then the
-// Div/bias epilogue and, when requested, the requant to uint8 codes.
+// Binary-domain W1A8 matmul: the exact int32 sum of uint8 codes against
+// packed 1-bit weights (what the TPU kernel forms with AND + popcount over
+// the codes' 8 bit-planes), then the Div/bias epilogue and, when
+// requested, the requant to uint8 codes.
 //
 // Replaces the TPU kernel
 // repro/kernels/w1a8_matmul/kernel.py::w1a8_matmul_popcount_pallas
 // (_popcount_matmul_kernel, _xnor_accumulate, _pack_act_bitplane): exact
 // int32 sum_k s_k * a_k, converted to f32, then acc * div + bias. The codes
 // must already sit on one grid; the wrapper folds a per-channel Mul_prev
-// into them and its uniform step into div.
+// into them and its uniform step into div. The TPU kernel's plane-by-plane
+// AND + popcount becomes one int8 product on the tensor cores (mma.sync
+// m16n8k32, u8 codes times s8 +-1, s32 accumulate), which forms the same
+// integer sum: |acc| <= 255 * k stays far inside int32 and, below 2^24,
+// converts to f32 exactly.
 //
 // What bounds it on the H100: at the detector's conv9 (M = 4 * 100,
-// K = 128, N = 64) the call moves about 60 KB, so the launch itself
-// dominates, as for the dot matmul.
+// K = 128, N = 64) the call moves about 80 KB, a bound of some 23 ns, so
+// its time is latency, as for the dot matmul: the launch, the round trip
+// of its loads, the chain of dependent mma.sync, the epilogue.
 //
-// Design: one thread per output in a (32 columns x 8 rows) block, a warp
-// per row, so the ragged M and N edges are masked in the kernel and nothing
-// is padded. Per 32-lane K word, lane l loads the row's code at K lane l
-// (a coalesced 32-byte read, 0 past K), __ballot_sync turns the 32 codes
-// into the 8 plane words, and each lane ANDs them with its column's sign
-// word (w1a8::popcount_word).
+// Design: the dot matmul's (w1a8_matmul.cu), with the same geometry from
+// kernels/w1a8_matmul/geometry.py and no prologue: per span of 128 codes
+// of K each lane loads its 16 codes of each of its rows and one sign word
+// per column (w1a8::load_span); the code words are the A registers of its
+// mma.sync as loaded (w1a8::matmul_imma_tile). The two warps of an item
+// add their int32 sums in a fixed order (w1a8::reduce_split), exactly, and
+// each stores its half of the outputs (w1a8::store_tile).
 #include "w1a8_common.cuh"
 
 namespace {
 
-constexpr int kTileN = 32;  // one warp spans the tile: lane = column
-constexpr int kTileM = 8;
+using w1a8::kLaneCodes;
+using w1a8::kMatmulThreads;
+using w1a8::kSplit;
 
-__global__ void __launch_bounds__(kTileN * kTileM)
+// One block per SM at the least: without it ptxas held some
+// instantiations to 80 registers and spilled.
+template <int WM, int WN>
+__global__ void __launch_bounds__(kMatmulThreads, 1)
 matmul_popcount_kernel(const uint8_t* __restrict__ a,
                        const uint32_t* __restrict__ w,
                        const float* __restrict__ div,
                        const float* __restrict__ bias,
-                       void* __restrict__ out, int m, int k, int n,
+                       void* __restrict__ out, int m, int k, int n, int bn,
                        float out_step, int quant) {
-  const int lane = threadIdx.x;
-  const int col = blockIdx.x * kTileN + lane;
-  const int row = blockIdx.y * kTileM + threadIdx.y;
-  if (row >= m) return;  // the whole warp: it spans one row
-  const uint8_t* arow = a + static_cast<size_t>(row) * k;
-  const bool live = col < n;
-  const int n_words = (k + w1a8::kPack - 1) / w1a8::kPack;
-  int acc = 0;
-  for (int j = 0; j < n_words; ++j) {
-    const int kk = j * w1a8::kPack + lane;
-    const uint32_t code = kk < k ? arow[kk] : 0u;
-    const uint32_t word =
-        live ? __ldg(w + static_cast<size_t>(j) * n + col) : 0u;
-    acc = w1a8::popcount_word(acc, code, word);
+  __shared__ int red[kMatmulThreads * WM * WN * 4];
+  const int lane = threadIdx.x & 31;
+  const int q = (threadIdx.x / 32) % kSplit;
+  const int row0 = blockIdx.x * 16 * WM;
+  const int m_blk = min(16 * WM, m - row0);
+  const int col = blockIdx.y * bn + (threadIdx.x / 32 / kSplit) * 8 * WN;
+  const bool vec = k % 16 == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  float dv[WN][2], bs[WN][2];
+  w1a8::lane_constants<WN>(div, bias, col, n, dv, bs);
+  const uint8_t* rows[WM][2];
+  w1a8::row_pointers<WM>(a, k, row0, m_blk, rows);
+  int acc[WM][WN][4] = {};
+  for (int s = 0; s * w1a8::kSpan < k; ++s) {
+    uint32_t code[WM][2][kLaneCodes / 4], word[WN];
+    w1a8::load_span<WM, WN>(rows, w, k, n, s, q, col + (lane >> 2), vec, code,
+                            word);
+    w1a8::matmul_imma_tile<WM, WN>(code, word, q, acc);
   }
-  if (!live) return;
-  const float v = w1a8::epilogue(static_cast<float>(acc), __ldg(div + col),
-                                 __ldg(bias + col), quant != 0, out_step);
-  const size_t o = static_cast<size_t>(row) * n + col;
-  if (quant) {
-    static_cast<uint8_t*>(out)[o] = static_cast<uint8_t>(v);
-  } else {
-    static_cast<float*>(out)[o] = v;
-  }
+  w1a8::reduce_split(acc, red);
+  w1a8::store_tile<WM, WN, kSplit>(acc, dv, bs, out, row0, 0, m_blk, n, col,
+                                   out_step, quant, q);
 }
+
+struct Kernels {
+  template <int WM, int WN>
+  static auto get() { return matmul_popcount_kernel<WM, WN>; }
+};
 
 }  // namespace
 
 extern "C" {
 
 // a (m, k) uint8 codes on one grid; w (ceil(k / 32), n) sign words; div and
-// bias (n,) f32; out (m, n), uint8 codes when quant != 0, else f32.
-// Returns cudaGetLastError().
+// bias (n,) f32; out (m, n), uint8 codes when quant != 0, else f32. The
+// launch geometry is w1a8_matmul's, from kernels/w1a8_matmul/geometry.py;
+// one that does not cover the output exactly is refused with
+// cudaErrorInvalidValue. Returns cudaGetLastError() otherwise.
 int w1a8_matmul_popcount(const void* a, const void* w, const void* div,
                          const void* bias, void* out, int m, int k, int n,
-                         float out_step, int quant, void* stream) {
-  const dim3 block(kTileN, kTileM);
-  const dim3 grid((n + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
-  matmul_popcount_kernel<<<grid, block, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+                         float out_step, int quant, int grid_x, int grid_y,
+                         int bm, int bn, int wm, int wn, int threads,
+                         void* stream) {
+  const auto kernel = w1a8::pick_matmul<Kernels, 11>(wm, wn);
+  if (!kernel || !w1a8::matmul_geometry_ok(m, k, n, grid_x, grid_y, bm, bn,
+                                           wm, wn, threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<dim3(grid_x, grid_y), threads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint32_t*>(w),
       static_cast<const float*>(div), static_cast<const float*>(bias), out,
-      m, k, n, out_step, quant);
+      m, k, n, bn, out_step, quant);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,37 +21,21 @@ from typing import Dict, Optional, Sequence
 OPS = ("matmul", "conv3x3", "conv3x3_pool")
 ACCUMS = ("dot", "popcount")
 
-DEF_BK = 512  # matmul: K elements staged in shared memory per pass
-PACK = 32
-
-
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
-
-
-def pick_tile(dim: int, pref: int, mult: int) -> int:
-    """Largest tile ≤ pref that keeps padding small; multiple of `mult`."""
-    if dim >= pref:
-        return pref
-    return max(mult, _round_up(dim, mult))
-
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
     """Launch configuration for one W1A8 kernel call.
 
-    ``bk`` is the matmul's K chunk staged in shared memory per pass (None:
-    `pick_tile`). ``rows`` is the conv row-blocking factor: output rows
-    (pooled rows for the fused kernels) one block produces; the last block
-    of a layer may hold fewer. ``fused`` routes
-    ``w1a8_conv3x3_pool`` through the fused conv+pool kernel (True) or the
-    conv kernel followed by a 2×2 max (False). All validation happens here.
+    ``rows`` is the conv row-blocking factor: output rows (pooled rows for
+    the fused kernels) one block produces; the last block of a layer may
+    hold fewer. ``fused`` routes ``w1a8_conv3x3_pool`` through the fused
+    conv+pool kernel (True) or the conv kernel followed by a 2×2 max
+    (False). All validation happens here.
     """
 
     op: str = "matmul"
     accum: str = "dot"
     out_step: Optional[float] = None
-    bk: Optional[int] = None
     rows: int = 1
     fused: bool = True
 
@@ -61,14 +45,8 @@ class KernelConfig:
         if self.accum not in ACCUMS:
             raise ValueError(
                 f"accum must be one of {ACCUMS}, got {self.accum!r}")
-        if self.bk is not None and (self.bk <= 0 or self.bk % PACK):
-            raise ValueError(
-                f"bk must be a positive multiple of {PACK}, got {self.bk}")
         if self.rows < 1:
             raise ValueError(f"rows must be ≥ 1, got {self.rows}")
-
-    def matmul_bk(self, k: int) -> int:
-        return self.bk if self.bk is not None else pick_tile(k, DEF_BK, PACK)
 
     def replace(self, **kw) -> "KernelConfig":
         return dataclasses.replace(self, **kw)

@@ -9,8 +9,10 @@ uniform step m̄ into Div; ``mul_prev=None`` means the caller has done so).
 (a − 128)·(±1) plus 128·colsum.
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version in ``ref.py``. Leading dims of ``a_u8`` fold into M. The kernels
-mask the ragged M and N edges themselves, so nothing is padded.
+version in ``ref.py``. Leading dims of ``a_u8`` fold into M. The dot and
+popcount kernels run on the tensor cores with the launch geometry of
+`geometry.matmul_launch`; they mask the ragged M, N and K edges
+themselves, so nothing is padded.
 """
 from __future__ import annotations
 
@@ -23,13 +25,16 @@ from repro_torch.core.quant import fold_codes_to_uniform_step
 from repro_torch.kernels import _build
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.kernels.w1a8_matmul import ref as _ref
+from repro_torch.kernels.w1a8_matmul.geometry import matmul_launch
 
-KERNEL = _build.Kernel(
-    "w1a8_matmul.cu", "w1a8_matmul",
-    [_build.P] * 6 + [_build.I] * 4 + [_build.F, _build.I, _build.P])
-POPCOUNT_KERNEL = _build.Kernel(
-    "w1a8_matmul_popcount.cu", "w1a8_matmul_popcount",
-    [_build.P] * 5 + [_build.I] * 3 + [_build.F, _build.I, _build.P])
+# (..., m, k, n, out_step, quant, grid_x, grid_y, bm, bn, wm, wn, threads,
+# stream)
+_GEOMETRY_ARGS = [_build.I] * 3 + [_build.F] + [_build.I] * 8 + [_build.P]
+KERNEL = _build.Kernel("w1a8_matmul.cu", "w1a8_matmul",
+                       [_build.P] * 6 + _GEOMETRY_ARGS)
+POPCOUNT_KERNEL = _build.Kernel("w1a8_matmul_popcount.cu",
+                                "w1a8_matmul_popcount",
+                                [_build.P] * 5 + _GEOMETRY_ARGS)
 INT_KERNEL = _build.Kernel(
     "w1a8_matmul_int.cu", "w1a8_matmul_int",
     [_build.P] * 4 + [_build.I] * 3 + [_build.P])
@@ -110,15 +115,14 @@ def _launch(kernel: _build.Kernel, a2, w_packed, mul_prev, div_post, bias,
     quant = cfg.out_step is not None
     out = torch.empty((m, n), dtype=torch.uint8 if quant else torch.float32,
                       device=dev)
-    step = float(cfg.out_step if quant else 1.0)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if mul is None:
-        kernel(a2.data_ptr(), w.data_ptr(), div.data_ptr(), bs.data_ptr(),
-               out.data_ptr(), m, k, n, step, int(quant), stream)
-    else:
-        kernel(a2.data_ptr(), w.data_ptr(), mul.data_ptr(), div.data_ptr(),
-               bs.data_ptr(), out.data_ptr(), m, k, n, cfg.matmul_bk(k),
-               step, int(quant), stream)
+    g = matmul_launch(m, n, cfg.accum)
+    geometry = (m, k, n, float(cfg.out_step if quant else 1.0), int(quant),
+                *g.grid, g.bm, g.bn, g.wm, g.wn, g.threads,
+                torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = [a2.data_ptr(), w.data_ptr()]
+    if mul is not None:
+        ptrs.append(mul.data_ptr())
+    kernel(*ptrs, div.data_ptr(), bs.data_ptr(), out.data_ptr(), *geometry)
     return out
 
 

@@ -1,14 +1,16 @@
-"""Device time of the conv kernels on the tensor cores, dot and popcount,
-for each warp tile, at every 3×3 layer shape of the 320×320 detector with
-B = 4.
+"""Device time of the kernels on the tensor cores, dot and popcount, for
+each warp tile, at every W1A8 layer shape of the 320×320 detector with
+B = 4: the convs at the 3×3 layers, the matmuls at conv9, there also at
+B = 8, 16, 32 and 64 (the launcher's ``--slots``; M = 100·B).
 
     PYTHONPATH=src python -m repro_torch.launch.tile_sweep
 
 For each layer and accum mode the kernel the fused-pool route runs there
-(the fused conv+pool kernel at pool layers, the conv kernel elsewhere) is
-timed once per warp tile (wm, wn) with the rest of the geometry as
-`geometry.conv_launch` picks it, and marked with the tile the geometry's
-heuristic chooses. A time is
+(the fused conv+pool kernel at pool layers, the conv kernel elsewhere, the
+matmul at conv9) is timed once per warp tile (wm, wn), with the rest
+of the geometry as `w1a8_conv.geometry.conv_launch` or
+`w1a8_matmul.geometry.matmul_launch` picks it, and marked with the tile
+the geometry's heuristic chooses. A time is
 the device time per call: the union of the calls' traced device intervals
 (torch.profiler) over 20 calls, divided by 20. Prints one JSON object with
 the card's name and power limit. Needs the card.
@@ -26,10 +28,13 @@ import torch
 from repro_torch.kernels.config import ACCUMS, KernelConfig
 from repro_torch.kernels.w1a8_conv import fused_pool, geometry
 from repro_torch.kernels.w1a8_conv import ops as conv_ops
+from repro_torch.kernels.w1a8_matmul import geometry as mm_geometry
+from repro_torch.kernels.w1a8_matmul import ops as mm_ops
 from repro_torch.launch.profile import union_us
 from repro_torch.models import yolo
 
 TILES = ((2, 4), (2, 2), (2, 1), (1, 4), (1, 2), (1, 1))
+MATMUL_BATCHES = (8, 16, 32, 64)  # conv9's batches besides --batch
 
 
 @contextlib.contextmanager
@@ -41,6 +46,51 @@ def only_tile(tile):
         yield
     finally:
         geometry.WARP_TILES, geometry.WARPS_PER_SM = saved
+
+
+@contextlib.contextmanager
+def only_matmul_tile(tile):
+    """Makes `matmul_launch` pick warp tile `tile` whatever the shape and
+    route."""
+    saved = mm_geometry.WARP_TILES
+    mm_geometry.WARP_TILES = {accum: (tile,) for accum in saved}
+    try:
+        yield
+    finally:
+        mm_geometry.WARP_TILES = saved
+
+
+def sweep_matmul(rng, m: int, k: int, n: int, dev, layer: str) -> list:
+    """Both matmuls at (m, k, n), requantized as on the forward path, once
+    per warp tile its route's kernel builds; one record per accum mode, its
+    times keyed "{wm}x{wn}"."""
+    a = torch.from_numpy(rng.integers(0, 256, (m, k), dtype=np.uint8)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    mul, div, bias = (torch.from_numpy(x.astype(np.float32)).to(dev)
+                      for x in (rng.uniform(0.01, 0.1, k),
+                                rng.uniform(0.5, 1.5, n),
+                                rng.standard_normal(n)))
+    wp = mm_ops.w1a8_pack_weights(w).to(dev)
+    records = []
+    for accum in ACCUMS:
+        g = mm_geometry.matmul_launch(m, n, accum)
+        m_prev = mul if accum == "dot" else None
+        cfg = KernelConfig(op="matmul", accum=accum)
+        step = float(mm_ops.w1a8_matmul(a, wp, m_prev, div, bias, k=k,
+                                        config=cfg).abs().max()) / 255.0
+        qcfg = cfg.replace(out_step=step)
+        run = lambda: mm_ops.w1a8_matmul(  # noqa: E731
+            a, wp, m_prev, div, bias, k=k, config=qcfg)
+        times = {}
+        for tile in mm_geometry.WARP_TILES[accum]:
+            with only_matmul_tile(tile):
+                times[f"{tile[0]}x{tile[1]}"] = device_ms(run)
+        suffix = "" if accum == "dot" else "_popcount"
+        records.append({"layer": layer, "kernel": "w1a8_matmul" + suffix,
+                        "shape": [m, k, n],
+                        "picked": f"{g.wm}x{g.wn}",
+                        "device_ms": times})
+    return records
 
 
 def device_ms(fn, n: int = 20, tries: int = 5) -> float:
@@ -76,9 +126,16 @@ def main(argv=None) -> dict:
     sizes = yolo.spatial_sizes(yolo.INPUT_SIZE)
     layers = []
     for spec in yolo.YOLO_LAYERS:
-        if spec.kind != "w1a8" or spec.ksize != 3:
+        if spec.kind != "w1a8":
             continue
         b, h, cin, cout = args.batch, sizes[spec.name], spec.cin, spec.cout
+        if spec.ksize == 1:
+            for mb in (b,) + MATMUL_BATCHES:
+                for rec in sweep_matmul(rng, mb * h * h, cin, cout, dev,
+                                        spec.name):
+                    print(json.dumps(rec), flush=True)
+                    layers.append(rec)
+            continue
         a = torch.from_numpy(rng.integers(0, 256, (b, h, h, cin),
                                           dtype=np.uint8)).to(dev)
         w = torch.from_numpy(rng.standard_normal((3, 3, cin, cout))

@@ -23,6 +23,7 @@ from repro_torch.kernels import config  # noqa: E402
 from repro_torch.kernels.config import KernelConfig  # noqa: E402
 from repro_torch.kernels.w1a8_conv import geometry  # noqa: E402
 from repro_torch.kernels.w1a8_conv import ops as conv  # noqa: E402
+from repro_torch.kernels.w1a8_matmul import geometry as mmgeo  # noqa: E402
 from repro_torch.kernels.w1a8_matmul import ops as mm  # noqa: E402
 from repro_torch.kernels.w1a8_matmul import ref as mmref  # noqa: E402
 
@@ -200,6 +201,60 @@ def test_conv_launch_geometry_refuses_too_much_shared_memory(accum):
     with pytest.raises(ValueError, match="shared memory"):
         geometry.conv_launch(1, 160, 160, 128, 128, 160, pool=False,
                              accum=accum)
+
+
+# The matmul kernels' launch geometry (kernels/w1a8_matmul/geometry.py),
+# for each route, at the detector's conv9 (M = B·100, N = 64) for the
+# launcher's batches B = 1 .. 64, at the three shapes off its grid that
+# chip_smoke.py holds the kernels at (ragged M and N), at a wider N and at
+# one row or column.
+MATMUL_GEOMETRY_SHAPES = [(100 * b, 64) for b in (1, 2, 4, 8, 16, 32, 64)] + [
+    (5, 12), (33, 64), (40, 40), (6400, 128), (1, 64), (400, 1)]
+
+
+@pytest.mark.parametrize("m,n", MATMUL_GEOMETRY_SHAPES)
+@pytest.mark.parametrize("accum", ["dot", "popcount"])
+def test_matmul_launch_geometry_covers_outputs_once(m, n, accum):
+    """Every (row, column) stored exactly once, walked as the kernels walk
+    it: block (bx, by) holds rows [bx·bm, ...) and columns [by·bn, ...),
+    its warp w columns 8·wn·(w // 2) on, the two warps of an item sharing
+    its columns; no block holds nothing. The kernels keep only the partial
+    sums in shared memory, within their static 16 KB."""
+    g = mmgeo.matmul_launch(m, n, accum)
+    warps = g.threads // 32
+    split = mmgeo.K_SPLIT
+    assert split == 2 and g.threads % (32 * split) == 0
+    assert 1 <= warps <= mmgeo.MAX_WARPS
+    assert (g.wm, g.wn) in mmgeo.WARP_TILES[accum]
+    assert g.bm == 16 * g.wm and g.bn == 8 * g.wn * warps // split
+    assert 256 * g.wm * g.wn * 4 * 4 <= 16 * 1024
+    assert (g.grid[0] - 1) * g.bm < m <= g.grid[0] * g.bm
+    assert (g.grid[1] - 1) * g.bn < n <= g.grid[1] * g.bn
+    count = np.zeros((m, n), np.int64)
+    for bx in range(g.grid[0]):
+        rows = slice(bx * g.bm, min((bx + 1) * g.bm, m))
+        for by in range(g.grid[1]):
+            for w in range(0, warps, split):
+                c0 = by * g.bn + 8 * g.wn * (w // split)
+                count[rows, c0:min(c0 + 8 * g.wn, n)] += 1
+    assert (count == 1).all()
+
+
+# conv9 (K = 128, N = 64) at the launcher's batch B: the warp tile that
+# launch/tile_sweep.py measured fastest, or within 10% of it, on an H100
+# (PERF.md, PR 15).
+@pytest.mark.parametrize("accum,batch,tile", [
+    ("dot", 4, (1, 1)), ("dot", 8, (1, 1)), ("dot", 16, (1, 1)),
+    ("dot", 32, (1, 4)), ("dot", 64, (1, 4)), ("popcount", 4, (1, 1)),
+    ("popcount", 16, (1, 1)), ("popcount", 64, (1, 1))])
+def test_matmul_launch_picks_the_measured_tile(accum, batch, tile):
+    g = mmgeo.matmul_launch(100 * batch, 64, accum)
+    assert (g.wm, g.wn) == tile
+
+
+def test_matmul_launch_geometry_refuses_an_empty_matmul():
+    with pytest.raises(ValueError, match="bad matmul shape"):
+        mmgeo.matmul_launch(0, 64, "dot")
 
 
 # ---------------------------------------------------------------------------
@@ -398,4 +453,4 @@ def test_config_resolution_without_table():
     assert config.resolve_tuned("conv3x3", (20, 20, 128, 128), table=table,
                                 device="h100") == exact
     with pytest.raises(ValueError):
-        KernelConfig(op="conv3x3", bk=48)
+        KernelConfig(op="conv3x3", rows=0)
