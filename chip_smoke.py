@@ -5,12 +5,13 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Prints the card's name and power limit (nvidia-smi), builds the seven
+1. Prints the card's name and power limit (nvidia-smi), builds the eight
    CUDA kernels from ``src/repro_torch/csrc`` with nvcc (in parallel) and
    prints the build seconds, each kernel's register use and spills and the
    count of tensor-core instructions (HMMA, HGMMA, IMMA) in each library's
-   SASS (cuobjdump); the three dot libraries must hold HMMA and the three
-   popcount ones IMMA (the convs and the matmuls), and spill no register.
+   SASS (cuobjdump); the three dot libraries must hold HMMA, the three
+   popcount ones and the int matmul's IMMA, and no library may spill a
+   register.
 2. Holds each dot kernel against its plain PyTorch version on the card, at
    every W1A8 layer shape of the 320×320 detector with B = 4 and at one
    shape off its grid (B = 2, 18×18, Cin 24, Cout 40: Cin % 16 != 0, Cout
@@ -34,17 +35,20 @@ Phases (any failure raises and the script exits non-zero):
    canonical operands (mul ≡ 1, div·m). The popcount matmul also at
    MATMUL_OFF_GRID, with the same row checks; at every matmul shape the int
    kernel equals its plain version and the popcount matmul's sum under
-   div ≡ 1, bias ≡ 0. Times each as in phase 2 at the layer shapes, and
+   div ≡ 1, bias ≡ 0, with the same row checks. Times each as in phase 2
+   at the layer shapes (the int kernel beside ``torch._int_mm``), and
    prints each layer's device ms; then the device time of a one-element
    ``torch.add`` (the smallest launch, a floor for the kernels' times).
 4. Drives the dot main path through the serving launcher
    (``repro_torch.launch.serve``: 16 random 320×320 uint8 images,
    `slots=4`, `depth=2`), with every launch count set to 0 just before and
-   read just after. The launcher checks zero drops, depth-K payloads
-   bit-exact with depth 1 on both wires, the device-NMS set equal to the
-   raw-wire set, and the raw head within the `core.verify` envelope of the
-   float forward; this script checks launches = dispatches × (4, 4, 1) for
-   (conv3x3_pool2, conv3x3, matmul) on its raw-wire depth-2 serve.
+   read just after. Each dispatch is one CUDA graph replay per bucket and
+   wire, and each replay adds its captured launches to the counts. The
+   launcher checks zero drops, depth-K payloads bit-exact with depth 1 on
+   both wires, the device-NMS set equal to the raw-wire set, and the raw
+   head within the `core.verify` envelope of the float forward; this
+   script checks launches = dispatches × (4, 4, 1, 1) for (conv3x3_pool2,
+   conv3x3, matmul, detect_nms) on its raw-wire depth-2 serve.
 5. Drives the popcount forward, ``yolo_forward_kernel(accum="popcount")``,
    at full width (B = 4, 320×320) on a per-channel artifact, once per pool
    route, with every launch count zeroed before and read after: launches
@@ -58,8 +62,16 @@ Phases (any failure raises and the script exits non-zero):
    Prints each route's ms per forward beside the dot forward's: the
    CUDA-event time of back-to-back forwards, and from torch.profiler the
    device busy time, which excludes the host's gaps between launches.
-6. Prints one ``{"kernels": [...]}`` line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+6. The NMS kernel and the graphs: a graph replay of each wire's backend
+   equals a direct eager ``_forward`` on the same images bit for bit; the
+   NMS kernel equals `nms_plain` run on the card bit for bit, on the heads
+   that replay served (decoded on the card), on the score-separated
+   fixture and on the tie fixture (`launch/nms_fixtures.py`), and the
+   served detections equal `nms_plain` on the served heads. Times the
+   kernel and `nms_plain` at the served shape (B = 4, 300 boxes, 20
+   classes); no single PyTorch call computes greedy NMS.
+7. Prints one ``{"kernels": [...]}`` line with all eight kernels, and as
+   the last line ``{"ok": true, "device": {...}}``.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -112,14 +124,23 @@ KERNELS = {
         "src/repro/kernels/w1a8_matmul/kernel.py:135"),
     "w1a8_matmul_int": ("src/repro_torch/csrc/w1a8_matmul_int.cu",
                         "src/repro/kernels/w1a8_matmul/kernel.py:228"),
+    # the counterpart of the reference's jitted lax.fori_loop NMS, which is
+    # no Pallas kernel
+    "detect_nms": ("src/repro_torch/csrc/detect_nms.cu",
+                   "src/repro/models/detection.py:54"),
 }
 DOT = ("w1a8_conv3x3_pool2", "w1a8_conv3x3", "w1a8_matmul")
 # name: the tensor-core instruction its library's SASS must hold
 TENSOR_CORE_KERNELS = {
     "w1a8_conv3x3_pool2": "HMMA", "w1a8_conv3x3": "HMMA",
     "w1a8_matmul": "HMMA", "w1a8_conv3x3_pool2_popcount": "IMMA",
-    "w1a8_conv3x3_popcount": "IMMA", "w1a8_matmul_popcount": "IMMA"}
-PER_DISPATCH = {"w1a8_conv3x3_pool2": 4, "w1a8_conv3x3": 4, "w1a8_matmul": 1}
+    "w1a8_conv3x3_popcount": "IMMA", "w1a8_matmul_popcount": "IMMA",
+    "w1a8_matmul_int": "IMMA"}
+# launches per served dispatch
+PER_DISPATCH = {"w1a8_conv3x3_pool2": 4, "w1a8_conv3x3": 4, "w1a8_matmul": 1,
+                "detect_nms": 1}
+FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+NMS_IOU_OPS = 15               # float ops of one IoU and its suppression test
 # popcount forward, per route: (pool2_popcount, conv3x3_popcount,
 # matmul_popcount) launches of one forward
 POPCOUNT = ("w1a8_conv3x3_pool2_popcount", "w1a8_conv3x3_popcount",
@@ -153,7 +174,7 @@ def bound(nbytes: int, ops: int, ops_per_s: float = BF16_OPS_PER_S) -> tuple:
 def tensor_core_counts(_build) -> dict:
     """Phase 1: tensor-core instructions in each library's SASS, by name
     of its kernel; raises if a tensor-core kernel's library has none of its
-    kind or its build log (ptxas -v) reports a spill."""
+    kind or any library's build log (ptxas -v) reports a spill."""
     import re
     tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
     counts = {}
@@ -166,10 +187,11 @@ def tensor_core_counts(_build) -> dict:
                         for op in TENSOR_CORE_OPS}
         print(f"[sass] {lib.name}: " + ", ".join(
             f"{n} {op}" for op, n in counts[name].items()), flush=True)
-    for name, op in TENSOR_CORE_KERNELS.items():
-        if not counts[name][op]:
+    for name, (source, _) in KERNELS.items():
+        op = TENSOR_CORE_KERNELS.get(name)
+        if op and not counts[name][op]:
             raise AssertionError(f"{name}: no {op} instruction in its SASS")
-        log = _build.build_log(pathlib.Path(KERNELS[name][0]).name)
+        log = _build.build_log(pathlib.Path(source).name)
         spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", log)
         if not spills or any(int(n) for n in spills):
             raise AssertionError(f"{name}: spills registers or its build "
@@ -527,6 +549,8 @@ def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
         sums = mm_ops.w1a8_matmul(a2, wp, None, torch.ones(n, device=dev),
                                   torch.zeros(n, device=dev), k=k, config=cfg)
         exact(INT, yi.to(torch.float32), sums, f"{name} int vs popcount sum")
+        row_checks(torch, lambda x: mm_ops.w1a8_matmul_int(x, wp, colsum), a2,
+                   yi, f"{name} int")
         row_checks(torch, lambda x: mm(x, div, cfg), a2, y,
                    f"{name} popcount matmul f32")
         row_checks(torch, lambda x: mm(x, div, qcfg), a2, q,
@@ -805,10 +829,105 @@ def drive_main_path() -> tuple:
             raise AssertionError(f"{name}: {n} launches for {dispatches} "
                                  f"dispatches, want {per} each")
     print(f"[serve] 16 requests, 0 dropped, checks passed; raw-wire depth-2 "
-          f"serve: {dispatches} dispatches, launches "
+          f"serve: {dispatches} graph replays, launches "
           f"{record['raw_wire_launches']}; all launches {launches}",
           flush=True)
     return record, launches
+
+
+def check_graphs_and_nms(torch, np, dev) -> dict:
+    """Phase 6: graph replays against eager forwards, and the NMS kernel
+    against `nms_plain` on the card, bit for bit; then the NMS kernel's
+    and `nms_plain`'s times at the served shape. Returns the NMS record."""
+    from repro_torch.launch import nms_fixtures
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import detection, yolo
+    from repro_torch.serve import DetectionBackend
+
+    size = yolo.INPUT_SIZE
+    imgs = launch.make_images(4 * BATCH, SEED + 3, size)
+    _, art = yolo.build_detector(SEED, imgs[:1].astype(np.float32) / 256.0,
+                                 device=dev)
+    raws, served = [], []
+    for device_nms in (False, True):
+        backend = DetectionBackend(art, slots=BATCH, device=dev,
+                                   device_nms=device_nms)
+        for i in range(0, len(imgs), BATCH):
+            batch = backend._host_batch(list(imgs[i:i + BATCH]))
+            host = backend._host_outputs(size, *backend._dispatch(batch))
+            with torch.no_grad():
+                eager = backend._forward(batch.to(dev).to(torch.float32)
+                                         / 256.0)
+            for got, want in zip(host, eager):
+                _exact(torch, torch.from_numpy(got), want.cpu(),
+                       f"graph replay vs eager forward, device_nms="
+                       f"{device_nms}")
+            if not device_nms:
+                raws.append(host[0])
+                served.append(host[1:])
+    nb = len(raws)
+
+    def held(boxes, scores, what, **post):
+        got = detection.nms(boxes, scores, **post)
+        want = detection.nms_plain(boxes, scores, **post)
+        for g, w, field in zip(got, want, ("boxes", "scores", "classes")):
+            _exact(torch, g, w, f"nms kernel vs plain, {what}, {field}")
+        return got
+    raw = torch.from_numpy(np.concatenate(raws)).to(dev)
+    dec = detection.decode_head(raw)
+    got = held(dec["boxes"], dec["scores"], "served heads")
+    for g, field, parts in zip(got, ("boxes", "scores", "classes"),
+                               zip(*served)):
+        _exact(torch, g.cpu(), torch.from_numpy(np.concatenate(parts)),
+               f"served {field} vs nms on the served heads")
+    head, peaks = nms_fixtures.separated_head()
+    dec_sep = detection.decode_head(torch.from_numpy(head).to(dev))
+    _, sep_scores, _ = held(dec_sep["boxes"], dec_sep["scores"],
+                            "score-separated fixture")
+    if int((sep_scores > 0).sum()) != len(peaks):
+        raise AssertionError(f"separated fixture: kept "
+                             f"{int((sep_scores > 0).sum())} of {len(peaks)}")
+    boxes, scores = (torch.from_numpy(x).to(dev)
+                     for x in nms_fixtures.tied_boxes())
+    tie_b, tie_s, _ = held(boxes, scores, "tie fixture",
+                           iou_thresh=nms_fixtures.TIE_IOU)
+    kept = [int(torch.nonzero((boxes[0] == tie_b[0, i]).all(-1))[0])
+            for i in range(int((tie_s[0] > 0).sum()))]
+    if tuple(kept) != nms_fixtures.TIE_KEPT:
+        raise AssertionError(f"tie fixture kept {kept}, want "
+                             f"{nms_fixtures.TIE_KEPT}")
+
+    b4, s4 = dec["boxes"][:BATCH], dec["scores"][:BATCH]
+    n, c = s4.shape[1:]
+    max_out = 50
+    rec = {"shape": [BATCH, n, c, max_out], "served_heads": nb}
+    run = lambda: detection.nms(b4, s4)  # noqa: E731
+    rec["ms"] = cuda_ms(torch, run)
+    rec["device_ms"] = device_profile(torch, run)["device_busy_ms"]
+    # one round against max_out rounds: the kernel's set-up and its
+    # cost a round
+    rec["device_ms_one_round"] = device_profile(
+        torch, lambda: detection.nms(b4, s4, max_out=1))["device_busy_ms"]
+    rec["round_us"] = 1e3 * (rec["device_ms"] - rec["device_ms_one_round"]) \
+        / (max_out - 1)
+    rec["plain_ms"] = cuda_ms(torch, lambda: detection.nms_plain(b4, s4),
+                              reps=3, n=3)
+    rec["library_ms"] = None
+    rec["bytes"] = 4 * (b4.numel() + s4.numel()) + BATCH * max_out * 24
+    rec["ops"] = BATCH * n * (c + max_out * NMS_IOU_OPS)
+    rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"],
+                                             FP32_OPS_PER_S)
+    print(f"[graphs] {nb} served heads: each wire's graph replay equals an "
+          f"eager forward bit for bit", flush=True)
+    print(f"[nms] kernel bit-exact with nms_plain on the card: served heads "
+          f"(and the served detections), score-separated fixture "
+          f"({len(peaks)} kept), tie fixture (kept {kept}); B={BATCH}, "
+          f"{n} boxes, {c} classes: {rec['ms']:.4f} ms, device "
+          f"{rec['device_ms']:.4f} ms (one round "
+          f"{rec['device_ms_one_round']:.4f}, {rec['round_us']:.3f} us a "
+          f"round; plain {rec['plain_ms']:.4f}, bound "
+          f"{rec['bound_ms']:.6f} by {rec['bound_by']})", flush=True)
+    return rec
 
 
 def main() -> int:
@@ -855,6 +974,7 @@ def main() -> int:
     record, launches = drive_main_path()
     pc_record = drive_popcount(torch, np, dev)
     launches.update(pc_record["launches"])
+    nms_record = check_graphs_and_nms(torch, np, dev)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -867,6 +987,20 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name]}
+        if name == "detect_nms":
+            entry.update({
+                "counterpart_of": "a jitted lax.fori_loop (no Pallas "
+                                  "kernel)",
+                "launches_per_dispatch": PER_DISPATCH[name],
+                "max_abs_err": 0.0, "library_device_ms": None,
+                "tensor_core_instructions": sass[name],
+                **{k: nms_record[k] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "shape")}})
+            if not entry["launches"]:
+                raise AssertionError(f"{name}: no launch on its path")
+            kernels.append(entry)
+            continue
         if popcount:
             # every call is held bit for bit: the worst difference found
             entry["max_abs_err"] = pc_errs[name]
@@ -902,7 +1036,8 @@ def main() -> int:
         {"card": smi, "layers": layers, "off_grid": off_grid,
          "popcount_layers": pc_layers,
          "kernels": kernels, "launcher": record,
-         "popcount_forward": pc_record, "floor_device_ms": floor_ms},
+         "popcount_forward": pc_record, "nms": nms_record,
+         "floor_device_ms": floor_ms},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],

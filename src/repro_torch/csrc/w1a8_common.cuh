@@ -11,9 +11,11 @@
 // `store_conv_tile` or `store_pool_tile`. So each fused conv+pool kernel
 // equals its conv kernel followed by a 2x2 max bit for bit. The dot matmul
 // (w1a8_matmul.cu) takes its accumulators from `matmul_mma_tile`, the
-// popcount matmul (w1a8_matmul_popcount.cu) from `matmul_imma_tile`, both
-// on operands that `load_span` brings from device memory straight into
-// registers; both store through `store_tile`, as `store_conv_tile` does.
+// popcount matmul (w1a8_matmul_popcount.cu) and the int matmul
+// (w1a8_matmul_int.cu) from `matmul_imma_tile`, all on operands that
+// `load_span` brings from device memory straight into registers; the dot
+// and popcount matmuls store through `store_tile`, as `store_conv_tile`
+// does, the int matmul its sums as they are through `store_int_tile`.
 //
 // Every rounding is spelled out (__fmul_rn, __fadd_rn, __fdiv_rn): nvcc
 // would otherwise contract `acc * div + bias` into one FMA, while the
@@ -620,6 +622,36 @@ __device__ __forceinline__ void store_tile(
           } else {
             static_cast<float*>(out)[o + co] = v;
           }
+        }
+      }
+    }
+  }
+}
+
+// The int matmul's store: one warp item's exact int32 sums as they are,
+// with no epilogue, into the row-major (rows, ld) int32 output `out`; rows,
+// columns and the KQ split as in store_tile.
+template <int WM, int WN, int KQ>
+__device__ __forceinline__ void store_int_tile(const int (&acc)[WM][WN][4],
+                                               int* __restrict__ out,
+                                               size_t row0, int m_blk, int ld,
+                                               int co_base, int part) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int mt = 0; mt < WM; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = mt * 16 + g + 8 * half;
+      if (i >= m_blk) continue;
+#pragma unroll
+      for (int nt = 0; nt < WN; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int co = co_base + 8 * nt + t2 + e;
+          if (co >= ld || (2 * half + e) % KQ != part) continue;
+          out[(row0 + i) * ld + co] = acc[mt][nt][2 * half + e];
         }
       }
     }

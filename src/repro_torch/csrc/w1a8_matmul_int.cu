@@ -1,85 +1,90 @@
 // Exact integer W1A8 matmul: int32 sum_k s_k * a_k for uint8 codes and
-// packed 1-bit weights, formed as int8 (a - 128) * (+-1) plus 128 * colsum.
+// packed 1-bit weights, on the int8 tensor cores.
 //
 // Replaces the TPU kernel
 // repro/kernels/w1a8_matmul/kernel.py::w1a8_matmul_int_pallas (_int_kernel):
 // (a - 128) fits int8, so the TPU contracts it on the int8 MXU against the
 // unpacked signs and adds the zero-point correction 128 * colsum[n],
-// colsum[n] = sum_k sign[k, n], in its last K step.
+// colsum[n] = sum_k sign[k, n], in its last K step. Hopper's int8 mma.sync
+// takes unsigned codes as they are (u8 * s8, s32 accumulate), so this
+// kernel forms sum_k s_k * a_k directly, the same integer, and needs no
+// correction: it does not read colsum.
 //
-// What bounds it on the H100: at conv9's shape (M = 400, K = 128, N = 64)
-// the call moves about 60 KB and does 3.3 M multiply-adds, so the launch
-// dominates; the int8 tensor cores (mma.sync) are later work.
+// What bounds it on the H100: at the detector's conv9 (M = 4 * 100,
+// K = 128, N = 64) the call moves about 155 KB, two thirds of it the
+// int32 output, a bound of some 46 ns, so
+// its time is latency, as for the popcount matmul: the launch, the round
+// trip of its loads, the chain of dependent mma.sync, the store.
 //
-// Design: one thread per output in a (32 columns x 8 rows) block, a warp
-// per row: the row's codes are broadcast reads, the sign words of 32
-// neighbouring columns one coalesced read per K word. Each word's 32 signs
-// go four at a time through __dp4a: the four codes as int8 (a - 128) bytes
-// against the four signs as int8 +-1 bytes, accumulated in int32. Ragged
-// M, N and K are masked in the kernel.
+// Design: the popcount matmul's (w1a8_matmul_popcount.cu), tile for tile,
+// with the same geometry from kernels/w1a8_matmul/geometry.py
+// (matmul_launch(m, n, "popcount")): per span of 128 codes of K each lane
+// loads its 16 codes of each of its rows and one sign word per column
+// (w1a8::load_span), the code words are the A registers of its mma.sync
+// (w1a8::matmul_imma_tile), the two warps of an item add their int32 sums
+// in a fixed order (w1a8::reduce_split), and each stores its half of the
+// sums with no epilogue (w1a8::store_int_tile). |sum| <= 255 * k stays far
+// inside int32.
 #include "w1a8_common.cuh"
 
 namespace {
 
-constexpr int kTileN = 32;
-constexpr int kTileM = 8;
+using w1a8::kLaneCodes;
+using w1a8::kMatmulThreads;
+using w1a8::kSplit;
 
-// Four sign bits (bit i = 1 <=> +1) as four int8 bytes, +1 or -1.
-__device__ __forceinline__ int signs4(uint32_t bits) {
-  uint32_t s = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    s |= (((bits >> i) & 1u) ? 0x01u : 0xFFu) << (8 * i);
-  }
-  return static_cast<int>(s);
-}
-
-// Four codes a[0..3] as four int8 bytes (a - 128); lanes past k are zero
-// bytes, which add nothing.
-__device__ __forceinline__ int centred4(const uint8_t* a, int valid) {
-  uint32_t s = 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t c = i < valid ? (static_cast<uint32_t>(a[i]) ^ 0x80u) : 0u;
-    s |= c << (8 * i);
-  }
-  return static_cast<int>(s);
-}
-
-__global__ void __launch_bounds__(kTileN * kTileM)
+// One block per SM at the least, as the other matmuls: no spill.
+template <int WM, int WN>
+__global__ void __launch_bounds__(kMatmulThreads, 1)
 matmul_int_kernel(const uint8_t* __restrict__ a,
-                  const uint32_t* __restrict__ w,
-                  const int* __restrict__ colsum, int* __restrict__ out,
-                  int m, int k, int n) {
-  const int col = blockIdx.x * kTileN + threadIdx.x;
-  const int row = blockIdx.y * kTileM + threadIdx.y;
-  if (row >= m || col >= n) return;
-  const uint8_t* arow = a + static_cast<size_t>(row) * k;
-  int acc = 0;
-  for (int k0 = 0; k0 < k; k0 += w1a8::kPack) {
-    const uint32_t word =
-        __ldg(w + static_cast<size_t>(k0 / w1a8::kPack) * n + col);
-    for (int i = 0; i < w1a8::kPack && k0 + i < k; i += 4) {
-      acc = __dp4a(centred4(arow + k0 + i, k - k0 - i), signs4(word >> i),
-                   acc);
-    }
+                  const uint32_t* __restrict__ w, int* __restrict__ out,
+                  int m, int k, int n, int bn) {
+  __shared__ int red[kMatmulThreads * WM * WN * 4];
+  const int lane = threadIdx.x & 31;
+  const int q = (threadIdx.x / 32) % kSplit;
+  const int row0 = blockIdx.x * 16 * WM;
+  const int m_blk = min(16 * WM, m - row0);
+  const int col = blockIdx.y * bn + (threadIdx.x / 32 / kSplit) * 8 * WN;
+  const bool vec = k % 16 == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  const uint8_t* rows[WM][2];
+  w1a8::row_pointers<WM>(a, k, row0, m_blk, rows);
+  int acc[WM][WN][4] = {};
+  for (int s = 0; s * w1a8::kSpan < k; ++s) {
+    uint32_t code[WM][2][kLaneCodes / 4], word[WN];
+    w1a8::load_span<WM, WN>(rows, w, k, n, s, q, col + (lane >> 2), vec, code,
+                            word);
+    w1a8::matmul_imma_tile<WM, WN>(code, word, q, acc);
   }
-  out[static_cast<size_t>(row) * n + col] = acc + 128 * __ldg(colsum + col);
+  w1a8::reduce_split(acc, red);
+  w1a8::store_int_tile<WM, WN, kSplit>(acc, out, row0, m_blk, n, col, q);
 }
+
+struct Kernels {
+  template <int WM, int WN>
+  static auto get() { return matmul_int_kernel<WM, WN>; }
+};
 
 }  // namespace
 
 extern "C" {
 
-// a (m, k) uint8; w (ceil(k / 32), n) sign words; colsum (n,) int32 =
-// sum_{k' < k} sign[k', n]; out (m, n) int32. Returns cudaGetLastError().
-int w1a8_matmul_int(const void* a, const void* w, const void* colsum,
-                    void* out, int m, int k, int n, void* stream) {
-  const dim3 block(kTileN, kTileM);
-  const dim3 grid((n + kTileN - 1) / kTileN, (m + kTileM - 1) / kTileM);
-  matmul_int_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+// a (m, k) uint8; w (ceil(k / 32), n) sign words; out (m, n) int32. The
+// launch geometry is the popcount matmul's, from
+// kernels/w1a8_matmul/geometry.py; one that does not cover the output
+// exactly is refused with cudaErrorInvalidValue. Returns cudaGetLastError()
+// otherwise.
+int w1a8_matmul_int(const void* a, const void* w, void* out, int m, int k,
+                    int n, int grid_x, int grid_y, int bm, int bn, int wm,
+                    int wn, int threads, void* stream) {
+  const auto kernel = w1a8::pick_matmul<Kernels, 11>(wm, wn);
+  if (!kernel || !w1a8::matmul_geometry_ok(m, k, n, grid_x, grid_y, bm, bn,
+                                           wm, wn, threads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<dim3(grid_x, grid_y), threads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(a), static_cast<const uint32_t*>(w),
-      static_cast<const int*>(colsum), static_cast<int*>(out), m, k, n);
+      static_cast<int*>(out), m, k, n, bn);
   return static_cast<int>(cudaGetLastError());
 }
 

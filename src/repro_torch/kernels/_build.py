@@ -9,6 +9,7 @@ builds nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,20 +18,23 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("w1a8_matmul.cu", "w1a8_conv3x3.cu", "w1a8_conv3x3_pool2.cu",
            "w1a8_matmul_popcount.cu", "w1a8_conv3x3_popcount.cu",
-           "w1a8_conv3x3_pool2_popcount.cu", "w1a8_matmul_int.cu")
-# No --use_fast_math: the requant divides with IEEE rounding, as the
-# reference does. -Xptxas -v writes registers and spills to the build log.
+           "w1a8_conv3x3_pool2_popcount.cu", "w1a8_matmul_int.cu",
+           "detect_nms.cu")
+# No --use_fast_math: the requant and the NMS IoU divide with IEEE
+# rounding, as the reference does. -Xptxas -v writes registers and spills
+# to the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+KERNELS: List["Kernel"] = []   # every Kernel made, in order
 
 
 def nvcc() -> str:
@@ -107,7 +111,9 @@ class Kernel:
 
     ``launches`` is a plain int: one is added each time the kernel is
     launched and reports no error, and nowhere else, so a run can show
-    that its main path went through the kernel.
+    that its main path went through the kernel. A call inside a CUDA graph
+    capture (`capturing`) launches nothing until the graph replays it, so
+    there the count moves with the replays instead.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: Sequence):
@@ -115,6 +121,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        KERNELS.append(self)
 
     def __call__(self, *args) -> None:
         if self._fn is None:
@@ -127,6 +134,35 @@ class Kernel:
             raise RuntimeError(
                 f"{self.symbol} launch failed with CUDA error {err}")
         self.launches += 1
+
+
+class Captured:
+    """The launches one CUDA graph capture recorded, by kernel."""
+
+    def __init__(self):
+        self.counts: Dict[Kernel, int] = {}
+
+    def replayed(self) -> None:
+        """Credits one replay of the graph, which has reported no error,
+        with every launch the capture recorded."""
+        for kernel, n in self.counts.items():
+            kernel.launches += n
+
+
+@contextlib.contextmanager
+def capturing():
+    """Wraps a CUDA graph capture: yields a `Captured` that holds, on exit,
+    the launches each kernel recorded inside, and leaves every count as it
+    found it, since a recorded launch runs only when the graph replays."""
+    before = [(k, k.launches) for k in KERNELS]
+    captured = Captured()
+    try:
+        yield captured
+    finally:
+        for kernel, n in before:
+            if kernel.launches != n:
+                captured.counts[kernel] = kernel.launches - n
+            kernel.launches = n
 
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -1,6 +1,7 @@
 """Launch geometry of the matmul kernels on the tensor cores, dot
-(``csrc/w1a8_matmul.cu``) and popcount (``csrc/w1a8_matmul_popcount.cu``),
-computed here and passed to them whole.
+(``csrc/w1a8_matmul.cu``) and popcount (``csrc/w1a8_matmul_popcount.cu``,
+whose tiles the int kernel ``csrc/w1a8_matmul_int.cu`` shares), computed
+here and passed to them whole.
 
 A block covers ``bm = 16·wm`` rows of M and ``bn = 8·wn·items`` columns of
 N: ``items`` warp items of ``wm`` M tiles of 16 rows by ``wn`` N tiles of 8

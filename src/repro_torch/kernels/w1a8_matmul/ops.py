@@ -5,14 +5,14 @@
 ``csrc/w1a8_matmul_popcount.cu`` (popcount: exact int32 sum over the codes'
 bit-planes, after folding a per-channel Mul_prev into the codes and the
 uniform step m̄ into Div; ``mul_prev=None`` means the caller has done so).
-`w1a8_matmul_int` runs ``csrc/w1a8_matmul_int.cu``, the exact int32 sum as
-(a − 128)·(±1) plus 128·colsum.
+`w1a8_matmul_int` runs ``csrc/w1a8_matmul_int.cu``, the exact int32 sum
+Σ_k sign·a (the reference forms it as (a − 128)·(±1) plus 128·colsum).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version in ``ref.py``. Leading dims of ``a_u8`` fold into M. The dot and
-popcount kernels run on the tensor cores with the launch geometry of
-`geometry.matmul_launch`; they mask the ragged M, N and K edges
-themselves, so nothing is padded.
+version in ``ref.py``. Leading dims of ``a_u8`` fold into M. All three
+kernels run on the tensor cores with the launch geometry of
+`geometry.matmul_launch` (the int kernel with popcount's); they mask the
+ragged M, N and K edges themselves, so nothing is padded.
 """
 from __future__ import annotations
 
@@ -35,9 +35,9 @@ KERNEL = _build.Kernel("w1a8_matmul.cu", "w1a8_matmul",
 POPCOUNT_KERNEL = _build.Kernel("w1a8_matmul_popcount.cu",
                                 "w1a8_matmul_popcount",
                                 [_build.P] * 5 + _GEOMETRY_ARGS)
-INT_KERNEL = _build.Kernel(
-    "w1a8_matmul_int.cu", "w1a8_matmul_int",
-    [_build.P] * 4 + [_build.I] * 3 + [_build.P])
+# (a, w, out, m, k, n, grid_x, grid_y, bm, bn, wm, wn, threads, stream)
+INT_KERNEL = _build.Kernel("w1a8_matmul_int.cu", "w1a8_matmul_int",
+                           [_build.P] * 3 + [_build.I] * 10 + [_build.P])
 
 
 def w1a8_matmul(a_u8: torch.Tensor, w_packed: torch.Tensor,
@@ -128,26 +128,32 @@ def _launch(kernel: _build.Kernel, a2, w_packed, mul_prev, div_post, bias,
 
 def w1a8_matmul_int(a_u8: torch.Tensor, w_packed: torch.Tensor,
                     colsum: torch.Tensor) -> torch.Tensor:
-    """Exact Σ_k sign[k, n]·a[m, k] in int32, as (a − 128)·(±1) plus
-    128·colsum (counterpart of ``w1a8_matmul_int_pallas``).
+    """Exact Σ_k sign[k, n]·a[m, k] in int32 (counterpart of
+    ``w1a8_matmul_int_pallas``, which forms it as (a − 128)·(±1) plus
+    128·colsum on the TPU's int8 unit).
 
     a_u8 (M, K) uint8; w_packed (ceil(K/32), N) int32; colsum (N,) or
-    (1, N) int32 = Σ_{k<K} sign[k, n]. Returns (M, N) int32.
+    (1, N) int32 = Σ_{k<K} sign[k, n]. Returns (M, N) int32. The kernel
+    contracts the uint8 codes as they are (u8·s8 on the int8 tensor
+    cores), so it needs no zero-point correction and does not read
+    colsum; its shape is still checked, and the plain version uses it.
     """
     k = a_u8.shape[1]
     if not a_u8.is_cuda:
         return _ref.w1a8_matmul_int_ref(a_u8, w_packed, colsum)
     _check(a_u8, w_packed, k)
     m, n = a_u8.shape[0], w_packed.shape[1]
+    if colsum.numel() != n:
+        raise ValueError(f"colsum must hold N={n} sums, got "
+                         f"{colsum.numel()}")
     dev = a_u8.device
     a = a_u8.contiguous()
     w = w_packed.to(dev).contiguous()
-    cs = colsum.to(dev, torch.int32).reshape(-1).contiguous()
-    if cs.numel() != n:
-        raise ValueError(f"colsum must hold N={n} sums, got {cs.numel()}")
     out = torch.empty((m, n), dtype=torch.int32, device=dev)
-    INT_KERNEL(a.data_ptr(), w.data_ptr(), cs.data_ptr(), out.data_ptr(), m,
-               k, n, torch.cuda.current_stream(dev).cuda_stream)
+    g = matmul_launch(m, n, "popcount")
+    INT_KERNEL(a.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, *g.grid,
+               g.bm, g.bn, g.wm, g.wn, g.threads,
+               torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 

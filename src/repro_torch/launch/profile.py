@@ -2,15 +2,23 @@
 ``python -m repro_torch.launch.profile [--dispatches 8 --slots 4 --seed 0]``.
 
 Serves ``dispatches × slots`` random 320×320 images through the
-`DetectionBackend` (depth 2, raw-head wire) with `torch.profiler` tracing
-the CPU and the card, after one warm-up pass, and prints one JSON line:
+`DetectionBackend` (depth 2, raw-head wire; on the card one CUDA graph
+replay a dispatch) with `torch.profiler` tracing the CPU and the card,
+after one warm-up pass, and prints one JSON line:
 
   * ``device_busy_ms``: the union of the traced device intervals;
   * ``wall_ms``: the host clock over the same window, ended by a
     synchronize; ``device_idle_share`` = 1 − busy / wall;
-  * ``groups``: device ms per dispatch for the three W1A8 kernels, cuDNN
-    (conv1 / conv11), and everything else (decode, NMS, copies);
-  * ``top``: the kernels with the most device time, with their counts.
+  * ``groups``: device ms per dispatch for the three W1A8 kernels, the
+    NMS kernel, cuDNN (conv1 / conv11), and everything else (decode,
+    casts, copies);
+  * per dispatch: ``host_api_calls`` (the CUDA runtime calls the host
+    made, by name: graph launches, kernel launches, copies),
+    ``device_kernels`` and ``device_copies`` (traced device records);
+  * ``top``: the kernels with the most device time, with their counts;
+  * ``trace_lost``: where the trace holds fewer records of a port kernel
+    than its launch count says ran in the window, both numbers (empty
+    when none was lost); each loss is also written to stderr.
 
 Fails when the trace holds no device activity.
 """
@@ -19,18 +27,21 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import sys
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.launch.serve import make_images, serve
+from repro_torch.launch.serve import launch_counts, make_images, serve
 from repro_torch.models import yolo
 from repro_torch.serve import DetectionBackend
 
+# (group, a substring of its device kernels' names): the port's kernels
 GROUPS = (("w1a8_conv3x3_pool2", "conv3x3_pool2_kernel"),
           ("w1a8_conv3x3", "conv3x3_kernel"),
-          ("w1a8_matmul", "matmul_kernel"))
+          ("w1a8_matmul", "matmul_kernel"),
+          ("detect_nms", "nms_kernel"))
 
 
 def _group(name: str) -> str:
@@ -67,25 +78,40 @@ def main(argv=None) -> dict:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    before = launch_counts()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         serve(backend.spawn(), imgs)
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
+    launched = {k: n - before[k] for k, n in launch_counts().items()}
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
         raise RuntimeError("the trace holds no device activity")
     per_name = collections.defaultdict(lambda: [0.0, 0])
     per_group = collections.defaultdict(float)
+    traced = collections.Counter()
+    copies = 0
     for e in events:
         us = e.time_range.elapsed_us()
         per_name[e.name][0] += us
         per_name[e.name][1] += 1
         per_group[_group(e.name)] += us
+        traced[_group(e.name)] += 1
+        copies += e.name.startswith(("Memcpy", "Memset"))
+    host_api = collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CPU
+        and e.name.startswith("cuda"))
     busy_us = union_us((e.time_range.start, e.time_range.end)
                         for e in events)
     n = args.dispatches
+    lost = {g: {"traced": traced[g], "launched": launched[g]}
+            for g, _ in GROUPS if traced[g] < launched[g]}
+    for g, counts in lost.items():
+        print(f"profile: the trace lost records of {g}: {counts}",
+              file=sys.stderr)
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
     record = {
         "card": torch.cuda.get_device_name(0),
@@ -94,9 +120,14 @@ def main(argv=None) -> dict:
         "device_idle_share": 1.0 - busy_us / wall_us,
         "wall_ms_per_dispatch": wall_us / 1e3 / n,
         "groups": {g: us / 1e3 / n for g, us in sorted(per_group.items())},
+        "host_api_calls": {name: c / n
+                           for name, c in sorted(host_api.items())},
+        "device_kernels": (len(events) - copies) / n,
+        "device_copies": copies / n,
         "device_launches_per_dispatch": len(events) / n,
         "top": [{"name": name[:80], "ms_per_dispatch": us / 1e3 / n,
                  "count": cnt} for name, (us, cnt) in top],
+        "trace_lost": lost,
     }
     print(json.dumps(record))
     return record

@@ -10,8 +10,10 @@ the device-NMS wire, each at depth 1 and at ``--depth``, and checks:
   * the served raw head lies within the `core.verify` envelope
     (max_abs < 0.02, within_1lsb == 1 at lsb 0.02) of the float forward.
 
-The summary also carries the kernel launches of the raw-wire depth-K serve
-and its dispatch count. Prints one JSON summary line; writes no file.
+On the card every dispatch is one CUDA graph replay per bucket and wire
+(`DetectionBackend`). The summary also carries the kernel launches of the
+raw-wire depth-K serve and its dispatch count. Prints one JSON summary
+line; writes no file.
 """
 from __future__ import annotations
 
@@ -29,15 +31,17 @@ from repro_torch.kernels.w1a8_matmul import ops as mm_ops
 from repro_torch.models import detection, yolo
 from repro_torch.serve import DetectionBackend, Scheduler, ServeRequest
 
-# Every CUDA kernel of the port, by name: each counts its own launches.
-# The launcher serves through the first three (dot); the popcount forward
-# runs the next three, and `w1a8_matmul_int` is called directly.
+# Every CUDA kernel of the port, by name: each counts its own launches,
+# through graph replays too. The launcher serves through the three dot
+# kernels and the NMS kernel; the popcount forward runs the three popcount
+# kernels, and `w1a8_matmul_int` is called directly.
 KERNELS = {"w1a8_conv3x3_pool2": fused_pool.KERNEL,
            "w1a8_conv3x3": conv_ops.KERNEL, "w1a8_matmul": mm_ops.KERNEL,
            "w1a8_conv3x3_pool2_popcount": fused_pool.POPCOUNT_KERNEL,
            "w1a8_conv3x3_popcount": conv_ops.POPCOUNT_KERNEL,
            "w1a8_matmul_popcount": mm_ops.POPCOUNT_KERNEL,
-           "w1a8_matmul_int": mm_ops.INT_KERNEL}
+           "w1a8_matmul_int": mm_ops.INT_KERNEL,
+           "detect_nms": detection.NMS_KERNEL}
 
 
 def launch_counts() -> dict:

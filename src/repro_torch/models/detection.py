@@ -4,18 +4,43 @@ The head emits (B, G, G, 75) raw values = 3 anchors × (tx, ty, tw, th, obj,
 20 cls) per cell, y/x/channel order. Decode follows YOLOv3:
   bx = (σ(tx) + cx)/G, by = (σ(ty) + cy)/G, bw = pw·e^tw, bh = ph·e^th,
 confidence = σ(obj)·σ(cls). NMS is greedy per-class IoU suppression over a
-fixed number of iterations, batched over images. Counterpart of
-``repro/models/detection.py``.
+fixed number of iterations, batched over images: on the card one CUDA
+kernel (``csrc/detect_nms.cu``), on the CPU the plain loop `nms_plain`.
+Counterpart of ``repro/models/detection.py``.
 """
 from __future__ import annotations
+
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.models.yolo import NUM_ANCHORS, NUM_CLASSES
 
 # Anchor priors (fraction of image size), 3 anchors for the single head.
 ANCHORS = ((0.12, 0.18), (0.32, 0.42), (0.72, 0.78))
+
+# (boxes, scores, out_b, out_s, out_c, batch, n, c, max_out, iou_thresh,
+# score_thresh, stream)
+NMS_KERNEL = _build.Kernel("detect_nms.cu", "detect_nms",
+                           [_build.P] * 5 + [_build.I] * 4
+                           + [_build.F] * 2 + [_build.P])
+
+_grids: Dict[Tuple[torch.device, int], tuple] = {}
+
+
+def _grid_constants(grid: int, device: torch.device) -> tuple:
+    """(cx, cy, anchors) of a G×G head on ``device``, made once per
+    (device, G): the anchors come from the host, and a copy from the host
+    inside a dispatch would break its CUDA graph capture."""
+    key = (device, grid)
+    if key not in _grids:
+        ar = torch.arange(grid, dtype=torch.float32, device=device)
+        cy, cx = torch.meshgrid(ar, ar, indexing="ij")
+        anchors = torch.tensor(ANCHORS, dtype=torch.float32, device=device)
+        _grids[key] = (cx, cy, anchors)
+    return _grids[key]
 
 
 def decode_head(raw: torch.Tensor) -> dict:
@@ -24,9 +49,7 @@ def decode_head(raw: torch.Tensor) -> dict:
     decode."""
     b, grid = raw.shape[0], raw.shape[1]
     r = raw.reshape(b, grid, grid, NUM_ANCHORS, 5 + NUM_CLASSES)
-    ar = torch.arange(grid, dtype=torch.float32, device=raw.device)
-    cy, cx = torch.meshgrid(ar, ar, indexing="ij")
-    anchors = torch.tensor(ANCHORS, dtype=torch.float32, device=raw.device)
+    cx, cy, anchors = _grid_constants(grid, raw.device)
     bx = (torch.sigmoid(r[..., 0]) + cx[None, :, :, None]) / grid
     by = (torch.sigmoid(r[..., 1]) + cy[None, :, :, None]) / grid
     bw = anchors[:, 0] * torch.exp(torch.clamp(r[..., 2], -8, 8))
@@ -57,6 +80,42 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, *,
     """Greedy per-class NMS, batched: boxes (B, N, 4), scores (B, N, C) →
     (B, max_out, 4), (B, max_out), (B, max_out) int32 class ids; empty
     slots have score 0 and class -1.
+
+    CUDA tensors launch ``csrc/detect_nms.cu`` (one block per image; f32
+    only) or raise; CPU tensors run `nms_plain`. The two agree bit for
+    bit.
+    """
+    if not boxes.is_cuda:
+        return nms_plain(boxes, scores, iou_thresh=iou_thresh,
+                         score_thresh=score_thresh, max_out=max_out)
+    if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
+        raise TypeError(f"nms on the card takes float32 boxes and scores, "
+                        f"got {boxes.dtype} and {scores.dtype}")
+    nb, n, c = scores.shape
+    if boxes.shape != (nb, n, 4) or scores.device != boxes.device:
+        raise ValueError(f"boxes {tuple(boxes.shape)} on {boxes.device} do "
+                         f"not match scores {tuple(scores.shape)} on "
+                         f"{scores.device}")
+    if min(nb, n, c, max_out) < 1:
+        raise ValueError(f"nms needs images, boxes, classes and max_out, "
+                         f"got B={nb}, N={n}, C={c}, max_out={max_out}")
+    boxes, scores = boxes.contiguous(), scores.contiguous()
+    out_b = torch.empty((nb, max_out, 4), dtype=torch.float32,
+                        device=boxes.device)
+    out_s = torch.empty((nb, max_out), dtype=torch.float32,
+                        device=boxes.device)
+    out_c = torch.empty((nb, max_out), dtype=torch.int32, device=boxes.device)
+    NMS_KERNEL(boxes.data_ptr(), scores.data_ptr(), out_b.data_ptr(),
+               out_s.data_ptr(), out_c.data_ptr(), nb, n, c, max_out,
+               float(iou_thresh), float(score_thresh),
+               torch.cuda.current_stream(boxes.device).cuda_stream)
+    return out_b, out_s, out_c
+
+
+def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, *,
+              iou_thresh: float = 0.45, score_thresh: float = 0.25,
+              max_out: int = 50):
+    """`nms` as a loop of PyTorch ops: the plain version of the kernel.
 
     Runs exactly ``max_out`` iterations, as the reference does; argmax
     breaks ties on the first index.

@@ -2,12 +2,13 @@
 window.
 
 Batched image requests go through the packed-W1A8 kernel path, head decode
-and NMS as ONE fixed-width dispatch per resolution bucket. With ``depth=K``
-the backend keeps a K-deep in-flight window: tick t's batch is dispatched
-asynchronously on the current CUDA stream and harvested up to K-1 ticks
-later, strictly in dispatch order (`DispatchWindow`), so admission overlaps
-device compute. Counterpart of ``repro/serve/backends.py`` (the LM backend
-is not ported yet).
+and NMS as ONE fixed-width dispatch per resolution bucket: on the card one
+CUDA graph replay, as the reference's one jitted executable. With
+``depth=K`` the backend keeps a K-deep in-flight window: tick t's batch is
+dispatched asynchronously on the current CUDA stream and harvested up to
+K-1 ticks later, strictly in dispatch order (`DispatchWindow`), so
+admission overlaps device compute. Counterpart of
+``repro/serve/backends.py`` (the LM backend is not ported yet).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels import _build
 from repro_torch.models import detection, yolo
 from repro_torch.serve.api import Emission, ServeRequest
 
@@ -71,6 +73,21 @@ class DispatchWindow:
         return item
 
 
+class _Graph:
+    """One bucket's dispatch captured as a CUDA graph: its static input
+    images (width, S, S, 3) f32, its outputs packed into one static byte
+    buffer, and the kernel launches each replay makes."""
+
+    def __init__(self, graph, images: torch.Tensor, packed: torch.Tensor,
+                 launches: _build.Captured):
+        self.graph, self.images, self.packed = graph, images, packed
+        self.launches = launches
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.launches.replayed()
+
+
 class DetectionBackend:
     """Packed-W1A8 YOLO detection backend (one image per request).
 
@@ -85,6 +102,18 @@ class DetectionBackend:
     emission wire carries the raw head beside the NMS'd detections, for
     verification against the float reference; ``device_nms=True`` ships
     only the compact set (`models.detection.compact_detections`).
+
+    On the card each bucket's forward, with the wire's outputs, is one
+    CUDA graph (`_Graph`, in ``_graphs``, shared by `spawn`'s twins as the
+    reference's twins share one executable). `warmup` captures it after
+    one eager warm call on a side stream, or the bucket's first dispatch
+    does; a capture that fails raises, and nothing runs eagerly on the
+    card. A dispatch stacks its images on the host in page-locked memory,
+    copies them to the card at once into the graph's static input,
+    replays the graph, and copies its packed outputs to page-locked host
+    memory at once, right behind the replay on the same stream, so the
+    next replay cannot overwrite a dispatch still in the window. On the
+    CPU the forward runs eagerly.
 
     Host-sync accounting: the per-dispatch payload is static (fixed width
     per bucket), so syncs and bytes are credited at the tick that
@@ -135,6 +164,8 @@ class DetectionBackend:
             b: sum(int(np.prod(shape)) * dtype.itemsize
                    for shape, dtype in self.output_specs(b))
             for b in self.buckets}
+        self._layouts = {b: self._layout(b) for b in self.buckets}
+        self._graphs: Dict[int, _Graph] = {}
 
     def output_specs(self, bucket: int) -> list:
         """[(shape, dtype)] of one dispatch's outputs at ``bucket``: the
@@ -146,6 +177,15 @@ class DetectionBackend:
         return [((w, g, g, 75), torch.float32), ((w, n, 4), torch.float32),
                 ((w, n), torch.float32), ((w, n), torch.int32)]
 
+    def _layout(self, bucket: int) -> tuple:
+        """([(byte offset, shape, dtype)] of `output_specs` packed into one
+        byte buffer, each 16-byte aligned; the buffer's bytes)."""
+        layout, offset = [], 0
+        for shape, dtype in self.output_specs(bucket):
+            layout.append((offset, shape, dtype))
+            offset += -(-int(np.prod(shape)) * dtype.itemsize // 16) * 16
+        return layout, offset
+
     def _forward(self, imgs: torch.Tensor) -> tuple:
         raw = yolo.yolo_forward_kernel(self.art, imgs,
                                        configs=self._configs[imgs.shape[1]])
@@ -154,16 +194,78 @@ class DetectionBackend:
             return detection.compact_detections(boxes, scores, classes)
         return raw, boxes, scores, classes
 
-    def _dispatch(self, imgs: torch.Tensor) -> tuple:
-        """Enqueues one forward; returns its outputs and an event recorded
-        after them (None on the CPU, where the forward has already run)."""
-        with torch.no_grad():
-            results = self._forward(imgs)
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        return results, event
+    def _capture(self, bucket: int) -> _Graph:
+        """Captures ``bucket``'s forward as a CUDA graph whose outputs land
+        in one static byte buffer (`_layout`), after one eager warm call on
+        a side stream, which loads the kernels, fills the decode constants
+        and lets cuDNN pick its algorithms."""
+        dev = self.device
+        layout, nbytes = self._layouts[bucket]
+        images = torch.zeros((self.width, bucket, bucket, 3),
+                             dtype=torch.float32, device=dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.no_grad(), torch.cuda.stream(side):
+            self._forward(images)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with _build.capturing() as launches, torch.no_grad(), \
+                torch.cuda.device(dev), torch.cuda.graph(graph):
+            packed = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            for (offset, shape, dtype), out in zip(layout,
+                                                   self._forward(images)):
+                if out.shape != shape or out.dtype != dtype:
+                    raise RuntimeError(f"output {tuple(out.shape)} "
+                                       f"{out.dtype} is not {shape} {dtype}")
+                size = out.numel() * dtype.itemsize
+                packed[offset:offset + size].view(dtype).view(shape) \
+                    .copy_(out)
+        return _Graph(graph, images, packed, launches)
+
+    def _dispatch(self, batch: torch.Tensor) -> tuple:
+        """Enqueues one forward of a `_host_batch`; returns its outputs and
+        an event recorded after them (None on the CPU, where the forward
+        has already run). On the card the outputs are the graph's packed
+        bytes in page-locked host memory, there once the event is."""
+        if self.device.type != "cuda":
+            if batch.dtype == torch.uint8:
+                batch = batch.to(torch.float32) / 256.0
+            with torch.no_grad():
+                return self._forward(batch), None
+        bucket = batch.shape[1]
+        g = self._graphs.get(bucket)
+        if g is None:
+            g = self._graphs[bucket] = self._capture(bucket)
+        if batch.dtype == torch.uint8:
+            torch.div(batch.to(self.device, non_blocking=True), 256.0,
+                      out=g.images)
+        else:
+            g.images.copy_(batch, non_blocking=True)
+        g.replay()
+        host = torch.empty(g.packed.shape, dtype=torch.uint8,
+                           pin_memory=True)
+        host.copy_(g.packed, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        return host, event
+
+    def _host_batch(self, images: Sequence) -> torch.Tensor:
+        """``images`` stacked on the host and zero-padded to the width:
+        uint8 where every image is uint8 (divided by 256 on the device),
+        else float32 with any uint8 codes divided by 256 here; page-locked
+        on the card's path, so one copy moves the batch."""
+        ims = [torch.as_tensor(im) for im in images]
+        codes = all(im.dtype == torch.uint8 for im in ims)
+        batch = torch.empty((self.width,) + tuple(ims[0].shape),
+                            dtype=torch.uint8 if codes else torch.float32,
+                            pin_memory=self.device.type == "cuda")
+        for i, im in enumerate(ims):
+            if not codes:
+                im = im.to(torch.float32) / 256.0 \
+                    if im.dtype == torch.uint8 else im.to(torch.float32)
+            batch[i] = im
+        batch[len(ims):] = 0
+        return batch
 
     def spawn(self, *, depth: Optional[int] = None) -> "DetectionBackend":
         """Fresh replica with independent slot/emission/sync state, sharing
@@ -198,12 +300,12 @@ class DetectionBackend:
         return size
 
     def warmup(self) -> None:
-        """Run every bucket's fixed-width forward once (the first call
-        builds the kernels), so serving ticks exclude set-up."""
+        """Run every bucket's fixed-width dispatch once, so serving ticks
+        exclude set-up: on the card the first builds the kernels and
+        captures the bucket's graph, then replays it."""
         for b in self.buckets:
-            z = torch.zeros((self.width, b, b, 3), dtype=torch.float32,
-                            device=self.device)
-            _, event = self._dispatch(z)
+            _, event = self._dispatch(self._host_batch(
+                [np.zeros((b, b, 3), np.float32)]))
             if event is not None:
                 event.synchronize()
 
@@ -216,12 +318,9 @@ class DetectionBackend:
         staged, self._staged = self._staged, {}
         pushed = 0
         for bucket, group in staged.items():
-            imgs = torch.stack([self._to_float(r.image) for _, r in group])
-            if imgs.shape[0] < self.width:       # fixed-width dispatch
-                imgs = torch.cat([imgs, imgs.new_zeros(
-                    (self.width - imgs.shape[0],) + tuple(imgs.shape[1:]))])
-            self._window.push(([slot for slot, _ in group],
-                               self._dispatch(imgs)))
+            batch = self._host_batch([r.image for _, r in group])
+            self._window.push(([slot for slot, _ in group], bucket,
+                               self._dispatch(batch)))
             pushed += 1
             # credit the transfer to the tick that dispatched the batch
             self.host_syncs += 1
@@ -230,10 +329,8 @@ class DetectionBackend:
             self._emit(inflight)
 
     def _emit(self, inflight: tuple) -> None:
-        slots_, (results, event) = inflight
-        if event is not None:
-            event.synchronize()
-        host = [t.cpu().numpy() for t in results]
+        slots_, bucket, (results, event) = inflight
+        host = self._host_outputs(bucket, results, event)
         if self.device_nms:
             boxes, scores, classes, valid = host
             for i, slot in enumerate(slots_):
@@ -253,6 +350,19 @@ class DetectionBackend:
             self._emissions.setdefault(slot, []).append(
                 Emission(kind="raw_head", payload=payload, final=True))
 
+    def _host_outputs(self, bucket: int, results, event) -> list:
+        """A dispatch's outputs as numpy arrays, in `output_specs` order,
+        once its event is done; the page-locked bytes are copied out, so
+        the buffer goes back to the allocator."""
+        if event is None:
+            return [t.numpy() for t in results]
+        event.synchronize()
+        data = torch.from_numpy(results.numpy().copy())
+        layout, _ = self._layouts[bucket]
+        return [data[offset:offset + int(np.prod(shape)) * dtype.itemsize]
+                .view(dtype).view(shape).numpy()
+                for offset, shape, dtype in layout]
+
     def harvest(self) -> Dict[int, List[Emission]]:
         out, self._emissions = self._emissions, {}
         return out
@@ -260,8 +370,3 @@ class DetectionBackend:
     def release(self, slot: int) -> None:
         self._emissions.pop(slot, None)
 
-    def _to_float(self, image) -> torch.Tensor:
-        img = torch.as_tensor(image).to(self.device)
-        if img.dtype == torch.uint8:
-            return img.to(torch.float32) / 256.0
-        return img.to(torch.float32)

@@ -12,6 +12,7 @@ from repro.serve import DispatchWindow as JDispatchWindow  # noqa: E402
 from repro.serve import Scheduler as JScheduler  # noqa: E402
 from repro.serve import ServeRequest as JServeRequest  # noqa: E402
 from repro.serve.api import Emission as JEmission  # noqa: E402
+from repro_torch.launch import nms_fixtures  # noqa: E402
 from repro_torch.launch import serve as launch  # noqa: E402
 from repro_torch.models import detection, yolo  # noqa: E402
 from repro_torch.serve import (DetectionBackend, DispatchWindow,  # noqa: E402
@@ -19,24 +20,9 @@ from repro_torch.serve import (DetectionBackend, DispatchWindow,  # noqa: E402
 from repro_torch.serve.api import Emission  # noqa: E402
 
 
-def _trained_regime_head():
-    """The score-separated head of tests/test_serve_detect.py, rebuilt with
-    numpy: confident, class-separated peaks on a quiet background."""
-    rng = np.random.default_rng(7)
-    r = np.zeros((1, 10, 10, 3, 25), np.float32)
-    r[..., 4] = -6.0                                 # background objectness
-    peaks = [(1, 2, 0, 3), (4, 7, 1, 11), (8, 3, 2, 0),
-             (5, 5, 0, 19), (9, 9, 1, 7), (2, 8, 2, 11)]
-    for gy, gx, a, cls in peaks:
-        r[0, gy, gx, a, 4] = 5.0                     # confident object
-        r[0, gy, gx, a, 5:] = -5.0
-        r[0, gy, gx, a, 5 + cls] = 4.0               # separated class
-        r[0, gy, gx, a, :4] = rng.standard_normal(4)
-    return r.reshape(1, 10, 10, 75), peaks
-
-
 def test_decode_nms_compact_kept_sets_identical():
-    raw, peaks = _trained_regime_head()
+    # the score-separated head of tests/test_serve_detect.py
+    raw, peaks = nms_fixtures.separated_head()
     jb, js, jc = jdetection.postprocess(jnp.asarray(raw))
     tb, ts, tc = detection.postprocess(torch.from_numpy(raw))
     assert tc.dtype == torch.int32
