@@ -48,7 +48,7 @@ Phases (any failure raises and the script exits non-zero):
    both wires, the device-NMS set equal to the raw-wire set, and the raw
    head within the `core.verify` envelope of the float forward; this
    script checks launches = dispatches × (4, 4, 1, 1) for (conv3x3_pool2,
-   conv3x3, matmul, detect_nms) on its raw-wire depth-2 serve.
+   conv3x3, matmul, detect_postprocess) on its raw-wire depth-2 serve.
 5. Drives the popcount forward, ``yolo_forward_kernel(accum="popcount")``,
    at full width (B = 4, 320×320) on a per-channel artifact, once per pool
    route, with every launch count zeroed before and read after: launches
@@ -62,14 +62,20 @@ Phases (any failure raises and the script exits non-zero):
    Prints each route's ms per forward beside the dot forward's: the
    CUDA-event time of back-to-back forwards, and from torch.profiler the
    device busy time, which excludes the host's gaps between launches.
-6. The NMS kernel and the graphs: a graph replay of each wire's backend
-   equals a direct eager ``_forward`` on the same images bit for bit; the
-   NMS kernel equals `nms_plain` run on the card bit for bit, on the heads
-   that replay served (decoded on the card), on the score-separated
-   fixture and on the tie fixture (`launch/nms_fixtures.py`), and the
-   served detections equal `nms_plain` on the served heads. Times the
-   kernel and `nms_plain` at the served shape (B = 4, 300 boxes, 20
-   classes); no single PyTorch call computes greedy NMS.
+6. The post-processing kernel (``csrc/detect_nms.cu``) and the graphs: a
+   graph replay of each wire's backend equals a direct eager ``_forward``
+   on the same images bit for bit, each replay launches
+   ``detect_postprocess`` once and ``detect_nms`` never, and a profile of
+   one dispatch gives its device records and busy ms. Both entry points,
+   ``postprocess`` on the raw head and ``nms`` on ``decode_head``'s boxes,
+   equal ``decode_head`` + ``nms_plain`` run on the card bit for bit: on
+   the heads that replay served at 320 (and the served detections equal
+   them), on a batch at 256 (G = 8, 192 boxes), on the score-separated
+   fixture and on every head of ``launch/nms_fixtures.HEADS``; ``nms`` also
+   on the tie fixture at both thresholds. Times the kernel, ``nms`` on the
+   decoded heads, ``decode_head`` and the plain pair at the served shape
+   (B = 4, 300 boxes, 20 classes) and counts the tiles of 32 ranks the
+   sweep visited; no single PyTorch call computes greedy NMS.
 7. Prints one ``{"kernels": [...]}`` line with all eight kernels, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -124,10 +130,10 @@ KERNELS = {
         "src/repro/kernels/w1a8_matmul/kernel.py:135"),
     "w1a8_matmul_int": ("src/repro_torch/csrc/w1a8_matmul_int.cu",
                         "src/repro/kernels/w1a8_matmul/kernel.py:228"),
-    # the counterpart of the reference's jitted lax.fori_loop NMS, which is
-    # no Pallas kernel
-    "detect_nms": ("src/repro_torch/csrc/detect_nms.cu",
-                   "src/repro/models/detection.py:54"),
+    # the counterpart of the reference's jitted postprocess (decode_head and
+    # a lax.fori_loop NMS), which is no Pallas kernel
+    "detect_postprocess": ("src/repro_torch/csrc/detect_nms.cu",
+                           "src/repro/models/detection.py:90"),
 }
 DOT = ("w1a8_conv3x3_pool2", "w1a8_conv3x3", "w1a8_matmul")
 # name: the tensor-core instruction its library's SASS must hold
@@ -138,7 +144,7 @@ TENSOR_CORE_KERNELS = {
     "w1a8_matmul_int": "IMMA"}
 # launches per served dispatch
 PER_DISPATCH = {"w1a8_conv3x3_pool2": 4, "w1a8_conv3x3": 4, "w1a8_matmul": 1,
-                "detect_nms": 1}
+                "detect_postprocess": 1}
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 NMS_IOU_OPS = 15               # float ops of one IoU and its suppression test
 # popcount forward, per route: (pool2_popcount, conv3x3_popcount,
@@ -425,15 +431,18 @@ def check_kernels(torch, np, dev) -> tuple:
 
 
 def _exact(torch, got, want, what: str) -> float:
-    """Raises unless ``got`` equals ``want`` bit for bit; returns the
-    largest absolute difference (0.0 when it returns)."""
+    """Raises unless ``got`` equals ``want`` bit for bit, NaN where it is
+    NaN; returns the largest absolute difference (0.0 when it returns)."""
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs "
                              f"{want.dtype} {tuple(want.shape)}")
-    diff = float((got.double() - want.double()).abs().max())
-    if not torch.equal(got, want):
+    same = got == want
+    if got.is_floating_point():
+        same |= got.isnan() & want.isnan()
+    if not bool(same.all()):
+        diff = float((got.double() - want.double()).abs().max())
         raise AssertionError(f"{what}: not bit-exact (max diff {diff})")
-    return diff
+    return 0.0
 
 
 def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
@@ -835,10 +844,33 @@ def drive_main_path() -> tuple:
     return record, launches
 
 
-def check_graphs_and_nms(torch, np, dev) -> dict:
-    """Phase 6: graph replays against eager forwards, and the NMS kernel
-    against `nms_plain` on the card, bit for bit; then the NMS kernel's
-    and `nms_plain`'s times at the served shape. Returns the NMS record."""
+def sweep_tiles(np, boxes, scores, out_b, out_s, max_out: int,
+                score_thresh: float, tile: int = 32) -> list:
+    """Tiles of 32 ranks the post-processing kernel's sweep visits in each
+    image, from its decoded inputs and its outputs: it stops at the tile
+    that holds the max_out-th kept box, or after the last candidate."""
+    tiles = []
+    for bx, sc, kb, ks in zip(boxes, scores, out_b, out_s):
+        best = sc.max(-1)
+        score = np.where(best >= np.float32(score_thresh), best, 0)
+        order = np.lexsort((np.arange(len(score)), -score))
+        m = int((score > 0).sum())
+        k = int((ks > 0).sum())
+        last = m - 1
+        if k == max_out:
+            last = next(i for i, j in enumerate(order[:m])
+                        if score[j] == ks[k - 1]
+                        and (bx[j] == kb[k - 1]).all())
+        tiles.append(last // tile + 1 if m else 0)
+    return tiles
+
+
+def check_graphs_and_postprocess(torch, np, dev) -> dict:
+    """Phase 6: graph replays against eager forwards; the post-processing
+    kernel's two entry points against `decode_head` + `nms_plain` on the
+    card, bit for bit; its launches and the device records per dispatch
+    through the replays; then its times at the served shape. Returns the
+    kernel's record."""
     from repro_torch.launch import nms_fixtures
     from repro_torch.launch import serve as launch
     from repro_torch.models import detection, yolo
@@ -848,13 +880,20 @@ def check_graphs_and_nms(torch, np, dev) -> dict:
     imgs = launch.make_images(4 * BATCH, SEED + 3, size)
     _, art = yolo.build_detector(SEED, imgs[:1].astype(np.float32) / 256.0,
                                  device=dev)
-    raws, served = [], []
+    raws, served, per_dispatch = [], [], {}
     for device_nms in (False, True):
         backend = DetectionBackend(art, slots=BATCH, device=dev,
                                    device_nms=device_nms)
-        for i in range(0, len(imgs), BATCH):
-            batch = backend._host_batch(list(imgs[i:i + BATCH]))
+        batches = [backend._host_batch(list(imgs[i:i + BATCH]))
+                   for i in range(0, len(imgs), BATCH)]
+        backend._dispatch(batches[0])          # captures the graph
+        torch.cuda.synchronize()
+        replayed = {"detect_postprocess": 0, "detect_nms": 0}
+        for batch in batches:
+            _zero(launch.KERNELS)
             host = backend._host_outputs(size, *backend._dispatch(batch))
+            for name in replayed:
+                replayed[name] += launch.KERNELS[name].launches
             with torch.no_grad():
                 eager = backend._forward(batch.to(dev).to(torch.float32)
                                          / 256.0)
@@ -865,68 +904,118 @@ def check_graphs_and_nms(torch, np, dev) -> dict:
             if not device_nms:
                 raws.append(host[0])
                 served.append(host[1:])
+        wire = "device_nms" if device_nms else "raw"
+        if replayed != {"detect_postprocess": len(batches), "detect_nms": 0}:
+            raise AssertionError(f"{wire} wire: launches {replayed} for "
+                                 f"{len(batches)} replays, want one "
+                                 f"detect_postprocess and no detect_nms a "
+                                 f"dispatch")
+        prof = device_profile(torch, lambda: backend._host_outputs(
+            size, *backend._dispatch(batches[0])))
+        per_dispatch[wire] = {"device_records": prof["device_launches"],
+                              "device_busy_ms": prof["device_busy_ms"]}
     nb = len(raws)
 
-    def held(boxes, scores, what, **post):
-        got = detection.nms(boxes, scores, **post)
-        want = detection.nms_plain(boxes, scores, **post)
-        for g, w, field in zip(got, want, ("boxes", "scores", "classes")):
-            _exact(torch, g, w, f"nms kernel vs plain, {what}, {field}")
-        return got
+    def held(raw, what, **post):
+        """postprocess(raw) and nms(decode_head(raw)) against nms_plain on
+        decode_head(raw), all on the card, bit for bit."""
+        dec = detection.decode_head(raw)
+        want = detection.nms_plain(dec["boxes"], dec["scores"], **post)
+        for entry, got in (
+                ("postprocess", detection.postprocess(raw, **post)),
+                ("nms", detection.nms(dec["boxes"], dec["scores"], **post))):
+            for g, w, field in zip(got, want, ("boxes", "scores", "classes")):
+                _exact(torch, g, w, f"{entry} vs plain, {what}, {field}")
+        return want
+
     raw = torch.from_numpy(np.concatenate(raws)).to(dev)
-    dec = detection.decode_head(raw)
-    got = held(dec["boxes"], dec["scores"], "served heads")
+    got = held(raw, "served heads at 320")
     for g, field, parts in zip(got, ("boxes", "scores", "classes"),
                                zip(*served)):
         _exact(torch, g.cpu(), torch.from_numpy(np.concatenate(parts)),
-               f"served {field} vs nms on the served heads")
+               f"served {field} vs nms_plain on the served heads")
+    small = torch.from_numpy(launch.make_images(BATCH, SEED + 4, 256)).to(dev)
+    with torch.no_grad():
+        raw256 = yolo.yolo_forward_kernel(
+            art, small.to(torch.float32) / 256.0,
+            configs=yolo.kernel_configs(art, 256, BATCH))
+    held(raw256, "a batch at 256 (G = 8, 192 boxes)")
     head, peaks = nms_fixtures.separated_head()
-    dec_sep = detection.decode_head(torch.from_numpy(head).to(dev))
-    _, sep_scores, _ = held(dec_sep["boxes"], dec_sep["scores"],
+    _, sep_scores, _ = held(torch.from_numpy(head).to(dev),
                             "score-separated fixture")
     if int((sep_scores > 0).sum()) != len(peaks):
         raise AssertionError(f"separated fixture: kept "
                              f"{int((sep_scores > 0).sum())} of {len(peaks)}")
+    for name, fixture in nms_fixtures.HEADS.items():
+        head, post = fixture()
+        held(torch.from_numpy(head).to(dev), f"fixture {name}", **post)
     boxes, scores = (torch.from_numpy(x).to(dev)
                      for x in nms_fixtures.tied_boxes())
-    tie_b, tie_s, _ = held(boxes, scores, "tie fixture",
-                           iou_thresh=nms_fixtures.TIE_IOU)
+    for thresh in (nms_fixtures.TIE_IOU, 0.45):
+        tie = detection.nms(boxes, scores, iou_thresh=thresh)
+        for g, w in zip(tie, detection.nms_plain(boxes, scores,
+                                                 iou_thresh=thresh)):
+            _exact(torch, g, w, f"nms vs plain, tie fixture at {thresh}")
+    tie_b, tie_s, _ = detection.nms(boxes, scores,
+                                    iou_thresh=nms_fixtures.TIE_IOU)
     kept = [int(torch.nonzero((boxes[0] == tie_b[0, i]).all(-1))[0])
             for i in range(int((tie_s[0] > 0).sum()))]
     if tuple(kept) != nms_fixtures.TIE_KEPT:
         raise AssertionError(f"tie fixture kept {kept}, want "
                              f"{nms_fixtures.TIE_KEPT}")
 
-    b4, s4 = dec["boxes"][:BATCH], dec["scores"][:BATCH]
+    # times at the served shape: the first dispatch's four heads
+    r4 = raw[:BATCH].contiguous()
+    dec = detection.decode_head(r4)
+    b4, s4 = dec["boxes"], dec["scores"]
     n, c = s4.shape[1:]
-    max_out = 50
-    rec = {"shape": [BATCH, n, c, max_out], "served_heads": nb}
-    run = lambda: detection.nms(b4, s4)  # noqa: E731
-    rec["ms"] = cuda_ms(torch, run)
-    rec["device_ms"] = device_profile(torch, run)["device_busy_ms"]
-    # one round against max_out rounds: the kernel's set-up and its
-    # cost a round
-    rec["device_ms_one_round"] = device_profile(
-        torch, lambda: detection.nms(b4, s4, max_out=1))["device_busy_ms"]
-    rec["round_us"] = 1e3 * (rec["device_ms"] - rec["device_ms_one_round"]) \
-        / (max_out - 1)
-    rec["plain_ms"] = cuda_ms(torch, lambda: detection.nms_plain(b4, s4),
-                              reps=3, n=3)
-    rec["library_ms"] = None
-    rec["bytes"] = 4 * (b4.numel() + s4.numel()) + BATCH * max_out * 24
-    rec["ops"] = BATCH * n * (c + max_out * NMS_IOU_OPS)
+    max_out, score_thresh = 50, 0.25
+    run = lambda: detection.postprocess(r4)  # noqa: E731
+    out_b, out_s, _ = run()
+    rec = {"shape": [BATCH, n, c, max_out], "served_heads": nb,
+           "ms": cuda_ms(torch, run),
+           "device_ms": device_profile(torch, run)["device_busy_ms"],
+           "nms_device_ms": device_profile(
+               torch, lambda: detection.nms(b4, s4))["device_busy_ms"],
+           "decode_head_device_ms": device_profile(
+               torch, lambda: detection.decode_head(r4))["device_busy_ms"],
+           "plain_ms": cuda_ms(torch, lambda: detection.nms_plain(
+               **detection.decode_head(r4)), reps=3, n=3),
+           "library_ms": None, "per_dispatch": per_dispatch}
+    scores_np = s4.cpu().numpy()
+    rec["tiles"] = sweep_tiles(np, b4.cpu().numpy(), scores_np,
+                               out_b.cpu().numpy(), out_s.cpu().numpy(),
+                               max_out, score_thresh)
+    # bytes: the raw head in, the outputs out; operations: the decode
+    # (5 + 2C a box), the ranking (a compare per candidate pair) and an IoU
+    # of each kept box with each candidate, as the greedy loop takes them
+    cand = (scores_np.max(-1) >= score_thresh).sum(-1)
+    kept_n = (out_s.cpu().numpy() > 0).sum(-1)
+    rec["bytes"] = 4 * r4.numel() + BATCH * max_out * 24
+    rec["ops"] = int(sum(n * (5 + 2 * c) + m * n + k * m * NMS_IOU_OPS
+                         for m, k in zip(cand, kept_n)))
     rec["bound_ms"], rec["bound_by"] = bound(rec["bytes"], rec["ops"],
                                              FP32_OPS_PER_S)
     print(f"[graphs] {nb} served heads: each wire's graph replay equals an "
-          f"eager forward bit for bit", flush=True)
-    print(f"[nms] kernel bit-exact with nms_plain on the card: served heads "
-          f"(and the served detections), score-separated fixture "
-          f"({len(peaks)} kept), tie fixture (kept {kept}); B={BATCH}, "
-          f"{n} boxes, {c} classes: {rec['ms']:.4f} ms, device "
-          f"{rec['device_ms']:.4f} ms (one round "
-          f"{rec['device_ms_one_round']:.4f}, {rec['round_us']:.3f} us a "
-          f"round; plain {rec['plain_ms']:.4f}, bound "
-          f"{rec['bound_ms']:.6f} by {rec['bound_by']})", flush=True)
+          f"eager forward bit for bit; one detect_postprocess launch and no "
+          f"detect_nms launch a dispatch through the replays; device "
+          f"records a dispatch: raw wire "
+          f"{per_dispatch['raw']['device_records']:.0f}, device-NMS wire "
+          f"{per_dispatch['device_nms']['device_records']:.0f}; device busy "
+          f"{per_dispatch['raw']['device_busy_ms']:.4f} / "
+          f"{per_dispatch['device_nms']['device_busy_ms']:.4f} ms",
+          flush=True)
+    print(f"[postprocess] detect_postprocess and detect_nms bit-exact with "
+          f"decode_head + nms_plain on the card: served heads at 320 (and "
+          f"the served detections), a batch at 256, the score-separated "
+          f"fixture ({len(peaks)} kept), fixtures "
+          f"{list(nms_fixtures.HEADS)}, tie fixture (kept {kept}); "
+          f"B={BATCH}, {n} boxes, {c} classes: {rec['ms']:.4f} ms, device "
+          f"{rec['device_ms']:.5f} ms (detect_nms on the decoded heads "
+          f"{rec['nms_device_ms']:.5f}, decode_head "
+          f"{rec['decode_head_device_ms']:.5f}; plain {rec['plain_ms']:.4f}, "
+          f"bound {rec['bound_ms']:.6f} by {rec['bound_by']}); tiles swept "
+          f"{rec['tiles']}", flush=True)
     return rec
 
 
@@ -974,7 +1063,7 @@ def main() -> int:
     record, launches = drive_main_path()
     pc_record = drive_popcount(torch, np, dev)
     launches.update(pc_record["launches"])
-    nms_record = check_graphs_and_nms(torch, np, dev)
+    nms_record = check_graphs_and_postprocess(torch, np, dev)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -987,16 +1076,17 @@ def main() -> int:
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name]}
-        if name == "detect_nms":
+        if name == "detect_postprocess":
             entry.update({
-                "counterpart_of": "a jitted lax.fori_loop (no Pallas "
-                                  "kernel)",
+                "counterpart_of": "the jitted postprocess: decode_head and "
+                                  "a lax.fori_loop NMS (no Pallas kernel)",
                 "launches_per_dispatch": PER_DISPATCH[name],
                 "max_abs_err": 0.0, "library_device_ms": None,
                 "tensor_core_instructions": sass[name],
                 **{k: nms_record[k] for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "shape")}})
+                    "library_ms", "shape", "nms_device_ms",
+                    "decode_head_device_ms", "tiles")}})
             if not entry["launches"]:
                 raise AssertionError(f"{name}: no launch on its path")
             kernels.append(entry)

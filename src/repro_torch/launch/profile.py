@@ -10,8 +10,8 @@ after one warm-up pass, and prints one JSON line:
   * ``wall_ms``: the host clock over the same window, ended by a
     synchronize; ``device_idle_share`` = 1 − busy / wall;
   * ``groups``: device ms per dispatch for the three W1A8 kernels, the
-    NMS kernel, cuDNN (conv1 / conv11), and everything else (decode,
-    casts, copies);
+    post-processing kernel (decode and NMS), cuDNN (conv1 / conv11), and
+    everything else (conv1's epilogue, casts, copies);
   * per dispatch: ``host_api_calls`` (the CUDA runtime calls the host
     made, by name: graph launches, kernel launches, copies),
     ``device_kernels`` and ``device_copies`` (traced device records);
@@ -37,11 +37,12 @@ from repro_torch.launch.serve import launch_counts, make_images, serve
 from repro_torch.models import yolo
 from repro_torch.serve import DetectionBackend
 
-# (group, a substring of its device kernels' names): the port's kernels
+# (group, a substring of its device kernels' names): the port's kernels;
+# a dispatch post-processes through csrc/detect_nms.cu's detect_postprocess
 GROUPS = (("w1a8_conv3x3_pool2", "conv3x3_pool2_kernel"),
           ("w1a8_conv3x3", "conv3x3_kernel"),
           ("w1a8_matmul", "matmul_kernel"),
-          ("detect_nms", "nms_kernel"))
+          ("detect_postprocess", "nms_kernel"))
 
 
 def _group(name: str) -> str:

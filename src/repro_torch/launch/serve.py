@@ -31,17 +31,20 @@ from repro_torch.kernels.w1a8_matmul import ops as mm_ops
 from repro_torch.models import detection, yolo
 from repro_torch.serve import DetectionBackend, Scheduler, ServeRequest
 
-# Every CUDA kernel of the port, by name: each counts its own launches,
-# through graph replays too. The launcher serves through the three dot
-# kernels and the NMS kernel; the popcount forward runs the three popcount
-# kernels, and `w1a8_matmul_int` is called directly.
+# Every CUDA kernel entry point of the port, by name: each counts its own
+# launches, through graph replays too. The launcher serves through the
+# three dot kernels and the post-processing kernel (`detect_postprocess`);
+# the popcount forward runs the three popcount kernels, and
+# `w1a8_matmul_int` and `detect_nms` (the same kernel on decoded boxes) are
+# called directly.
 KERNELS = {"w1a8_conv3x3_pool2": fused_pool.KERNEL,
            "w1a8_conv3x3": conv_ops.KERNEL, "w1a8_matmul": mm_ops.KERNEL,
            "w1a8_conv3x3_pool2_popcount": fused_pool.POPCOUNT_KERNEL,
            "w1a8_conv3x3_popcount": conv_ops.POPCOUNT_KERNEL,
            "w1a8_matmul_popcount": mm_ops.POPCOUNT_KERNEL,
            "w1a8_matmul_int": mm_ops.INT_KERNEL,
-           "detect_nms": detection.NMS_KERNEL}
+           "detect_nms": detection.NMS_KERNEL,
+           "detect_postprocess": detection.POSTPROCESS_KERNEL}
 
 
 def launch_counts() -> dict:

@@ -4,12 +4,16 @@ The head emits (B, G, G, 75) raw values = 3 anchors × (tx, ty, tw, th, obj,
 20 cls) per cell, y/x/channel order. Decode follows YOLOv3:
   bx = (σ(tx) + cx)/G, by = (σ(ty) + cy)/G, bw = pw·e^tw, bh = ph·e^th,
 confidence = σ(obj)·σ(cls). NMS is greedy per-class IoU suppression over a
-fixed number of iterations, batched over images: on the card one CUDA
-kernel (``csrc/detect_nms.cu``), on the CPU the plain loop `nms_plain`.
-Counterpart of ``repro/models/detection.py``.
+fixed number of iterations, batched over images. On the card `postprocess`
+is one CUDA kernel (``csrc/detect_nms.cu``, entry point
+``detect_postprocess``) that decodes and suppresses, and `nms` the same
+kernel on decoded boxes (``detect_nms``); on the CPU they are
+`decode_head` and the plain loop `nms_plain`, the versions the kernel is
+held to. Counterpart of ``repro/models/detection.py``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import numpy as np
@@ -20,12 +24,21 @@ from repro_torch.models.yolo import NUM_ANCHORS, NUM_CLASSES
 
 # Anchor priors (fraction of image size), 3 anchors for the single head.
 ANCHORS = ((0.12, 0.18), (0.32, 0.42), (0.72, 0.78))
+# the priors as float32 in host memory, (w, h) of each anchor, for the
+# kernel's decode
+_ANCHORS_HOST = (ctypes.c_float * (2 * NUM_ANCHORS))(
+    *(v for pair in ANCHORS for v in pair))
 
 # (boxes, scores, out_b, out_s, out_c, batch, n, c, max_out, iou_thresh,
 # score_thresh, stream)
 NMS_KERNEL = _build.Kernel("detect_nms.cu", "detect_nms",
                            [_build.P] * 5 + [_build.I] * 4
                            + [_build.F] * 2 + [_build.P])
+# (raw, anchors, out_b, out_s, out_c, batch, grid, c, max_out, iou_thresh,
+# score_thresh, stream)
+POSTPROCESS_KERNEL = _build.Kernel("detect_nms.cu", "detect_postprocess",
+                                   [_build.P] * 5 + [_build.I] * 4
+                                   + [_build.F] * 2 + [_build.P])
 
 _grids: Dict[Tuple[torch.device, int], tuple] = {}
 
@@ -74,16 +87,45 @@ def iou_cxcywh(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(union, min=1e-9)
 
 
+def _check_post(max_out: int, score_thresh: float) -> None:
+    """What the kernel's ranked sweep takes besides shapes: it ranks the
+    boxes of positive score only, which is the greedy loop's order while
+    no score is negative."""
+    if max_out < 1:
+        raise ValueError(f"max_out must be positive, got {max_out}")
+    if score_thresh < 0:
+        raise ValueError(f"the post-processing kernel takes score_thresh "
+                         f">= 0, got {score_thresh}")
+
+
+def _launch(kernel: _build.Kernel, dev: torch.device, inputs: tuple,
+            sizes: tuple, max_out: int, iou_thresh: float,
+            score_thresh: float) -> tuple:
+    """Launches one of the kernel's two entry points: (two input pointers,
+    the three outputs, sizes beginning with the batch, max_out, the
+    thresholds, the stream)."""
+    nb = sizes[0]
+    out_b = torch.empty((nb, max_out, 4), dtype=torch.float32, device=dev)
+    out_s = torch.empty((nb, max_out), dtype=torch.float32, device=dev)
+    out_c = torch.empty((nb, max_out), dtype=torch.int32, device=dev)
+    kernel(*inputs, out_b.data_ptr(), out_s.data_ptr(), out_c.data_ptr(),
+           *sizes, max_out, float(iou_thresh), float(score_thresh),
+           torch.cuda.current_stream(dev).cuda_stream)
+    return out_b, out_s, out_c
+
+
 def nms(boxes: torch.Tensor, scores: torch.Tensor, *,
         iou_thresh: float = 0.45, score_thresh: float = 0.25,
         max_out: int = 50):
     """Greedy per-class NMS, batched: boxes (B, N, 4), scores (B, N, C) →
     (B, max_out, 4), (B, max_out), (B, max_out) int32 class ids; empty
-    slots have score 0 and class -1.
+    slots have box 0, score 0 and class -1.
 
-    CUDA tensors launch ``csrc/detect_nms.cu`` (one block per image; f32
-    only) or raise; CPU tensors run `nms_plain`. The two agree bit for
-    bit.
+    CUDA tensors launch ``csrc/detect_nms.cu``'s ``detect_nms`` (one block
+    per image; float32 only; score_thresh >= 0) or raise, also where an
+    image's N boxes do not fit in the block's shared memory (N above about
+    8,000: the launch fails with cudaErrorInvalidValue); CPU tensors run
+    `nms_plain`. The two agree bit for bit.
     """
     if not boxes.is_cuda:
         return nms_plain(boxes, scores, iou_thresh=iou_thresh,
@@ -96,20 +138,14 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, *,
         raise ValueError(f"boxes {tuple(boxes.shape)} on {boxes.device} do "
                          f"not match scores {tuple(scores.shape)} on "
                          f"{scores.device}")
-    if min(nb, n, c, max_out) < 1:
-        raise ValueError(f"nms needs images, boxes, classes and max_out, "
-                         f"got B={nb}, N={n}, C={c}, max_out={max_out}")
+    if min(nb, n, c) < 1:
+        raise ValueError(f"nms needs images, boxes and classes, got B={nb}, "
+                         f"N={n}, C={c}")
+    _check_post(max_out, score_thresh)
     boxes, scores = boxes.contiguous(), scores.contiguous()
-    out_b = torch.empty((nb, max_out, 4), dtype=torch.float32,
-                        device=boxes.device)
-    out_s = torch.empty((nb, max_out), dtype=torch.float32,
-                        device=boxes.device)
-    out_c = torch.empty((nb, max_out), dtype=torch.int32, device=boxes.device)
-    NMS_KERNEL(boxes.data_ptr(), scores.data_ptr(), out_b.data_ptr(),
-               out_s.data_ptr(), out_c.data_ptr(), nb, n, c, max_out,
-               float(iou_thresh), float(score_thresh),
-               torch.cuda.current_stream(boxes.device).cuda_stream)
-    return out_b, out_s, out_c
+    return _launch(NMS_KERNEL, boxes.device,
+                   (boxes.data_ptr(), scores.data_ptr()), (nb, n, c),
+                   max_out, iou_thresh, score_thresh)
 
 
 def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, *,
@@ -148,10 +184,34 @@ def nms_plain(boxes: torch.Tensor, scores: torch.Tensor, *,
 
 def postprocess(raw: torch.Tensor, *, iou_thresh: float = 0.45,
                 score_thresh: float = 0.25, max_out: int = 50):
-    """Full post-processing for a batch of raw heads."""
-    dec = decode_head(raw)
-    return nms(dec["boxes"], dec["scores"], iou_thresh=iou_thresh,
-               score_thresh=score_thresh, max_out=max_out)
+    """Full post-processing for a batch of raw heads (B, G, G, 75): the
+    outputs of `nms` on `decode_head`'s boxes and scores.
+
+    A CUDA tensor launches ``csrc/detect_nms.cu``'s ``detect_postprocess``
+    once, which decodes in its prologue and runs `nms`'s sweep (float32
+    only; score_thresh >= 0; G·G·3 boxes up to about 8,000, past which the
+    launch fails with cudaErrorInvalidValue), or raises; a CPU tensor runs
+    `decode_head` and `nms_plain`. The two agree bit for bit.
+    """
+    if not raw.is_cuda:
+        dec = decode_head(raw)
+        return nms_plain(dec["boxes"], dec["scores"], iou_thresh=iou_thresh,
+                         score_thresh=score_thresh, max_out=max_out)
+    if raw.dtype != torch.float32:
+        raise TypeError(f"postprocess on the card takes a float32 head, got "
+                        f"{raw.dtype}")
+    if (raw.dim() != 4 or raw.shape[1] != raw.shape[2] or raw.shape[1] < 1
+            or raw.shape[0] < 1
+            or raw.shape[3] != NUM_ANCHORS * (5 + NUM_CLASSES)):
+        raise ValueError(f"postprocess takes heads (B, G, G, "
+                         f"{NUM_ANCHORS * (5 + NUM_CLASSES)}), got "
+                         f"{tuple(raw.shape)}")
+    _check_post(max_out, score_thresh)
+    raw = raw.contiguous()
+    return _launch(POSTPROCESS_KERNEL, raw.device,
+                   (raw.data_ptr(), ctypes.addressof(_ANCHORS_HOST)),
+                   (raw.shape[0], raw.shape[1], NUM_CLASSES), max_out,
+                   iou_thresh, score_thresh)
 
 
 def compact_detections(boxes: torch.Tensor, scores: torch.Tensor,
