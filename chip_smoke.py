@@ -39,23 +39,39 @@ Phases (any failure raises and the script exits non-zero):
    at the layer shapes (the int kernel beside ``torch._int_mm``), and
    prints each layer's device ms; then the device time of a one-element
    ``torch.add`` (the smallest launch, a floor for the kernels' times).
-4. Drives the dot main path through the serving launcher
-   (``repro_torch.launch.serve``: 16 random 320×320 uint8 images,
-   `slots=4`, `depth=2`), with every launch count set to 0 just before and
+4. Checks that the committed autotune table
+   (``src/repro_torch/kernels/AUTOTUNE_cuda.json``) holds its 22 entries
+   for this card's `device_key` (else it fails, naming the key and the
+   autotune command, so tuned serving never quietly equals dot) and holds
+   each winner bit-exact against its accum mode's default config on the
+   sweep's operands. Then drives the main path through the serving
+   launcher (``repro_torch.launch.serve``: 16 random 320×320 uint8
+   images, `slots=4`, `depth=2`) under ``--profile tuned`` and ``--profile
+   default``, with every launch count set to 0 just before each run and
    read just after. Each dispatch is one CUDA graph replay per bucket and
    wire, and each replay adds its captured launches to the counts. The
    launcher checks zero drops, depth-K payloads bit-exact with depth 1 on
-   both wires, the device-NMS set equal to the raw-wire set, and the raw
-   head within the `core.verify` envelope of the float forward; this
-   script checks launches = dispatches × (4, 4, 1, 1) for (conv3x3_pool2,
-   conv3x3, matmul, detect_postprocess) on its raw-wire depth-2 serve.
+   both wires (the device-NMS wire over K ∈ {1, 2, 4, 8}), the device-NMS
+   set equal to the raw-wire set, and the raw head within the
+   `core.verify` envelope of the float forward; this script checks that
+   the raw-wire depth-2 serve's launches equal its dispatches times the
+   launches `per_dispatch` derives from the backend's resolved configs at
+   320 (`DetectionBackend.configs`), and prints those configs per layer.
+   It drives ``--workload multires --buckets 256,320`` on 16 requests
+   (each bucket's raw heads bit-exact with the bucket served alone; at
+   256 no entry is exact, so tuned serves the nearest entries' dot
+   configs), counted the same way, each bucket's kernels launched, and
+   profiles 8 dispatches under each profile (`launch.profile`): device
+   busy, device records and idle share per dispatch.
 5. Drives the popcount forward, ``yolo_forward_kernel(accum="popcount")``,
    at full width (B = 4, 320×320) on a per-channel artifact, once per pool
    route, with every launch count zeroed before and read after: launches
    (4, 4, 1) for (conv3x3_pool2_popcount, conv3x3_popcount,
    matmul_popcount) on the fused route and (0, 8, 1) on the unfused one,
    the two raw heads bit-identical and within the `core.verify` envelope of
-   the float forward. On a per-tensor artifact the popcount and dot raw
+   the float forward; once the dot forward on the fused route, counted the
+   same way (4, 4, 1) for the three dot kernels, its raw head in the same
+   envelope. On a per-tensor artifact the popcount and dot raw
    heads differ by less than 0.02. Then the int path: one
    `w1a8_matmul_int` call at conv9's shape on the detector's conv9 sign
    words, counted the same way and checked against the integer product.
@@ -76,8 +92,10 @@ Phases (any failure raises and the script exits non-zero):
    decoded heads, ``decode_head`` and the plain pair at the served shape
    (B = 4, 300 boxes, 20 classes) and counts the tiles of 32 ranks the
    sweep visited; no single PyTorch call computes greedy NMS.
-7. Prints one ``{"kernels": [...]}`` line with all eight kernels, and as
-   the last line ``{"ok": true, "device": {...}}``.
+7. Prints one ``{"kernels": [...]}`` line with all eight kernels (each
+   one's launches summed over the driven paths, and by path: the three
+   launcher runs, phase 5's forwards and int call), and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -142,9 +160,9 @@ TENSOR_CORE_KERNELS = {
     "w1a8_matmul": "HMMA", "w1a8_conv3x3_pool2_popcount": "IMMA",
     "w1a8_conv3x3_popcount": "IMMA", "w1a8_matmul_popcount": "IMMA",
     "w1a8_matmul_int": "IMMA"}
-# launches per served dispatch
-PER_DISPATCH = {"w1a8_conv3x3_pool2": 4, "w1a8_conv3x3": 4, "w1a8_matmul": 1,
-                "detect_postprocess": 1}
+PROFILES = ("tuned", "default")  # the launcher's --profile, both driven
+AUTOTUNE_CMD = "PYTHONPATH=src python -m repro_torch.launch.autotune --batch 4"
+WINNERS = 22                   # 11 cells x 2 accum modes in the table
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 NMS_IOU_OPS = 15               # float ops of one IoU and its suppression test
 # popcount forward, per route: (pool2_popcount, conv3x3_popcount,
@@ -760,7 +778,23 @@ def drive_popcount(torch, np, dev, size: int = None) -> dict:
             "profile": prof, "max_abs": rep.max_abs,
             "within_1lsb": rep.within_1lsb}
     _exact(torch, raws[True], raws[False], "popcount fused vs unfused route")
-    dot_configs = yolo.kernel_configs(art, size, BATCH)
+    dot_configs = yolo.kernel_configs(art, size, BATCH, accum="dot",
+                                      fuse_pool=True)
+    _zero(launch.KERNELS)
+    with torch.no_grad():
+        dot_raw = yolo.yolo_forward_kernel(art, imgs, configs=dot_configs)
+    torch.cuda.synchronize()
+    counts = launch.launch_counts()
+    record["dot_launches"] = {name: counts[name] for name in DOT}
+    if tuple(record["dot_launches"].values()) != PER_FORWARD[True] or any(
+            counts[name] for name in POPCOUNT + ("w1a8_matmul_int",)):
+        raise AssertionError(f"dot forward: launches {counts}, want "
+                             f"{PER_FORWARD[True]}")
+    rep = verify.compare("dot_vs_float", dot_raw.cpu().numpy(), ref,
+                         lsb=0.02)
+    if not (rep.max_abs < 0.02 and rep.within_1lsb == 1.0):
+        raise AssertionError(f"dot raw head outside the envelope: "
+                             f"{rep.row()}")
     with torch.no_grad():
         forward = lambda: yolo.yolo_forward_kernel(  # noqa: E731
             art, imgs, configs=dot_configs)
@@ -822,25 +856,147 @@ def drive_popcount(torch, np, dev, size: int = None) -> dict:
     return record
 
 
-def drive_main_path() -> tuple:
-    """Phase 4: the serving launcher, with every launch count zeroed just
-    before and read just after; returns (its record, the counts)."""
+def per_dispatch(configs) -> dict:
+    """Launches of one dispatch by kernel, derived from the W1A8 layers'
+    configs (dicts, as `DetectionBackend.configs` gives them): a fused
+    pool layer launches its mode's fused kernel, an unfused one its mode's
+    conv kernel (the 2×2 max is PyTorch's), a conv layer its mode's conv
+    kernel and the matmul its mode's matmul; then one post-processing
+    launch."""
+    counts = {"detect_postprocess": 1}
+    for cfg in configs:
+        suffix = "_popcount" if cfg["accum"] == "popcount" else ""
+        if cfg["op"] == "matmul":
+            name = "w1a8_matmul"
+        elif cfg["op"] == "conv3x3_pool" and cfg["fused"]:
+            name = "w1a8_conv3x3_pool2"
+        else:
+            name = "w1a8_conv3x3"
+        counts[name + suffix] = counts.get(name + suffix, 0) + 1
+    return counts
+
+
+def check_table() -> dict:
+    """The committed autotune table's entries for this card; raises when
+    it has none, so tuned serving can never quietly equal the dot
+    default."""
+    from repro_torch.kernels import config
+
+    key = config.device_key()
+    entries = {k: rec for k, rec in config.load_table().items()
+               if config.parse_key(k)[3] == key}
+    if len(entries) != WINNERS:
+        raise AssertionError(
+            f"the committed autotune table ({config.DEFAULT_TABLE.name}) "
+            f"holds {len(entries)} entries for device key {key!r}, want "
+            f"{WINNERS}: sweep it on this card with `{AUTOTUNE_CMD}`")
+    return entries
+
+
+def check_winners(torch, entries: dict, batch: int) -> list:
+    """Each committed winner bit-exact against its accum mode's default
+    config on the card, on the sweep's operands at the sweep's batch (no
+    timing)."""
+    from repro_torch.kernels.config import KernelConfig, parse_key
+    from repro_torch.launch import autotune
+
+    dev = torch.device("cuda", 0)
+    held = []
+    for key, rec in sorted(entries.items()):
+        op, dims, accum, _ = parse_key(key)
+        operands = autotune._operands(op, dims, batch, dev)
+        default = autotune.candidates(op, dims, accum)[0]
+        tuned = KernelConfig.from_dict(rec["config"])
+        why = autotune.launch_error(op, dims, batch, tuned)
+        if why is not None:
+            raise AssertionError(f"{key}: winner cannot launch: {why}")
+        _exact(torch, autotune._call(op, operands, tuned),
+               autotune._call(op, operands, default),
+               f"{key} winner {tuned} vs default")
+        held.append(key)
+    torch.cuda.synchronize()
+    print(f"[autotune] {len(held)} committed winners bit-exact with their "
+          f"defaults on the card (batch {batch})", flush=True)
+    return held
+
+
+def drive_main_path(profile: str) -> tuple:
+    """Phase 4: the serving launcher under ``profile``, with every launch
+    count zeroed just before and read just after; the raw-wire depth-2
+    serve's launches must equal its dispatches times `per_dispatch` of
+    the configs the backend resolved at 320. Returns (its record, the
+    counts)."""
     from repro_torch.launch import serve as launch
+    from repro_torch.models import yolo
 
     _zero(launch.KERNELS)
     record = launch.main(["--workload", "detect", "--requests", "16",
-                          "--slots", "4", "--depth", "2"])
+                          "--slots", str(BATCH), "--depth", "2",
+                          "--profile", profile])
     launches = launch.launch_counts()
     dispatches = record["raw_wire_dispatches"]
-    for name, per in PER_DISPATCH.items():
-        n = record["raw_wire_launches"][name]
-        if n != dispatches * per or launches[name] == 0:
-            raise AssertionError(f"{name}: {n} launches for {dispatches} "
-                                 f"dispatches, want {per} each")
-    print(f"[serve] 16 requests, 0 dropped, checks passed; raw-wire depth-2 "
-          f"serve: {dispatches} graph replays, launches "
-          f"{record['raw_wire_launches']}; all launches {launches}",
+    configs = record["configs"]["320"]
+    per = per_dispatch(configs)
+    for name, n in record["raw_wire_launches"].items():
+        if n != dispatches * per.get(name, 0):
+            raise AssertionError(f"{profile}: {name}: {n} launches for "
+                                 f"{dispatches} dispatches, want "
+                                 f"{per.get(name, 0)} each")
+    for name in per:
+        if not launches[name]:
+            raise AssertionError(f"{profile}: {name} never launched")
+    names = [s.name for s in yolo.YOLO_LAYERS if s.kind == "w1a8"]
+    for name, cfg in zip(names, configs):
+        print(f"[serve {profile}] {name}: {cfg}", flush=True)
+    print(f"[serve {profile}] 16 requests, 0 dropped, checks passed; "
+          f"raw-wire depth-2 serve: {dispatches} graph replays, launches "
+          f"{ {k: v for k, v in record['raw_wire_launches'].items() if v} } "
+          f"= {dispatches} x {per}", flush=True)
+    return record, launches
+
+
+def profile_dispatch(profile: str) -> dict:
+    """Device busy, device records and idle share per dispatch under
+    ``profile`` (`launch.profile`: 8 dispatches of 4 images, raw wire)."""
+    from repro_torch.launch import profile as prof
+
+    rec = prof.profile_dispatches(profile=profile)
+    if rec["trace_lost"]:
+        print(f"[profile {profile}] the trace lost records: "
+              f"{rec['trace_lost']}", flush=True)
+    print(f"[profile {profile}] per dispatch: device busy "
+          f"{rec['device_busy_ms_per_dispatch']:.4f} ms, "
+          f"{rec['device_launches_per_dispatch']:.0f} device records, idle "
+          f"share {rec['device_idle_share']:.3f}, W1A8 and post-processing "
+          f"ms {({g: round(v, 5) for g, v in rec['groups'].items()})}",
           flush=True)
+    return rec
+
+
+def drive_multires() -> tuple:
+    """Phase 4b: the launcher's multires workload at 256 and 320 (tuned):
+    per-bucket raw heads bit-exact with each bucket served alone, and the
+    launcher's other checks, per bucket; every launch count zeroed just
+    before and read just after. Returns (its record, the counts)."""
+    from repro_torch.launch import serve as launch
+
+    _zero(launch.KERNELS)
+    record = launch.main(["--workload", "multires", "--buckets", "256,320",
+                          "--requests", "16", "--slots", str(BATCH)])
+    launches = launch.launch_counts()
+    for bucket, configs in record["configs"].items():
+        for name in per_dispatch(configs):
+            if not launches[name]:
+                raise AssertionError(f"multires {bucket}: {name} never "
+                                     f"launched")
+        print(f"[multires] {bucket}: " + ", ".join(
+            f"{c['op']} {c['accum']} rows={c['rows']} fused={c['fused']} "
+            f"({c['source']})" for c in configs), flush=True)
+    print(f"[multires] buckets {record['buckets']}, "
+          f"{record['requests_per_bucket']} requests: per-bucket raw heads "
+          f"bit-exact with each bucket alone, checks passed; alignment "
+          f"{record['alignment']}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     return record, launches
 
 
@@ -1037,6 +1193,7 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
+    entries = check_table()
     secs = _build.build_all()
     print(f"[build] {len(_build.SOURCES)} kernels built with nvcc in "
           f"{secs:.1f} s", flush=True)
@@ -1060,9 +1217,24 @@ def main() -> int:
         "device_busy_ms"]
     print(f"[floor] one-element torch.add: device {floor_ms:.4f} ms a call",
           flush=True)
-    record, launches = drive_main_path()
+    from repro_torch.kernels import config
+    table_batch = json.loads(config.DEFAULT_TABLE.read_text())["batch"]
+    winners = check_winners(torch, entries, table_batch)
+    records, by_path = {}, {}
+    for profile in PROFILES:
+        records[profile], by_path[f"launcher {profile}"] = \
+            drive_main_path(profile)
+    record = records["tuned"]
+    multires, by_path["launcher multires"] = drive_multires()
+    dispatch_profiles = {p: profile_dispatch(p) for p in PROFILES}
     pc_record = drive_popcount(torch, np, dev)
-    launches.update(pc_record["launches"])
+    by_path["popcount forward and int call"] = pc_record["launches"]
+    by_path["dot forward"] = pc_record["dot_launches"]
+    # every driven path's launches: the three launcher runs, and phase 5's
+    # eager forwards (popcount on both pool routes, dot fused) and int call
+    launches = {name: sum(path.get(name, 0) for path in by_path.values())
+                for name in KERNELS}
+    per = {p: per_dispatch(records[p]["configs"]["320"]) for p in PROFILES}
     nms_record = check_graphs_and_postprocess(torch, np, dev)
 
     kernels = []
@@ -1075,12 +1247,15 @@ def main() -> int:
         t_bytes = sum(r["bytes"] / HBM_BYTES_PER_S for r in rows)
         entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name]}
+            "replaces": replaces, "launches": launches[name],
+            "launches_by_path": {path: counts.get(name, 0)
+                                 for path, counts in by_path.items()},
+            "launches_per_dispatch": {p: per[p].get(name, 0)
+                                      for p in PROFILES}}
         if name == "detect_postprocess":
             entry.update({
                 "counterpart_of": "the jitted postprocess: decode_head and "
                                   "a lax.fori_loop NMS (no Pallas kernel)",
-                "launches_per_dispatch": PER_DISPATCH[name],
                 "max_abs_err": 0.0, "library_device_ms": None,
                 "tensor_core_instructions": sass[name],
                 **{k: nms_record[k] for k in (
@@ -1101,7 +1276,6 @@ def main() -> int:
         else:
             e = errs[name]
             entry.update({
-                "launches_per_dispatch": PER_DISPATCH[name],
                 # f32 error where the kernel has an f32 output; the pool
                 # kernel writes codes only, so its error is in codes
                 "max_abs_err": (e["f32"] if e["f32"] is not None
@@ -1125,12 +1299,16 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "layers": layers, "off_grid": off_grid,
          "popcount_layers": pc_layers,
-         "kernels": kernels, "launcher": record,
+         "kernels": kernels, "launchers": records, "multires": multires,
+         "dispatch_profiles": dispatch_profiles, "winners": winners,
          "popcount_forward": pc_record, "nms": nms_record,
          "floor_device_ms": floor_ms},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],
+                      "device_busy_ms_per_dispatch": {
+                          p: r["device_busy_ms_per_dispatch"]
+                          for p, r in dispatch_profiles.items()},
                       "popcount_forward": pc_record["routes"],
                       "dot_ms_per_forward": pc_record["dot_ms_per_forward"],
                       "dot_profile": pc_record["dot_profile"],

@@ -1,17 +1,21 @@
 """Where a detection dispatch spends its time on the card:
-``python -m repro_torch.launch.profile [--dispatches 8 --slots 4 --seed 0]``.
+``python -m repro_torch.launch.profile [--dispatches 8 --slots 4 --seed 0
+--profile tuned]``.
 
 Serves ``dispatches × slots`` random 320×320 images through the
-`DetectionBackend` (depth 2, raw-head wire; on the card one CUDA graph
-replay a dispatch) with `torch.profiler` tracing the CPU and the card,
-after one warm-up pass, and prints one JSON line:
+`DetectionBackend` (depth 2, raw-head wire, under ``--profile``; on the
+card one CUDA graph replay a dispatch) with `torch.profiler` tracing the
+CPU and the card, after one warm-up pass, and prints one JSON line:
 
-  * ``device_busy_ms``: the union of the traced device intervals;
+  * ``configs``: the W1A8 layers' resolved configs at 320, and
+    ``launches_per_dispatch`` of the port's kernels;
+  * ``device_busy_ms``: the union of the traced device intervals (and
+    per dispatch);
   * ``wall_ms``: the host clock over the same window, ended by a
     synchronize; ``device_idle_share`` = 1 − busy / wall;
-  * ``groups``: device ms per dispatch for the three W1A8 kernels, the
-    post-processing kernel (decode and NMS), cuDNN (conv1 / conv11), and
-    everything else (conv1's epilogue, casts, copies);
+  * ``groups``: device ms per dispatch for each W1A8 kernel, dot and
+    popcount, the post-processing kernel (decode and NMS), cuDNN (conv1 /
+    conv11), and everything else (conv1's epilogue, casts, copies);
   * per dispatch: ``host_api_calls`` (the CUDA runtime calls the host
     made, by name: graph launches, kernel launches, copies),
     ``device_kernels`` and ``device_copies`` (traced device records);
@@ -37,18 +41,30 @@ from repro_torch.launch.serve import launch_counts, make_images, serve
 from repro_torch.models import yolo
 from repro_torch.serve import DetectionBackend
 
-# (group, a substring of its device kernels' names): the port's kernels;
-# a dispatch post-processes through csrc/detect_nms.cu's detect_postprocess
+# (group, a substring of its device kernels' names): the port's kernels,
+# no name a substring of another; a dispatch post-processes through
+# csrc/detect_nms.cu's detect_postprocess
 GROUPS = (("w1a8_conv3x3_pool2", "conv3x3_pool2_kernel"),
           ("w1a8_conv3x3", "conv3x3_kernel"),
           ("w1a8_matmul", "matmul_kernel"),
+          ("w1a8_conv3x3_pool2_popcount", "conv3x3_pool2_popcount_kernel"),
+          ("w1a8_conv3x3_popcount", "conv3x3_popcount_kernel"),
+          ("w1a8_matmul_popcount", "matmul_popcount_kernel"),
           ("detect_postprocess", "nms_kernel"))
 
 
-def _group(name: str) -> str:
+def port_group(name: str):
+    """The port kernel's group a device record's name belongs to, or None."""
     for group, key in GROUPS:
         if key in name:
             return group
+    return None
+
+
+def _group(name: str) -> str:
+    group = port_group(name)
+    if group is not None:
+        return group
     if "cudnn" in name.lower() or "conv" in name.lower():
         return "cudnn_conv"
     return "other"
@@ -63,17 +79,15 @@ def union_us(intervals) -> float:
     return total
 
 
-def main(argv=None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--dispatches", type=int, default=8)
-    ap.add_argument("--slots", type=int, default=4)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+def profile_dispatches(*, dispatches: int = 8, slots: int = 4,
+                       seed: int = 0, profile: str = "tuned") -> dict:
+    """The record described above, for the backend under ``profile``."""
     dev = torch.device("cuda")
-    imgs = make_images(args.dispatches * args.slots, args.seed)
+    imgs = make_images(dispatches * slots, seed)
     _, art = yolo.build_detector(
-        args.seed, imgs[:1].astype(np.float32) / 256.0, device=dev)
-    backend = DetectionBackend(art, slots=args.slots, depth=2, device=dev)
+        seed, imgs[:1].astype(np.float32) / 256.0, device=dev)
+    backend = DetectionBackend(art, slots=slots, depth=2, profile=profile,
+                               device=dev)
     backend.warmup()
     serve(backend.spawn(), imgs)                  # warm pass, not traced
     torch.cuda.synchronize()
@@ -107,19 +121,24 @@ def main(argv=None) -> dict:
         and e.name.startswith("cuda"))
     busy_us = union_us((e.time_range.start, e.time_range.end)
                         for e in events)
-    n = args.dispatches
+    n = dispatches
     lost = {g: {"traced": traced[g], "launched": launched[g]}
             for g, _ in GROUPS if traced[g] < launched[g]}
     for g, counts in lost.items():
         print(f"profile: the trace lost records of {g}: {counts}",
               file=sys.stderr)
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
-    record = {
-        "card": torch.cuda.get_device_name(0),
-        "dispatches": n, "slots": args.slots,
+    return {
+        "card": torch.cuda.get_device_name(0), "profile": profile,
+        "dispatches": n, "slots": slots,
+        "configs": [f"{c.accum} rows={c.rows} fused={c.fused} ({c.source})"
+                    for c in backend.configs(yolo.INPUT_SIZE)],
+        "launches_per_dispatch": {k: v / n for k, v in launched.items()
+                                  if v},
         "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / wall_us,
         "wall_ms_per_dispatch": wall_us / 1e3 / n,
+        "device_busy_ms_per_dispatch": busy_us / 1e3 / n,
         "groups": {g: us / 1e3 / n for g, us in sorted(per_group.items())},
         "host_api_calls": {name: c / n
                            for name, c in sorted(host_api.items())},
@@ -130,6 +149,17 @@ def main(argv=None) -> dict:
                  "count": cnt} for name, (us, cnt) in top],
         "trace_lost": lost,
     }
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dispatches", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile", choices=yolo.PROFILES, default="tuned")
+    args = ap.parse_args(argv)
+    record = profile_dispatches(dispatches=args.dispatches, slots=args.slots,
+                                seed=args.seed, profile=args.profile)
     print(json.dumps(record))
     return record
 

@@ -1,8 +1,26 @@
-"""Serving launcher: ``python -m repro_torch.launch.serve --workload detect``.
+"""Serving launcher: ``python -m repro_torch.launch.serve --workload
+{detect,multires}``.
 
-Builds the detector from a numpy seed, serves random 320×320 uint8 images
-through the `Scheduler` and `DetectionBackend` on the raw-head wire and on
-the device-NMS wire, each at depth 1 and at ``--depth``, and checks:
+Builds the detector from a numpy seed and serves random uint8 images
+through the `Scheduler` and `DetectionBackend` under ``--profile`` ("tuned":
+the port's autotune table, popcount layers included; "default": the dot
+kernels on the unfused pool route).
+
+  detect   — one bucket (``--buckets``, default 320). The raw-head wire at
+             depth 1 and at ``--depth``, and the device-NMS wire over the
+             depth sweep K ∈ {1, 2, 4, 8, --depth}, each K's completions in
+             dispatch order and its payloads bit-exact with K = 1; the
+             headline record is the ``--depth`` run, the curve sits under
+             ``depth_sweep``. ``--burst 4x`` makes the stream at least
+             4 × slots requests, all submitted at once, and checks zero
+             drops and at most one host sync a tick.
+  multires — ``--buckets`` (default 256,320) in round robin through ONE
+             scheduler, one CUDA graph per bucket sharing the packed
+             weights. Each bucket's raw heads must equal, bit for bit, the
+             same bucket's requests served alone; the device-NMS wire then
+             gives a per-bucket saturation curve over K ∈ {1, 2, 4, 8}.
+
+Both check:
 
   * every request completes and none is dropped;
   * depth-K payloads are bit-exact with depth 1, on both wires;
@@ -11,9 +29,9 @@ the device-NMS wire, each at depth 1 and at ``--depth``, and checks:
     (max_abs < 0.02, within_1lsb == 1 at lsb 0.02) of the float forward.
 
 On the card every dispatch is one CUDA graph replay per bucket and wire
-(`DetectionBackend`). The summary also carries the kernel launches of the
-raw-wire depth-K serve and its dispatch count. Prints one JSON summary
-line; writes no file.
+(`DetectionBackend`). The record carries each bucket's resolved configs
+and, for detect, the kernel launches of the raw-wire depth-K serve and its
+dispatch count. Prints one JSON summary line; writes no file.
 """
 from __future__ import annotations
 
@@ -32,11 +50,10 @@ from repro_torch.models import detection, yolo
 from repro_torch.serve import DetectionBackend, Scheduler, ServeRequest
 
 # Every CUDA kernel entry point of the port, by name: each counts its own
-# launches, through graph replays too. The launcher serves through the
-# three dot kernels and the post-processing kernel (`detect_postprocess`);
-# the popcount forward runs the three popcount kernels, and
-# `w1a8_matmul_int` and `detect_nms` (the same kernel on decoded boxes) are
-# called directly.
+# launches, through graph replays too. A dispatch runs, per W1A8 layer, the
+# kernel of its resolved config (`DetectionBackend.configs`), and the
+# post-processing kernel (`detect_postprocess`); `w1a8_matmul_int` and
+# `detect_nms` (the same kernel on decoded boxes) are called directly.
 KERNELS = {"w1a8_conv3x3_pool2": fused_pool.KERNEL,
            "w1a8_conv3x3": conv_ops.KERNEL, "w1a8_matmul": mm_ops.KERNEL,
            "w1a8_conv3x3_pool2_popcount": fused_pool.POPCOUNT_KERNEL,
@@ -56,19 +73,29 @@ def make_images(n: int, seed: int, size: int = yolo.INPUT_SIZE) -> np.ndarray:
     return rng.integers(0, 256, (n, size, size, 3), np.uint8)
 
 
-def serve(backend, imgs_u8: np.ndarray) -> tuple:
-    """All images through one Scheduler; (results by rid, summary).
-    Raises unless every request completed in dispatch order, none dropped."""
-    n = len(imgs_u8)
-    sched = Scheduler(backend, max_queue=max(n, 1))
-    results = sched.run([ServeRequest(rid=i, image=imgs_u8[i])
-                         for i in range(n)])
+def serve(backend, images, rids=None, *, ordered: bool = True) -> tuple:
+    """Requests ``rids`` (default all) of ``images`` through one Scheduler,
+    submitted at once; (results by rid, summary). Raises unless every
+    request completed, none dropped, and (``ordered``) in dispatch
+    order."""
+    rids = list(range(len(images)) if rids is None else rids)
+    sched = Scheduler(backend, max_queue=max(len(rids), 1))
+    results = sched.run([ServeRequest(rid=i, image=images[i]) for i in rids])
     summary = sched.metrics.summary()
-    if summary["requests_dropped"] or summary["requests_completed"] != n:
+    if summary["requests_dropped"] or summary["requests_completed"] != len(
+            rids) or sorted(r.rid for r in results) != sorted(rids):
         raise AssertionError(f"requests dropped: {summary}")
-    if [r.rid for r in results] != list(range(n)):
+    if ordered and [r.rid for r in results] != rids:
         raise AssertionError("completions left dispatch order")
     return {r.rid: r.detections for r in results}, summary
+
+
+def _parse_burst(burst: str, slots: int) -> int:
+    """'4x' → 4·slots requests submitted as one burst; '' → none."""
+    if not burst:
+        return 0
+    mult = burst[:-1] if burst.endswith(("x", "X")) else burst
+    return int(mult) * slots
 
 
 def check_bit_exact(got: dict, want: dict, what: str) -> None:
@@ -105,31 +132,68 @@ def check_nms_wire(device_nms: dict, raw_wire: dict) -> None:
                                      f"unmatched: {g}")
 
 
-def check_alignment(params: dict, imgs_u8: np.ndarray, raw_wire: dict,
-                    device) -> verify.AlignmentReport:
-    """Served raw heads vs the float forward, paper §6.3 statistics."""
+def check_alignment(params: dict, images, raw_wire: dict, device,
+                    rids=None) -> verify.AlignmentReport:
+    """Served raw heads of ``rids`` (default all; one image size) vs the
+    float forward, paper §6.3 statistics."""
+    rids = list(range(len(images)) if rids is None else rids)
     chunks = []
-    for i in range(0, len(imgs_u8), 64):         # bounds the float forward
-        imgs = torch.from_numpy(imgs_u8[i:i + 64]).to(device) \
-            .to(torch.float32) / 256.0
+    for i in range(0, len(rids), 64):            # bounds the float forward
+        batch = np.stack([images[r] for r in rids[i:i + 64]])
+        imgs = torch.from_numpy(batch).to(device).to(torch.float32) / 256.0
         with torch.no_grad():
             chunks.append(yolo.yolo_forward_float(params, imgs).cpu().numpy())
     ref = np.concatenate(chunks)
-    got = np.stack([raw_wire[i]["raw"] for i in range(len(imgs_u8))])
+    got = np.stack([raw_wire[r]["raw"] for r in rids])
     rep = verify.compare("serve_detect_raw", got, ref, lsb=0.02)
     if not (rep.max_abs < 0.02 and rep.within_1lsb == 1.0):
         raise AssertionError(f"raw head outside the envelope: {rep.row()}")
     return rep
 
 
+def _card(dev) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _configs(backend) -> dict:
+    """Each bucket's resolved configs, in layer order, as dicts."""
+    return {str(b): [c.to_dict() for c in backend.configs(b)]
+            for b in backend.buckets}
+
+
+SWEEP_KEYS = ("img_per_s", "tick_p50_ms", "tick_p95_ms", "ticks", "wall_s",
+              "host_syncs_per_tick", "batch_occupancy")
+
+
+def depth_sweep(backend, images, depths, rids=None) -> tuple:
+    """``images`` through ``backend.spawn(depth=K)`` for each K, each run
+    in dispatch order and bit-exact with the first K's;
+    (payloads by K, summaries by K)."""
+    payloads, summaries = {}, {}
+    for k in depths:
+        payloads[k], summaries[k] = serve(backend.spawn(depth=k), images,
+                                          rids)
+        check_bit_exact(payloads[k], payloads[depths[0]],
+                        f"depth={k} vs depth={depths[0]}")
+    return payloads, summaries
+
+
+def _alignment(rep: verify.AlignmentReport) -> dict:
+    return {"max_abs": rep.max_abs, "mean_abs": rep.mean_abs,
+            "within_1lsb": rep.within_1lsb}
+
+
 def run_detect(args) -> dict:
     dev = resolve_device(args.device)
-    imgs_u8 = make_images(args.requests, args.seed)
+    size = _buckets(args, "320")[0]
+    burst = _parse_burst(args.burst, args.slots)
+    n_req = max(args.requests, burst)
+    imgs_u8 = make_images(n_req, args.seed, size)
     params, art = yolo.build_detector(
         args.seed, imgs_u8[:1].astype(np.float32) / 256.0, device=dev)
-    raw_t = DetectionBackend(art, slots=args.slots, depth=1, device=dev)
-    dn_t = DetectionBackend(art, slots=args.slots, depth=1, device=dev,
-                            device_nms=True)
+    kw = dict(slots=args.slots, depth=1, profile=args.profile, device=dev)
+    raw_t = DetectionBackend(art, **kw)
+    dn_t = DetectionBackend(art, device_nms=True, **kw)
     raw_t.warmup()
     dn_t.warmup()
     raw_1, _ = serve(raw_t.spawn(depth=1), imgs_u8)
@@ -137,27 +201,33 @@ def run_detect(args) -> dict:
     before = launch_counts()
     raw_k, raw_summary = serve(counted, imgs_u8)
     launches = {k: n - before[k] for k, n in launch_counts().items()}
-    dn_1, _ = serve(dn_t.spawn(depth=1), imgs_u8)
-    dn_k, summary = serve(dn_t.spawn(depth=args.depth), imgs_u8)
     check_bit_exact(raw_k, raw_1, f"raw wire depth={args.depth}")
-    check_bit_exact(dn_k, dn_1, f"device-NMS wire depth={args.depth}")
-    check_nms_wire(dn_k, raw_1)
+    depths = sorted({1, 2, 4, 8, args.depth})
+    dn, summaries = depth_sweep(dn_t, imgs_u8, depths)
+    summary = summaries[args.depth]
+    check_nms_wire(dn[args.depth], raw_1)
     rep = check_alignment(params, imgs_u8, raw_1, dev)
+    if burst and summary["host_syncs_per_tick"] > 1.0:
+        raise AssertionError(f"burst: {summary['host_syncs_per_tick']} "
+                             f"host syncs a tick")
     return {
-        "workload": "detect",
-        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                   else "cpu"),
-        "slots": args.slots, "depth": args.depth, "requests": args.requests,
+        "workload": "detect", "device": _card(dev), "profile": args.profile,
+        "bucket": size, "slots": args.slots, "depth": args.depth,
+        "requests": n_req, "burst": args.burst or None,
         "nms": "device", "wire": "fp16 boxes+scores, int8 classes, "
                                  "int32 valid",
-        "checks": ["zero drops", "depth-K bit-exact with depth 1",
-                   "device-NMS set equals raw-wire set",
-                   "raw head within verify envelope"],
-        "alignment": {"max_abs": rep.max_abs, "mean_abs": rep.mean_abs,
-                      "within_1lsb": rep.within_1lsb},
+        "checks": ["zero drops", "depth-K bit-exact with depth 1, completions "
+                   "in dispatch order", "device-NMS set equals raw-wire set",
+                   "raw head within verify envelope"]
+        + (["at most one host sync a tick"] if burst else []),
+        "alignment": _alignment(rep),
+        "configs": _configs(raw_t),
         **{k: summary[k] for k in ("img_per_s", "wall_s", "ticks",
                                    "tick_p50_ms", "tick_p95_ms",
+                                   "host_syncs_per_tick", "queue_depth_max",
                                    "host_sync_bytes_per_sync")},
+        "depth_sweep": {str(k): {key: summaries[k][key] for key in SWEEP_KEYS}
+                        for k in depths},
         "raw_wire": {k: raw_summary[k] for k in
                      ("img_per_s", "wall_s", "tick_p50_ms", "tick_p95_ms",
                       "host_sync_bytes_per_sync")},
@@ -166,9 +236,88 @@ def run_detect(args) -> dict:
     }
 
 
+def run_multires(args) -> dict:
+    """Mixed sizes through one scheduler: per-bucket graphs sharing the
+    packed weights, each bucket's raw heads bit-exact with the bucket
+    served alone."""
+    dev = resolve_device(args.device)
+    buckets = _buckets(args, "256,320")
+    if len(buckets) < 2:
+        raise ValueError("--workload multires needs >= 2 --buckets")
+    n_req = max(args.requests, len(buckets))
+    rng = np.random.default_rng(args.seed)
+    # round-robin bucket assignment: mixed-size traffic through one queue
+    sizes = [buckets[i % len(buckets)] for i in range(n_req)]
+    imgs = [rng.integers(0, 256, (s, s, 3), np.uint8) for s in sizes]
+    params, art = yolo.build_detector(
+        args.seed, imgs[0][None].astype(np.float32) / 256.0,
+        buckets=buckets, device=dev)
+    kw = dict(slots=args.slots, depth=args.depth, profile=args.profile,
+              device=dev)
+    raw_t = DetectionBackend(art, **kw)
+    dn_t = DetectionBackend(art, device_nms=True, **kw)
+    raw_t.warmup()                    # captures every bucket's graph
+    dn_t.warmup()
+    mixed, mixed_summary = serve(raw_t.spawn(), imgs, ordered=False)
+    dn_mixed, summary = serve(dn_t.spawn(), imgs, ordered=False)
+    by_bucket = {b: [i for i in range(n_req) if sizes[i] == b]
+                 for b in buckets}
+    saturation, alignment = {}, {}
+    for b, rids in by_bucket.items():
+        g = b // 32
+        for r in rids:                # the grid follows the request's bucket
+            if mixed[r]["raw"].shape != (g, g, 75):
+                raise AssertionError(f"rid {r}: raw head "
+                                     f"{mixed[r]['raw'].shape} at {b}")
+        alone, _ = serve(raw_t.spawn(depth=1), imgs, rids)
+        check_bit_exact({r: mixed[r] for r in rids}, alone,
+                        f"bucket {b} mixed vs alone")
+        dn, summaries = depth_sweep(dn_t, imgs, (1, 2, 4, 8), rids)
+        check_bit_exact({r: dn_mixed[r] for r in rids}, dn[1],
+                        f"bucket {b} device-NMS mixed vs alone")
+        check_nms_wire(dn[1], alone)
+        alignment[str(b)] = _alignment(check_alignment(params, imgs, alone,
+                                                       dev, rids))
+        saturation[str(b)] = {str(k): {key: summ[key] for key in SWEEP_KEYS}
+                              for k, summ in summaries.items()}
+    return {
+        "workload": "multires", "device": _card(dev),
+        "profile": args.profile, "buckets": list(buckets),
+        "slots": args.slots, "depth": args.depth, "requests": n_req,
+        "requests_per_bucket": {str(b): len(r) for b, r in by_bucket.items()},
+        "nms": "device",
+        "checks": ["zero drops", "per-bucket raw heads bit-exact with the "
+                   "bucket served alone", "depth-K bit-exact with depth 1, "
+                   "completions in dispatch order", "device-NMS set equals "
+                   "raw-wire set", "raw head within verify envelope"],
+        "alignment": alignment,
+        "configs": _configs(raw_t),
+        **{k: summary[k] for k in ("img_per_s", "wall_s", "ticks",
+                                   "tick_p50_ms", "tick_p95_ms")},
+        "saturation": saturation,
+        "raw_wire": {k: mixed_summary[k] for k in
+                     ("img_per_s", "wall_s", "tick_p50_ms", "tick_p95_ms")},
+    }
+
+
+def _buckets(args, default: str) -> tuple:
+    return tuple(int(b) for b in (args.buckets or default).split(","))
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("detect",), default="detect")
+    ap.add_argument("--workload", choices=("detect", "multires"),
+                    default="detect")
+    ap.add_argument("--profile", choices=yolo.PROFILES, default="tuned",
+                    help="kernel configs: the autotune table's (tuned) or "
+                         "the dot heuristic's (default)")
+    ap.add_argument("--buckets", default="",
+                    help="image sizes, multiples of 32 (detect: one, "
+                         "default 320; multires: >= 2, default 256,320)")
+    ap.add_argument("--burst", default="",
+                    help="detect: e.g. 4x submits >= 4·slots requests as "
+                         "one burst; checks zero drops and <= 1 host sync "
+                         "a tick")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--depth", type=int, default=2)
     ap.add_argument("--requests", type=int, default=16)
@@ -176,7 +325,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     args = ap.parse_args(argv)
-    record = run_detect(args)
+    run = run_detect if args.workload == "detect" else run_multires
+    record = run(args)
     print(json.dumps(record))
     return record
 

@@ -25,8 +25,9 @@ from repro_torch.kernels.config import KernelConfig
 from repro_torch.kernels.w1a8_conv import ops as conv_ops
 from repro_torch.kernels.w1a8_matmul import ops as mm_ops
 
-# "tuned" resolves the port's autotune table (fused pool routing);
-# "default" is the heuristic config with the unfused pool route.
+# "tuned" resolves the port's autotune table (`kernels.config.resolve_tuned`:
+# per layer the faster accum mode, its row blocking and pool route);
+# "default" is the heuristic dot config with the unfused pool route.
 PROFILES = ("tuned", "default")
 
 
@@ -264,6 +265,44 @@ def build_detector(seed: int, calib_images, *, per_channel: bool = True,
     return params, art
 
 
+def art_uniform_steps(art: dict) -> bool:
+    """True iff every W1A8 layer's input steps are per-tensor uniform.
+
+    A diagnostic only: popcount serves per-channel artifacts too, through
+    the producer-side step fold (`fold_boundaries`)."""
+    for entry in art["layers"][1:-1]:
+        steps = entry["step_in"].reshape(-1)
+        if not bool(torch.all(steps == steps[0])):
+            return False
+    return True
+
+
+def yolo_layer_cells(batch: int = 1) -> list:
+    """Structural autotune cells of every W1A8 layer at 320×320.
+
+    Returns [(layer name, op, dims)] with conv dims (h, w, cin, cout) of
+    the input plane and matmul dims (m, k, n), m = batch·h·w. Pooled
+    layers contribute both their ``conv3x3_pool`` cell (fused route) and
+    the plain ``conv3x3`` cell (unfused route); a cell may repeat (conv5,
+    conv6 and conv7's conv cell share one), and callers dedupe by key.
+    """
+    sizes = spatial_sizes()
+    cells = []
+    for spec in YOLO_LAYERS:
+        if spec.kind != "w1a8":
+            continue
+        h = sizes[spec.name]
+        if spec.ksize == 3:
+            if spec.pool:
+                cells.append((spec.name, "conv3x3_pool",
+                              (h, h, spec.cin, spec.cout)))
+            cells.append((spec.name, "conv3x3", (h, h, spec.cin, spec.cout)))
+        else:
+            cells.append((spec.name, "matmul",
+                          (batch * h * h, spec.cin, spec.cout)))
+    return cells
+
+
 def _layer_config(spec: ConvSpec, h: int, batch: int, *, profile: str,
                   accum, fuse_pool, table) -> KernelConfig:
     """One W1A8 layer's KernelConfig under the named profile; explicit
@@ -280,7 +319,8 @@ def _layer_config(spec: ConvSpec, h: int, batch: int, *, profile: str,
         else:
             cfg = _cfg.resolve_tuned(op, dims, table=table)
     else:
-        cfg = KernelConfig(op=op, accum=accum or "dot", fused=False)
+        cfg = KernelConfig(op=op, accum=accum or "dot", fused=False,
+                           source=profile)
     if fuse_pool is not None:
         cfg = cfg.replace(fused=fuse_pool)
     return cfg.replace(out_step=1.0)

@@ -98,7 +98,11 @@ class DetectionBackend:
     artifact's, else 320).
 
     Each dispatch runs the whole forward (kernels → decode → NMS) at a
-    fixed batch width (= ``slots``); partial batches zero-pad. The default
+    fixed batch width (= ``slots``); partial batches zero-pad. ``profile``
+    ("tuned" or "default", `models.yolo.PROFILES`) picks each layer's
+    kernel config once per bucket (`configs`): "tuned" what the port's
+    autotune table resolves, popcount layers included, "default" the
+    heuristic dot configs on the unfused pool route. The default
     emission wire carries the raw head beside the NMS'd detections, for
     verification against the float reference; ``device_nms=True`` ships
     only the compact set (`models.detection.compact_detections`).
@@ -166,6 +170,12 @@ class DetectionBackend:
             for b in self.buckets}
         self._layouts = {b: self._layout(b) for b in self.buckets}
         self._graphs: Dict[int, _Graph] = {}
+
+    def configs(self, bucket: int) -> tuple:
+        """The W1A8 layers' KernelConfigs this backend serves ``bucket``
+        with, in layer order (`models.yolo.kernel_configs` under its
+        profile), from which a caller derives a dispatch's launches."""
+        return self._configs[bucket]
 
     def output_specs(self, bucket: int) -> list:
         """[(shape, dtype)] of one dispatch's outputs at ``bucket``: the

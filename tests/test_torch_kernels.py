@@ -435,20 +435,30 @@ def test_popcount_bit_exact_vs_dot(b, h, w, cin, cout):
 
 
 def test_config_resolution_without_table():
-    """No port table yet: "tuned" resolves dot, fused, rows=1 everywhere;
-    a given table's exact cell wins, any other cell takes the heuristic."""
+    """An empty table: "tuned" resolves dot, fused, rows=1 (the heuristic)
+    everywhere. With a table, its exact cell wins, another shape of the
+    same op, accum and device takes the nearest entry (the reference's
+    fallback), and a cell with no entry of its kind takes the heuristic."""
     cfg = config.resolve_tuned("conv3x3_pool", (160, 160, 16, 32),
                                table={}, device="h100")
     assert cfg == KernelConfig(op="conv3x3_pool", accum="dot", fused=True,
                                rows=1)
+    assert cfg.source == "heuristic"
     table = {config.shape_key("conv3x3", (20, 20, 128, 128), "dot", "h100"):
              {"config": {"op": "conv3x3", "rows": 4}, "t_us": 1.0}}
     exact = config.resolve("conv3x3", (20, 20, 128, 128), table=table,
                            device="h100")
     other = config.resolve("conv3x3", (10, 10, 128, 128), table=table,
                            device="h100")
-    assert (exact.rows, other.rows) == (4, 1)
-    g = geometry.conv_launch(4, 10, 10, 128, 128, exact.rows, False)
+    assert (exact.rows, other.rows) == (4, 4)
+    assert (exact.source, other.source) == ("table", "nearest")
+    for op, accum, dev in (("conv3x3", "popcount", "h100"),
+                           ("conv3x3_pool", "dot", "h100"),
+                           ("conv3x3", "dot", "a100")):
+        none = config.resolve(op, (10, 10, 128, 128), accum=accum,
+                              table=table, device=dev)
+        assert (none.rows, none.source) == (1, "heuristic")
+    g = geometry.conv_launch(4, 10, 10, 128, 128, other.rows, False)
     assert (g.rows, g.grid[1]) == (4, 3)    # a ragged last block of 2 rows
     assert config.resolve_tuned("conv3x3", (20, 20, 128, 128), table=table,
                                 device="h100") == exact
