@@ -5,7 +5,7 @@
 
 Phases (any failure raises and the script exits non-zero):
 
-1. Prints the card's name and power limit (nvidia-smi), builds the eight
+1. Prints the card's name and power limit (nvidia-smi), builds the nine
    CUDA kernels from ``src/repro_torch/csrc`` with nvcc (in parallel) and
    prints the build seconds, each kernel's register use and spills and the
    count of tensor-core instructions (HMMA, HGMMA, IMMA) in each library's
@@ -92,10 +92,27 @@ Phases (any failure raises and the script exits non-zero):
    decoded heads, ``decode_head`` and the plain pair at the served shape
    (B = 4, 300 boxes, 20 classes) and counts the tiles of 32 ranks the
    sweep visited; no single PyTorch call computes greedy NMS.
-7. Prints one ``{"kernels": [...]}`` line with all eight kernels (each
-   one's launches summed over the driven paths, and by path: the three
-   launcher runs, phase 5's forwards and int call), and as the last line
-   ``{"ok": true, "device": {...}}``.
+7. The integer PE (``csrc/w1a8_int_pe.cu``, the integer golden datapath's
+   one kernel): each of its entry points (W1A8, conv1, head) bit for bit
+   against its plain version on the card at every layer shape of the 320
+   path at B = 1 and 4 (the deployed artifact's constants, random codes),
+   off the grid (B = 2, 18×18, Cin 24, Cout 40; K = 216 and 24) for
+   every kind, ksize and pool it takes, on overflow operands (m_raw ≈ 2^17, codes
+   255, every sign +1 at K = 1152: |acc| > 3e10, past int32) and on a head
+   with negative values on rounding ties; times each layer at B = 4 (as
+   in phase 2, beside ``F.conv2d`` in float64 on codes·m_raw, exact here).
+   Then drives ``yolo_forward_int`` at B = 4, 320×320 with every launch
+   count zeroed before and read after: one integer PE launch per layer
+   (11) and no other kernel, the int64 raw head equal to the plain
+   version's on the CPU, inside the envelope of
+   ``tests/test_yolo.py::test_int_pipeline_alignment`` (max_abs < 0.02,
+   mean_abs < 0.002, 100% within 1 LSB of 0.02) against the float
+   forward; prints its CUDA-event and device ms per forward and
+   ``launch/alignment.py``'s rows (the paper's Table 6 checkpoints at 320).
+8. Prints one ``{"kernels": [...]}`` line with all nine sources (each
+   kernel's launches summed over the driven paths, and by path: the three
+   launcher runs, phase 5's forwards and int call, phase 7's integer
+   forward), and as the last line ``{"ok": true, "device": {...}}``.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -152,6 +169,10 @@ KERNELS = {
     # a lax.fori_loop NMS), which is no Pallas kernel
     "detect_postprocess": ("src/repro_torch/csrc/detect_nms.cu",
                            "src/repro/models/detection.py:90"),
+    # the counterpart of the reference's numpy int64 yolo_forward_int, which
+    # is no Pallas kernel
+    "w1a8_int_pe": ("src/repro_torch/csrc/w1a8_int_pe.cu",
+                    "src/repro/models/yolo.py:323"),
 }
 DOT = ("w1a8_conv3x3_pool2", "w1a8_conv3x3", "w1a8_matmul")
 # name: the tensor-core instruction its library's SASS must hold
@@ -170,6 +191,11 @@ NMS_IOU_OPS = 15               # float ops of one IoU and its suppression test
 POPCOUNT = ("w1a8_conv3x3_pool2_popcount", "w1a8_conv3x3_popcount",
             "w1a8_matmul_popcount")
 PER_FORWARD = {True: (4, 4, 1), False: (0, 8, 1)}
+INT_PE = "w1a8_int_pe"
+INT_BATCHES = (1, 4)           # the integer PE's per-layer checks
+# int head against the float head: tests/test_yolo.py's
+# test_int_pipeline_alignment (max_abs, mean_abs; 100% within 1 LSB of 0.02)
+INT_ENVELOPE = (0.02, 0.002)
 
 
 def cuda_ms(torch, fn, reps: int = 7, n: int = 20) -> float:
@@ -1175,6 +1201,245 @@ def check_graphs_and_postprocess(torch, np, dev) -> dict:
     return rec
 
 
+def int_plain(entry, x):
+    """The plain version of the integer PE entry point that runs
+    ``entry``'s layer, on the tensors' device (integer sums, no matmul)."""
+    from repro_torch.kernels.w1a8_int import ref
+    from repro_torch.models import yolo
+    spec = entry["spec"]
+    if spec.name == "conv1":
+        return ref.int_pe_conv1_ref(
+            x, entry["w_raw"].reshape(-1, spec.cout), entry["b_shifted"],
+            entry["post_mult"], entry["post_shift"], pool=spec.pool)
+    if spec.name == "conv11":
+        return ref.int_pe_head_ref(
+            x, entry["w_raw"].reshape(-1, spec.cout), entry["m_raw"],
+            entry["b_shifted"], yolo.FM)
+    return ref.w1a8_int_pe_ref(
+        x, entry["w_packed"], entry["m_raw"], entry["post_mult"],
+        entry["b_pre"], entry["post_shift"], ksize=spec.ksize,
+        pool=spec.pool)
+
+
+def int_library(torch, entry, x):
+    """F.conv2d in float64 on codes·m_raw and the ±1 or raw weights: the
+    layer's accumulator, exact since every partial sum is an integer below
+    2^53; the port never makes this call. Returns the call."""
+    import torch.nn.functional as F
+    spec = entry["spec"]
+    a = x.to(torch.float64)
+    if "m_raw" in entry:
+        a = a * entry["m_raw"].to(torch.float64)
+    a = a.permute(0, 3, 1, 2).contiguous()
+    w = entry["signs"] if "signs" in entry else entry["w_raw"]
+    w = w.to(torch.float64).reshape(spec.ksize, spec.ksize, spec.cin,
+                                    spec.cout).permute(3, 2, 0, 1) \
+        .contiguous()
+    return lambda: F.conv2d(a, w, padding=spec.ksize // 2)
+
+
+def int_bytes_ops(entry, x, out) -> tuple:
+    """Bytes the layer must move (codes in, weights, per-channel constants,
+    output) and its operations (2 per MAC)."""
+    spec = entry["spec"]
+    w = entry["w_packed"] if "w_packed" in entry else entry["w_raw"]
+    consts = sum(entry[k].numel() * 8 for k in (
+        "m_raw", "post_mult", "post_shift", "b_pre", "b_shifted")
+        if k in entry)
+    nbytes = (x.numel() + w.numel() * w.element_size() + consts
+              + out.numel() * out.element_size())
+    b, h, wd, _ = x.shape
+    return nbytes, 2 * b * h * wd * spec.ksize ** 2 * spec.cin * spec.cout
+
+
+def check_int_pe(torch, np, dev, art) -> list:
+    """Phase 7a: the integer PE's three entry points bit for bit against
+    their plain versions on the card: at every layer shape of the 320 path
+    (the deployed artifact's constants, random codes) at B = 1 and 4, off
+    the grid (B = 2, 18×18, Cin 24, Cout 40: K = 216 and 24, not multiples
+    of 32) for every kind, ksize and pool it takes, on the overflow
+    operands (m_raw ≈ 2^17, codes 255, every sign +1 at K = 1152: |acc| ≈
+    3.9e10) and on a head with negative values on rounding ties. Times
+    each layer at B = 4. Returns the per-layer records."""
+    from repro_torch.core import packing
+    from repro_torch.kernels.w1a8_int import ops, ref
+    from repro_torch.models import yolo
+
+    rng = np.random.default_rng(SEED + 3)
+    sizes = yolo.spatial_sizes(yolo.INPUT_SIZE)
+    records = []
+
+    def codes(shape):
+        return torch.from_numpy(rng.integers(0, 256, shape,
+                                             dtype=np.uint8)).to(dev)
+    for batch in INT_BATCHES:
+        for entry in art["layers"]:
+            spec = entry["spec"]
+            h = sizes[spec.name]
+            x = codes((batch, h, h, spec.cin))
+            out = yolo.int_layer(entry, x)
+            want = int_plain(entry, x)
+            torch.cuda.synchronize()
+            _exact(torch, out, want, f"int PE {spec.name} B={batch}")
+            if batch != BATCH:
+                continue
+            nbytes, ops_n = int_bytes_ops(entry, x, out)
+            run = lambda: yolo.int_layer(entry, x)  # noqa: E731
+            library = int_library(torch, entry, x)
+            acc = library()
+            if float(acc.abs().max()) >= 2 ** 53:
+                raise AssertionError(f"{spec.name}: float64 library sum "
+                                     f"is not exact")
+            rec = {"layer": spec.name,
+                "shape": [batch, h, h, spec.cin, spec.cout],
+                "ms": cuda_ms(torch, run),
+                "device_ms": device_profile(torch, run)["device_busy_ms"],
+                "plain_ms": cuda_ms(torch, lambda: int_plain(entry, x),
+                                    reps=3, n=3),
+                "library_ms": cuda_ms(torch, library, reps=3, n=3),
+                "library_device_ms": device_profile(
+                    torch, library, n=3)["device_busy_ms"],
+                "bytes": nbytes, "ops": ops_n}
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops_n,
+                                                     INT8_OPS_PER_S)
+            print(f"[int pe] {spec.name} {rec['shape']}: bit-exact at B = "
+                  f"{INT_BATCHES}; {rec['ms']:.4f} ms, device "
+                  f"{rec['device_ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
+                  f"float64 conv2d {rec['library_ms']:.4f}, device "
+                  f"{rec['library_device_ms']:.4f}, bound "
+                  f"{rec['bound_ms']:.5f} by {rec['bound_by']})", flush=True)
+            records.append(rec)
+
+    def ints(lo, hi, shape):
+        return torch.from_numpy(rng.integers(lo, hi, shape)).to(dev)
+    b, h, _, cin, cout = OFF_GRID
+    for ksize, pool in ((3, True), (3, False), (1, False), (1, True)):
+        x = codes((b, h, h, cin))
+        k = ksize * ksize * cin
+        m = ints(1, 1 << 17, cin)
+        mult, bias = ints(0, 1 << 15, cout), ints(-(1 << 40), 1 << 40, cout)
+        shift = ints(0, 47, cout)
+        wp = packing.pack_signs(ints(0, 2, (k, cout)) * 2 - 1, axis=0)
+        w = ints(-(1 << 16), 1 << 16, (k, cout))
+        what = f"off the grid {OFF_GRID} ksize {ksize} pool {pool}"
+        _exact(torch, ops.w1a8_int_pe(x, wp, m, mult, bias, shift,
+                                      ksize=ksize, pool=pool),
+               ref.w1a8_int_pe_ref(x, wp, m, mult, bias, shift, ksize=ksize,
+                                   pool=pool), f"w1a8 {what}")
+        if ksize == 3:
+            _exact(torch, ops.int_pe_conv1(x, w, bias, mult, shift,
+                                           pool=pool),
+                   ref.int_pe_conv1_ref(x, w, bias, mult, shift, pool=pool),
+                   f"conv1 {what}")
+        elif not pool:
+            _exact(torch, ops.int_pe_head(x, w, m, bias, 16),
+                   ref.int_pe_head_ref(x, w, m, bias, 16), f"head {what}")
+
+    # overflow: int32 accumulation would wrap
+    x = torch.full((BATCH, 20, 20, 128), 255, dtype=torch.uint8, device=dev)
+    wp = packing.pack_signs(torch.ones(1152, 128, device=dev), axis=0)
+    m = (1 << 17) - ints(0, 64, 128)
+    mult, shift = ints(1 << 14, 1 << 15, 128), ints(40, 47, 128)
+    bias = ints(-(1 << 40), 1 << 40, 128)
+    acc = ref.accumulate(x, m, packing.unpack_signs(wp, 1152,
+                                                    dtype=torch.int64), 3)
+    overflow_acc = float(acc.abs().max())
+    if not overflow_acc > 3e10:
+        raise AssertionError("the overflow operands stay inside int32")
+    got = ops.w1a8_int_pe(x, wp, m, mult, bias, shift, ksize=3, pool=False)
+    _exact(torch, got, ref.w1a8_int_pe_ref(x, wp, m, mult, bias, shift,
+                                           ksize=3, pool=False),
+           "int PE overflow operands")
+    # the head on exact ties of the 16-bit shift, negatives included
+    x = codes((BATCH, 10, 10, 64))
+    w = ints(0, 2, (64, 75)) * 2 - 1
+    m = torch.full((64,), 1 << 15, dtype=torch.int64, device=dev)
+    bias = ints(-400, 400, 75)
+    want = ref.int_pe_head_ref(x, w, m, bias, 16)
+    acc = ref.accumulate(x, m, w, 1)
+    if not (bool((want < 0).any()) and bool(
+            ((acc < 0) & (acc.abs() % (1 << 16) == 1 << 15)).any())):
+        raise AssertionError("the head fixture has no negative tie")
+    _exact(torch, ops.int_pe_head(x, w, m, bias, 16), want,
+           "int PE head on negative ties")
+    torch.cuda.synchronize()
+    print(f"[int pe] off the grid {OFF_GRID} (W1A8 3×3 and 1×1, pooled "
+          f"and not; conv1 pooled and not; the head), overflow operands "
+          f"(max |acc| {overflow_acc:.6g}) and a head on negative ties: "
+          f"bit-exact",
+          flush=True)
+    return records
+
+
+def drive_int(torch, np, dev) -> dict:
+    """Phase 7b: `yolo_forward_int` at B = 4, 320×320 on the card, with
+    every launch count zeroed just before and read just after: one integer
+    PE launch per layer, the raw head equal to the plain version's (on the
+    CPU) as int64 and inside INT_ENVELOPE of the port's float forward.
+    Prints `launch/alignment.py`'s rows. Returns the record, with the
+    per-layer records of `check_int_pe`."""
+    from repro_torch.core import verify
+    from repro_torch.launch import alignment
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import yolo
+
+    rng = np.random.default_rng(SEED + 4)
+    img_u8 = torch.from_numpy(rng.integers(
+        0, 256, (BATCH, yolo.INPUT_SIZE, yolo.INPUT_SIZE, 3),
+        dtype=np.uint8)).to(dev)
+    img = img_u8.to(torch.float32) / torch.tensor(256.0, device=dev)
+    with torch.no_grad():
+        params = yolo.calibrate_yolo(yolo.init_yolo_params(SEED, device=dev),
+                                     img)
+        art = yolo.deploy_yolo(params)
+        layers = check_int_pe(torch, np, dev, art)
+        _zero(launch.KERNELS)
+        raw = yolo.yolo_forward_int(art, img_u8, device=dev)
+        torch.cuda.synchronize()
+        counts = launch.launch_counts()
+        n_layers = len(yolo.YOLO_LAYERS)
+        if counts[INT_PE] != n_layers or any(
+                n for name, n in counts.items() if name != INT_PE):
+            raise AssertionError(f"int forward: launches {counts}, want "
+                                 f"{n_layers} of {INT_PE} alone")
+        art_cpu = {"layers": [{k: (v.cpu() if hasattr(v, "cpu") else v)
+                               for k, v in e.items()}
+                              for e in art["layers"]]}
+        t0 = time.perf_counter()
+        want = yolo.yolo_forward_int(art_cpu, img_u8.cpu(), device="cpu")
+        cpu_s = time.perf_counter() - t0
+        _exact(torch, raw.cpu(), want, "int forward vs its plain version")
+        ref = yolo.yolo_forward_float(params, img).double().cpu().numpy()
+    rep = verify.compare("int_vs_float", raw.cpu().numpy() / 2.0 ** 15, ref,
+                         lsb=0.02)
+    if not (rep.max_abs < INT_ENVELOPE[0] and rep.mean_abs < INT_ENVELOPE[1]
+            and rep.within_1lsb == 1.0):
+        raise AssertionError(f"int raw head outside the envelope: "
+                             f"{rep.row()}")
+    with torch.no_grad():
+        forward = lambda: yolo.yolo_forward_int(  # noqa: E731
+            art, img_u8, device=dev)
+        ms = cuda_ms(torch, forward, reps=5, n=10)
+        prof = device_profile(torch, forward)
+    record = {"launches": {INT_PE: counts[INT_PE]}, "ms_per_forward": ms,
+              "profile": prof, "plain_cpu_s": cpu_s, "max_abs": rep.max_abs,
+              "mean_abs": rep.mean_abs, "corr": rep.corr,
+              "within_1lsb": rep.within_1lsb, "layers": layers}
+    print(f"[int forward] B={BATCH} {yolo.INPUT_SIZE}x{yolo.INPUT_SIZE}: "
+          f"{counts[INT_PE]} {INT_PE} launches, raw head bit-exact with the "
+          f"plain version ({cpu_s:.2f} s on the CPU), vs float max_abs "
+          f"{rep.max_abs:.6g} mean_abs {rep.mean_abs:.6g} corr "
+          f"{rep.corr:.6f}; {ms:.4f} ms per forward back to back (CUDA "
+          f"events), device busy {prof['device_busy_ms']:.4f} ms, "
+          f"{prof['device_launches']:.0f} device launches per forward",
+          flush=True)
+    with torch.no_grad():
+        record["alignment"] = alignment.run(size=yolo.INPUT_SIZE, device=dev)
+    for name, value, note in record["alignment"]:
+        print(f"[alignment] {name} {value!r} {note}", flush=True)
+    return record
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1230,12 +1495,15 @@ def main() -> int:
     pc_record = drive_popcount(torch, np, dev)
     by_path["popcount forward and int call"] = pc_record["launches"]
     by_path["dot forward"] = pc_record["dot_launches"]
-    # every driven path's launches: the three launcher runs, and phase 5's
-    # eager forwards (popcount on both pool routes, dot fused) and int call
-    launches = {name: sum(path.get(name, 0) for path in by_path.values())
-                for name in KERNELS}
     per = {p: per_dispatch(records[p]["configs"]["320"]) for p in PROFILES}
     nms_record = check_graphs_and_postprocess(torch, np, dev)
+    int_record = drive_int(torch, np, dev)
+    by_path["int forward"] = int_record["launches"]
+    # every driven path's launches: the three launcher runs, phase 5's
+    # eager forwards (popcount on both pool routes, dot fused) and int
+    # call, and phase 7's integer forward
+    launches = {name: sum(path.get(name, 0) for path in by_path.values())
+                for name in KERNELS}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1252,6 +1520,28 @@ def main() -> int:
                                  for path, counts in by_path.items()},
             "launches_per_dispatch": {p: per[p].get(name, 0)
                                       for p in PROFILES}}
+        if name == INT_PE:
+            rows = int_record["layers"]
+            t_ops = sum(r["ops"] / INT8_OPS_PER_S for r in rows)
+            t_bytes = sum(r["bytes"] / HBM_BYTES_PER_S for r in rows)
+            entry.update({
+                "counterpart_of": "the numpy int64 yolo_forward_int (no "
+                                  "Pallas kernel)",
+                "max_abs_err": 0,
+                "launches_per_forward": int_record["launches"][INT_PE],
+                "tensor_core_instructions": sass[name],
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "layers": [r["layer"] for r in rows],
+                "ms_per_forward": int_record["ms_per_forward"],
+                "device_ms_per_forward":
+                    int_record["profile"]["device_busy_ms"],
+                **{k: sum(r[k] for r in rows) for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                    "library_device_ms")}})
+            if not entry["launches"]:
+                raise AssertionError(f"{name}: no launch on its path")
+            kernels.append(entry)
+            continue
         if name == "detect_postprocess":
             entry.update({
                 "counterpart_of": "the jitted postprocess: decode_head and "
@@ -1302,7 +1592,7 @@ def main() -> int:
          "kernels": kernels, "launchers": records, "multires": multires,
          "dispatch_profiles": dispatch_profiles, "winners": winners,
          "popcount_forward": pc_record, "nms": nms_record,
-         "floor_device_ms": floor_ms},
+         "int_forward": int_record, "floor_device_ms": floor_ms},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],
@@ -1312,6 +1602,8 @@ def main() -> int:
                       "popcount_forward": pc_record["routes"],
                       "dot_ms_per_forward": pc_record["dot_ms_per_forward"],
                       "dot_profile": pc_record["dot_profile"],
+                      "int_ms_per_forward": int_record["ms_per_forward"],
+                      "int_profile": int_record["profile"],
                       "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,11 @@ with its ``uint32`` sign words, and folds the epilogue constants the port's
 artifact carries (`yolo.fold_epilogue`). Deploying the converted params with the
 port's `yolo.deploy_yolo_kernel` and converting the reference's artifact
 give the same sign words and steps, so both paths run the same detector.
-Nothing here imports the JAX package: the caller hands over numpy arrays.
+`int_artifact_from_numpy` takes an integer ``deploy_yolo`` artifact (numpy
+int64) and adds what the integer PE reads (`yolo.fold_int_pe`), so the
+reference's artifact and the port's ``deploy_yolo`` of the same params
+compute the same integers. Nothing here imports the JAX package: the caller
+hands over numpy arrays.
 """
 from __future__ import annotations
 
@@ -14,7 +18,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.yolo import YOLO_LAYERS, fold_epilogue
+from repro_torch.models.yolo import (YOLO_LAYERS, fold_epilogue,
+                                     fold_int_pe)
 
 _SPECS = {s.name: s for s in YOLO_LAYERS}
 
@@ -48,3 +53,17 @@ def artifact_from_numpy(art_np: dict, device=None) -> dict:
     if "buckets" in art_np:
         art["buckets"] = tuple(int(b) for b in art_np["buckets"])
     return art
+
+
+def int_artifact_from_numpy(art_np: dict, device=None) -> dict:
+    """A reference ``deploy_yolo`` artifact (int64 arrays, specs as objects
+    with a ``name``) → the port's integer artifact on ``device``."""
+    dev = resolve_device(device)
+    layers = []
+    for entry in art_np["layers"]:
+        spec = entry["spec"]
+        out = {"spec": _SPECS[getattr(spec, "name", spec)]}
+        out.update({k: torch.from_numpy(np.array(v, np.int64)).to(dev)
+                    for k, v in entry.items() if k != "spec"})
+        layers.append(fold_int_pe(out))
+    return {"layers": layers}

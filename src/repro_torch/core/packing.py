@@ -11,7 +11,12 @@ PyTorch has no shifts on ``uint32``. The CUDA kernels read them as
 """
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 PACK = 32  # signs per 32-bit word
 
@@ -49,3 +54,55 @@ def unpack_signs(words: torch.Tensor, k: int, axis: int = 0,
     bits = (words.unsqueeze(1) >> _shifts(words.ndim + 1, 1, words.device)) & 1
     flat = bits.reshape((-1,) + tuple(words.shape[1:]))[:k]
     return torch.movedim((flat * 2 - 1).to(dtype), 0, axis)
+
+
+# ---------------------------------------------------------------------------
+# Deployment artifact (the COE-file analogue): a directory of .npy blobs and
+# a manifest, in the reference's file names, keys, shapes and dtypes, so a
+# directory written by either package loads in the other byte for byte.
+# ---------------------------------------------------------------------------
+
+_BLOBS = ("w_packed", "mul_prev", "div_current", "bias")
+
+
+def export_packed_layer(path, name: str, *, weight, mul_prev, div_current,
+                        bias) -> dict:
+    """Write one W1A8 layer's deployment blobs; returns the manifest entry.
+
+    weight: (K, N) float → packed (ceil(K/32), N) words, written as
+    ``uint32`` (the int32 carrier's bits); mul_prev (K,), div_current and
+    bias (N,) as float32. Tensors or arrays.
+    """
+    os.makedirs(path, exist_ok=True)
+    weight = torch.as_tensor(weight).cpu()
+    words = pack_signs(weight, axis=0).numpy().view(np.uint32)
+    blobs = {"w_packed": words,
+             "mul_prev": _f32(mul_prev), "div_current": _f32(div_current),
+             "bias": _f32(bias)}
+    entry = {"name": name, "k": int(weight.shape[0]),
+             "n": int(weight.shape[1])}
+    for key, arr in blobs.items():
+        fn = f"{name}.{key}.npy"
+        np.save(os.path.join(path, fn), arr)
+        entry[key] = {"file": fn, "shape": list(arr.shape),
+                      "dtype": str(arr.dtype)}
+    return entry
+
+
+def load_packed_layer(path, entry: dict, device=None) -> dict:
+    """The blobs of one manifest entry as tensors on ``device``: the sign
+    words in the int32 carrier, the rest float32."""
+    dev = resolve_device(device)
+    out = {}
+    for key in _BLOBS:
+        arr = np.load(os.path.join(path, entry[key]["file"]))
+        if arr.dtype == np.uint32:
+            arr = arr.view(np.int32)
+        out[key] = torch.from_numpy(arr.copy()).to(dev)
+    return out
+
+
+def _f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, np.float32)

@@ -25,7 +25,7 @@ BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torc
 SOURCES = ("w1a8_matmul.cu", "w1a8_conv3x3.cu", "w1a8_conv3x3_pool2.cu",
            "w1a8_matmul_popcount.cu", "w1a8_conv3x3_popcount.cu",
            "w1a8_conv3x3_pool2_popcount.cu", "w1a8_matmul_int.cu",
-           "detect_nms.cu")
+           "detect_nms.cu", "w1a8_int_pe.cu")
 # No --use_fast_math: the requant and the NMS IoU divide with IEEE
 # rounding, as the reference does. -Xptxas -v writes registers and spills
 # to the build log.

@@ -1,0 +1,141 @@
+"""Public wrappers for the integer PE, ``csrc/w1a8_int_pe.cu``.
+
+Three layer kinds of the integer golden datapath share the kernel's one
+entry point and one launch count: `w1a8_int_pe` (the sign PE with Mul_prev
+fused into the accumulation, conv2–conv10, 3×3 or 1×1), `int_pe_conv1`
+(3×3 dense Q5.11 weights on the pixel codes) and `int_pe_head` (conv11's
+1×1 dense Q1.15 weights, the int64 raw head). A CUDA tensor launches the
+kernel (or raises); a CPU tensor runs the plain version in ``ref.py``. Each
+launch computes one layer with its epilogue and, where asked, the 2×2 max,
+and writes the next layer's uint8 codes (the head: int64).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.packing import packed_dim
+from repro_torch.kernels import _build
+from repro_torch.kernels.w1a8_int import ref as _ref
+
+SHIFT_MAX = 62   # the largest shift the kernel takes: 2^(s−1) fits int64
+W1A8, CONV1, HEAD = 0, 1, 2
+
+# (kind, ksize, pool, x, m, w, mult, bias, shift, shift_all, shift_lo,
+# shift_hi, out, b, h, w, cin, cout, stream)
+KERNEL = _build.Kernel("w1a8_int_pe.cu", "w1a8_int_pe",
+                       [_build.I] * 3 + [_build.P] * 6 + [_build.I] * 3
+                       + [_build.P] + [_build.I] * 5 + [_build.P])
+
+
+def shift_range(shift) -> Tuple[int, int]:
+    """(min, max) of the shifts, one host read; raises outside [0, 62]."""
+    if isinstance(shift, int):
+        lo = hi = shift
+    else:
+        lo, hi = (int(v) for v in torch.aminmax(shift.reshape(-1)))
+    if lo < 0 or hi > SHIFT_MAX:
+        raise ValueError(f"shifts must lie in [0, {SHIFT_MAX}], got "
+                         f"[{lo}, {hi}]")
+    return lo, hi
+
+
+def w1a8_int_pe(x_u8: torch.Tensor, w_packed: torch.Tensor,
+                m_raw: torch.Tensor, post_mult: torch.Tensor,
+                b_pre: torch.Tensor, post_shift: torch.Tensor, *,
+                ksize: int, pool: bool,
+                shifts: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """A W1A8 layer: x_u8 (B, H, W, Cin) codes; w_packed (ceil(K/32), N)
+    int32 sign words in (dy, dx, cin) order, K = ksize²·Cin; m_raw (Cin,),
+    post_mult, b_pre, post_shift (N,) int64. Returns (B, H, W, N) uint8
+    codes, or (B, H/2, W/2, N) with ``pool``. ``shifts`` is post_shift's
+    (min, max) where the caller knows it (`shift_range`); else it is read."""
+    k = ksize * ksize * x_u8.shape[-1]
+    if w_packed.dtype != torch.int32 or w_packed.shape[0] != packed_dim(k):
+        raise ValueError(f"w_packed must be int32 ({packed_dim(k)}, N), got "
+                         f"{w_packed.dtype} {tuple(w_packed.shape)}")
+    if not x_u8.is_cuda:
+        shift_range(post_shift)
+        return _ref.w1a8_int_pe_ref(x_u8, w_packed, m_raw, post_mult, b_pre,
+                                    post_shift, ksize=ksize, pool=pool)
+    return _launch(W1A8, x_u8, w_packed, m_raw, post_mult, b_pre, post_shift,
+                   shifts, ksize, pool, w_packed.shape[1])
+
+
+def int_pe_conv1(x_u8: torch.Tensor, w_raw: torch.Tensor,
+                 b_shifted: torch.Tensor, post_mult: torch.Tensor,
+                 post_shift: torch.Tensor, *, pool: bool = True,
+                 shifts: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """conv1, 3×3: x_u8 (B, H, W, Cin) pixel codes; w_raw (9·Cin, N) Q5.11
+    int64; b_shifted = b_raw << 5, post_mult, post_shift (N,) int64.
+    Returns uint8 codes, pooled with ``pool``."""
+    _check_dense(x_u8, w_raw, 3)
+    if not x_u8.is_cuda:
+        shift_range(post_shift)
+        return _ref.int_pe_conv1_ref(x_u8, w_raw, b_shifted, post_mult,
+                                     post_shift, pool=pool)
+    return _launch(CONV1, x_u8, w_raw, None, post_mult, b_shifted,
+                   post_shift, shifts, 3, pool, w_raw.shape[1])
+
+
+def int_pe_head(x_u8: torch.Tensor, w_raw: torch.Tensor, m_raw: torch.Tensor,
+                b_shifted: torch.Tensor, shift: int) -> torch.Tensor:
+    """The head, 1×1: x_u8 (B, H, W, Cin) codes; w_raw (Cin, N) Q1.15
+    int64; m_raw (Cin,); b_shifted = b_raw << 3 (N,) int64; one shift for
+    every channel. Returns the (B, H, W, N) int64 raw head."""
+    _check_dense(x_u8, w_raw, 1)
+    shift_range(shift)
+    if not x_u8.is_cuda:
+        return _ref.int_pe_head_ref(x_u8, w_raw, m_raw, b_shifted, shift)
+    return _launch(HEAD, x_u8, w_raw, m_raw, None, b_shifted, int(shift),
+                   None, 1, False, w_raw.shape[1])
+
+
+def _check_dense(x_u8: torch.Tensor, w_raw: torch.Tensor, ksize: int) -> None:
+    k = ksize * ksize * x_u8.shape[-1]
+    if w_raw.dtype != torch.int64 or w_raw.dim() != 2 or w_raw.shape[0] != k:
+        raise ValueError(f"w_raw must be int64 ({k}, N), got {w_raw.dtype} "
+                         f"{tuple(w_raw.shape)}")
+
+
+def _launch(kind: int, x_u8, w, m, mult, bias, shift, shifts, ksize: int,
+            pool: bool, n: int) -> torch.Tensor:
+    if x_u8.dtype != torch.uint8 or x_u8.dim() != 4:
+        raise TypeError(f"x_u8 must be (B, H, W, Cin) uint8, got "
+                        f"{x_u8.dtype} {tuple(x_u8.shape)}")
+    if ksize not in (1, 3):
+        raise ValueError(f"ksize must be 1 or 3, got {ksize}")
+    b, h, wd, cin = x_u8.shape
+    if pool and (h % 2 or wd % 2):
+        raise ValueError(f"a 2x2 pool needs an even plane, got {h}x{wd}")
+    dev = x_u8.device
+
+    def vec(t, size):
+        t = t.to(dev, torch.int64).reshape(-1).contiguous()
+        if t.numel() != size:
+            raise ValueError(f"a per-channel operand holds {t.numel()} "
+                             f"values, want {size}")
+        return t
+    per_channel = isinstance(shift, torch.Tensor)
+    lo, hi = shifts if shifts is not None else shift_range(shift)
+    if lo < 0 or hi > SHIFT_MAX:
+        raise ValueError(f"shifts must lie in [0, {SHIFT_MAX}], got "
+                         f"[{lo}, {hi}]")
+    x = x_u8.contiguous()
+    w = w.to(dev).contiguous()
+    m = None if m is None else vec(m, cin)
+    mult = None if mult is None else vec(mult, n)
+    bias = vec(bias, n)
+    shift_t = vec(shift, n) if per_channel else None
+    shape = (b, h // 2, wd // 2, n) if pool else (b, h, wd, n)
+    out = torch.empty(shape, device=dev,
+                      dtype=torch.int64 if kind == HEAD else torch.uint8)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    KERNEL(kind, ksize, int(pool), x.data_ptr(), ptr(m), w.data_ptr(),
+           ptr(mult), bias.data_ptr(), ptr(shift_t),
+           0 if per_channel else int(shift), lo, hi, out.data_ptr(), b, h,
+           wd, cin, n, torch.cuda.current_stream(dev).cuda_stream)
+    return out

@@ -45,6 +45,7 @@ from repro_torch.core import verify
 from repro_torch.device import resolve_device
 from repro_torch.kernels.w1a8_conv import fused_pool
 from repro_torch.kernels.w1a8_conv import ops as conv_ops
+from repro_torch.kernels.w1a8_int import ops as int_ops
 from repro_torch.kernels.w1a8_matmul import ops as mm_ops
 from repro_torch.models import detection, yolo
 from repro_torch.serve import DetectionBackend, Scheduler, ServeRequest
@@ -53,7 +54,9 @@ from repro_torch.serve import DetectionBackend, Scheduler, ServeRequest
 # launches, through graph replays too. A dispatch runs, per W1A8 layer, the
 # kernel of its resolved config (`DetectionBackend.configs`), and the
 # post-processing kernel (`detect_postprocess`); `w1a8_matmul_int` and
-# `detect_nms` (the same kernel on decoded boxes) are called directly.
+# `detect_nms` (the same kernel on decoded boxes) are called directly, and
+# the integer PE (`w1a8_int_pe`) runs the integer forward, one launch a
+# layer (`yolo.yolo_forward_int`).
 KERNELS = {"w1a8_conv3x3_pool2": fused_pool.KERNEL,
            "w1a8_conv3x3": conv_ops.KERNEL, "w1a8_matmul": mm_ops.KERNEL,
            "w1a8_conv3x3_pool2_popcount": fused_pool.POPCOUNT_KERNEL,
@@ -61,7 +64,8 @@ KERNELS = {"w1a8_conv3x3_pool2": fused_pool.KERNEL,
            "w1a8_matmul_popcount": mm_ops.POPCOUNT_KERNEL,
            "w1a8_matmul_int": mm_ops.INT_KERNEL,
            "detect_nms": detection.NMS_KERNEL,
-           "detect_postprocess": detection.POSTPROCESS_KERNEL}
+           "detect_postprocess": detection.POSTPROCESS_KERNEL,
+           "w1a8_int_pe": int_ops.KERNEL}
 
 
 def launch_counts() -> dict:

@@ -1,6 +1,11 @@
-"""The paper's W1A8 YOLOv3-tiny-like detector (Table 1), two datapaths:
+"""The paper's W1A8 YOLOv3-tiny-like detector (Table 1), three datapaths:
 
   float   — eval model, the verification oracle ("ONNX Runtime" role),
+  int     — the bit-exact integer deployment pipeline ("RTL" role): Q0.8
+            input, Q5.11/Q2.14 conv1, the sign PE with fixed-point Mul_prev
+            fused into accumulation, (mult, shift) requantization, Q1.15/
+            Q4.12 conv11 emitting signed Q*.15 raw; one integer PE launch
+            (``csrc/w1a8_int_pe.cu``) per layer,
   kernel  — packed 1-bit weights through the CUDA kernels, fused epilogues.
 
 Input 320×320×3 → output 10×10×75 (y/x/channel), 0.74 M params. Counterpart
@@ -17,12 +22,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import fixedpoint as fxp
+from repro_torch.core.packing import pack_signs
 from repro_torch.core.qtensor import QTensor
 from repro_torch.core.quant import ACT_QMAX, binarize_weight, quantize_act
 from repro_torch.device import full_f32, resolve_device
 from repro_torch.kernels import config as _cfg
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.kernels.w1a8_conv import ops as conv_ops
+from repro_torch.kernels.w1a8_int import ops as int_ops
+from repro_torch.kernels.w1a8_int import ref as int_ref
 from repro_torch.kernels.w1a8_matmul import ops as mm_ops
 
 # "tuned" resolves the port's autotune table (`kernels.config.resolve_tuned`:
@@ -196,6 +204,158 @@ def calibrate_yolo(params: dict, images: torch.Tensor, *,
         if spec.pool:
             x = _maxpool2(x)
     return params
+
+
+# ---------------------------------------------------------------------------
+# Integer golden datapath (paper §4): deployment artifact and forward
+# ---------------------------------------------------------------------------
+
+FM = 16  # fractional bits of the fixed-point Mul_prev inside the PE
+
+# the reference's names for the plain integer helpers
+_rshift_round = int_ref.rshift_round
+_im2col = int_ref.im2col
+
+
+def _requant_multshift(scale: np.ndarray, bits: int = 15):
+    """scale → (mult int, rshift) with mult in [2^(bits-1), 2^bits):
+    x·scale ≈ (x·mult) >> rshift, the ONNX-style normalized requantizer.
+    numpy float64, as the reference computes it."""
+    scale = np.asarray(scale, np.float64)
+    out_m = np.zeros(scale.shape, np.int64)
+    out_s = np.zeros(scale.shape, np.int64)
+    nz = scale > 0
+    exp = np.floor(np.log2(scale[nz]))
+    rshift = (bits - 1 - exp).astype(np.int64)
+    mult = np.round(scale[nz] * (2.0 ** rshift)).astype(np.int64)
+    # rounding may push mult to 2^bits; renormalize
+    over = mult >= (1 << bits)
+    mult[over] >>= 1
+    rshift[over] -= 1
+    out_m[nz], out_s[nz] = mult, rshift
+    return out_m, out_s
+
+
+def _f64(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float64)
+
+
+def deploy_yolo(params: dict) -> dict:
+    """Float params → the integer deployment artifact ("COE" role), on the
+    params' device.
+
+    Keeps the reference's keys and int64 values (``w_raw``, ``b_raw``,
+    ``post_mult``, ``post_shift``, ``m_raw``, ``signs`` (K, N) ±1,
+    ``b_pre``). The constants are computed on the host in numpy float64 in
+    the reference's order (``np.mean``, ``np.floor(np.log2(·))``,
+    ``np.round`` half to even), so each equals the reference's bit for bit;
+    `fold_int_pe` then adds what the integer PE reads beyond them.
+    """
+    dev = params["conv1"]["w"].device
+    steps_next = {}   # each layer's output step: the next layer's input step
+    for spec, nxt in zip(YOLO_LAYERS[:-1], YOLO_LAYERS[1:]):
+        steps_next[spec.name] = np.broadcast_to(
+            _f64(params[nxt.name]["act_step"]), (nxt.cin,))
+    art = {"layers": []}
+    for spec in YOLO_LAYERS:
+        p = {k: _f64(v) for k, v in params[spec.name].items()}
+        entry = {"spec": spec}
+        if spec.name == "conv1":
+            entry["w_raw"] = _fixed(fxp.CONV1_W, p["w"])
+            entry["b_raw"] = _fixed(fxp.CONV1_B, p["b"])
+            # acc scale 2^-19 (Q0.8 input × Q5.11 weights); bias at 2^-14
+            # → <<5; post: /step_next ⇒ scale = 2^-19/step
+            mult, shift = _requant_multshift(2.0 ** -19 / steps_next["conv1"])
+            entry["post_mult"], entry["post_shift"] = mult, shift
+        elif spec.name == "conv11":
+            entry["w_raw"] = _fixed(fxp.CONV11_W, p["w"])
+            entry["b_raw"] = _fixed(fxp.CONV11_B, p["b"])
+            entry["m_raw"] = np.round(np.broadcast_to(
+                p["act_step"], (spec.cin,)) * 2 ** FM).astype(np.int64)
+        else:
+            w2 = p["w"].reshape(-1, spec.cout)
+            entry["signs"] = np.where(w2 >= 0, 1, -1).astype(np.int64)
+            alpha = np.mean(np.abs(w2), axis=0)
+            entry["m_raw"] = np.round(np.broadcast_to(
+                p["act_step"], (spec.cin,)) * 2 ** FM).astype(np.int64)
+            # post: y = acc·2^-FM·α + b, then /step_next — one fused
+            # rounding: q = rshift(acc·mult + b_preshifted, shift)
+            scale = alpha * 2.0 ** -FM / steps_next[spec.name]
+            mult, shift = _requant_multshift(scale)
+            entry["post_mult"], entry["post_shift"] = mult, shift
+            entry["b_pre"] = np.round(p["b"] / steps_next[spec.name]
+                                      * 2.0 ** shift).astype(np.int64)
+        entry = {k: v if k == "spec" else torch.from_numpy(
+            np.ascontiguousarray(v, np.int64)).to(dev)
+            for k, v in entry.items()}
+        art["layers"].append(fold_int_pe(entry))
+    return art
+
+
+def _fixed(fmt, x: np.ndarray) -> np.ndarray:
+    """The float32 parameter as ``fmt``'s raw integers, int64."""
+    raw = fmt.quantize(torch.from_numpy(x.astype(np.float32)))
+    return raw.numpy().astype(np.int64)
+
+
+def fold_int_pe(entry: dict) -> dict:
+    """Adds what the integer PE reads beyond the reference's keys, once at
+    deploy: a W1A8 layer's ``signs`` packed into sign words (``w_packed``,
+    the kernel artifact's words bit for bit), conv1's and conv11's biases
+    at the accumulator's scale (``b_shifted``: b_raw << 5 and << 3), and
+    the (min, max) of a layer's shifts (``shifts``, host ints), so a
+    forward reads nothing back from the card."""
+    name = entry["spec"].name
+    if name == "conv1":
+        entry["b_shifted"] = entry["b_raw"] << 5
+    elif name == "conv11":
+        entry["b_shifted"] = entry["b_raw"] << 3
+    else:
+        entry["w_packed"] = pack_signs(entry["signs"], axis=0)
+    if "post_shift" in entry:
+        lo, hi = torch.aminmax(entry["post_shift"])
+        entry["shifts"] = (int(lo), int(hi))
+    return entry
+
+
+def int_layer(entry: dict, x: torch.Tensor) -> torch.Tensor:
+    """One layer of the integer datapath, one integer PE launch on CUDA
+    tensors (its plain version on CPU ones): uint8 codes in, the next
+    layer's uint8 codes (pooled where the spec pools) or, at conv11, the
+    int64 raw head out."""
+    spec: ConvSpec = entry["spec"]
+    if spec.name == "conv1":
+        return int_ops.int_pe_conv1(
+            x, entry["w_raw"].reshape(-1, spec.cout), entry["b_shifted"],
+            entry["post_mult"], entry["post_shift"], pool=spec.pool,
+            shifts=entry["shifts"])
+    if spec.name == "conv11":
+        return int_ops.int_pe_head(
+            x, entry["w_raw"].reshape(-1, spec.cout), entry["m_raw"],
+            entry["b_shifted"], FM)
+    return int_ops.w1a8_int_pe(
+        x, entry["w_packed"], entry["m_raw"], entry["post_mult"],
+        entry["b_pre"], entry["post_shift"], ksize=spec.ksize,
+        pool=spec.pool, shifts=entry["shifts"])
+
+
+def yolo_forward_int(art: dict, images_u8, device=None) -> torch.Tensor:
+    """The bit-exact integer pipeline (the RTL-analogue datapath).
+
+    images_u8: (B, S, S, 3) uint8 pixels (Q0.8 codes, value = px/256), a
+    tensor or an array, S a multiple of 32. Runs on the card unless
+    ``device="cpu"``; the artifact lives there too. Returns the (B, S/32,
+    S/32, 75) int64 raw head at Q*.15 (float = raw / 2^15).
+    """
+    dev = resolve_device(device)
+    x = torch.as_tensor(images_u8).to(dev)
+    if x.dtype != torch.uint8 or x.dim() != 4:
+        raise TypeError(f"images_u8 must be (B, S, S, 3) uint8, got "
+                        f"{x.dtype} {tuple(x.shape)}")
+    spatial_sizes(x.shape[1])            # validates the ×32 constraint
+    for entry in art["layers"]:
+        x = int_layer(entry, x)
+    return x
 
 
 # ---------------------------------------------------------------------------

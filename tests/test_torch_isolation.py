@@ -39,13 +39,19 @@ def test_port_imports_no_jax_and_no_reference():
 def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
+    from repro_torch.launch import alignment
     from repro_torch.models import yolo
     from repro_torch.serve import DetectionBackend
     calib = np.zeros((1, 64, 64, 3), np.float32)
-    _, art = yolo.build_detector(0, calib, device="cpu")
+    params, art = yolo.build_detector(0, calib, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DetectionBackend(art)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         yolo.build_detector(0, calib)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         yolo.init_yolo_params(0)
+    int_art = yolo.deploy_yolo(params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        yolo.yolo_forward_int(int_art, np.zeros((1, 64, 64, 3), np.uint8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        alignment.run(size=64)
