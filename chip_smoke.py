@@ -10,8 +10,8 @@ Phases (any failure raises and the script exits non-zero):
    prints the build seconds, each kernel's register use and spills and the
    count of tensor-core instructions (HMMA, HGMMA, IMMA) in each library's
    SASS (cuobjdump); the three dot libraries must hold HMMA, the three
-   popcount ones and the int matmul's IMMA, and no library may spill a
-   register.
+   popcount ones, the int matmul's and the integer PE's IMMA, and no
+   library may spill a register.
 2. Holds each dot kernel against its plain PyTorch version on the card, at
    every W1A8 layer shape of the 320×320 detector with B = 4 and at one
    shape off its grid (B = 2, 18×18, Cin 24, Cout 40: Cin % 16 != 0, Cout
@@ -93,14 +93,20 @@ Phases (any failure raises and the script exits non-zero):
    (B = 4, 300 boxes, 20 classes) and counts the tiles of 32 ranks the
    sweep visited; no single PyTorch call computes greedy NMS.
 7. The integer PE (``csrc/w1a8_int_pe.cu``, the integer golden datapath's
-   one kernel): each of its entry points (W1A8, conv1, head) bit for bit
-   against its plain version on the card at every layer shape of the 320
-   path at B = 1 and 4 (the deployed artifact's constants, random codes),
-   off the grid (B = 2, 18×18, Cin 24, Cout 40; K = 216 and 24) for
-   every kind, ksize and pool it takes, on overflow operands (m_raw ≈ 2^17, codes
-   255, every sign +1 at K = 1152: |acc| > 3e10, past int32) and on a head
-   with negative values on rounding ties; times each layer at B = 4 (as
-   in phase 2, beside ``F.conv2d`` in float64 on codes·m_raw, exact here).
+   one kernel, on the int8 tensor cores over signed digit planes): each of
+   its entry points (W1A8, conv1, head) bit for bit against its plain
+   version on the card at every layer shape of the 320 path at B = 1 and
+   4 (the deployed artifact's constants and planes, random codes), off the
+   grid (B = 2, 18×18, Cin 3, 16, 24, 48 and 128, ragged Cout) for every
+   kind, ksize and pool it takes, with random m, mult, shift (0 included)
+   and int40 biases, on overflow operands (m_raw ≈ 2^17, codes 255, every
+   sign +1 at K = 1152: |acc| > 3e10, past int32, 3 planes), on m_raw of
+   1 to 10 planes (INT64_MIN the tenth; numpy's int64 sum wraps from 8 on)
+   at the W1A8 kind pooled and not and at the head, and on a head with
+   negative values on rounding ties; times each layer at B = 4 (as in
+   phase 2, beside ``F.conv2d`` in float64 on codes·m_raw, exact here) and
+   prints its plane count and its device ms before the redesign (the
+   int64 CUDA-core PE's, from PERF.md).
    Then drives ``yolo_forward_int`` at B = 4, 320×320 with every launch
    count zeroed before and read after: one integer PE launch per layer
    (11) and no other kernel, the int64 raw head equal to the plain
@@ -180,7 +186,7 @@ TENSOR_CORE_KERNELS = {
     "w1a8_conv3x3_pool2": "HMMA", "w1a8_conv3x3": "HMMA",
     "w1a8_matmul": "HMMA", "w1a8_conv3x3_pool2_popcount": "IMMA",
     "w1a8_conv3x3_popcount": "IMMA", "w1a8_matmul_popcount": "IMMA",
-    "w1a8_matmul_int": "IMMA"}
+    "w1a8_matmul_int": "IMMA", "w1a8_int_pe": "IMMA"}
 PROFILES = ("tuned", "default")  # the launcher's --profile, both driven
 AUTOTUNE_CMD = "PYTHONPATH=src python -m repro_torch.launch.autotune --batch 4"
 WINNERS = 22                   # 11 cells x 2 accum modes in the table
@@ -193,6 +199,16 @@ POPCOUNT = ("w1a8_conv3x3_pool2_popcount", "w1a8_conv3x3_popcount",
 PER_FORWARD = {True: (4, 4, 1), False: (0, 8, 1)}
 INT_PE = "w1a8_int_pe"
 INT_BATCHES = (1, 4)           # the integer PE's per-layer checks
+# (Cin, Cout) off the detector's grid: Cin % 16 != 0 (3, 24: the pair of
+# units spans taps), 16, 48 and 128; Cout ragged against the warp tiles
+INT_OFF_GRID = ((3, 16), (16, 20), (24, 40), (48, 33), (128, 75))
+# the integer PE's device ms a layer and a forward at B = 4, 320×320 before
+# its redesign, on the CUDA cores in int64 (PERF.md §6, NVIDIA H100 80GB
+# HBM3, 700.00 W)
+INT_BEFORE_DEVICE_MS = {
+    "conv1": 0.2016, "conv2": 0.1462, "conv3": 0.1562, "conv4": 0.1864,
+    "conv5": 0.1870, "conv6": 0.1878, "conv7": 0.1941, "conv8": 0.1227,
+    "conv9": 0.0274, "conv10": 0.0628, "conv11": 0.0191, "forward": 1.4925}
 # int head against the float head: tests/test_yolo.py's
 # test_int_pipeline_alignment (max_abs, mean_abs; 100% within 1 LSB of 0.02)
 INT_ENVELOPE = (0.02, 0.002)
@@ -1255,14 +1271,17 @@ def int_bytes_ops(entry, x, out) -> tuple:
 def check_int_pe(torch, np, dev, art) -> list:
     """Phase 7a: the integer PE's three entry points bit for bit against
     their plain versions on the card: at every layer shape of the 320 path
-    (the deployed artifact's constants, random codes) at B = 1 and 4, off
-    the grid (B = 2, 18×18, Cin 24, Cout 40: K = 216 and 24, not multiples
-    of 32) for every kind, ksize and pool it takes, on the overflow
-    operands (m_raw ≈ 2^17, codes 255, every sign +1 at K = 1152: |acc| ≈
-    3.9e10) and on a head with negative values on rounding ties. Times
+    (the deployed artifact's constants and digit planes, random codes) at
+    B = 1 and 4; off the grid (INT_OFF_GRID: Cin 3, 16, 24, 48 and 128,
+    ragged Cout) for every kind, ksize and pool it takes, with random m,
+    mult, shift (0 included) and int40 biases; on the overflow operands
+    (m_raw ≈ 2^17, codes 255, every sign +1 at K = 1152: |acc| ≈ 3.9e10,
+    3 planes), on m_raw of 1 to 9 planes and INT64_MIN (10) at the W1A8
+    kind, pooled and not, and at the head, the large ones wrapping numpy's
+    int64 sum; and on a head with negative values on rounding ties. Times
     each layer at B = 4. Returns the per-layer records."""
     from repro_torch.core import packing
-    from repro_torch.kernels.w1a8_int import ops, ref
+    from repro_torch.kernels.w1a8_int import ops, planes as pl, ref
     from repro_torch.models import yolo
 
     rng = np.random.default_rng(SEED + 3)
@@ -1291,49 +1310,67 @@ def check_int_pe(torch, np, dev, art) -> list:
                 raise AssertionError(f"{spec.name}: float64 library sum "
                                      f"is not exact")
             rec = {"layer": spec.name,
-                "shape": [batch, h, h, spec.cin, spec.cout],
-                "ms": cuda_ms(torch, run),
-                "device_ms": device_profile(torch, run)["device_busy_ms"],
-                "plain_ms": cuda_ms(torch, lambda: int_plain(entry, x),
-                                    reps=3, n=3),
-                "library_ms": cuda_ms(torch, library, reps=3, n=3),
-                "library_device_ms": device_profile(
-                    torch, library, n=3)["device_busy_ms"],
-                "bytes": nbytes, "ops": ops_n}
+                   "shape": [batch, h, h, spec.cin, spec.cout],
+                   "planes": int(entry["planes"].shape[0]),
+                   "ms": cuda_ms(torch, run),
+                   "device_ms": device_profile(torch, run)["device_busy_ms"],
+                   "plain_ms": cuda_ms(torch, lambda: int_plain(entry, x),
+                                       reps=3, n=3),
+                   "library_ms": cuda_ms(torch, library, reps=3, n=3),
+                   "library_device_ms": device_profile(
+                       torch, library, n=3)["device_busy_ms"],
+                   "before_device_ms": INT_BEFORE_DEVICE_MS[spec.name],
+                   "bytes": nbytes, "ops": ops_n}
             rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops_n,
                                                      INT8_OPS_PER_S)
-            print(f"[int pe] {spec.name} {rec['shape']}: bit-exact at B = "
-                  f"{INT_BATCHES}; {rec['ms']:.4f} ms, device "
-                  f"{rec['device_ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
-                  f"float64 conv2d {rec['library_ms']:.4f}, device "
-                  f"{rec['library_device_ms']:.4f}, bound "
-                  f"{rec['bound_ms']:.5f} by {rec['bound_by']})", flush=True)
+            print(f"[int pe] {spec.name} {rec['shape']}: P = "
+                  f"{rec['planes']}, bit-exact at B = {INT_BATCHES}; "
+                  f"{rec['ms']:.4f} ms, device {rec['device_ms']:.5f} ms "
+                  f"(before {rec['before_device_ms']:.4f}; plain "
+                  f"{rec['plain_ms']:.4f}, float64 conv2d "
+                  f"{rec['library_ms']:.4f}, device "
+                  f"{rec['library_device_ms']:.5f}, bound "
+                  f"{rec['bound_ms']:.6f} by {rec['bound_by']})", flush=True)
             records.append(rec)
 
     def ints(lo, hi, shape):
-        return torch.from_numpy(rng.integers(lo, hi, shape)).to(dev)
-    b, h, _, cin, cout = OFF_GRID
-    for ksize, pool in ((3, True), (3, False), (1, False), (1, True)):
-        x = codes((b, h, h, cin))
-        k = ksize * ksize * cin
-        m = ints(1, 1 << 17, cin)
-        mult, bias = ints(0, 1 << 15, cout), ints(-(1 << 40), 1 << 40, cout)
-        shift = ints(0, 47, cout)
-        wp = packing.pack_signs(ints(0, 2, (k, cout)) * 2 - 1, axis=0)
-        w = ints(-(1 << 16), 1 << 16, (k, cout))
-        what = f"off the grid {OFF_GRID} ksize {ksize} pool {pool}"
+        return torch.from_numpy(rng.integers(lo, hi, shape,
+                                             dtype=np.int64)).to(dev)
+
+    def signs(k, cout):
+        return packing.pack_signs(ints(0, 2, (k, cout)) * 2 - 1, axis=0)
+
+    def w1a8_case(x, wp, m, mult, bias, shift, ksize, pool, what):
         _exact(torch, ops.w1a8_int_pe(x, wp, m, mult, bias, shift,
                                       ksize=ksize, pool=pool),
                ref.w1a8_int_pe_ref(x, wp, m, mult, bias, shift, ksize=ksize,
                                    pool=pool), f"w1a8 {what}")
-        if ksize == 3:
-            _exact(torch, ops.int_pe_conv1(x, w, bias, mult, shift,
-                                           pool=pool),
-                   ref.int_pe_conv1_ref(x, w, bias, mult, shift, pool=pool),
-                   f"conv1 {what}")
-        elif not pool:
-            _exact(torch, ops.int_pe_head(x, w, m, bias, 16),
-                   ref.int_pe_head_ref(x, w, m, bias, 16), f"head {what}")
+
+    def head_case(x, w, m, bias, shift, what):
+        _exact(torch, ops.int_pe_head(x, w, m, bias, shift),
+               ref.int_pe_head_ref(x, w, m, bias, shift), f"head {what}")
+    b, h = 2, 18
+    for cin, cout in INT_OFF_GRID:
+        for ksize, pool in ((3, True), (3, False), (1, False), (1, True)):
+            x = codes((b, h, h, cin))
+            k = ksize * ksize * cin
+            m = ints(1, 1 << 17, cin)
+            mult, bias = ints(0, 1 << 15, cout), ints(-(1 << 40), 1 << 40,
+                                                      cout)
+            shift = ints(0, 47, cout)
+            shift[0] = 0
+            w = ints(-(1 << 16), 1 << 16, (k, cout))
+            what = (f"off the grid (B {b}, {h}x{h}, Cin {cin}, Cout {cout}) "
+                    f"ksize {ksize} pool {pool}")
+            w1a8_case(x, signs(k, cout), m, mult, bias, shift, ksize, pool,
+                      what)
+            if ksize == 3:
+                _exact(torch, ops.int_pe_conv1(x, w, bias, mult, shift,
+                                               pool=pool),
+                       ref.int_pe_conv1_ref(x, w, bias, mult, shift,
+                                            pool=pool), f"conv1 {what}")
+            elif not pool:
+                head_case(x, w, m, bias, 16, what)
 
     # overflow: int32 accumulation would wrap
     x = torch.full((BATCH, 20, 20, 128), 255, dtype=torch.uint8, device=dev)
@@ -1344,12 +1381,40 @@ def check_int_pe(torch, np, dev, art) -> list:
     acc = ref.accumulate(x, m, packing.unpack_signs(wp, 1152,
                                                     dtype=torch.int64), 3)
     overflow_acc = float(acc.abs().max())
-    if not overflow_acc > 3e10:
+    if not overflow_acc > 3e10 or pl.plane_count(m) != 3:
         raise AssertionError("the overflow operands stay inside int32")
-    got = ops.w1a8_int_pe(x, wp, m, mult, bias, shift, ksize=3, pool=False)
-    _exact(torch, got, ref.w1a8_int_pe_ref(x, wp, m, mult, bias, shift,
-                                           ksize=3, pool=False),
-           "int PE overflow operands")
+    w1a8_case(x, wp, m, mult, bias, shift, 3, False, "overflow operands")
+    # m_raw of 1 to 9 planes (7P bits), then INT64_MIN (10): numpy's int64
+    # sum wraps from 8 planes on, and the fused max is over the codes
+    x = codes((2, 10, 10, 128))
+    wp = signs(1152, 96)
+    wrapped = []
+    for p in range(1, pl.MAX_PLANES + 1):
+        if p < pl.MAX_PLANES:
+            m = ints(1 << (7 * p - 7), min(1 << (7 * p), (1 << 63) - 1),
+                     128)
+        else:
+            m = torch.full((128,), -(1 << 63), dtype=torch.int64,
+                           device=dev)
+        if pl.plane_count(m) != p:
+            raise AssertionError(f"m_raw of {p} planes has "
+                                 f"{pl.plane_count(m)}")
+        exact = torch.nn.functional.conv2d(
+            x.permute(0, 3, 1, 2).double() * m.double()[None, :, None, None],
+            packing.unpack_signs(wp, 1152, dtype=torch.float64).reshape(
+                3, 3, 128, 96).permute(3, 2, 0, 1), padding=1)
+        if float(exact.abs().max()) > 2.0 ** 63:
+            wrapped.append(p)
+        mult, bias = ints(1, 1 << 15, 96), ints(-(1 << 40), 1 << 40, 96)
+        shift = ints(0, 63, 96)
+        for pool in (True, False):
+            w1a8_case(x, wp, m, mult, bias, shift, 3, pool,
+                      f"m_raw of {p} planes, pool {pool}")
+        head_case(x[..., :64], ints(-3, 4, (64, 75)), m[:64], bias[:75],
+                  20, f"m_raw of {p} planes")
+    if not set(range(8, pl.MAX_PLANES + 1)) <= set(wrapped):
+        raise AssertionError(f"numpy's int64 sum wraps only at planes "
+                             f"{wrapped}")
     # the head on exact ties of the 16-bit shift, negatives included
     x = codes((BATCH, 10, 10, 64))
     w = ints(0, 2, (64, 75)) * 2 - 1
@@ -1363,11 +1428,12 @@ def check_int_pe(torch, np, dev, art) -> list:
     _exact(torch, ops.int_pe_head(x, w, m, bias, 16), want,
            "int PE head on negative ties")
     torch.cuda.synchronize()
-    print(f"[int pe] off the grid {OFF_GRID} (W1A8 3×3 and 1×1, pooled "
-          f"and not; conv1 pooled and not; the head), overflow operands "
-          f"(max |acc| {overflow_acc:.6g}) and a head on negative ties: "
-          f"bit-exact",
-          flush=True)
+    print(f"[int pe] off the grid (B 2, 18×18, (Cin, Cout) "
+          f"{INT_OFF_GRID}: W1A8 3×3 and 1×1, pooled and not; conv1 pooled "
+          f"and not; the head), overflow operands (max |acc| "
+          f"{overflow_acc:.6g}, 3 planes), m_raw of 1 to "
+          f"{pl.MAX_PLANES} planes (numpy's int64 sum wrapping at "
+          f"{wrapped}) and a head on negative ties: bit-exact", flush=True)
     return records
 
 
@@ -1430,7 +1496,8 @@ def drive_int(torch, np, dev) -> dict:
           f"plain version ({cpu_s:.2f} s on the CPU), vs float max_abs "
           f"{rep.max_abs:.6g} mean_abs {rep.mean_abs:.6g} corr "
           f"{rep.corr:.6f}; {ms:.4f} ms per forward back to back (CUDA "
-          f"events), device busy {prof['device_busy_ms']:.4f} ms, "
+          f"events), device busy {prof['device_busy_ms']:.5f} ms (before "
+          f"{INT_BEFORE_DEVICE_MS['forward']}), "
           f"{prof['device_launches']:.0f} device launches per forward",
           flush=True)
     with torch.no_grad():
@@ -1532,6 +1599,7 @@ def main() -> int:
                 "tensor_core_instructions": sass[name],
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                 "layers": [r["layer"] for r in rows],
+                "planes": [r["planes"] for r in rows],
                 "ms_per_forward": int_record["ms_per_forward"],
                 "device_ms_per_forward":
                     int_record["profile"]["device_busy_ms"],

@@ -1,7 +1,11 @@
 """Device time of the kernels on the tensor cores, dot and popcount, for
 each warp tile, at every W1A8 layer shape of the 320×320 detector with
 B = 4: the convs at the 3×3 layers, the matmuls at conv9, there also at
-B = 8, 16, 32 and 64 (the launcher's ``--slots``; M = 100·B).
+B = 8, 16, 32 and 64 (the launcher's ``--slots``; M = 100·B); and the
+integer PE (``csrc/w1a8_int_pe.cu``) at each of its warp tiles on every
+layer of the integer forward, on a deployed artifact's constants and
+digit planes, its 1×1 layers also on the M = B·H·W outputs in rows of
+16 (`sweep_1x1`).
 
     PYTHONPATH=src python -m repro_torch.launch.tile_sweep
 
@@ -10,7 +14,8 @@ For each layer and accum mode the kernel the fused-pool route runs there
 matmul at conv9) is timed once per warp tile (wm, wn), with the rest
 of the geometry as `w1a8_conv.geometry.conv_launch` or
 `w1a8_matmul.geometry.matmul_launch` picks it, and marked with the tile
-the geometry's heuristic chooses. A time is
+the geometry's heuristic chooses (for the integer PE,
+`w1a8_int.geometry.pe_launch`). A time is
 the device time per call: the union of the calls' traced device intervals
 (torch.profiler) over 20 calls, divided by 20. Prints one JSON object with
 the card's name and power limit. Needs the card.
@@ -28,6 +33,8 @@ import torch
 from repro_torch.kernels.config import ACCUMS, KernelConfig
 from repro_torch.kernels.w1a8_conv import fused_pool, geometry
 from repro_torch.kernels.w1a8_conv import ops as conv_ops
+from repro_torch.kernels.w1a8_int import geometry as int_geometry
+from repro_torch.kernels.w1a8_int import ops as int_ops
 from repro_torch.kernels.w1a8_matmul import geometry as mm_geometry
 from repro_torch.kernels.w1a8_matmul import ops as mm_ops
 from repro_torch.launch.profile import union_us
@@ -90,6 +97,109 @@ def sweep_matmul(rng, m: int, k: int, n: int, dev, layer: str) -> list:
                         "shape": [m, k, n],
                         "picked": f"{g.wm}x{g.wn}",
                         "device_ms": times})
+    return records
+
+
+@contextlib.contextmanager
+def only_int_tile(tile):
+    """Makes `pe_launch` pick warp tile `tile` whatever the shape."""
+    saved = int_geometry.WARP_TILES, int_geometry.NARROW
+    int_geometry.WARP_TILES, int_geometry.NARROW = (tile,), 0
+    try:
+        with only_tile(tile):
+            yield
+    finally:
+        int_geometry.WARP_TILES, int_geometry.NARROW = saved
+
+
+def matmul_pe_launch(kind: int, b: int, h: int, w: int, cin: int,
+                     cout: int, ksize: int, pool: bool,
+                     planes: int) -> int_geometry.PeLaunch:
+    """The integer PE's launch of a 1×1 layer viewed as (1, M/16, 16, Cin)
+    with the popcount matmul's block (`matmul_launch` at M = h·w, N =
+    Cout): one row of 16 outputs, its block N and threads, its warp
+    tile."""
+    mm = mm_geometry.matmul_launch(b * h * w, cout, "popcount")
+    if ksize != 1 or pool or b != 1 or w != mm.bm:
+        raise ValueError(f"not a 1×1 layer in rows of {mm.bm}: "
+                         f"{(b, h, w, ksize, pool)}")
+    row_px = geometry.conv_launch(b, h, w, cin, cout, 1, False,
+                                  "popcount").row_px
+    return int_geometry.PeLaunch(
+        grid=(mm.grid[1], h, 1), threads=mm.threads,
+        smem=int_geometry.pe_smem(kind, 1, cin, mm.bn, planes, 1, row_px),
+        rows=1, bn=mm.bn, wm=mm.wm, wn=mm.wn, row_px=row_px)
+
+
+@contextlib.contextmanager
+def matmul_geometry():
+    """Makes the integer PE's wrappers launch with `matmul_pe_launch`."""
+    saved = int_ops.pe_launch
+    int_ops.pe_launch = matmul_pe_launch
+    try:
+        yield
+    finally:
+        int_ops.pe_launch = saved
+
+
+def sweep_1x1(entry: dict, x: torch.Tensor) -> dict:
+    """A 1×1 layer's device ms under three geometries: the conv tile on
+    its (B, H, W) plane as `pe_launch` picks it, the same rule on the
+    (1, M/16, 16) view of the M = B·H·W outputs, and `matmul_pe_launch` on
+    that view. Each output is held bit for bit against the first's."""
+    b, h, w, cin = x.shape
+    flat = x.reshape(1, b * h * w // 16, 16, cin)
+    want = yolo.int_layer(entry, x).reshape(1, b * h * w // 16, 16, -1)
+    runs = {"conv tile": lambda: yolo.int_layer(entry, x),
+            "rows of 16": lambda: yolo.int_layer(entry, flat)}
+    with matmul_geometry():
+        got = yolo.int_layer(entry, flat)
+    if not torch.equal(yolo.int_layer(entry, flat), want) or not \
+            torch.equal(got, want):
+        raise AssertionError(f"{entry['spec'].name}: a 1×1 geometry "
+                             f"differs from the conv tile's")
+    times = {name: device_ms(run) for name, run in runs.items()}
+    with matmul_geometry():
+        times["matmul_launch"] = device_ms(lambda: yolo.int_layer(entry,
+                                                                  flat))
+    return times
+
+
+def sweep_int_pe(rng, batch: int, dev) -> list:
+    """Every layer of `yolo_forward_int` at 320×320 (a calibrated,
+    deployed artifact; random codes), once per warp tile the integer PE
+    builds, the 1×1 layers also under `sweep_1x1`'s geometries; one record
+    per layer, its times keyed "{wm}x{wn}" (and "geometries_1x1")."""
+    img = torch.from_numpy(rng.integers(0, 256, (batch, 320, 320, 3),
+                                        dtype=np.uint8)).to(dev)
+    with torch.no_grad():
+        params = yolo.calibrate_yolo(yolo.init_yolo_params(0, device=dev),
+                                     img.to(torch.float32) / 256.0)
+        art = yolo.deploy_yolo(params)
+    sizes = yolo.spatial_sizes(yolo.INPUT_SIZE)
+    kinds = {"conv1": int_geometry.CONV1, "conv11": int_geometry.HEAD}
+    records = []
+    for entry in art["layers"]:
+        spec = entry["spec"]
+        h = sizes[spec.name]
+        x = torch.from_numpy(rng.integers(0, 256, (batch, h, h, spec.cin),
+                                          dtype=np.uint8)).to(dev)
+        planes = int(entry["planes"].shape[0])
+        picked = int_geometry.pe_launch(
+            kinds.get(spec.name, int_geometry.W1A8), batch, h, h, spec.cin,
+            spec.cout, spec.ksize, spec.pool, planes)
+        times = {}
+        for tile in int_geometry.WARP_TILES:
+            with only_int_tile(tile):
+                times[f"{tile[0]}x{tile[1]}"] = device_ms(
+                    lambda: yolo.int_layer(entry, x))
+        rec = {"layer": spec.name, "kernel": "w1a8_int_pe",
+               "shape": [batch, h, h, spec.cin, spec.cout],
+               "planes": planes, "picked": f"{picked.wm}x{picked.wn}",
+               "device_ms": times}
+        if spec.ksize == 1 and batch * h * h % 16 == 0:
+            rec["geometries_1x1"] = sweep_1x1(entry, x)
+        records.append(rec)
     return records
 
 
@@ -173,6 +283,9 @@ def main(argv=None) -> dict:
                    "picked": f"{picked.wm}x{picked.wn}", "device_ms": times}
             print(json.dumps(rec), flush=True)
             layers.append(rec)
+    for rec in sweep_int_pe(rng, args.batch, dev):
+        print(json.dumps(rec), flush=True)
+        layers.append(rec)
     record = {"card": card, "layers": layers}
     print(json.dumps(record))
     return record

@@ -30,6 +30,7 @@ from repro_torch.kernels import config as _cfg
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.kernels.w1a8_conv import ops as conv_ops
 from repro_torch.kernels.w1a8_int import ops as int_ops
+from repro_torch.kernels.w1a8_int import planes as int_planes
 from repro_torch.kernels.w1a8_int import ref as int_ref
 from repro_torch.kernels.w1a8_matmul import ops as mm_ops
 
@@ -302,16 +303,26 @@ def fold_int_pe(entry: dict) -> dict:
     """Adds what the integer PE reads beyond the reference's keys, once at
     deploy: a W1A8 layer's ``signs`` packed into sign words (``w_packed``,
     the kernel artifact's words bit for bit), conv1's and conv11's biases
-    at the accumulator's scale (``b_shifted``: b_raw << 5 and << 3), and
-    the (min, max) of a layer's shifts (``shifts``, host ints), so a
-    forward reads nothing back from the card."""
-    name = entry["spec"].name
-    if name == "conv1":
+    at the accumulator's scale (``b_shifted``: b_raw << 5 and << 3), the
+    signed digit planes of the layer's constant W' (``planes``: a W1A8
+    layer's m_raw per input channel, conv1's w_raw, the head's m[c]·w_raw
+    in wrapping int64; `kernels/w1a8_int/planes.py`), and the (min, max)
+    of a layer's shifts (``shifts``, host ints), so a forward reads
+    nothing back from the card."""
+    spec = entry["spec"]
+    if spec.name == "conv1":
         entry["b_shifted"] = entry["b_raw"] << 5
-    elif name == "conv11":
+        entry["planes"] = int_planes.dense_planes(
+            entry["w_raw"].reshape(-1, spec.cout), spec.cin, 3)
+    elif spec.name == "conv11":
         entry["b_shifted"] = entry["b_raw"] << 3
+        entry["planes"] = int_planes.dense_planes(
+            int_planes.head_weights(entry["m_raw"],
+                                    entry["w_raw"].reshape(-1, spec.cout)),
+            spec.cin, 1)
     else:
         entry["w_packed"] = pack_signs(entry["signs"], axis=0)
+        entry["planes"] = int_planes.sign_planes(entry["m_raw"])
     if "post_shift" in entry:
         lo, hi = torch.aminmax(entry["post_shift"])
         entry["shifts"] = (int(lo), int(hi))
@@ -328,15 +339,15 @@ def int_layer(entry: dict, x: torch.Tensor) -> torch.Tensor:
         return int_ops.int_pe_conv1(
             x, entry["w_raw"].reshape(-1, spec.cout), entry["b_shifted"],
             entry["post_mult"], entry["post_shift"], pool=spec.pool,
-            shifts=entry["shifts"])
+            shifts=entry["shifts"], planes=entry["planes"])
     if spec.name == "conv11":
         return int_ops.int_pe_head(
             x, entry["w_raw"].reshape(-1, spec.cout), entry["m_raw"],
-            entry["b_shifted"], FM)
+            entry["b_shifted"], FM, planes=entry["planes"])
     return int_ops.w1a8_int_pe(
         x, entry["w_packed"], entry["m_raw"], entry["post_mult"],
         entry["b_pre"], entry["post_shift"], ksize=spec.ksize,
-        pool=spec.pool, shifts=entry["shifts"])
+        pool=spec.pool, shifts=entry["shifts"], planes=entry["planes"])
 
 
 def yolo_forward_int(art: dict, images_u8, device=None) -> torch.Tensor:
