@@ -118,7 +118,27 @@ Phases (any failure raises and the script exits non-zero):
 8. Prints one ``{"kernels": [...]}`` line with all nine sources (each
    kernel's launches summed over the driven paths, and by path: the three
    launcher runs, phase 5's forwards and int call, phase 7's integer
-   forward), and as the last line ``{"ok": true, "device": {...}}``.
+   forward, phase 9's QAT pipeline), and as the last line ``{"ok": true,
+   "device": {...}}``.
+9. Runs before phase 8's line: the paper's offline workflow (QAT, deploy,
+   integer forward, Table 6, decode + NMS). One QAT train step at B = 2,
+   320×320, on the card against the same step on the CPU from the same
+   params and batch, with cuDNN's TF32 flag at its default outside the
+   trainer: loss and gradient norm within rtol 1e-4, each gradient leaf
+   within 1e-3·max|g| (codes that round across a tie on one side only
+   forced to the CPU's, `train.ties`), which a TF32 backward would miss
+   (its error is printed). Then ``launch/train_yolo_qat.train``: 30
+   AdamW steps at B = 16, 320×320; the held-out loss must fall; ms a
+   step (CUDA events), img/s, peak memory, and device busy ms and idle
+   share a step (torch.profiler). On the trained params, each with every
+   launch count zeroed before and read after: ``yolo_forward_int`` on 4
+   test images (11 integer PE launches and no other kernel, bit-exact
+   with the plain version, in ``tests/test_system.py``'s envelope of the
+   float head: corr > 0.99, mean_abs < 0.01, 100% within 1 LSB),
+   ``postprocess`` on that head (one ``detect_postprocess`` launch, bit
+   for bit with ``decode_head`` + ``nms_plain`` on the card) and
+   ``launch/alignment.py``'s Table 6 rows (the launches the kernel
+   path's tuned configs give, and 12 integer PE launches).
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -212,6 +232,8 @@ INT_BEFORE_DEVICE_MS = {
 # int head against the float head: tests/test_yolo.py's
 # test_int_pipeline_alignment (max_abs, mean_abs; 100% within 1 LSB of 0.02)
 INT_ENVELOPE = (0.02, 0.002)
+QAT_PARITY_BATCH = 2           # phase 9's one step on the card and the CPU
+QAT_BATCH, QAT_STEPS = 16, 30  # phase 9's training run at 320×320
 
 
 def cuda_ms(torch, fn, reps: int = 7, n: int = 20) -> float:
@@ -1507,6 +1529,230 @@ def drive_int(torch, np, dev) -> dict:
     return record
 
 
+def _max_rel_err(np, got: dict, want: dict) -> dict:
+    """{layer.name: max|got − want| / max|want|} over the params' leaves,
+    both moved to the host."""
+    out = {}
+    for layer in sorted(want):
+        for k in sorted(want[layer]):
+            g = got[layer][k].detach().double().cpu().numpy()
+            w = want[layer][k].detach().double().cpu().numpy()
+            scale = float(np.abs(w).max())
+            out[f"{layer}.{k}"] = (float(np.abs(g - w).max()) / scale
+                                   if scale > 0 else float(np.abs(g).max()))
+    return out
+
+
+def check_qat_step(torch, np, dev) -> dict:
+    """Phase 9a: one QAT train step on the card against the same step on
+    the CPU, from the same params and batch (the card's, moved over), with
+    cuDNN's TF32 flag left at its default outside the trainer. A code that
+    rounds across a tie on one side only is forced to the CPU's
+    (`train.ties`, within 1e-3 of a tie on both). Loss and gradient norm
+    within rtol 1e-4, each gradient leaf within 1e-3·max|g|: the backward
+    runs in full f32. Also prints how far a backward outside `full_f32`
+    (cuDNN's TF32 default) lands, which that check would catch."""
+    from repro_torch.data import pipeline as data
+    from repro_torch.models import yolo
+    from repro_torch.optim import adamw, tree_leaves, tree_map
+    from repro_torch.train import ties, yolo_qat
+
+    if not torch.backends.cudnn.allow_tf32:
+        raise AssertionError("cuDNN's TF32 flag is off before the QAT step: "
+                             "the check would not show a TF32 backward")
+    ds = data.make_detection_dataset(QAT_PARITY_BATCH, seed=SEED)
+    img, boxes, classes = data.detection_batch(ds, 0, device=dev)
+    with torch.no_grad():
+        params = yolo.calibrate_yolo(yolo.init_yolo_params(SEED, device=dev),
+                                     img)
+    host = lambda t: tree_map(lambda v: v.cpu(), t)  # noqa: E731
+    target = data.yolo_target(boxes, classes)
+    opt = adamw(1e-3)
+    step = yolo_qat.make_yolo_train_step(opt)
+
+    t0 = time.perf_counter()
+    with ties.record() as recorded:
+        loss_c, grads_c = yolo_qat.loss_and_grads(host(params), img.cpu(),
+                                                  target.cpu())
+        _, _, m_c = step(host(params), opt[0](host(params)), img.cpu(),
+                         boxes.cpu(), classes.cpu())
+    cpu_s = time.perf_counter() - t0
+    with ties.forced(recorded) as forced:
+        loss_g, grads_g = yolo_qat.loss_and_grads(params, img, target)
+        _, _, m_g = step(params, opt[0](params), img, boxes, classes)
+    torch.cuda.synchronize()
+    errs = _max_rel_err(np, grads_g, grads_c)
+    rel = lambda a, b: abs(float(a) / float(b) - 1.0)  # noqa: E731
+    if (rel(loss_g, loss_c) > 1e-4 or rel(m_g["loss"], m_c["loss"]) > 1e-4
+            or rel(m_g["grad_norm"], m_c["grad_norm"]) > 1e-4
+            or max(errs.values()) > 1e-3):
+        raise AssertionError(
+            f"QAT step on the card vs the CPU: loss {float(loss_g)} vs "
+            f"{float(loss_c)}, grad_norm {float(m_g['grad_norm'])} vs "
+            f"{float(m_c['grad_norm'])}, gradient errors {errs}")
+    # the same gradients with the backward outside full_f32: TF32 convs
+    leaves = tree_map(lambda v: v.detach().requires_grad_(True), params)
+    with ties.forced(recorded):
+        loss = yolo_qat.yolo_loss(leaves, img, target)
+    flat = tree_leaves(leaves)
+    tf32 = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
+    tf32_errs = _max_rel_err(
+        np, tree_map(lambda v: tf32[id(v)], leaves), grads_c)
+    record = {"loss_card": float(loss_g), "loss_cpu": float(loss_c),
+              "grad_norm_card": float(m_g["grad_norm"]),
+              "grad_norm_cpu": float(m_c["grad_norm"]),
+              "max_grad_rel_err": max(errs.values()),
+              "grad_rel_err": errs, "forced_codes": forced,
+              "tf32_backward_max_grad_rel_err": max(tf32_errs.values()),
+              "batch": QAT_PARITY_BATCH, "cpu_s": cpu_s}
+    worst = max(errs, key=errs.get)
+    print(f"[qat] one step, B={QAT_PARITY_BATCH} 320x320, card vs CPU: loss "
+          f"{float(loss_g):.7g} vs {float(loss_c):.7g}, grad norm "
+          f"{float(m_g['grad_norm']):.7g} vs {float(m_c['grad_norm']):.7g}, "
+          f"worst gradient leaf {worst} {errs[worst]:.3g}·max|g| (limit "
+          f"1e-3), codes forced at ties {forced}; a TF32 backward would be "
+          f"{record['tf32_backward_max_grad_rel_err']:.3g}·max|g| off",
+          flush=True)
+    return record
+
+
+def drive_qat(torch, np, dev) -> dict:
+    """Phase 9: the paper's offline workflow on the card. `check_qat_step`,
+    then `launch/train_yolo_qat.train` (QAT_STEPS AdamW steps at
+    B = QAT_BATCH, 320×320): the held-out loss must fall; ms per step (CUDA
+    events) and images per second, peak memory, and from torch.profiler
+    the device busy ms and idle share of a step. Then, with every launch
+    count zeroed just before each and read just after: `yolo_forward_int`
+    of the trained artifact on BATCH test images (11 integer PE launches
+    and no other kernel, bit-exact with the plain version on the CPU, the
+    int head within test_system's envelope of the float head:
+    corr > 0.99, mean_abs < 0.01, 100% within 1 LSB of 0.02), `postprocess`
+    on that head (1 `detect_postprocess` launch, bit for bit with
+    `decode_head` + `nms_plain` on the card) and `launch/alignment.py`'s
+    Table 6 rows on the trained params (the kernel path under the tuned
+    profile: PER_FORWARD[True] popcount launches). Returns the record,
+    with the launches of those three as the path's."""
+    from repro_torch.core import verify
+    from repro_torch.data import pipeline as data
+    from repro_torch.launch import alignment, train_yolo_qat
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import detection, yolo
+    from repro_torch.optim import adamw, tree_map
+    from repro_torch.train import yolo_qat
+
+    record = {"step_parity": check_qat_step(torch, np, dev)}
+    params, ds, train = train_yolo_qat.train(QAT_STEPS, QAT_BATCH, SEED, dev)
+    if not train["held_out_loss_after"] < train["held_out_loss_before"]:
+        raise AssertionError(f"QAT: the held-out loss did not fall: {train}")
+    # device busy per step: more steps from the trained params, profiled
+    opt = adamw(train_yolo_qat.LR)
+    step = yolo_qat.make_yolo_train_step(opt)
+    batch = data.detection_batch(ds, QAT_STEPS, device=dev)
+    live = {"params": tree_map(lambda v: v.clone(), params)}
+    live["state"] = opt[0](live["params"])
+
+    def one_step():
+        live["params"], live["state"], _ = step(live["params"],
+                                                live["state"], *batch)
+
+    prof = device_profile(torch, one_step, n=5)
+    prof["idle_share_of_step"] = 1.0 - (prof["device_busy_ms"]
+                                        / train["ms_per_step"])
+    record.update({"train": train, "step_profile": prof})
+    print(f"[qat] {QAT_STEPS} steps at B={QAT_BATCH} 320x320: loss "
+          f"{train['loss']}, held-out {train['held_out_loss_before']:.6g} -> "
+          f"{train['held_out_loss_after']:.6g}; {train['ms_per_step']:.4f} "
+          f"ms a step (CUDA events, median; first step "
+          f"{train['first_step_ms']:.1f}), {train['img_per_s']:.1f} img/s, "
+          f"peak memory {train['peak_memory_bytes'] / 2 ** 20:.1f} MiB; "
+          f"device busy {prof['device_busy_ms']:.4f} ms a step "
+          f"({prof['device_launches']:.0f} device records), idle share "
+          f"{prof['idle_share_of_step']:.3f} of the step",
+          flush=True)
+
+    by_path = {}
+    art = yolo.deploy_yolo(params)
+    img, _, _ = data.detection_batch(ds, train_yolo_qat.TEST_STEP, device=dev)
+    img = img[:BATCH]
+    img_u8 = torch.clamp(torch.round(img * 256.0), 0, 255).to(torch.uint8)
+    with torch.no_grad():
+        _zero(launch.KERNELS)
+        raw_i = yolo.yolo_forward_int(art, img_u8, device=dev)
+        torch.cuda.synchronize()
+        counts = launch.launch_counts()
+        n_layers = len(yolo.YOLO_LAYERS)
+        if counts[INT_PE] != n_layers or any(
+                n for name, n in counts.items() if name != INT_PE):
+            raise AssertionError(f"QAT int forward: launches {counts}, want "
+                                 f"{n_layers} of {INT_PE} alone")
+        by_path["int forward"] = counts
+        art_cpu = {"layers": [{k: (v.cpu() if hasattr(v, "cpu") else v)
+                               for k, v in e.items()}
+                              for e in art["layers"]]}
+        _exact(torch, raw_i.cpu(), yolo.yolo_forward_int(
+            art_cpu, img_u8.cpu(), device="cpu"),
+            "trained int forward vs its plain version")
+        out_f = yolo.yolo_forward_float(params, img)
+    rep = verify.compare("final_raw (trained)",
+                         raw_i.cpu().numpy() / 2.0 ** 15,
+                         out_f.double().cpu().numpy(), lsb=0.02)
+    if not (rep.corr > 0.99 and rep.mean_abs < 0.01
+            and rep.within_1lsb == 1.0):
+        raise AssertionError(f"trained int head outside the envelope: "
+                             f"{rep.row()}")
+    record["final_raw"] = {"max_abs": rep.max_abs, "mean_abs": rep.mean_abs,
+                           "corr": rep.corr, "within_1lsb": rep.within_1lsb}
+    print(f"[qat] int forward of the trained artifact, B={BATCH}: "
+          f"{counts[INT_PE]} {INT_PE} launches, bit-exact with the plain "
+          f"version; {rep.row()}", flush=True)
+
+    raw = raw_i.to(torch.float32) / 2.0 ** 15
+    post = {"score_thresh": 0.05, "max_out": 8}
+    _zero(launch.KERNELS)
+    got = detection.postprocess(raw, **post)
+    torch.cuda.synchronize()
+    counts = launch.launch_counts()
+    if counts["detect_postprocess"] != 1 or any(
+            n for name, n in counts.items() if name != "detect_postprocess"):
+        raise AssertionError(f"QAT postprocess: launches {counts}")
+    by_path["postprocess"] = counts
+    dec = detection.decode_head(raw)
+    want = detection.nms_plain(dec["boxes"], dec["scores"], **post)
+    for g, w, field in zip(got, want, ("boxes", "scores", "classes")):
+        _exact(torch, g, w, f"trained head postprocess {field}")
+    kept = [int(n) for n in torch.sum(got[1] > 0, dim=1)]
+    record["kept_boxes"] = kept
+    print(f"[qat] postprocess of the trained int head: 1 detect_postprocess "
+          f"launch, bit for bit with decode_head + nms_plain; kept {kept} "
+          f"of max_out {post['max_out']}", flush=True)
+
+    _zero(launch.KERNELS)
+    with torch.no_grad():
+        rows = alignment.run(device=dev, trained_params=params)
+    torch.cuda.synchronize()
+    counts = launch.launch_counts()
+    # the kernel path's launches, derived from its configs (tuned, B = 1)
+    # as phase 4 derives a dispatch's; the int path's conv1 checkpoint and
+    # forward launch the integer PE 1 + 11 times
+    configs = yolo.kernel_configs(yolo.deploy_yolo_kernel(params),
+                                  yolo.INPUT_SIZE, 1)
+    want = per_dispatch([c.to_dict() for c in configs])
+    del want["detect_postprocess"]
+    want[INT_PE] = n_layers + 1
+    if {k: n for k, n in counts.items() if n} != want:
+        raise AssertionError(f"Table 6 on trained params: launches {counts}, "
+                             f"want {want}")
+    by_path["table 6"] = counts
+    print(f"[qat alignment] launches {want}", flush=True)
+    record["alignment"] = rows
+    for name, value, note in rows:
+        print(f"[qat alignment] {name} {value!r} {note}", flush=True)
+    record["launches"] = {name: sum(c[name] for c in by_path.values())
+                          for name in launch.KERNELS}
+    record["launches_by_step"] = by_path
+    return record
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1566,9 +1812,13 @@ def main() -> int:
     nms_record = check_graphs_and_postprocess(torch, np, dev)
     int_record = drive_int(torch, np, dev)
     by_path["int forward"] = int_record["launches"]
+    t0 = time.perf_counter()
+    qat_record = drive_qat(torch, np, dev)
+    print(f"[qat] phase 9 in {time.perf_counter() - t0:.1f} s", flush=True)
+    by_path["qat pipeline"] = qat_record["launches"]
     # every driven path's launches: the three launcher runs, phase 5's
     # eager forwards (popcount on both pool routes, dot fused) and int
-    # call, and phase 7's integer forward
+    # call, phase 7's integer forward and phase 9's QAT pipeline
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in KERNELS}
 
@@ -1660,7 +1910,8 @@ def main() -> int:
          "kernels": kernels, "launchers": records, "multires": multires,
          "dispatch_profiles": dispatch_profiles, "winners": winners,
          "popcount_forward": pc_record, "nms": nms_record,
-         "int_forward": int_record, "floor_device_ms": floor_ms},
+         "int_forward": int_record, "qat": qat_record,
+         "floor_device_ms": floor_ms},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],
@@ -1672,6 +1923,14 @@ def main() -> int:
                       "dot_profile": pc_record["dot_profile"],
                       "int_ms_per_forward": int_record["ms_per_forward"],
                       "int_profile": int_record["profile"],
+                      "qat": {k: qat_record["train"][k] for k in (
+                          "ms_per_step", "img_per_s", "peak_memory_bytes",
+                          "held_out_loss_before", "held_out_loss_after")},
+                      "qat_step_device_busy_ms":
+                          qat_record["step_profile"]["device_busy_ms"],
+                      "qat_idle_share": qat_record["step_profile"][
+                          "idle_share_of_step"],
+                      "qat_final_raw": qat_record["final_raw"],
                       "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

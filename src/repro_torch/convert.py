@@ -1,16 +1,17 @@
-"""Carry weights across from the JAX package, as numpy arrays.
+"""Carry weights across between the packages, as numpy arrays.
 
-`params_from_numpy` takes float params (``{layer: {w, b, act_step}}``, HWIO)
-and `artifact_from_numpy` takes a packed ``deploy_yolo_kernel`` artifact
-with its ``uint32`` sign words, and folds the epilogue constants the port's
-artifact carries (`yolo.fold_epilogue`). Deploying the converted params with the
-port's `yolo.deploy_yolo_kernel` and converting the reference's artifact
-give the same sign words and steps, so both paths run the same detector.
-`int_artifact_from_numpy` takes an integer ``deploy_yolo`` artifact (numpy
-int64) and adds what the integer PE reads (`yolo.fold_int_pe`), so the
-reference's artifact and the port's ``deploy_yolo`` of the same params
-compute the same integers. Nothing here imports the JAX package: the caller
-hands over numpy arrays.
+`params_from_numpy` takes float params (``{layer: {w, b, act_step}}``,
+HWIO) and `params_to_numpy` gives the port's back (trained ones, say, for
+the reference's ``deploy_yolo``). `artifact_from_numpy` takes a packed
+``deploy_yolo_kernel`` artifact with its ``uint32`` sign words, and folds
+the epilogue constants the port's artifact carries (`yolo.fold_epilogue`).
+Deploying the converted params with the port's `yolo.deploy_yolo_kernel`
+and converting the reference's artifact give the same sign words and steps,
+so both paths run the same detector. `int_artifact_from_numpy` takes an
+integer ``deploy_yolo`` artifact (numpy int64) and adds what the integer PE
+reads (`yolo.fold_int_pe`), so the reference's artifact and the port's
+``deploy_yolo`` of the same params compute the same integers. Nothing here
+imports the JAX package: the caller hands over numpy arrays.
 """
 from __future__ import annotations
 
@@ -36,6 +37,13 @@ def params_from_numpy(params_np: dict, device=None) -> dict:
     dev = resolve_device(device)
     return {layer: {k: _tensor(v, dev) for k, v in p.items()}
             for layer, p in params_np.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """The port's params → {layer: {name: float32 array}} on the host."""
+    return {layer: {k: v.detach().cpu().numpy().astype(np.float32)
+                    for k, v in p.items()}
+            for layer, p in params.items()}
 
 
 def artifact_from_numpy(art_np: dict, device=None) -> dict:

@@ -1,7 +1,7 @@
-"""W1A8 quantization primitives (paper §3.2, Eqs. 3-1, 3-3), forward only.
+"""W1A8 quantization primitives (paper §3.2, Eqs. 3-1, 3-3).
 
-Weights:      w_b = sign(w) ∈ {-1,+1}.
-Activations:  q_a = clip(round(x / s_a), 0, 255).
+Weights:      w_b = sign(w) ∈ {-1,+1}, straight-through estimator in training.
+Activations:  q_a = clip(round(x / s_a), 0, 255)  (LSQ: learned step size).
 
 Counterpart of ``repro/core/quant.py``. The rounding is half away from zero
 (the paper's RTL rounder); ``torch.round`` rounds half to even and must not
@@ -19,6 +19,24 @@ def binarize_weight(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 0, 1.0, -1.0).to(w.dtype)
 
 
+class _BinarizeSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w):
+        ctx.save_for_backward(w)
+        return binarize_weight(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return g * (torch.abs(w) <= 1.0).to(g.dtype)
+
+
+def binarize_ste(w: torch.Tensor) -> torch.Tensor:
+    """sign(w) forward; backward dL/dw = dL/dw_b · 1[|w| <= 1], the
+    boundary included (the BNN/XNOR-Net STE with saturation clipping)."""
+    return _BinarizeSTE.apply(w)
+
+
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
     """trunc(x + (x >= 0 ? 0.5 : -0.5)), with the add rounded in x's dtype."""
     return torch.trunc(x + torch.where(x >= 0, 0.5, -0.5).to(x.dtype))
@@ -27,6 +45,64 @@ def round_half_away(x: torch.Tensor) -> torch.Tensor:
 def quantize_act(x: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
     """q = clip(round(x / s), 0, 255), as a float tensor of x's dtype."""
     return torch.clamp(round_half_away(x / step), 0, ACT_QMAX)
+
+
+def dequantize_act(q: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+    return q * step
+
+
+def _reduce_to_shape(g: torch.Tensor, shape) -> torch.Tensor:
+    """Sum ``g`` down to the broadcast shape ``shape``: the leading axes and
+    the axes where ``shape`` has 1 (a (C,) step against (B, H, W, C) sums
+    over (0, 1, 2))."""
+    shape = tuple(shape)
+    if tuple(g.shape) == shape:
+        return g
+    ndiff = g.dim() - len(shape)
+    axes = tuple(range(ndiff)) + tuple(
+        i + ndiff for i, s in enumerate(shape)
+        if s == 1 and g.shape[i + ndiff] != 1)
+    return torch.sum(g, dim=axes).reshape(shape)
+
+
+class _LSQFakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, step, grad_scale):
+        ctx.save_for_backward(x, step)
+        ctx.grad_scale = grad_scale
+        return dequantize_act(quantize_act(x, step), step)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, step = ctx.saved_tensors
+        xs = x / step                      # a divide, as the forward does
+        q = torch.clamp(round_half_away(xs), 0, ACT_QMAX)
+        in_range = (xs >= 0) & (xs <= ACT_QMAX)
+        dx = g * in_range.to(g.dtype)
+        # in range d(q̂)/ds = q - x/s; at the rails q̂ = rail·s, so q
+        dstep_elem = torch.where(in_range, q - xs, q)
+        dstep = _reduce_to_shape(g * dstep_elem, step.shape) * ctx.grad_scale
+        return dx, dstep.to(step.dtype), None
+
+
+def lsq_fake_quant(x: torch.Tensor, step: torch.Tensor,
+                   grad_scale) -> torch.Tensor:
+    """LSQ fake quantization (Esser et al., ICLR 2020): forward
+    quantize-dequantize; backward dx = g inside [0, 255]·s and 0 outside,
+    dstep = Σ g·(q − x/s) inside and g·q at the rails, times
+    ``grad_scale`` (a float or a tensor; it gets no gradient)."""
+    return _LSQFakeQuant.apply(x, step, grad_scale)
+
+
+def lsq_grad_scale(numel: int) -> float:
+    """LSQ gradient scale 1/sqrt(numel · QMAX), a Python float."""
+    return float(numel * ACT_QMAX) ** -0.5
+
+
+def init_step_from_batch(x: torch.Tensor) -> torch.Tensor:
+    """LSQ init: s0 = 2·mean(|x|)/sqrt(QMAX)."""
+    qmax = torch.tensor(float(ACT_QMAX), dtype=x.dtype, device=x.device)
+    return 2.0 * torch.mean(torch.abs(x)) / torch.sqrt(qmax)
 
 
 def requant_epilogue(y: torch.Tensor, out_step: float,

@@ -7,13 +7,15 @@ oracle ("ONNX Runtime" role), at the paper's checkpoints:
 
 Inits the detector from a numpy seed, calibrates it on one random uint8
 image from the same seed, deploys the integer artifact (`yolo.deploy_yolo`)
-and the packed one, and prints one row per checkpoint: conv1's raw
-accumulator against the float conv (correlation, at 2^-19), conv1's pooled
-codes within 1 LSB, the int raw head against the float head (correlation,
-max and mean abs error, at 0.02), and the kernel path's head against the
-float head. On the card conv1's codes and both heads come from the CUDA
-kernels; conv1's raw accumulator is the plain version's, since no kernel
-writes it out. Then one JSON line of the rows.
+and the packed one, and prints one row per checkpoint. `run` also takes
+trained params (used as they are, not calibrated) and a uint8 image, so
+both packages can be compared on one converted artifact and one image. The
+rows: conv1's raw accumulator against the float conv (correlation, at
+2^-19), conv1's pooled codes within 1 LSB, the int raw head against the
+float head (correlation, max and mean abs error, at 0.02), and the kernel
+path's head against the float head. On the card conv1's codes and both
+heads come from the CUDA kernels; conv1's raw accumulator is the plain
+version's, since no kernel writes it out. Then one JSON line of the rows.
 """
 from __future__ import annotations
 
@@ -36,16 +38,30 @@ def _f64(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float64)
 
 
-def run(seed: int = 42, size: int = yolo.INPUT_SIZE, device=None) -> list:
-    """Returns [(row name, value, note)] at the four checkpoints."""
+def run(seed: int = 42, size: int = yolo.INPUT_SIZE, device=None, *,
+        trained_params: dict = None, image_u8=None) -> list:
+    """Returns [(row name, value, note)] at the four checkpoints.
+
+    ``trained_params`` (moved to ``device``) are used as they are; without
+    them the detector is inited from ``seed`` and calibrated on the image.
+    ``image_u8`` is a (1, S, S, 3) uint8 image (an array or a tensor; S
+    then overrides ``size``); without it one is drawn from ``seed``."""
     dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
-    img_u8 = torch.from_numpy(rng.integers(0, 256, (1, size, size, 3),
-                                           dtype=np.uint8)).to(dev)
+    if image_u8 is None:
+        rng = np.random.default_rng(seed)
+        image_u8 = rng.integers(0, 256, (1, size, size, 3), dtype=np.uint8)
+    img_u8 = torch.as_tensor(image_u8).to(dev)
+    if img_u8.dtype != torch.uint8 or img_u8.dim() != 4:
+        raise TypeError(f"image_u8 must be (1, S, S, 3) uint8, got "
+                        f"{img_u8.dtype} {tuple(img_u8.shape)}")
     img = img_u8.to(torch.float32) / torch.tensor(256.0, device=dev)
     with torch.no_grad():
-        params = yolo.calibrate_yolo(yolo.init_yolo_params(seed, device=dev),
-                                     img)
+        if trained_params is None:
+            params = yolo.calibrate_yolo(
+                yolo.init_yolo_params(seed, device=dev), img)
+        else:
+            params = {n: {k: v.detach().to(dev) for k, v in p.items()}
+                      for n, p in trained_params.items()}
         art = yolo.deploy_yolo(params)
 
         p1, e1 = params["conv1"], art["layers"][0]

@@ -24,7 +24,9 @@ import torch.nn.functional as F
 from repro_torch.core import fixedpoint as fxp
 from repro_torch.core.packing import pack_signs
 from repro_torch.core.qtensor import QTensor
-from repro_torch.core.quant import ACT_QMAX, binarize_weight, quantize_act
+from repro_torch.core.quant import (ACT_QMAX, binarize_ste, binarize_weight,
+                                    lsq_fake_quant, lsq_grad_scale,
+                                    quantize_act)
 from repro_torch.device import full_f32, resolve_device
 from repro_torch.kernels import config as _cfg
 from repro_torch.kernels.config import KernelConfig
@@ -67,6 +69,7 @@ YOLO_LAYERS = (
 
 INPUT_SIZE = 320
 NUM_ANCHORS, NUM_CLASSES = 3, 20          # 75 = 3 * (5 + 20), VOC
+GRID = 10                                 # the head's side at INPUT_SIZE
 
 
 def init_yolo_params(seed: int, *, device=None) -> dict:
@@ -130,7 +133,7 @@ def count_gflops() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Float forward (eval oracle)
+# Float forward (QAT train / eval oracle)
 # ---------------------------------------------------------------------------
 
 def _conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -163,17 +166,40 @@ def _w1a8_float(p: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.relu(_conv2d(xq, binarize_weight(p["w"])) * alpha + p["b"])
 
 
-def yolo_forward_float(params: dict, images: torch.Tensor) -> torch.Tensor:
-    """images: (B, S, S, 3) in [0, 1]. Returns (B, S/32, S/32, 75) raw head."""
+def _lsq(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The layer's input through LSQ fake quantization, its gradient scale
+    from the elements per channel."""
+    return lsq_fake_quant(x, p["act_step"],
+                          lsq_grad_scale(x.numel() // x.shape[-1]))
+
+
+def _w1a8_train(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The W1A8 layer under QAT: LSQ on the input, the sign STE on the
+    weights, α = mean|w| held constant (no gradient through it)."""
+    alpha = torch.mean(torch.abs(p["w"].detach()), dim=(0, 1, 2))
+    return torch.relu(_conv2d(_lsq(p, x), binarize_ste(p["w"])) * alpha
+                      + p["b"])
+
+
+def yolo_forward_float(params: dict, images: torch.Tensor, *,
+                       train: bool = False) -> torch.Tensor:
+    """images: (B, S, S, 3) in [0, 1]. Returns (B, S/32, S/32, 75) raw head.
+
+    ``train=True`` is the QAT forward: conv1 and conv11 take the raw float
+    w and b (no fixed-point roundtrip), conv11's input and every W1A8
+    layer's go through `lsq_fake_quant`, and W1A8 weights through
+    `binarize_ste`."""
     x = images
     for spec in YOLO_LAYERS:
         p = params[spec.name]
         if spec.name == "conv1":
-            x = _conv1(p, x)
+            x = (torch.relu(_conv2d(x, p["w"]) + p["b"]) if train
+                 else _conv1(p, x))
         elif spec.name == "conv11":
-            x = _conv11(p, quantize_act(x, p["act_step"]) * p["act_step"])
+            x = (_conv2d(_lsq(p, x), p["w"]) + p["b"] if train else
+                 _conv11(p, quantize_act(x, p["act_step"]) * p["act_step"]))
         else:
-            x = _w1a8_float(p, x)
+            x = _w1a8_train(p, x) if train else _w1a8_float(p, x)
         if spec.pool:
             x = _maxpool2(x)
     return x
