@@ -118,8 +118,9 @@ Phases (any failure raises and the script exits non-zero):
 8. Prints one ``{"kernels": [...]}`` line with all nine sources (each
    kernel's launches summed over the driven paths, and by path: the three
    launcher runs, phase 5's forwards and int call, phase 7's integer
-   forward, phase 9's QAT pipeline), and as the last line ``{"ok": true,
-   "device": {...}}``.
+   forward, phase 9's QAT pipeline, phase 10's LM serve and int call; the
+   two matmuls also their numbers at the LM shapes, under ``lm``), and as
+   the last line ``{"ok": true, "device": {...}}``.
 9. Runs before phase 8's line: the paper's offline workflow (QAT, deploy,
    integer forward, Table 6, decode + NMS). One QAT train step at B = 2,
    320×320, on the card against the same step on the CPU from the same
@@ -139,6 +140,30 @@ Phases (any failure raises and the script exits non-zero):
    for bit with ``decode_head`` + ``nms_plain`` on the card) and
    ``launch/alignment.py``'s Table 6 rows (the launches the kernel
    path's tuned configs give, and 12 integer PE launches).
+
+10. Runs before phase 8's line: the LM stack's dense family. The popcount
+   matmul, called as a packed projection calls it (one step broadcast to
+   (K,), whose fold is the identity), and the int matmul through
+   ``core/w1a8.py::w1a8_linear_infer_int``, each bit for bit against its
+   plain version on the card at chatglm3-6b's shapes: decode (M = 4) and
+   prefill (M = 4 × 3) at every (K, N) of a layer's projections, and
+   (37, 13696, 2061) off the grid, with the row checks there; timed as in
+   phase 3 beside f32 ``torch.matmul`` on codes·step and the unpacked ±1
+   (the reference's arithmetic), the bound from K·N/8 + M·K + 4·M·N bytes.
+   Then chatglm3-6b at full width from a seeded init on the card,
+   deployed and served through the launcher's ``run_lm`` (packed, 8
+   requests, 16 new tokens, slots 4, max_len 128) with every launch count
+   zeroed before and read after: done-mask tokens equal to host-checked
+   ones, and per decode step exactly one popcount matmul launch a packed
+   projection (7 × 28 = 196, derived from the config) and no other
+   kernel. The packed prefill logits against the unpacked ``w1a8_eval``
+   prefill on the card, tie codes forced (`train.ties`): within
+   LM_TOL·max|logit|, greedy tokens equal wherever the top-2 gap exceeds
+   that. One ``w1a8_linear_infer_int`` call, counted the same way (one int
+   matmul launch), its sums equal to an int64 product on the CPU. Prints
+   tok/s, tick p50/p95, the decode step's CUDA-event ms, device busy ms,
+   idle share (torch.profiler) and bound, and peak memory, with the card's
+   name and power limit.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -234,6 +259,15 @@ INT_BEFORE_DEVICE_MS = {
 INT_ENVELOPE = (0.02, 0.002)
 QAT_PARITY_BATCH = 2           # phase 9's one step on the card and the CPU
 QAT_BATCH, QAT_STEPS = 16, 30  # phase 9's training run at 320×320
+LM_ARCH = "chatglm3-6b"        # phase 10's LM, at full width
+LM_SLOTS, LM_PROMPT = 4, 3     # the launcher's slots and prompt length
+LM_REQUESTS, LM_MAX_NEW, LM_MAX_LEN = 8, 16, 128
+# packed against unpacked prefill logits at 28 layers, K up to 13696, tie
+# codes forced: the unpacked path sums code·step·sign in f32 (about 1e-7
+# relative a rounding, |Σ| some sqrt(K) ≈ 117 times below Σ|·| at random
+# signs) where the packed one sums exactly, at each of 252 projections;
+# the CPU tests hold 1e-4 at 2 layers and K ≤ 128
+LM_TOL = 1e-3
 
 
 def cuda_ms(torch, fn, reps: int = 7, n: int = 20) -> float:
@@ -1753,6 +1787,366 @@ def drive_qat(torch, np, dev) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the LM stack's dense family (chatglm3-6b at full width, packed)
+# ---------------------------------------------------------------------------
+
+def lm_projections(cfg) -> dict:
+    """(K, N) of each packed projection of one layer, in call order."""
+    d, hd = cfg.d_model, cfg.hd
+    qn, kvn = cfg.heads_eff * hd, cfg.num_kv_heads * hd
+    out = {"wq": (d, qn), "wk": (d, kvn), "wv": (d, kvn), "wo": (qn, d),
+           "up": (d, cfg.d_ff)}
+    if cfg.gated_mlp:
+        out["gate"] = (d, cfg.d_ff)
+    out["down"] = (cfg.d_ff, d)
+    return out
+
+
+def lm_shapes(cfg) -> list:
+    """(what, M, K, N) the LM path gives the matmuls: decode at M = slots
+    and prefill at M = slots × prompt for each distinct (K, N), and one
+    shape off the grid (ragged M and N, the widest K)."""
+    kn = sorted(set(lm_projections(cfg).values()))
+    rows = [("decode", LM_SLOTS, k, n) for k, n in kn]
+    rows += [("prefill", LM_SLOTS * LM_PROMPT, k, n) for k, n in kn]
+    k_max = max(k for k, _ in kn)
+    rows.append(("off grid", 37, k_max, 2061))
+    return rows
+
+
+def check_lm_kernels(torch, np, dev, cfg) -> tuple:
+    """Phase 10a: the popcount matmul, called as `layers.packed_linear`
+    calls it (one uniform step broadcast to (K,)), and the int matmul,
+    through `core.w1a8.w1a8_linear_infer_int`, each bit for bit against
+    its plain version on the card at the LM path's shapes; rows of a
+    prefix of M, of a2[1:] and of an unaligned copy at the shape off the
+    grid. Times each like phases 2–3, beside ``torch.matmul`` in f32 on
+    codes·step and the unpacked ±1 (the reference's arithmetic). Returns
+    the records and the largest difference per kernel (0)."""
+    from repro_torch.core import packing, w1a8
+    from repro_torch.device import full_f32
+    from repro_torch.kernels.w1a8_matmul import ops as mm_ops
+    from repro_torch.kernels.w1a8_matmul import ref as mm_ref
+    from repro_torch.models import layers
+
+    MM, INT = "w1a8_matmul_popcount", "w1a8_matmul_int"
+    rng = np.random.default_rng(SEED + 10)
+    records = []
+    for what, m, k, n in lm_shapes(cfg):
+        a2 = torch.from_numpy(rng.integers(0, 256, (m, k), dtype=np.uint8)
+                              ).to(dev)
+        w = torch.from_numpy(rng.standard_normal((k, n)).astype(
+            np.float32)).to(dev)
+        wp = packing.pack_signs(w, axis=0)
+        step = torch.full((), 0.05, device=dev)
+        mul = torch.broadcast_to(step, (k,))
+        alpha = torch.mean(torch.abs(w), dim=0)
+        bias = torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(dev)
+
+        def run():
+            return mm_ops.w1a8_matmul(a2, wp, mul, alpha, bias, k=k,
+                                      config=layers.POPCOUNT)
+        codes, div = mm_ops.fold_operands(a2, mul, alpha)
+        y = run()
+        _exact(torch, codes, a2, f"LM {what} {(m, k, n)}: uniform-step fold")
+        _exact(torch, y, mm_ref.w1a8_matmul_popcount_ref(a2, wp, k, div,
+                                                         bias),
+               f"LM {what} {(m, k, n)} popcount matmul")
+        dep = {"w_packed": wp, "mul_prev": mul.contiguous(),
+               "div_post": alpha, "bias": bias, "k": k}
+        colsum = packing.unpack_signs(wp, k, dtype=torch.int32).sum(
+            dim=0, dtype=torch.int32)
+        acc = w1a8.int_sums(dep, a2)
+        want = mm_ref.w1a8_matmul_int_ref(a2, wp, colsum)
+        _exact(torch, acc, want, f"LM {what} {(m, k, n)} int sums")
+        _exact(torch, w1a8.w1a8_linear_infer_int(dep, a2),
+               want.to(torch.float32) * mul[0] * alpha + bias,
+               f"LM {what} {(m, k, n)} w1a8_linear_infer_int")
+        if what == "off grid":
+            row_checks(torch, lambda x: mm_ops.w1a8_matmul(
+                x, wp, mul, alpha, bias, k=k, config=layers.POPCOUNT),
+                a2, y, f"LM {what} popcount")
+            row_checks(torch, lambda x: mm_ops.w1a8_matmul_int(
+                x, wp, colsum), a2, acc, f"LM {what} int")
+        xq = a2.to(torch.float32) * step
+        signs = packing.unpack_signs(wp, k, dtype=torch.float32)
+
+        def library():
+            with full_f32():
+                return torch.matmul(xq, signs)
+        nbytes = k * n // 8 + m * k + 4 * m * n
+        ops = 2 * m * k * n
+        for kernel, fn, alone, plain in (
+                (MM, run, lambda: mm_ops.w1a8_matmul(
+                    a2, wp, None, div, bias, k=k, config=layers.POPCOUNT),
+                 lambda: mm_ref.w1a8_matmul_popcount_ref(
+                     a2, wp, k, div, bias)),
+                (INT, lambda: mm_ops.w1a8_matmul_int(a2, wp, colsum),
+                 lambda: mm_ops.w1a8_matmul_int(a2, wp, colsum),
+                 lambda: mm_ref.w1a8_matmul_int_ref(a2, wp, colsum))):
+            rec = {"kernel": kernel, "what": what, "shape": [m, k, n],
+                   "bytes": nbytes, "ops": ops,
+                   "ms": cuda_ms(torch, fn),
+                   # the wrapper's: the popcount matmul's holds its fold
+                   # of the codes onto one grid (PyTorch kernels) beside
+                   # the kernel; the int matmul's launches the kernel alone
+                   "device_ms": graph_ms(torch, fn),
+                   "kernel_device_ms": graph_ms(torch, alone),
+                   "plain_ms": cuda_ms(torch, plain, reps=2, n=2),
+                   "library_ms": cuda_ms(torch, library),
+                   "library_device_ms": graph_ms(torch, library)}
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops,
+                                                     INT8_OPS_PER_S)
+            _exact(torch, alone(), fn(), f"LM {what} {kernel} alone")
+            records.append(rec)
+            alone_ms = f", of it the kernel {rec['kernel_device_ms']:.5f}"
+            print(f"[lm kernels] {kernel} {what} (M, K, N) = {(m, k, n)}: "
+                  f"bit-exact with its plain version; {rec['ms']:.4f} ms, "
+                  f"device {rec['device_ms']:.5f}{alone_ms} ms (plain "
+                  f"{rec['plain_ms']:.4f}, f32 torch.matmul "
+                  f"{rec['library_ms']:.4f}, device "
+                  f"{rec['library_device_ms']:.5f}, bound "
+                  f"{rec['bound_ms']:.6f} by {rec['bound_by']})",
+                  flush=True)
+    return records, {MM: 0.0, INT: 0.0}
+
+
+def lm_prefill_parity(torch, params, packed, cfg, prompts) -> dict:
+    """Phase 10c: prefill logits of the packed path against the unpacked
+    ``w1a8_eval`` path on the same card, the packed run's codes that round
+    across a tie forced to the unpacked run's (`train.ties`, each within
+    1e-3 of a tie on both sides): within LM_TOL·max|logit|, and greedy
+    tokens equal wherever the unpacked run's top-2 gap exceeds that. The
+    unforced difference is printed beside it."""
+    from repro_torch.models import layers
+    from repro_torch.serve.engine import prefill
+    from repro_torch.train import ties
+
+    with torch.no_grad():
+        with ties.record("quantize_act", module=layers) as recorded:
+            want, _ = prefill(cfg, params, prompts, max_len=LM_MAX_LEN,
+                              mode="w1a8_eval")
+        with ties.forced(recorded, "quantize_act", module=layers) as counts:
+            got, _ = prefill(cfg, packed, prompts, max_len=LM_MAX_LEN,
+                             mode="w1a8_eval")
+        free, _ = prefill(cfg, packed, prompts, max_len=LM_MAX_LEN,
+                          mode="w1a8_eval")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    free_err = float((free - want).abs().max())
+    if not err <= LM_TOL * scale:
+        raise AssertionError(f"packed prefill logits {err} off the unpacked "
+                             f"path's, > {LM_TOL} * {scale}")
+    top2 = torch.topk(want, 2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > LM_TOL * scale
+    same = torch.argmax(got, -1) == torch.argmax(want, -1)
+    if not bool(same[decided].all()):
+        raise AssertionError("packed prefill: a greedy token differs where "
+                             "the top-2 gap exceeds the tolerance")
+    return {"max_abs_err": err, "max_abs_logit": scale,
+            "rel_err": err / scale, "unforced_max_abs_err": free_err,
+            "codes_forced": sum(counts), "quantizer_calls": len(counts),
+            "decided_rows": int(decided.sum()), "rows": int(len(decided))}
+
+
+def step_profile(torch, fn, popcount_per_call: int, n: int = 5,
+                 tries: int = 5, top: int = 12) -> dict:
+    """torch.profiler over ``n`` calls of ``fn`` (a decode step) after a
+    warm one: device busy ms per call (the union of the traced device
+    intervals), profiled wall ms and idle share, device records per call
+    and device ms per call by kernel name (the ``top`` largest). A trace
+    must hold ``popcount_per_call`` popcount matmul records a call, or it
+    has lost device records and is taken again, up to ``tries`` times."""
+    from repro_torch.launch.profile import union_us
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / n
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum("matmul_popcount" in e.name for e in events) == \
+                popcount_per_call * n:
+            break
+    else:
+        raise RuntimeError(f"{tries} traces of the decode step lost device "
+                           f"records")
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + \
+            e.time_range.elapsed_us() / 1e3 / n
+    order = sorted(by_name.items(), key=lambda kv: -kv[1])
+    busy = union_us((e.time_range.start, e.time_range.end)
+                    for e in events) / 1e3 / n
+    return {"device_busy_ms": busy, "wall_ms": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms,
+            "device_records": len(events) / n,
+            "device_ms_by_kernel": dict(order[:top]),
+            "device_ms_rest": sum(v for _, v in order[top:])}
+
+
+def graph_ms(torch, fn, n: int = 20, reps: int = 5) -> float:
+    """Device ms per call of ``fn``: CUDA events around replays of one
+    CUDA graph that holds ``n`` calls, so no host work sits between the
+    launches (median of ``reps`` replays). Phase 10 times its calls so,
+    not with torch.profiler: on the card, after phase 9, five traces in a
+    row of one short call came back short of device records."""
+    from repro_torch.kernels import _build
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with _build.capturing(), torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(torch, graph.replay, reps=reps, n=1) / n
+
+
+def drive_lm(torch, np, dev, smi: str) -> dict:
+    """Phase 10: the LM stack's dense family on the card. The popcount and
+    int matmuls at the LM path's shapes (`check_lm_kernels`); chatglm3-6b
+    at full width from a seeded init, deployed (`deploy_lm`) and served
+    through the launcher's `run_lm` (packed, 8 requests, 16 new tokens,
+    slots 4, max_len 128) with every launch count zeroed just before and
+    read just after: done-mask tokens equal to host-checked ones (run_lm
+    raises otherwise), and per decode step exactly one popcount matmul
+    launch a packed projection (7 × 28 = 196, derived from the config) and
+    no other kernel; the packed prefill against the unpacked one
+    (`lm_prefill_parity`); one `w1a8_linear_infer_int` call, counted the
+    same way; the decode step's CUDA-event ms, device busy ms and idle
+    share (torch.profiler), and peak memory."""
+    import argparse
+
+    from repro_torch import configs
+    from repro_torch.core import packing, w1a8
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.transformer import init_lm_params, tree_items
+    from repro_torch.serve import deploy_lm, prefill
+    from repro_torch.serve.engine import decode_step
+
+    cfg = configs.get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    kernel_rows, kernel_errs = check_lm_kernels(torch, np, dev, cfg)
+    print(f"[lm kernels] {len(kernel_rows)} timed calls in "
+          f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    per_step = len(lm_projections(cfg)) * cfg.num_layers
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = init_lm_params(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        args = argparse.Namespace(
+            workload="lm", arch=LM_ARCH, reduced=False, packed=True,
+            requests=LM_REQUESTS, max_new=LM_MAX_NEW, slots=LM_SLOTS,
+            max_len=LM_MAX_LEN, temperature=0.0, stop_token=[], seed=SEED,
+            device=str(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero(launch.KERNELS)
+        record = launch.run_lm(args, params=params)
+        torch.cuda.synchronize()
+        counts = launch.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+    want = {"w1a8_matmul_popcount": float(per_step)}
+    if record["kernel_launches_per_decode_step"] != want:
+        raise AssertionError(f"LM decode step: launches "
+                             f"{record['kernel_launches_per_decode_step']}, "
+                             f"want {want}")
+    if set(n for name, n in counts.items()
+           if name != "w1a8_matmul_popcount") != {0}:
+        raise AssertionError(f"LM serve launched other kernels: {counts}")
+    print(f"[lm serve] {LM_ARCH} full width, packed, {LM_REQUESTS} requests "
+          f"x {LM_MAX_NEW} tokens, slots {LM_SLOTS}: done-mask tokens equal "
+          f"host-checked; {per_step} w1a8_matmul_popcount launches a decode "
+          f"step ({record['decode_steps']} steps), "
+          f"{counts['w1a8_matmul_popcount']} in the run; "
+          f"{record['tok_per_s']:.2f} tok/s, tick p50 "
+          f"{record['tick_p50_ms']:.3f} ms, p95 {record['tick_p95_ms']:.3f} "
+          f"ms, peak memory {peak / 2 ** 30:.2f} GiB; init "
+          f"{init_s:.1f} s ({smi})", flush=True)
+    with torch.no_grad():
+        packed = deploy_lm(params)
+        sign_bytes = sum(int(x.numel()) * 4 for name, x in tree_items(packed)
+                         if "w_packed" in name)
+        emb_bytes = packed["embed"]["emb"].numel() * 4
+        prompts = torch.tensor(
+            [[2 + i, 11, 7 + i % 3] for i in range(LM_SLOTS)],
+            dtype=torch.int32, device=dev)
+        parity = lm_prefill_parity(torch, params, packed, cfg, prompts)
+        print(f"[lm parity] packed prefill logits vs unpacked w1a8_eval on "
+              f"the card: max_abs {parity['max_abs_err']:.6g} of max|logit| "
+              f"{parity['max_abs_logit']:.6g} (rel {parity['rel_err']:.3g}, "
+              f"tol {LM_TOL}; {parity['codes_forced']} tie codes forced "
+              f"over {parity['quantizer_calls']} quantizer calls; unforced "
+              f"max_abs {parity['unforced_max_abs_err']:.6g}); greedy "
+              f"tokens equal on {parity['decided_rows']} of "
+              f"{parity['rows']} rows decided beyond the tolerance",
+              flush=True)
+        # one w1a8_linear_infer_int call at the wo projection, counted
+        k, n = lm_projections(cfg)["wo"]
+        o = packed["slots"][0]["attn"]["wo"]
+        dep = {"w_packed": o["w_packed"][0], "mul_prev": o["act_step"][0],
+               "div_post": o["alpha"][0],
+               "bias": torch.zeros(n, device=dev), "k": k}
+        a = torch.randint(0, 256, (LM_SLOTS, k), generator=gen,
+                          device=dev).to(torch.uint8)
+        _zero(launch.KERNELS)
+        y = w1a8.w1a8_linear_infer_int(dep, a)
+        torch.cuda.synchronize()
+        int_counts = launch.launch_counts()
+        if {k_: c for k_, c in int_counts.items() if c} != \
+                {"w1a8_matmul_int": 1}:
+            raise AssertionError(f"w1a8_linear_infer_int: {int_counts}")
+        signs = packing.unpack_signs(dep["w_packed"].cpu(), k,
+                                     dtype=torch.int64)
+        _exact(torch, w1a8.int_sums(dep, a).cpu(),
+               (a.cpu().to(torch.int64) @ signs).to(torch.int32),
+               "w1a8_linear_infer_int sums vs int64 on the CPU")
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError("w1a8_linear_infer_int: non-finite output")
+        # the decode step alone, on the served shape
+        logits, cache = prefill(cfg, packed, prompts, max_len=LM_MAX_LEN,
+                                mode="w1a8_eval")
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+
+        def step():
+            return decode_step(cfg, packed, cache, tok, mode="w1a8_eval")
+        step_ms = cuda_ms(torch, step, reps=3, n=5)
+        prof = step_profile(torch, step, per_step)
+    step_bound = (sign_bytes + emb_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"[lm decode step] {LM_ARCH} at M = {LM_SLOTS}: {step_ms:.3f} ms "
+          f"(CUDA events), device busy {prof['device_busy_ms']:.4f} ms, "
+          f"profiled wall {prof['wall_ms']:.3f} ms, idle share "
+          f"{prof['idle_share']:.4f}, {prof['device_records']:.0f} device "
+          f"records a step; bound {step_bound:.4f} ms ({sign_bytes / 1e9:.3f}"
+          f" GB of sign words + {emb_bytes / 1e9:.3f} GB of f32 "
+          f"unembedding at 3.35 TB/s) ({smi})", flush=True)
+    for name, ms in prof["device_ms_by_kernel"].items():
+        print(f"[lm decode step] device ms a step {ms:.4f}: {name[:90]}",
+              flush=True)
+    print(f"[lm decode step] device ms a step {prof['device_ms_rest']:.4f}:"
+          f" the rest", flush=True)
+    del params
+    return {"card": smi, "arch": LM_ARCH, "kernels": kernel_rows,
+            "kernel_errs": kernel_errs, "serve": record,
+            "launches": counts, "int_call_launches": int_counts,
+            "per_decode_step": per_step, "peak_memory_bytes": peak,
+            "init_s": init_s, "parity": parity, "step_ms": step_ms,
+            "step_profile": prof, "step_bound_ms": step_bound,
+            "sign_bytes": sign_bytes, "emb_bytes": emb_bytes}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1816,9 +2210,15 @@ def main() -> int:
     qat_record = drive_qat(torch, np, dev)
     print(f"[qat] phase 9 in {time.perf_counter() - t0:.1f} s", flush=True)
     by_path["qat pipeline"] = qat_record["launches"]
+    t0 = time.perf_counter()
+    lm_record = drive_lm(torch, np, dev, smi)
+    print(f"[lm] phase 10 in {time.perf_counter() - t0:.1f} s", flush=True)
+    by_path["lm serve"] = lm_record["launches"]
+    by_path["lm int call"] = lm_record["int_call_launches"]
     # every driven path's launches: the three launcher runs, phase 5's
     # eager forwards (popcount on both pool routes, dot fused) and int
-    # call, phase 7's integer forward and phase 9's QAT pipeline
+    # call, phase 7's integer forward, phase 9's QAT pipeline and phase
+    # 10's LM serve and int call
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in KERNELS}
 
@@ -1874,6 +2274,20 @@ def main() -> int:
                 raise AssertionError(f"{name}: no launch on its path")
             kernels.append(entry)
             continue
+        lm_rows = [r for r in lm_record["kernels"] if r["kernel"] == name]
+        if lm_rows:
+            # at the LM path's shapes, beside the detector's below
+            entry["lm"] = {
+                "shapes": [[r["what"], *r["shape"]] for r in lm_rows],
+                "launches_per_decode_step":
+                    lm_record["serve"]["kernel_launches_per_decode_step"]
+                    .get(name, 0),
+                "max_abs_err": lm_record["kernel_errs"][name],
+                **{k: [r[k] for r in lm_rows] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms")}}
+            entry["lm"]["kernel_device_ms"] = [
+                r["kernel_device_ms"] for r in lm_rows]
         if popcount:
             # every call is held bit for bit: the worst difference found
             entry["max_abs_err"] = pc_errs[name]
@@ -1910,7 +2324,7 @@ def main() -> int:
          "kernels": kernels, "launchers": records, "multires": multires,
          "dispatch_profiles": dispatch_profiles, "winners": winners,
          "popcount_forward": pc_record, "nms": nms_record,
-         "int_forward": int_record, "qat": qat_record,
+         "int_forward": int_record, "qat": qat_record, "lm": lm_record,
          "floor_device_ms": floor_ms},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
@@ -1931,6 +2345,20 @@ def main() -> int:
                       "qat_idle_share": qat_record["step_profile"][
                           "idle_share_of_step"],
                       "qat_final_raw": qat_record["final_raw"],
+                      "lm": {"arch": LM_ARCH, "packed": True,
+                             **{k: lm_record["serve"][k] for k in (
+                                 "tok_per_s", "tick_p50_ms", "tick_p95_ms",
+                                 "kernel_launches_per_decode_step")},
+                             "decode_step_ms": lm_record["step_ms"],
+                             "decode_step_device_busy_ms":
+                                 lm_record["step_profile"]["device_busy_ms"],
+                             "decode_step_idle_share":
+                                 lm_record["step_profile"]["idle_share"],
+                             "decode_step_bound_ms":
+                                 lm_record["step_bound_ms"],
+                             "peak_memory_bytes":
+                                 lm_record["peak_memory_bytes"],
+                             "prefill_parity": lm_record["parity"]},
                       "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,11 @@ and converting the reference's artifact give the same sign words and steps,
 so both paths run the same detector. `int_artifact_from_numpy` takes an
 integer ``deploy_yolo`` artifact (numpy int64) and adds what the integer PE
 reads (`yolo.fold_int_pe`), so the reference's artifact and the port's
-``deploy_yolo`` of the same params compute the same integers. Nothing here
-imports the JAX package: the caller hands over numpy arrays.
+``deploy_yolo`` of the same params compute the same integers.
+`lm_params_from_numpy` / `lm_params_to_numpy` carry an LM param tree,
+float or packed by ``deploy_lm``, with its nesting (dicts, tuples of
+slots, leading stage axes) as it is. Nothing here imports the JAX package:
+the caller hands over numpy arrays.
 """
 from __future__ import annotations
 
@@ -75,3 +78,34 @@ def int_artifact_from_numpy(art_np: dict, device=None) -> dict:
                     for k, v in entry.items() if k != "spec"})
         layers.append(fold_int_pe(out))
     return {"layers": layers}
+
+
+def lm_params_from_numpy(tree, device=None):
+    """An LM param tree of numpy arrays (the reference's ``init_lm_params``
+    or ``deploy_lm`` output, its leaves converted with ``np.asarray``) →
+    the port's tree on ``device``, nested the same. ``uint32`` sign words
+    become int32 with the same bits; floats become float32."""
+    dev = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(walk(v) for v in node)
+        return _tensor(node, dev)
+    return walk(tree)
+
+
+def lm_params_to_numpy(tree):
+    """The port's LM param tree → numpy, nested the same: int32 sign words
+    as the reference's ``uint32`` (same bits), floats as ``float32``."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return tuple(walk(v) for v in node)
+        arr = node.detach().cpu().numpy()
+        if arr.dtype == np.int32:
+            return arr.view(np.uint32)
+        return arr.astype(np.float32)
+    return walk(tree)

@@ -31,20 +31,30 @@ def _shifts(ndim: int, axis: int, device) -> torch.Tensor:
     return torch.arange(PACK, dtype=torch.int64, device=device).reshape(shape)
 
 
+def _bit(j: int) -> int:
+    """The int32 value of bit j alone (bit 31 is the sign bit)."""
+    return 1 << j if j < PACK - 1 else -(1 << (PACK - 1))
+
+
 def pack_signs(w: torch.Tensor, axis: int = 0) -> torch.Tensor:
-    """Pack the sign bits of ``w`` along ``axis`` into int32 words."""
+    """Pack the sign bits of ``w`` along ``axis`` into int32 words.
+
+    Bit j of every word is set from the rows j, 32 + j, ... in one pass,
+    so no temporary outgrows the words themselves: a stacked leaf of
+    several GB packs on the card next to its f32 weights.
+    """
     w = torch.movedim(w, axis, 0)
     k = w.shape[0]
-    kp = packed_dim(k) * PACK
-    bits = (w >= 0).to(torch.int64)
-    if kp != k:
-        pad = torch.ones((kp - k,) + tuple(w.shape[1:]), dtype=torch.int64,
-                         device=w.device)
-        bits = torch.cat([bits, pad], dim=0)
-    bits = bits.reshape((kp // PACK, PACK) + tuple(bits.shape[1:]))
-    words = torch.sum(bits << _shifts(bits.ndim, 1, w.device), dim=1)
-    words = torch.where(words >= 2 ** 31, words - 2 ** 32, words)
-    return torch.movedim(words.to(torch.int32), 0, axis)
+    nw = packed_dim(k)
+    words = torch.zeros((nw,) + tuple(w.shape[1:]), dtype=torch.int32,
+                        device=w.device)
+    for j in range(PACK):
+        rows = w[j::PACK]                  # word i's bit j: row 32·i + j
+        n = rows.shape[0]
+        words[:n] |= (rows >= 0).to(torch.int32) * _bit(j)
+        if n < nw:                         # pad bits are +1
+            words[n:] |= _bit(j)
+    return torch.movedim(words, 0, axis)
 
 
 def unpack_signs(words: torch.Tensor, k: int, axis: int = 0,

@@ -1,10 +1,21 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --workload
-{detect,multires}``.
+{detect,multires,lm}``.
 
-Builds the detector from a numpy seed and serves random uint8 images
-through the `Scheduler` and `DetectionBackend` under ``--profile`` ("tuned":
-the port's autotune table, popcount layers included; "default": the dot
-kernels on the unfused pool route).
+The detection workloads build the detector from a numpy seed and serve
+random uint8 images through the `Scheduler` and `DetectionBackend` under
+``--profile`` ("tuned": the port's autotune table, popcount layers
+included; "default": the dot kernels on the unfused pool route).
+
+  lm       — continuous-batched decode of an LM arch (``--arch``, default
+             granite-20b as the reference's; ``--reduced`` for its small
+             variant) from a seeded random init through `LMBackend`.
+             ``--packed`` deploys 1-bit W1A8 weights (`deploy_lm`) and
+             decodes with them: every projection is one launch of the
+             popcount matmul. A warm pass, then the host-checked path and
+             the device done-mask path over the same request stream, whose
+             tokens must be equal. The record is the done-mask run's, with
+             the host-checked one under ``baseline_host_check``, and
+             ``kernel_launches_per_decode_step`` by kernel.
 
   detect   — one bucket (``--buckets``, default 320). The raw-head wire at
              depth 1 and at ``--depth``, and the device-NMS wire over the
@@ -37,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import subprocess
 
 import numpy as np
 import torch
@@ -48,7 +60,11 @@ from repro_torch.kernels.w1a8_conv import ops as conv_ops
 from repro_torch.kernels.w1a8_int import ops as int_ops
 from repro_torch.kernels.w1a8_matmul import ops as mm_ops
 from repro_torch.models import detection, yolo
-from repro_torch.serve import DetectionBackend, Scheduler, ServeRequest
+from repro_torch import configs
+from repro_torch.models.transformer import init_lm_params
+from repro_torch.serve import (DetectionBackend, LMBackend, SamplingParams,
+                               Scheduler, ServeRequest, deploy_lm,
+                               packed_param_bytes)
 
 # Every CUDA kernel entry point of the port, by name: each counts its own
 # launches, through graph replays too. A dispatch runs, per W1A8 layer, the
@@ -156,7 +172,18 @@ def check_alignment(params: dict, images, raw_wire: dict, device,
 
 
 def _card(dev) -> str:
-    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    """The card's name and power limit, as nvidia-smi gives them ("cpu"
+    on the CPU)."""
+    if dev.type != "cuda":
+        return "cpu"
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={dev.index or 0}"],
+            capture_output=True, text=True, check=True, timeout=30)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(dev)
 
 
 def _configs(backend) -> dict:
@@ -304,13 +331,88 @@ def run_multires(args) -> dict:
     }
 
 
+def lm_requests(n: int, sampling: SamplingParams) -> list:
+    """The reference launcher's stream: prompt [2 + i, 11, 7 + i % 3]."""
+    return [ServeRequest(rid=i, prompt=[2 + i, 11, 7 + i % 3],
+                         sampling=sampling) for i in range(n)]
+
+
+def run_lm(args, params=None) -> dict:
+    """``params``: float params to serve in place of the seeded init
+    (deployed first under ``--packed``)."""
+    dev = resolve_device(args.device)
+    cfg = (configs.get_reduced(args.arch) if args.reduced
+           else configs.get_config(args.arch))
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
+        params = init_lm_params(cfg, gen, device=dev)
+    mode, acct = "float", None
+    if args.packed:
+        params = deploy_lm(params)
+        acct = packed_param_bytes(params)
+        print(f"[packed] {acct['packed_bytes'] / 1e6:.1f} MB "
+              f"(bf16-equivalent {acct['bf16_equivalent_bytes'] / 1e6:.1f} "
+              f"MB, {acct['ratio']:.1f}x smaller)", flush=True)
+        mode = "w1a8_eval"
+    sp = SamplingParams(max_new=args.max_new, temperature=args.temperature,
+                        stop_tokens=tuple(args.stop_token))
+
+    def serve(done_mask: bool):
+        backend = LMBackend(cfg, params, slots=args.slots,
+                            max_len=args.max_len, mode=mode, seed=args.seed,
+                            done_mask=done_mask, device=dev)
+        # a warm pass on a throwaway scheduler, so both modes' numbers are
+        # steady-state; it draws from the backend's generator in both
+        # modes alike, so the measured tokens stay comparable
+        Scheduler(backend).run(lm_requests(args.requests, sp))
+        backend.decode_steps = 0
+        backend.decode_launches.clear()
+        sched = Scheduler(backend)
+        results = sched.run(lm_requests(args.requests, sp))
+        summary = sched.metrics.summary()
+        summary["kernel_launches_per_decode_step"] = {
+            k: n / backend.decode_steps
+            for k, n in backend.decode_launches.items()}
+        summary["decode_steps"] = backend.decode_steps
+        return results, summary
+
+    host_results, host_summary = serve(done_mask=False)
+    dm_results, summary = serve(done_mask=True)
+    host_toks = {r.rid: r.tokens for r in host_results}
+    dm_toks = {r.rid: r.tokens for r in dm_results}
+    if dm_toks != host_toks:
+        raise AssertionError("done-mask decode diverged from host check")
+    print(f"served {len(dm_results)} requests, {summary['tokens']} tokens in "
+          f"{summary['wall_s']:.2f}s ({summary['tok_per_s']:.1f} tok/s, "
+          f"p50 tick {summary['tick_p50_ms']:.1f} ms, "
+          f"occupancy {summary['batch_occupancy']:.2f}); "
+          f"per-tick sync {summary['host_sync_bytes_per_tick']:.0f} B "
+          f"done-mask vs {host_summary['host_sync_bytes_per_tick']:.0f} B "
+          f"token-row host-checked", flush=True)
+    return {"workload": "lm", "device": _card(dev), "arch": args.arch,
+            "reduced": args.reduced, "packed": args.packed,
+            "packed_bytes": acct, "slots": args.slots,
+            "max_new": args.max_new, "max_len": args.max_len,
+            "requests": args.requests,
+            "termination": "device_done_mask",
+            "sync_wire": "per-slot bool bitmask/tick + bulk tokens at "
+                         "finish",
+            "checks": ["done-mask tokens equal host-checked tokens"],
+            "tokens_by_rid": {str(r): t for r, t in sorted(dm_toks.items())},
+            **summary,
+            "baseline_host_check": {
+                "termination": "host_token_check",
+                "sync_wire": "token row/tick", **host_summary}}
+
+
 def _buckets(args, default: str) -> tuple:
     return tuple(int(b) for b in (args.buckets or default).split(","))
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("detect", "multires"),
+    ap.add_argument("--workload", choices=("detect", "multires", "lm"),
                     default="detect")
     ap.add_argument("--profile", choices=yolo.PROFILES, default="tuned",
                     help="kernel configs: the autotune table's (tuned) or "
@@ -328,8 +430,20 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    lm = ap.add_argument_group("lm workload")
+    lm.add_argument("--arch", default="granite-20b",
+                    choices=configs.DENSE)
+    lm.add_argument("--reduced", action="store_true",
+                    help="the arch's small variant")
+    lm.add_argument("--max-new", type=int, default=16)
+    lm.add_argument("--max-len", type=int, default=128)
+    lm.add_argument("--packed", action="store_true",
+                    help="serve 1-bit W1A8 weights (deploy_lm)")
+    lm.add_argument("--temperature", type=float, default=0.0)
+    lm.add_argument("--stop-token", type=int, action="append", default=[])
     args = ap.parse_args(argv)
-    run = run_detect if args.workload == "detect" else run_multires
+    run = {"detect": run_detect, "multires": run_multires,
+           "lm": run_lm}[args.workload]
     record = run(args)
     print(json.dumps(record))
     return record

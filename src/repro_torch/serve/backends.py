@@ -1,14 +1,24 @@
-"""`DetectionBackend` — the paper's deployed workload — and its dispatch
-window.
+"""The two `serve.api.Backend` implementations, and the detector's
+dispatch window (counterpart of ``repro/serve/backends.py``).
 
-Batched image requests go through the packed-W1A8 kernel path, head decode
-and NMS as ONE fixed-width dispatch per resolution bucket: on the card one
-CUDA graph replay, as the reference's one jitted executable. With
-``depth=K`` the backend keeps a K-deep in-flight window: tick t's batch is
-dispatched asynchronously on the current CUDA stream and harvested up to
-K-1 ticks later, strictly in dispatch order (`DispatchWindow`), so
-admission overlaps device compute. Counterpart of
-``repro/serve/backends.py`` (the LM backend is not ported yet).
+`LMBackend` — autoregressive decode over the stage-stacked LM params: one
+`engine.decode_step` per tick for every pool row, batched multi-row prefill
+at admission (requests arriving together prefill as one batch per prompt
+length, then scatter into the pool via `cache.merge_rows`), per-row
+temperature sampling. Two termination paths, token for token the same:
+host-checked (the sampled token row syncs to the host every tick) and
+``done_mask=True`` (`engine.decode_step_donemask` keeps the token buffer
+and the stop tests on the device; the host reads a (B,) bool a tick and
+the tokens in bulk when a row finishes).
+
+`DetectionBackend` — the paper's deployed workload. Batched image requests
+go through the packed-W1A8 kernel path, head decode and NMS as ONE
+fixed-width dispatch per resolution bucket: on the card one CUDA graph
+replay, as the reference's one jitted executable. With ``depth=K`` the
+backend keeps a K-deep in-flight window: tick t's batch is dispatched
+asynchronously on the current CUDA stream and harvested up to K-1 ticks
+later, strictly in dispatch order (`DispatchWindow`), so admission
+overlaps device compute.
 """
 from __future__ import annotations
 
@@ -22,7 +32,12 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 from repro_torch.models import detection, yolo
+from repro_torch.models.layers import ModelConfig
+from repro_torch.models.transformer import tree_leaves
+from repro_torch.serve import cache as cache_mod
 from repro_torch.serve.api import Emission, ServeRequest
+from repro_torch.serve.engine import (decode_step, decode_step_donemask,
+                                      prefill, sample_tokens)
 
 
 class DispatchWindow:
@@ -380,3 +395,190 @@ class DetectionBackend:
     def release(self, slot: int) -> None:
         self._emissions.pop(slot, None)
 
+
+
+class LMBackend:
+    """Slot-pool LM decode backend (capacity = pool batch ``slots``).
+
+    ``params`` (float, or packed by `serve.packed.deploy_lm`) live on
+    ``device`` (default: the card; asking for it without one raises).
+    Sampled rows draw from a `torch.Generator` on the device seeded by
+    ``seed``; both termination paths consume it alike. ``decode_steps``
+    counts the fused ticks and ``decode_launches`` the CUDA kernel
+    launches they made, by kernel symbol.
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
+                 max_len: int = 256, mode: str = "float", seed: int = 17,
+                 done_mask: bool = False, max_stop_tokens: int = 4,
+                 device=None):
+        self.device = dev = resolve_device(device)
+        leaf = tree_leaves(params)[0]
+        if leaf.device.type != dev.type:
+            raise ValueError(f"params live on {leaf.device}, backend on "
+                             f"{dev}")
+        self.cfg, self.params = cfg, params
+        self.capacity, self.max_len, self.mode = slots, max_len, mode
+        self.done_mask = done_mask
+        self.cache = cache_mod.init_cache(cfg, slots, max_len, device=dev)
+        self.last_tok = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self.temp = np.zeros((slots,), np.float32)
+        self._active = np.zeros((slots,), bool)
+        self._emissions: Dict[int, List[Emission]] = collections.defaultdict(
+            list)
+        self._gen = torch.Generator(device=dev)
+        self._gen.manual_seed(seed)
+        self.host_syncs = 0          # per-tick step/harvest-path transfers
+        self.host_sync_bytes = 0     # bytes over those transfers
+        self.completion_syncs = 0    # bulk token fetches (done-mask path)
+        self.decode_steps = 0
+        self.decode_launches: Dict[str, int] = collections.Counter()
+        if done_mask:
+            self.max_stop_tokens = max_stop_tokens
+            # device-side decode state
+            self.tok_buf = torch.zeros((slots, max_len), dtype=torch.int32,
+                                       device=dev)
+            self.n_gen = torch.zeros((slots,), dtype=torch.int32,
+                                     device=dev)
+            self.done = torch.ones((slots,), dtype=torch.bool, device=dev)
+            # host mirrors — derivable from the admission record plus the
+            # done-mask reads, so tracking them costs no extra transfers
+            self._n_host = np.zeros((slots,), np.int64)
+            self._done_host = np.ones((slots,), bool)
+            self._stops_host: Dict[int, Tuple[int, ...]] = {}
+            self._max_new_host = np.zeros((slots,), np.int64)
+            self._stops_pad = np.full((slots, max_stop_tokens), -1, np.int32)
+
+    def _tensor(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    # -- admission: batched multi-row prefill --------------------------------
+    def admit(self, assignments: Sequence[Tuple[int, ServeRequest]]) -> None:
+        by_len: Dict[int, list] = collections.defaultdict(list)
+        for slot, req in assignments:
+            by_len[len(req.prompt)].append((slot, req))
+            self.temp[slot] = req.sampling.temperature
+        for group in by_len.values():
+            rows = [slot for slot, _ in group]
+            prompts = self._tensor(np.asarray(
+                [list(r.prompt) for _, r in group], np.int32))
+            logits, cache1 = prefill(self.cfg, self.params, prompts,
+                                     max_len=self.max_len, mode=self.mode)
+            self.cache = cache_mod.merge_rows(self.cache, cache1, rows)
+            first = self._sample(logits, np.asarray(
+                [r.sampling.temperature for _, r in group], np.float32))
+            self.last_tok[self._tensor(np.asarray(rows, np.int64))] = \
+                self._tensor(first)
+            for i, (slot, req) in enumerate(group):
+                tok = int(first[i])
+                self._active[slot] = True
+                if self.done_mask:
+                    self._admit_done_mask(slot, req, tok)
+                else:
+                    self._emissions[slot].append(
+                        Emission(kind="token", payload=tok))
+
+    def _admit_done_mask(self, slot: int, req: ServeRequest,
+                         tok: int) -> None:
+        """Seed the device-side decode state for one admitted row. The
+        prefill token is sampled host-side (shared path with host-checked
+        mode), so its stop test runs here and folds into the initial done
+        bit — a stop token in position 1 finishes the request this tick."""
+        sp = req.sampling
+        stops = tuple(sp.stop_tokens)
+        if len(stops) > self.max_stop_tokens:
+            raise ValueError(f"request {req.rid}: {len(stops)} stop tokens "
+                             f"> backend cap {self.max_stop_tokens}")
+        if sp.max_new > self.max_len:
+            raise ValueError(f"request {req.rid}: max_new {sp.max_new} "
+                             f"exceeds the device token buffer "
+                             f"(max_len={self.max_len})")
+        done0 = (tok in stops) or (1 >= sp.max_new)
+        self.tok_buf[slot, 0] = tok
+        self.n_gen[slot] = 1
+        self.done[slot] = done0
+        self._n_host[slot] = 1
+        self._done_host[slot] = done0
+        self._stops_host[slot] = stops
+        self._max_new_host[slot] = sp.max_new
+        self._stops_pad[slot] = -1
+        self._stops_pad[slot, :len(stops)] = stops
+
+    # -- one fused decode tick -----------------------------------------------
+    def step(self) -> None:
+        if not self._active.any():
+            return
+        before = {k.symbol: k.launches for k in _build.KERNELS}
+        if self.done_mask:
+            self._step_done_mask()
+        else:
+            logits, self.cache = decode_step(self.cfg, self.params,
+                                             self.cache,
+                                             self.last_tok[:, None],
+                                             mode=self.mode)
+            nxt = self._sample(logits, self.temp)      # token-row host sync
+            self.host_syncs += 1
+            self.host_sync_bytes += 4 * self.capacity  # (B,) int32 tokens
+            self.last_tok = self._tensor(nxt)
+            for slot in np.flatnonzero(self._active):
+                self._emissions[int(slot)].append(
+                    Emission(kind="token", payload=int(nxt[slot])))
+        self.decode_steps += 1
+        for k in _build.KERNELS:
+            if k.launches != before[k.symbol]:
+                self.decode_launches[k.symbol] += \
+                    k.launches - before[k.symbol]
+
+    def _step_done_mask(self) -> None:
+        use_gen = bool((self.temp > 0).any())          # same rule as _sample
+        (self.cache, self.last_tok, self.tok_buf, self.n_gen,
+         self.done) = decode_step_donemask(
+            self.cfg, self.params, self.cache, self.last_tok, self.tok_buf,
+            self.n_gen, self.done, self._tensor(self._stops_pad),
+            self._tensor(self._max_new_host.astype(np.int32)),
+            self._tensor(self.temp), self._gen if use_gen else None,
+            mode=self.mode)
+        # rows live at dispatch grew by one token (mirrors device n_gen)
+        self._n_host += (self._active & ~self._done_host)
+
+    def harvest(self) -> Dict[int, List[Emission]]:
+        if not self.done_mask:
+            out = dict(self._emissions)
+            self._emissions = collections.defaultdict(list)
+            return out
+        out: Dict[int, List[Emission]] = {}
+        if not self._active.any():
+            return out
+        done_np = self.done.cpu().numpy()        # THE per-tick bitmask read
+        self.host_syncs += 1
+        self.host_sync_bytes += self.capacity    # (B,) bool bitmask
+        newly = done_np & self._active
+        self._done_host = done_np.copy()
+        if newly.any():
+            rows = np.flatnonzero(newly)
+            toks = self.tok_buf[self._tensor(rows)].cpu().numpy()  # one gather
+            self.completion_syncs += 1
+            for i, slot in enumerate(rows):
+                slot = int(slot)
+                n = int(self._n_host[slot])
+                seq = tuple(int(t) for t in toks[i, :n])
+                reason = ("stop" if seq and seq[-1]
+                          in self._stops_host.get(slot, ()) else "length")
+                out[slot] = [Emission(kind="tokens", payload=seq,
+                                      finish=reason, final=True)]
+        return out
+
+    def release(self, slot: int) -> None:
+        self._active[slot] = False
+        self.temp[slot] = 0.0        # stale temp would force sampling forever
+        self._emissions.pop(slot, None)
+        if self.done_mask:
+            self.done[slot] = True
+            self._done_host[slot] = True
+            self._stops_host.pop(slot, None)
+
+    # per-row temperature: greedy rows take argmax, sampled rows draw
+    def _sample(self, logits: torch.Tensor, temp) -> np.ndarray:
+        t = np.asarray(temp, np.float32)
+        gen = self._gen if (t > 0).any() else None
+        return sample_tokens(logits, self._tensor(t), gen).cpu().numpy()

@@ -1,0 +1,82 @@
+"""KV decode caches with static shapes (counterpart of
+``repro/serve/cache.py``; attention slots only, the Mamba states come with
+the Mamba slice).
+
+Layout: one cache entry per layer-slot, stacked over stages like the
+params. Attention caches are **ring buffers** (stages, B, L, KV, hd) ×2
+plus a ``pos`` plane recording the absolute position written at each ring
+slot; L = min(max_len, sliding_window) for windowed layers. Per-row
+``lengths`` (B,) drive causal masking, so rows at different positions
+coexist in one batch (continuous batching).
+
+Every leaf under ``cache["slots"]`` carries the batch on axis 1 (after the
+stage axis) and ``cache["lengths"]`` on axis 0 — `merge_rows` relies on
+that invariant to scatter freshly prefilled rows into the serving pool.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import ModelConfig
+from repro_torch.models.transformer import (check_dense, tree_leaves,
+                                            tree_map, window_of)
+
+# Unwritten ring slots carry this sentinel position: always masked out by
+# the `pc <= pos` validity test in engine._attn_decode.
+BIGPOS = 2 ** 30
+
+
+def _attn_cache_len(cfg: ModelConfig, kind: str, max_len: int) -> int:
+    window = window_of(cfg, kind)
+    return min(max_len, window) if window else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, device=None) -> dict:
+    """Cache tree: {'slots': tuple per period-slot, 'lengths': (B,)}."""
+    dev = resolve_device(device)
+    check_dense(cfg)
+    n_stages = cfg.num_layers // cfg.period
+    slots = []
+    for i in range(cfg.period):
+        length = _attn_cache_len(cfg, cfg.mixer_kind(i), max_len)
+        shape = (n_stages, batch, length, cfg.num_kv_heads, cfg.hd)
+        slots.append({
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": torch.full((n_stages, batch, length), BIGPOS,
+                              dtype=torch.int32, device=dev)})
+    return {"slots": tuple(slots),
+            "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+
+
+def merge_rows(pool: dict, new: dict, rows: Sequence[int]) -> dict:
+    """Scatter rows of a freshly prefilled cache into the serving pool.
+
+    ``new`` is an init_cache/prefill cache of batch k; ``rows`` names the k
+    pool rows (slots) to overwrite. Returns a new pool; ``pool`` is left as
+    it was.
+    """
+    idx = torch.as_tensor(list(rows), dtype=torch.long,
+                          device=pool["lengths"].device)
+
+    def scatter(p, n):
+        out = p.clone()
+        out[:, idx] = n.to(p.dtype)
+        return out
+
+    lengths = pool["lengths"].clone()
+    lengths[idx] = new["lengths"].to(lengths.dtype)
+    return {"slots": tree_map(scatter, pool["slots"], new["slots"]),
+            "lengths": lengths}
+
+
+def cache_bytes(cfg: ModelConfig, batch: int, max_len: int,
+                bytes_per_el: int = 4) -> int:
+    """Elements of every cache leaf times ``bytes_per_el``, as the
+    reference counts (shapes only, on ``meta``)."""
+    cache = init_cache(cfg, batch, max_len, device="meta")
+    return sum(int(x.numel()) * bytes_per_el for x in tree_leaves(cache))

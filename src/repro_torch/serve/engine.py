@@ -1,0 +1,213 @@
+"""Serving engine: prefill + decode with slot-based continuous batching
+(counterpart of ``repro/serve/engine.py``, dense family).
+
+`decode_step` — one token for every active row against the stage-stacked
+cache; the reference's scan over stages is a Python loop here. Windowed
+layers (gemma2's local ones) use **ring KV caches** bounded by the window.
+With packed W1A8 params (`serve.packed.deploy_lm`) each of a layer's seven
+projections is one launch of the popcount matmul, which reads 1 bit a
+weight.
+
+`decode_step` writes the new K/V rows into the cache's ring tensors in
+place (as a donated buffer would be) and returns the cache with the
+lengths advanced; `prefill` builds a fresh cache.
+
+Sampling draws from a `torch.Generator` on the logits' device (Gumbel-max
+over exponential draws): the reference's ``jax.random.categorical`` draws
+cannot be reproduced without JAX. Greedy rows (temperature 0) take the
+argmax, as the reference's.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.models.layers import (ModelConfig, _div, attention, embed,
+                                       linear, norm, rope, softcap, unembed)
+from repro_torch.models.transformer import (add_mixer_out, check_dense,
+                                            ffn_block, kinds, stage,
+                                            stage_count, window_of)
+from repro_torch.device import full_f32
+from repro_torch.serve.cache import BIGPOS, init_cache  # noqa: F401
+
+
+# ---------------------------------------------------------------------------
+# Attention with cache (decode: 1 token; ring writes via pos % L)
+# ---------------------------------------------------------------------------
+
+def _attn_decode(p, cfg: ModelConfig, x, kc, vc, pc, pos, *, mode,
+                 window: int):
+    """One token's attention; kc, vc (B, L, KV, hd) and pc (B, L) are one
+    stage's cache, written in place at ring slot pos % L."""
+    b = x.shape[0]
+    hd, kvh = cfg.hd, cfg.num_kv_heads
+    length = kc.shape[1]
+    q = linear(p["wq"], x, mode).reshape(b, 1, cfg.num_heads, hd)
+    k = linear(p["wk"], x, mode).reshape(b, 1, kvh, hd)
+    v = linear(p["wv"], x, mode).reshape(b, 1, kvh, hd)
+    q = rope(q, pos[:, None], theta=cfg.rope_theta,
+             fraction=cfg.rope_fraction)
+    k = rope(k, pos[:, None], theta=cfg.rope_theta,
+             fraction=cfg.rope_fraction)
+    slot = (pos % length).long()                         # ring position
+    bi = torch.arange(b, device=x.device)
+    kc[bi, slot] = k[:, 0].to(kc.dtype)
+    vc[bi, slot] = v[:, 0].to(vc.dtype)
+    pc[bi, slot] = pos.to(pc.dtype)
+    g = cfg.num_heads // kvh
+    qg = q.reshape(b, 1, kvh, g, hd)
+    with full_f32():
+        logits = _div(torch.einsum("bskgd,btkd->bkgst", qg, kc),
+                      math.sqrt(hd))
+    logits = logits.to(torch.float32)
+    if cfg.attn_softcap > 0:
+        logits = softcap(logits, cfg.attn_softcap)
+    valid = pc <= pos[:, None]                           # causal+unwritten
+    if window > 0:
+        valid &= pc > (pos[:, None] - window)
+    logits = torch.where(valid[:, None, None, None, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(x.dtype)
+    with full_f32():
+        out = torch.einsum("bkgst,btkd->bskgd", probs, vc).reshape(b, 1, -1)
+    return linear(p["wo"], out, mode)
+
+
+# ---------------------------------------------------------------------------
+# decode_step / prefill
+# ---------------------------------------------------------------------------
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens: torch.Tensor, *, mode: str = "float"
+                ) -> Tuple[torch.Tensor, dict]:
+    """tokens (B, 1) → (logits (B, vocab), the cache advanced by one)."""
+    check_dense(cfg)
+    pos = cache["lengths"]
+    x = embed(params["embed"], tokens)
+    for st in range(stage_count(params)):
+        slots = stage(params["slots"], st)
+        for i, (mk, fk) in enumerate(kinds(cfg)):
+            slot, c = slots[i], cache["slots"][i]
+            h = norm(slot["norm1"], x, cfg.norm_kind)
+            out = _attn_decode(slot["attn"], cfg, h, c["k"][st], c["v"][st],
+                               c["pos"][st], pos, mode=mode,
+                               window=window_of(cfg, mk))
+            x = add_mixer_out(slot, cfg, x, out)
+            x = ffn_block(slot, cfg, x, fk, mode)
+    x = norm(params["final_norm"], x, cfg.norm_kind)
+    logits = unembed(params["embed"], cfg, x)[:, 0, :]
+    return logits, {"slots": cache["slots"], "lengths": pos + 1}
+
+
+def sample_tokens(logits: torch.Tensor, temp: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+    """Per-row temperature sampling: argmax where temp is 0 (or with no
+    ``generator``), else a categorical draw from softmax(logits / temp)
+    by Gumbel-max on exponential draws from ``generator``. (B,) int32."""
+    greedy = torch.argmax(logits, dim=-1)
+    if generator is None:
+        return greedy.to(torch.int32)
+    scaled = logits / torch.clamp(temp, min=1e-6)[:, None]
+    noise = torch.empty_like(scaled).exponential_(generator=generator)
+    sampled = torch.argmax(scaled - torch.log(noise), dim=-1)
+    return torch.where(temp > 0, sampled, greedy).to(torch.int32)
+
+
+def decode_step_donemask(cfg: ModelConfig, params: dict, cache: dict,
+                         last_tok: torch.Tensor, tok_buf: torch.Tensor,
+                         n_gen: torch.Tensor, done: torch.Tensor,
+                         stop_tokens: torch.Tensor, max_new: torch.Tensor,
+                         temp: torch.Tensor,
+                         generator: Optional[torch.Generator], *,
+                         mode: str = "float") -> tuple:
+    """One decode tick with **device-side stop detection**: sampling, the
+    token-buffer append and the stop-token / max_new tests stay on the
+    device; a host reads back only the (B,) bool ``done``.
+
+    State (device tensors, B = pool slots): last_tok (B,) int32; tok_buf
+    (B, cap) int32, row r valid in [0, n_gen); n_gen (B,) int32; done (B,)
+    bool, True for finished *and* vacant rows; stop_tokens (B, S) int32,
+    -1 padding; max_new (B,) int32; temp (B,) f32 (0 → greedy).
+    ``generator`` is None unless some live row samples, the host-checked
+    path's rule, so both paths draw alike. tok_buf is written in place.
+
+    Returns (cache, last_tok, tok_buf, n_gen, done).
+    """
+    logits, cache = decode_step(cfg, params, cache, last_tok[:, None],
+                                mode=mode)
+    tok = sample_tokens(logits, temp, generator)
+    live = ~done
+    bi = torch.arange(tok_buf.shape[0], device=tok_buf.device)
+    idx = torch.clamp(n_gen, max=tok_buf.shape[1] - 1).long()
+    tok_buf[bi, idx] = torch.where(live, tok, tok_buf[bi, idx])
+    n_gen = n_gen + live.to(torch.int32)
+    is_stop = torch.any(tok[:, None] == stop_tokens, dim=1)
+    done = done | (live & (is_stop | (n_gen >= max_new)))
+    return cache, tok, tok_buf, n_gen, done
+
+
+def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
+            max_len: int, mode: str = "float") -> Tuple[torch.Tensor, dict]:
+    """Process the prompt (B, S) and build the decode cache: attention K/V
+    for the prompt are written at positions [0, S), the last min(S, L) of
+    them into a windowed layer's ring."""
+    check_dense(cfg)
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(s, device=dev).expand(b, s)
+    x = embed(params["embed"], tokens)
+    cache = init_cache(cfg, b, max_len, dtype=x.dtype, device=dev)
+    hd, kvh = cfg.hd, cfg.num_kv_heads
+    for st in range(stage_count(params)):
+        slots = stage(params["slots"], st)
+        for i, (mk, fk) in enumerate(kinds(cfg)):
+            slot, c = slots[i], cache["slots"][i]
+            h = norm(slot["norm1"], x, cfg.norm_kind)
+            k = linear(slot["attn"]["wk"], h, mode).reshape(b, s, kvh, hd)
+            v = linear(slot["attn"]["wv"], h, mode).reshape(b, s, kvh, hd)
+            kr = rope(k, positions, theta=cfg.rope_theta,
+                      fraction=cfg.rope_fraction)
+            out = attention(slot["attn"], cfg, h, mode=mode, causal=True,
+                            window=window_of(cfg, mk), positions=positions)
+            length = c["k"].shape[2]
+            take = min(s, length)
+            src_from = s - take
+            ring = (torch.arange(take, device=dev) + src_from) % length
+            c["k"][st][:, ring] = kr[:, src_from:].to(c["k"].dtype)
+            c["v"][st][:, ring] = v[:, src_from:].to(c["v"].dtype)
+            c["pos"][st][:, ring] = torch.arange(
+                src_from, s, dtype=torch.int32, device=dev)[None, :]
+            x = add_mixer_out(slot, cfg, x, out)
+            x = ffn_block(slot, cfg, x, fk, mode)
+    x = norm(params["final_norm"], x, cfg.norm_kind)
+    logits = unembed(params["embed"], cfg, x)[:, -1, :]
+    return logits, {"slots": cache["slots"],
+                    "lengths": torch.full((b,), s, dtype=torch.int32,
+                                          device=dev)}
+
+
+def generate(cfg: ModelConfig, params: dict, prompts: torch.Tensor, *,
+             max_new: int, max_len: int, mode: str = "float",
+             temperature: float = 0.0,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Greedy / temperature sampling: (B, S) prompts → (B, max_new)
+    tokens. A positive temperature draws from ``generator``."""
+    logits, cache = prefill(cfg, params, prompts, max_len=max_len,
+                            mode=mode)
+    temp = torch.full((prompts.shape[0],), float(temperature),
+                      dtype=torch.float32, device=prompts.device)
+    gen = generator if temperature > 0 else None
+    if temperature > 0 and gen is None:
+        raise ValueError("temperature > 0 needs a generator")
+    toks = []
+    nxt = sample_tokens(logits, temp, gen)
+    for i in range(max_new):
+        toks.append(nxt)
+        if i == max_new - 1:
+            break
+        logits, cache = decode_step(cfg, params, cache, nxt[:, None],
+                                    mode=mode)
+        nxt = sample_tokens(logits, temp, gen)
+    return torch.stack(toks, dim=1)

@@ -12,7 +12,9 @@ run's replaced by the recorded value, after checking that it sits within
 input, so a gradient still flows through the forward's own input.
 
 The quantizer is ``models.yolo``'s ``lsq_fake_quant`` (the QAT forward,
-``train=True``) or ``quantize_act`` (the eval forward). Both functions
+``train=True``) or ``quantize_act`` (the eval forward), or the same name in
+another ``module``: ``models.layers`` for the LM projections (the
+``w1a8_eval`` and packed paths call its ``quantize_act``). Both functions
 patch it for the length of a ``with`` block: not for concurrent use.
 """
 from __future__ import annotations
@@ -28,20 +30,21 @@ QUANTIZERS = ("lsq_fake_quant", "quantize_act")
 
 
 @contextlib.contextmanager
-def _patched(name: str, wrap):
+def _patched(name: str, wrap, module=None):
     if name not in QUANTIZERS:
         raise ValueError(f"quantizer must be one of {QUANTIZERS}, got "
                          f"{name!r}")
-    real = getattr(yolo, name)
-    setattr(yolo, name, wrap(real))
+    module = yolo if module is None else module
+    real = getattr(module, name)
+    setattr(module, name, wrap(real))
     try:
         yield
     finally:
-        setattr(yolo, name, real)
+        setattr(module, name, real)
 
 
 @contextlib.contextmanager
-def record(quantizer: str = "lsq_fake_quant"):
+def record(quantizer: str = "lsq_fake_quant", module=None):
     """Yields a list that gets every input of ``quantizer`` in the forwards
     inside the block (detached copies, in call order)."""
     inputs = []
@@ -52,13 +55,13 @@ def record(quantizer: str = "lsq_fake_quant"):
             return real(x, step, *rest)
         return recording
 
-    with _patched(quantizer, wrap):
+    with _patched(quantizer, wrap, module):
         yield inputs
 
 
 @contextlib.contextmanager
 def forced(recorded: list, quantizer: str = "lsq_fake_quant",
-           tol: float = 1e-3):
+           tol: float = 1e-3, module=None):
     """Yields a list that gets the number of codes forced at each call of
     ``quantizer`` in the forward inside the block, which must make as many
     calls, in the same order, as the recorded run. Raises if a differing
@@ -83,5 +86,5 @@ def forced(recorded: list, quantizer: str = "lsq_fake_quant",
             return real(x, step, *rest)
         return forcing
 
-    with _patched(quantizer, wrap):
+    with _patched(quantizer, wrap, module):
         yield counts

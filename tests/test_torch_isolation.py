@@ -55,3 +55,23 @@ def test_entry_points_raise_without_cuda():
         yolo.yolo_forward_int(int_art, np.zeros((1, 64, 64, 3), np.uint8))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         alignment.run(size=64)
+
+
+def test_lm_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.serve import LMBackend
+    cfg = configs.get_reduced("chatglm3-6b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_lm_params(cfg, torch.Generator())
+    params = init_lm_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LMBackend(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--workload", "lm", "--reduced"])
+    # asked for the CPU, they run there
+    assert LMBackend(cfg, params, device="cpu").device.type == "cpu"
