@@ -118,9 +118,10 @@ Phases (any failure raises and the script exits non-zero):
 8. Prints one ``{"kernels": [...]}`` line with all nine sources (each
    kernel's launches summed over the driven paths, and by path: the three
    launcher runs, phase 5's forwards and int call, phase 7's integer
-   forward, phase 9's QAT pipeline, phase 10's LM serve and int call; the
-   two matmuls also their numbers at the LM shapes, under ``lm``), and as
-   the last line ``{"ok": true, "device": {...}}``.
+   forward, phase 9's QAT pipeline, phase 10's LM serve and int call,
+   phase 11's launcher fleet, real traffic and compose runs; the two
+   matmuls also their numbers at the LM shapes, under ``lm``), and as the
+   last line ``{"ok": true, "device": {...}}``.
 9. Runs before phase 8's line: the paper's offline workflow (QAT, deploy,
    integer forward, Table 6, decode + NMS). One QAT train step at B = 2,
    320×320, on the card against the same step on the CPU from the same
@@ -164,6 +165,24 @@ Phases (any failure raises and the script exits non-zero):
    tok/s, tick p50/p95, the decode step's CUDA-event ms, device busy ms,
    idle share (torch.profiler) and bound, and peak memory, with the card's
    name and power limit.
+
+11. Runs before phase 8's line: the serving tiers above one backend, each
+   with every launch count zeroed just before and read just after. (a) The
+   launcher's ``detect`` at 320, tuned, ``--requests 512 --replicas 2
+   --autoscale --out`` (a file under ``build/``): the launcher checks the
+   fleet's payloads bit-exact with the single-scheduler device-NMS run, 0
+   lost and 0 dropped; here each kernel's launches in the fleet run equal
+   the dispatches summed over the replicas times `per_dispatch`. (b)
+   ``launch.traffic --mode real`` at 320, 2 replicas, 256 requests: equal
+   completed sets and payloads bit-exact with one replica, launches equal
+   to both runs' dispatches times `per_dispatch`; prints img/s of each.
+   (c) ``traffic.run_model`` at 2000 requests a cell, calibrated from
+   (a)'s record: 0 lost in all 12 cells; prints the calibration and the
+   SLO in ticks. (d) The launcher's ``run_compose`` at 320 with
+   chatglm3-6b at full width on phase 10's f32 params (float mode, 8
+   requests, 16 greedy tokens, slots 4): 0 lost, 0 duplicated, 8 hand-offs,
+   prompts equal to the template, detect launches equal to its
+   dispatches times `per_dispatch`; prints ticks, wall s and peak memory.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -789,13 +808,19 @@ def check_popcount_kernels(torch, np, dev, size: int = None) -> tuple:
     return records, errs
 
 
+# the measurements whose every trace lost device activity, timed with CUDA
+# events instead (`events_profile`)
+TRACE_FALLBACKS = []
+
+
 def device_profile(torch, fn, n: int = 10, tries: int = 5) -> dict:
     """torch.profiler over ``n`` calls of ``fn`` after a warm one: device
     busy ms per call (the union of the traced device intervals), host ms per
     call (profiled, so above the unprofiled time) and device launches per
     call. Every call launches at least one kernel, so a trace with fewer
     device events than calls has lost some, as one now and then does; it is
-    taken again, up to ``tries`` times."""
+    taken again, up to ``tries`` times, and then `events_profile` times the
+    calls."""
     from repro_torch.launch.profile import union_us
     fn()
     torch.cuda.synchronize()
@@ -813,11 +838,40 @@ def device_profile(torch, fn, n: int = 10, tries: int = 5) -> dict:
         if len(events) >= n:
             break
     else:
-        raise RuntimeError(f"{tries} traces lost device activity")
+        return events_profile(torch, fn, n, tries)
     busy_us = union_us((e.time_range.start, e.time_range.end)
                        for e in events)
     return {"device_busy_ms": busy_us / 1e3 / n, "wall_ms": wall_ms / n,
-            "device_launches": len(events) / n}
+            "device_launches": len(events) / n,
+            "device_timing": "torch.profiler"}
+
+
+def events_profile(torch, fn, n: int, tries: int) -> dict:
+    """Where ``tries`` traces lost device activity (CUPTI may record
+    nothing in a process): CUDA-event ms per call over ``n`` calls, which
+    bounds the device busy time from above, and host ms per call; device
+    launches are not measured (None). Noted in `TRACE_FALLBACKS` and
+    printed."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    TRACE_FALLBACKS.append(getattr(fn, "__qualname__", repr(fn)))
+    print(f"[profile] {tries} traces lost device activity: CUDA events "
+          f"instead (device launches not measured)", flush=True)
+    return {"device_busy_ms": start.elapsed_time(end) / n,
+            "wall_ms": wall_ms / n, "device_launches": None,
+            "device_timing": "cuda events"}
+
+
+def _num(x, spec: str) -> str:
+    """``x`` formatted by ``spec``, or "not measured" where it is None."""
+    return "not measured" if x is None else format(x, spec)
 
 
 def _zero(kernels) -> None:
@@ -949,8 +1003,8 @@ def drive_popcount(torch, np, dev, size: int = None) -> dict:
               f"(CUDA events); profiled: device busy "
               f"{prof['device_busy_ms']:.4f} ms, host "
               f"{prof['wall_ms']:.4f} ms, "
-              f"{prof['device_launches']:.0f} device launches per forward",
-              flush=True)
+              f"{_num(prof['device_launches'], '.0f')} device launches per "
+              f"forward", flush=True)
     return record
 
 
@@ -1035,11 +1089,8 @@ def drive_main_path(profile: str) -> tuple:
     dispatches = record["raw_wire_dispatches"]
     configs = record["configs"]["320"]
     per = per_dispatch(configs)
-    for name, n in record["raw_wire_launches"].items():
-        if n != dispatches * per.get(name, 0):
-            raise AssertionError(f"{profile}: {name}: {n} launches for "
-                                 f"{dispatches} dispatches, want "
-                                 f"{per.get(name, 0)} each")
+    check_dispatch_launches(record["raw_wire_launches"], dispatches,
+                            configs, profile)
     for name in per:
         if not launches[name]:
             raise AssertionError(f"{profile}: {name} never launched")
@@ -1064,8 +1115,9 @@ def profile_dispatch(profile: str) -> dict:
               f"{rec['trace_lost']}", flush=True)
     print(f"[profile {profile}] per dispatch: device busy "
           f"{rec['device_busy_ms_per_dispatch']:.4f} ms, "
-          f"{rec['device_launches_per_dispatch']:.0f} device records, idle "
-          f"share {rec['device_idle_share']:.3f}, W1A8 and post-processing "
+          f"{_num(rec['device_launches_per_dispatch'], '.0f')} device "
+          f"records, idle share {_num(rec['device_idle_share'], '.3f')} "
+          f"({rec['device_timing']}), W1A8 and post-processing "
           f"ms {({g: round(v, 5) for g, v in rec['groups'].items()})}",
           flush=True)
     return rec
@@ -1254,8 +1306,10 @@ def check_graphs_and_postprocess(torch, np, dev) -> dict:
           f"eager forward bit for bit; one detect_postprocess launch and no "
           f"detect_nms launch a dispatch through the replays; device "
           f"records a dispatch: raw wire "
-          f"{per_dispatch['raw']['device_records']:.0f}, device-NMS wire "
-          f"{per_dispatch['device_nms']['device_records']:.0f}; device busy "
+          f"{_num(per_dispatch['raw']['device_records'], '.0f')}, "
+          f"device-NMS wire "
+          f"{_num(per_dispatch['device_nms']['device_records'], '.0f')}; "
+          f"device busy "
           f"{per_dispatch['raw']['device_busy_ms']:.4f} / "
           f"{per_dispatch['device_nms']['device_busy_ms']:.4f} ms",
           flush=True)
@@ -1554,8 +1608,8 @@ def drive_int(torch, np, dev) -> dict:
           f"{rep.corr:.6f}; {ms:.4f} ms per forward back to back (CUDA "
           f"events), device busy {prof['device_busy_ms']:.5f} ms (before "
           f"{INT_BEFORE_DEVICE_MS['forward']}), "
-          f"{prof['device_launches']:.0f} device launches per forward",
-          flush=True)
+          f"{_num(prof['device_launches'], '.0f')} device launches per "
+          f"forward", flush=True)
     with torch.no_grad():
         record["alignment"] = alignment.run(size=yolo.INPUT_SIZE, device=dev)
     for name, value, note in record["alignment"]:
@@ -1690,8 +1744,9 @@ def drive_qat(torch, np, dev) -> dict:
                                                 live["state"], *batch)
 
     prof = device_profile(torch, one_step, n=5)
-    prof["idle_share_of_step"] = 1.0 - (prof["device_busy_ms"]
-                                        / train["ms_per_step"])
+    prof["idle_share_of_step"] = (
+        None if prof["device_launches"] is None
+        else 1.0 - prof["device_busy_ms"] / train["ms_per_step"])
     record.update({"train": train, "step_profile": prof})
     print(f"[qat] {QAT_STEPS} steps at B={QAT_BATCH} 320x320: loss "
           f"{train['loss']}, held-out {train['held_out_loss_before']:.6g} -> "
@@ -1700,8 +1755,8 @@ def drive_qat(torch, np, dev) -> dict:
           f"{train['first_step_ms']:.1f}), {train['img_per_s']:.1f} img/s, "
           f"peak memory {train['peak_memory_bytes'] / 2 ** 20:.1f} MiB; "
           f"device busy {prof['device_busy_ms']:.4f} ms a step "
-          f"({prof['device_launches']:.0f} device records), idle share "
-          f"{prof['idle_share_of_step']:.3f} of the step",
+          f"({_num(prof['device_launches'], '.0f')} device records), idle "
+          f"share {_num(prof['idle_share_of_step'], '.3f')} of the step",
           flush=True)
 
     by_path = {}
@@ -1958,7 +2013,9 @@ def step_profile(torch, fn, popcount_per_call: int, n: int = 5,
     intervals), profiled wall ms and idle share, device records per call
     and device ms per call by kernel name (the ``top`` largest). A trace
     must hold ``popcount_per_call`` popcount matmul records a call, or it
-    has lost device records and is taken again, up to ``tries`` times."""
+    has lost device records and is taken again, up to ``tries`` times, and
+    then `events_profile` times the calls (idle share, device records and
+    the kernels' ms not measured)."""
     from repro_torch.launch.profile import union_us
     fn()
     torch.cuda.synchronize()
@@ -1977,8 +2034,11 @@ def step_profile(torch, fn, popcount_per_call: int, n: int = 5,
                 popcount_per_call * n:
             break
     else:
-        raise RuntimeError(f"{tries} traces of the decode step lost device "
-                           f"records")
+        rec = events_profile(torch, fn, n, tries)
+        return {"device_busy_ms": rec["device_busy_ms"],
+                "wall_ms": rec["wall_ms"], "idle_share": None,
+                "device_records": None, "device_ms_by_kernel": {},
+                "device_ms_rest": None, "device_timing": "cuda events"}
     by_name = {}
     for e in events:
         by_name[e.name] = by_name.get(e.name, 0.0) + \
@@ -1990,7 +2050,8 @@ def step_profile(torch, fn, popcount_per_call: int, n: int = 5,
             "idle_share": 1.0 - busy / wall_ms,
             "device_records": len(events) / n,
             "device_ms_by_kernel": dict(order[:top]),
-            "device_ms_rest": sum(v for _, v in order[top:])}
+            "device_ms_rest": sum(v for _, v in order[top:]),
+            "device_timing": "torch.profiler"}
 
 
 def graph_ms(torch, fn, n: int = 20, reps: int = 5) -> float:
@@ -2024,7 +2085,8 @@ def drive_lm(torch, np, dev, smi: str) -> dict:
     no other kernel; the packed prefill against the unpacked one
     (`lm_prefill_parity`); one `w1a8_linear_infer_int` call, counted the
     same way; the decode step's CUDA-event ms, device busy ms and idle
-    share (torch.profiler), and peak memory."""
+    share (torch.profiler), and peak memory. Returns (the f32 params,
+    which phase 11 serves, and the record)."""
     import argparse
 
     from repro_torch import configs
@@ -2128,23 +2190,139 @@ def drive_lm(torch, np, dev, smi: str) -> dict:
     print(f"[lm decode step] {LM_ARCH} at M = {LM_SLOTS}: {step_ms:.3f} ms "
           f"(CUDA events), device busy {prof['device_busy_ms']:.4f} ms, "
           f"profiled wall {prof['wall_ms']:.3f} ms, idle share "
-          f"{prof['idle_share']:.4f}, {prof['device_records']:.0f} device "
-          f"records a step; bound {step_bound:.4f} ms ({sign_bytes / 1e9:.3f}"
+          f"{_num(prof['idle_share'], '.4f')}, "
+          f"{_num(prof['device_records'], '.0f')} device records a step "
+          f"({prof['device_timing']}); bound {step_bound:.4f} ms ({sign_bytes / 1e9:.3f}"
           f" GB of sign words + {emb_bytes / 1e9:.3f} GB of f32 "
           f"unembedding at 3.35 TB/s) ({smi})", flush=True)
     for name, ms in prof["device_ms_by_kernel"].items():
         print(f"[lm decode step] device ms a step {ms:.4f}: {name[:90]}",
               flush=True)
-    print(f"[lm decode step] device ms a step {prof['device_ms_rest']:.4f}:"
-          f" the rest", flush=True)
-    del params
-    return {"card": smi, "arch": LM_ARCH, "kernels": kernel_rows,
+    print(f"[lm decode step] device ms a step "
+          f"{_num(prof['device_ms_rest'], '.4f')}: the rest", flush=True)
+    return params, {"card": smi, "arch": LM_ARCH, "kernels": kernel_rows,
             "kernel_errs": kernel_errs, "serve": record,
             "launches": counts, "int_call_launches": int_counts,
             "per_decode_step": per_step, "peak_memory_bytes": peak,
             "init_s": init_s, "parity": parity, "step_ms": step_ms,
             "step_profile": prof, "step_bound_ms": step_bound,
             "sign_bytes": sign_bytes, "emb_bytes": emb_bytes}
+
+
+def check_dispatch_launches(launches: dict, dispatches: int, configs,
+                            what: str) -> None:
+    """``launches`` by kernel equal ``dispatches`` times `per_dispatch` of
+    ``configs`` (each replay adds the launches its capture recorded)."""
+    per = per_dispatch(configs)
+    for name in set(launches) | set(per):
+        if launches.get(name, 0) != dispatches * per.get(name, 0):
+            raise AssertionError(f"{what}: {name}: {launches.get(name, 0)} "
+                                 f"launches for {dispatches} dispatches, "
+                                 f"want {per.get(name, 0)} each")
+
+
+def drive_tiers(torch, dev, smi: str, lm_params) -> dict:
+    """Phase 11: the launcher's fleet, the traffic harness's real and model
+    modes, and compose on phase 10's f32 params, each with every launch
+    count zeroed just before and read just after."""
+    import argparse
+
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch import traffic
+
+    serve_out = ROOT / "build" / "tiers_serve.json"
+    fleet_out = ROOT / "build" / "tiers_fleet.json"
+    for path in (serve_out, fleet_out):
+        path.parent.mkdir(exist_ok=True)
+        path.unlink(missing_ok=True)
+    counts = {}
+    # (a) the launcher's detect with a 2-replica autoscaled fleet
+    _zero(launch.KERNELS)
+    record = launch.main(["--workload", "detect", "--requests", "512",
+                          "--slots", str(BATCH), "--depth", "2",
+                          "--profile", "tuned", "--replicas", "2",
+                          "--autoscale", "--out", str(serve_out)])
+    counts["launcher fleet"] = launch.launch_counts()
+    fleet = record["fleet"]
+    check_dispatch_launches(fleet["launches"], fleet["dispatches"],
+                            record["configs"]["320"], "launcher fleet")
+    if fleet["requests_lost"] or sum(fleet["drops_by_cause"].values()):
+        raise AssertionError(f"launcher fleet: {fleet['drops_by_cause']}")
+    print(f"[fleet] launcher detect, 512 requests, 2 replicas autoscaled "
+          f"(replicas {fleet['replicas_min']}→{fleet['replicas_max']}, "
+          f"{len(fleet['scale_events'])} scale events): payloads bit-exact "
+          f"with the single scheduler, 0 lost, 0 dropped; "
+          f"{fleet['dispatches']} dispatches, launches "
+          f"{ {k: v for k, v in fleet['launches'].items() if v} }; single "
+          f"scheduler {record['img_per_s']:.2f} img/s, tick p50 "
+          f"{record['tick_p50_ms']:.4f} ms ({smi})", flush=True)
+    # (b) real replicas: 1 against 2, bit for bit
+    _zero(launch.KERNELS)
+    real = traffic.main(["--mode", "real", "--requests", "256",
+                         "--replicas", "2", "--out", str(fleet_out)])
+    counts["traffic real"] = launch.launch_counts()
+    check_dispatch_launches(
+        real["launches"], real["dispatches_single"]
+        + real["dispatches_fleet"], real["configs"], "traffic real")
+    print(f"[traffic real] 256 requests at 320, slots {real['slots']}: "
+          f"1 replica {real['img_per_s_single']:.2f} img/s, 2 replicas "
+          f"{real['img_per_s_fleet']:.2f} img/s; completed sets equal, "
+          f"payloads bit-exact ({smi})", flush=True)
+    # (c) the model replay calibrated from (a)'s record
+    model = traffic.run_model(argparse.Namespace(
+        serve_bench=str(serve_out), slo_ms=5000.0, requests=2000,
+        seed=SEED, max_seconds=0.0))
+    cells = {f"{kind}/{name}": cell for kind in traffic.TRACES
+             for name, cell in model[kind].items()}
+    if len(cells) != 12 or any(c["requests_lost"] for c in cells.values()):
+        raise AssertionError(f"model replay: {len(cells)} cells, lost "
+                             f"{[c['requests_lost'] for c in cells.values()]}")
+    cal = model["config"]
+    print(f"[traffic model] 12 cells, {model['total_requests']} requests, "
+          f"0 lost; calibration width {cal['width']}, depth {cal['depth']}, "
+          f"tick {cal['tick_ms']:.4f} ms: slo {cal['slo_ms']} ms = "
+          f"{cal['slo_ticks']} ticks; attainment "
+          f"{ {k: round(c['slo_attainment'], 4) for k, c in cells.items()} }",
+          flush=True)
+    # (d) compose on phase 10's params, at full width
+    args = argparse.Namespace(
+        device=str(dev), requests=8, buckets="320", seed=SEED,
+        slots=LM_SLOTS, depth=2, profile="tuned", arch=LM_ARCH,
+        reduced=False, max_new=LM_MAX_NEW, max_len=LM_MAX_LEN,
+        temperature=0.0, stop_token=[])
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(launch.KERNELS)
+    with torch.no_grad():
+        compose = launch.run_compose(args, params=lm_params)
+    torch.cuda.synchronize()
+    counts["compose"] = launch.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if compose["handoffs"] != 8 or compose["lost"] or compose["duplicated"]:
+        raise AssertionError(f"compose: {compose['handoffs']} hand-offs, "
+                             f"{compose['lost']} lost, "
+                             f"{compose['duplicated']} duplicated")
+    check_dispatch_launches(compose["launches"],
+                            compose["detect_dispatches"],
+                            compose["configs"]["320"], "compose")
+    print(f"[compose] {LM_ARCH} full width, float, 8 requests x "
+          f"{LM_MAX_NEW} greedy tokens, slots {LM_SLOTS}: 0 lost, 0 "
+          f"duplicated, 8 hand-offs, prompts the template; "
+          f"{compose['ticks']} ticks, {compose['wall_s']:.2f} s, "
+          f"{compose['detect_dispatches']} detect dispatches, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({smi})", flush=True)
+    return {"launches": counts, "launcher": record, "real": real,
+            "model": model, "compose": compose, "compose_peak_bytes": peak,
+            "summary": {
+                "launcher_fleet": {k: fleet[k] for k in (
+                    "dispatches", "replicas_min", "replicas_max",
+                    "requests_completed", "requests_lost")},
+                "img_per_s_single": real["img_per_s_single"],
+                "img_per_s_fleet": real["img_per_s_fleet"],
+                "calibration": {k: cal[k] for k in (
+                    "width", "depth", "tick_ms", "slo_ticks")},
+                "compose": {k: compose[k] for k in (
+                    "ticks", "wall_s", "handoffs", "lost", "duplicated")},
+                "compose_peak_bytes": peak}}
 
 
 def main() -> int:
@@ -2211,14 +2389,20 @@ def main() -> int:
     print(f"[qat] phase 9 in {time.perf_counter() - t0:.1f} s", flush=True)
     by_path["qat pipeline"] = qat_record["launches"]
     t0 = time.perf_counter()
-    lm_record = drive_lm(torch, np, dev, smi)
+    lm_params, lm_record = drive_lm(torch, np, dev, smi)
     print(f"[lm] phase 10 in {time.perf_counter() - t0:.1f} s", flush=True)
     by_path["lm serve"] = lm_record["launches"]
     by_path["lm int call"] = lm_record["int_call_launches"]
+    t0 = time.perf_counter()
+    tiers = drive_tiers(torch, dev, smi, lm_params)
+    del lm_params
+    print(f"[tiers] phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
+    by_path.update(tiers["launches"])
     # every driven path's launches: the three launcher runs, phase 5's
     # eager forwards (popcount on both pool routes, dot fused) and int
-    # call, phase 7's integer forward, phase 9's QAT pipeline and phase
-    # 10's LM serve and int call
+    # call, phase 7's integer forward, phase 9's QAT pipeline, phase 10's
+    # LM serve and int call, and phase 11's launcher fleet, real traffic
+    # and compose
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in KERNELS}
 
@@ -2325,7 +2509,7 @@ def main() -> int:
          "dispatch_profiles": dispatch_profiles, "winners": winners,
          "popcount_forward": pc_record, "nms": nms_record,
          "int_forward": int_record, "qat": qat_record, "lm": lm_record,
-         "floor_device_ms": floor_ms},
+         "tiers": tiers, "floor_device_ms": floor_ms},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],
@@ -2359,6 +2543,8 @@ def main() -> int:
                              "peak_memory_bytes":
                                  lm_record["peak_memory_bytes"],
                              "prefill_parity": lm_record["parity"]},
+                      "tiers": tiers["summary"],
+                      "trace_fallbacks": TRACE_FALLBACKS,
                       "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

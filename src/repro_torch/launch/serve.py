@@ -1,5 +1,5 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --workload
-{detect,multires,lm}``.
+{detect,multires,lm,compose}``.
 
 The detection workloads build the detector from a numpy seed and serve
 random uint8 images through the `Scheduler` and `DetectionBackend` under
@@ -24,14 +24,27 @@ included; "default": the dot kernels on the unfused pool route).
              headline record is the ``--depth`` run, the curve sits under
              ``depth_sweep``. ``--burst 4x`` makes the stream at least
              4 × slots requests, all submitted at once, and checks zero
-             drops and at most one host sync a tick.
+             drops and at most one host sync a tick. ``--replicas N`` (and
+             ``--autoscale``, N to 2N replicas) also routes the same stream
+             through a fleet `Router` of N ``spawn(depth=--depth)``
+             replicas of the device-NMS backend, sharing its CUDA graph:
+             nothing lost or dropped, the same completed ids, payloads bit
+             for bit those of the single-scheduler run; the fleet's
+             `FleetMetrics.summary()` goes under ``fleet``.
   multires — ``--buckets`` (default 256,320) in round robin through ONE
              scheduler, one CUDA graph per bucket sharing the packed
              weights. Each bucket's raw heads must equal, bit for bit, the
              same bucket's requests served alone; the device-NMS wire then
              gives a per-bucket saturation curve over K ∈ {1, 2, 4, 8}.
+  compose  — the detect→LM pipeline (`serve.compose`): the device-NMS
+             `DetectionBackend` at ``--buckets`` (default 320) feeds an
+             `LMBackend` serving ``--arch`` in float mode from a seeded
+             init (seed + 1); each detection templates into a prompt and
+             re-admits to the LM on the same tick loop. Checks nothing lost
+             or duplicated, every result finished by length or stop, every
+             prompt the template of its detections, one hand-off a request.
 
-Both check:
+The detection workloads check:
 
   * every request completes and none is dropped;
   * depth-K payloads are bit-exact with depth 1, on both wires;
@@ -42,13 +55,25 @@ Both check:
 On the card every dispatch is one CUDA graph replay per bucket and wire
 (`DetectionBackend`). The record carries each bucket's resolved configs
 and, for detect, the kernel launches of the raw-wire depth-K serve and its
-dispatch count. Prints one JSON summary line; writes no file.
+dispatch count (and of the fleet run, summed over its replicas), and the
+card's name and power limit. Prints one JSON summary line. ``--out
+[PATH]`` also writes the record into a JSON file, merged under the
+workload's key (default path: ``results/BENCH_serve_cuda.json`` in this
+package, the record `launch.traffic` calibrates from).
+
+Not ported: the reference's ``--gate-bench``, which fails one run whose
+img/s falls below the committed record × 0.95. On the card, launcher runs
+of one commit spread by 28–35% in img/s, so a gate on one run would fire
+on noise; a gate on the median of several runs belongs to a benchmark
+harness.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -62,9 +87,15 @@ from repro_torch.kernels.w1a8_matmul import ops as mm_ops
 from repro_torch.models import detection, yolo
 from repro_torch import configs
 from repro_torch.models.transformer import init_lm_params
-from repro_torch.serve import (DetectionBackend, LMBackend, SamplingParams,
-                               Scheduler, ServeRequest, deploy_lm,
-                               packed_param_bytes)
+from repro_torch.serve import (Autoscaler, AutoscalerConfig,
+                               ComposePipeline, ComposeRequest,
+                               DetectionBackend, FleetMetrics, LMBackend,
+                               Router, SamplingParams, Scheduler,
+                               ServeRequest, deploy_lm,
+                               detections_to_prompt, packed_param_bytes)
+
+DEFAULT_OUT = str(pathlib.Path(__file__).resolve().parents[1] / "results"
+                  / "BENCH_serve_cuda.json")
 
 # Every CUDA kernel entry point of the port, by name: each counts its own
 # launches, through graph replays too. A dispatch runs, per W1A8 layer, the
@@ -171,7 +202,7 @@ def check_alignment(params: dict, images, raw_wire: dict, device,
     return rep
 
 
-def _card(dev) -> str:
+def card_name(dev) -> str:
     """The card's name and power limit, as nvidia-smi gives them ("cpu"
     on the CPU)."""
     if dev.type != "cuda":
@@ -241,8 +272,13 @@ def run_detect(args) -> dict:
     if burst and summary["host_syncs_per_tick"] > 1.0:
         raise AssertionError(f"burst: {summary['host_syncs_per_tick']} "
                              f"host syncs a tick")
+    fleet = None
+    if args.replicas > 1 or args.autoscale:
+        fleet = serve_fleet(dn_t.spawn(depth=args.depth), imgs_u8,
+                            dn[args.depth], args.replicas, args.autoscale)
     return {
-        "workload": "detect", "device": _card(dev), "profile": args.profile,
+        "workload": "detect", "device": card_name(dev),
+        "profile": args.profile,
         "bucket": size, "slots": args.slots, "depth": args.depth,
         "requests": n_req, "burst": args.burst or None,
         "nms": "device", "wire": "fp16 boxes+scores, int8 classes, "
@@ -264,7 +300,46 @@ def run_detect(args) -> dict:
                       "host_sync_bytes_per_sync")},
         "raw_wire_dispatches": counted.host_syncs,
         "raw_wire_launches": launches,
+        **({"fleet": fleet} if fleet else {}),
     }
+
+
+def serve_fleet(template, images, want: dict, replicas: int,
+                autoscale: bool) -> dict:
+    """``images`` through a `Router` of ``replicas`` ``template.spawn``
+    replicas (an `Autoscaler` from ``replicas`` to twice as many with
+    ``autoscale``), all submitted at once: nothing lost or dropped, the
+    completed ids and every payload bit for bit those of ``want``. Returns
+    the fleet's summary with its dispatches, summed over its replicas, and
+    the kernel launches they made."""
+    scaler = None
+    if autoscale:
+        scaler = Autoscaler(AutoscalerConfig(min_replicas=replicas,
+                                             max_replicas=2 * replicas))
+    router = Router(template.spawn, replicas=replicas, autoscaler=scaler,
+                    metrics=FleetMetrics(), keep_results=True)
+    before = launch_counts()
+    results = router.run([ServeRequest(rid=i, image=images[i])
+                          for i in range(len(images))])
+    launches = {k: n - before[k] for k, n in launch_counts().items()}
+    if router.metrics.lost or router.metrics.dropped:
+        raise AssertionError(f"fleet lost or dropped requests: "
+                             f"{router.metrics.summary()}")
+    got = {r.rid: r.detections for r in results}
+    if sorted(got) != sorted(want):
+        raise AssertionError("the fleet completed another request-id set "
+                             "than the single scheduler")
+    check_bit_exact(got, want, "fleet vs single scheduler")
+    return {"replicas": replicas, "autoscale": bool(autoscale),
+            "equivalence": "completed-id sets equal, payloads bit-exact "
+                           "vs single-scheduler run",
+            "dispatches": sum(s.backend.host_syncs
+                              for s in router.schedulers()),
+            "launches": launches,
+            "replica_summaries": {str(k): {key: v[key] for key in (
+                "requests_completed", "ticks", "img_per_s", "wall_s")}
+                for k, v in router.engine_summaries().items()},
+            **router.metrics.summary()}
 
 
 def run_multires(args) -> dict:
@@ -312,7 +387,7 @@ def run_multires(args) -> dict:
         saturation[str(b)] = {str(k): {key: summ[key] for key in SWEEP_KEYS}
                               for k, summ in summaries.items()}
     return {
-        "workload": "multires", "device": _card(dev),
+        "workload": "multires", "device": card_name(dev),
         "profile": args.profile, "buckets": list(buckets),
         "slots": args.slots, "depth": args.depth, "requests": n_req,
         "requests_per_bucket": {str(b): len(r) for b, r in by_bucket.items()},
@@ -390,7 +465,7 @@ def run_lm(args, params=None) -> dict:
           f"per-tick sync {summary['host_sync_bytes_per_tick']:.0f} B "
           f"done-mask vs {host_summary['host_sync_bytes_per_tick']:.0f} B "
           f"token-row host-checked", flush=True)
-    return {"workload": "lm", "device": _card(dev), "arch": args.arch,
+    return {"workload": "lm", "device": card_name(dev), "arch": args.arch,
             "reduced": args.reduced, "packed": args.packed,
             "packed_bytes": acct, "slots": args.slots,
             "max_new": args.max_new, "max_len": args.max_len,
@@ -406,20 +481,110 @@ def run_lm(args, params=None) -> dict:
                 "sync_wire": "token row/tick", **host_summary}}
 
 
+def run_compose(args, params=None) -> dict:
+    """Detect→LM on one tick loop, nothing lost or duplicated. ``params``:
+    float LM params to serve in place of the seeded init."""
+    dev = resolve_device(args.device)
+    n_req = args.requests
+    bucket = _buckets(args, "320")[0]
+    imgs = make_images(n_req, args.seed, bucket)
+    _, art = yolo.build_detector(
+        args.seed, imgs[:1].astype(np.float32) / 256.0, buckets=(bucket,),
+        device=dev)
+    detect = DetectionBackend(art, slots=args.slots, depth=args.depth,
+                              profile=args.profile, device_nms=True,
+                              device=dev)
+    detect.warmup()
+    cfg = (configs.get_reduced(args.arch) if args.reduced
+           else configs.get_config(args.arch))
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed + 1)
+        params = init_lm_params(cfg, gen, device=dev)
+    lm = LMBackend(cfg, params, slots=args.slots, max_len=args.max_len,
+                   seed=args.seed, device=dev)
+    sp = SamplingParams(max_new=args.max_new, temperature=args.temperature,
+                        stop_tokens=tuple(args.stop_token))
+    pipe = ComposePipeline(detect, lm, vocab=cfg.vocab_size)
+    before = launch_counts()
+    t0 = time.perf_counter()
+    results = pipe.run([ComposeRequest(rid=i, image=imgs[i], sampling=sp)
+                        for i in range(n_req)])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = {k: n - before[k] for k, n in launch_counts().items()}
+    summary = pipe.summary()
+    counts = {k: summary[k] for k in ("submitted", "completed", "lost",
+                                      "duplicated", "handoffs", "ticks")}
+    if counts["lost"] or counts["duplicated"] or len(results) != n_req:
+        raise AssertionError(f"compose lost or duplicated requests: "
+                             f"{counts}")
+    for r in results:
+        if r.finish_reason not in ("length", "stop") or not r.tokens:
+            raise AssertionError(f"rid {r.rid}: {r.finish_reason}, "
+                                 f"{len(r.tokens)} tokens")
+        if r.prompt != detections_to_prompt(r.detections,
+                                            vocab=cfg.vocab_size):
+            raise AssertionError(f"rid {r.rid}: the prompt is not the "
+                                 f"template of its detections")
+    if len(pipe.handoffs) != n_req or any(h.kind != "compose"
+                                          for h in pipe.handoffs):
+        raise AssertionError(f"{len(pipe.handoffs)} hand-offs for {n_req} "
+                             f"requests")
+    print(f"[compose] {n_req} detect→LM requests in {summary['ticks']} "
+          f"ticks, {wall:.2f} s: 0 lost, 0 duplicated; prompts "
+          f"{[list(r.prompt) for r in results[:3]]}...", flush=True)
+    return {"workload": "compose", "device": card_name(dev),
+            "arch": args.arch, "reduced": args.reduced, "mode": "float",
+            "profile": args.profile, "bucket": bucket, "slots": args.slots,
+            "depth": args.depth, "requests": n_req,
+            "max_new": args.max_new, "max_len": args.max_len,
+            "prompt_template": "describe-token, count-token, class tokens",
+            "checks": ["0 lost, 0 duplicated", "every result length or "
+                       "stop", "prompt equals detections_to_prompt",
+                       "one compose hand-off a request"],
+            **counts, "wall_s": wall,
+            "detect_dispatches": detect.host_syncs,
+            "launches": launches,
+            "configs": _configs(detect),
+            "prompts_by_rid": {str(r.rid): list(r.prompt) for r in results},
+            "tokens_by_rid": {str(r.rid): r.tokens for r in results},
+            "detect": summary["detect"], "lm": summary["lm"]}
+
+
+def write_record(path: str, workload: str, record: dict) -> None:
+    """Merges ``record`` into the JSON file at ``path`` under
+    ``workload``."""
+    p = pathlib.Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    data = {}
+    if p.exists():
+        try:
+            data = json.loads(p.read_text())
+        except json.JSONDecodeError:
+            data = {}
+    data[workload] = record
+    p.write_text(json.dumps(data, indent=2, sort_keys=True) + "\n")
+    print(f"[bench] wrote {path} [{workload}]", flush=True)
+
+
 def _buckets(args, default: str) -> tuple:
     return tuple(int(b) for b in (args.buckets or default).split(","))
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--workload", choices=("detect", "multires", "lm"),
+    ap.add_argument("--workload",
+                    choices=("detect", "multires", "lm", "compose"),
                     default="detect")
     ap.add_argument("--profile", choices=yolo.PROFILES, default="tuned",
                     help="kernel configs: the autotune table's (tuned) or "
                          "the dot heuristic's (default)")
     ap.add_argument("--buckets", default="",
-                    help="image sizes, multiples of 32 (detect: one, "
-                         "default 320; multires: >= 2, default 256,320)")
+                    help="image sizes, multiples of 32 (detect, compose: "
+                         "one, default 320; multires: >= 2, default "
+                         "256,320)")
     ap.add_argument("--burst", default="",
                     help="detect: e.g. 4x submits >= 4·slots requests as "
                          "one burst; checks zero drops and <= 1 host sync "
@@ -428,9 +593,20 @@ def main(argv=None) -> dict:
     ap.add_argument("--depth", type=int, default=2)
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="detect: also serve the stream through a fleet "
+                         "Router of N replicas, payloads bit-exact with "
+                         "the single scheduler's")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="detect: attach an Autoscaler (--replicas to "
+                         "2x --replicas) to the fleet run")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
-    lm = ap.add_argument_group("lm workload")
+    ap.add_argument("--out", nargs="?", const=DEFAULT_OUT, default=None,
+                    help="also merge the record into this JSON file, "
+                         "under the workload's key (bare --out: "
+                         "results/BENCH_serve_cuda.json in the package)")
+    lm = ap.add_argument_group("lm and compose workloads")
     lm.add_argument("--arch", default="granite-20b",
                     choices=configs.DENSE)
     lm.add_argument("--reduced", action="store_true",
@@ -443,8 +619,10 @@ def main(argv=None) -> dict:
     lm.add_argument("--stop-token", type=int, action="append", default=[])
     args = ap.parse_args(argv)
     run = {"detect": run_detect, "multires": run_multires,
-           "lm": run_lm}[args.workload]
+           "lm": run_lm, "compose": run_compose}[args.workload]
     record = run(args)
+    if args.out:
+        write_record(args.out, args.workload, record)
     print(json.dumps(record))
     return record
 

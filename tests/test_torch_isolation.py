@@ -75,3 +75,32 @@ def test_lm_entry_points_raise_without_cuda():
         launch_serve.main(["--workload", "lm", "--reduced"])
     # asked for the CPU, they run there
     assert LMBackend(cfg, params, device="cpu").device.type == "cpu"
+
+
+def test_fleet_and_compose_entry_points_raise_without_cuda():
+    """`run_compose`, `traffic.run_real` and a Router over card-default
+    `DetectionBackend` replicas raise; the Router itself is
+    device-agnostic."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import argparse
+
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import traffic
+    from repro_torch.models import yolo
+    from repro_torch.serve import DetectionBackend, ModelBackend, Router
+    args = argparse.Namespace(
+        device=None, requests=2, buckets="64", seed=0, slots=2, depth=2,
+        profile="tuned", arch="chatglm3-6b", reduced=True, max_new=2,
+        max_len=32, temperature=0.0, stop_token=[], replicas=2, bucket=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.run_compose(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        traffic.run_real(args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--workload", "detect", "--replicas", "2"])
+    _, art = yolo.build_detector(0, np.zeros((1, 64, 64, 3), np.float32),
+                                 device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Router(lambda: DetectionBackend(art), replicas=2)
+    assert Router(ModelBackend, replicas=2).n_live == 2
