@@ -115,13 +115,15 @@ Phases (any failure raises and the script exits non-zero):
    mean_abs < 0.002, 100% within 1 LSB of 0.02) against the float
    forward; prints its CUDA-event and device ms per forward and
    ``launch/alignment.py``'s rows (the paper's Table 6 checkpoints at 320).
-8. Prints one ``{"kernels": [...]}`` line with all nine sources (each
-   kernel's launches summed over the driven paths, and by path: the three
-   launcher runs, phase 5's forwards and int call, phase 7's integer
-   forward, phase 9's QAT pipeline, phase 10's LM serve and int call,
-   phase 11's launcher fleet, real traffic and compose runs; the two
-   matmuls also their numbers at the LM shapes, under ``lm``), and as the
-   last line ``{"ok": true, "device": {...}}``.
+8. Prints one ``{"kernels": [...]}`` line with the ten kernels of the
+   nine sources (the popcount matmul's grouped entry beside its 2-D one;
+   each kernel's launches summed over the driven paths, and by path: the
+   three launcher runs, phase 5's forwards and int call, phase 7's
+   integer forward, phase 9's QAT pipeline, phase 10's LM serve and int
+   call, phase 11's launcher fleet, real traffic and compose runs, phase
+   12's MoE and SSM serves and hybrid decode; the two matmuls also their
+   numbers at the LM shapes, under ``lm``, the grouped entry its phase
+   12a shapes), and as the last line ``{"ok": true, "device": {...}}``.
 9. Runs before phase 8's line: the paper's offline workflow (QAT, deploy,
    integer forward, Table 6, decode + NMS). One QAT train step at B = 2,
    320×320, on the card against the same step on the CPU from the same
@@ -184,6 +186,42 @@ Phases (any failure raises and the script exits non-zero):
    prompts equal to the template, detect launches equal to its
    dispatches times `per_dispatch`; prints ticks, wall s and peak memory.
 
+12. Runs before phase 8's line, after phases 10 and 11 freed their f32
+   params: the LM stack's MoE, SSM and hybrid families, packed. (a) The
+   popcount matmul's grouped entry (one launch for a stack of experts,
+   each expert's count of kept rows read on the device) bit for bit
+   against its plain version at mixtral-8x7b's (E 8; K, N 4096, 14336
+   both ways), kimi-k2's (E 384; 7168, 2048 both ways) and jamba's (E 16;
+   8192, 24576 both ways) expert shapes,
+   at cap 8 and 64, expert 0 empty; timed like phase 10's (the plain
+   version on the checked call) beside f32 ``torch.bmm`` on codes·step
+   and every expert's ±1, the bound from the words of the experts that
+   hold rows. (b) mixtral-8x7b at full width and depth (32 layers), drawn
+   and packed stage by stage (`init_packed_lm`, 6.37 GB), served through
+   ``run_lm`` (8 requests, 16 tokens, slots 4) with every launch count
+   zeroed before and read after: done-mask tokens equal to host-checked
+   ones, per decode step 128 popcount and 96 grouped launches (derived
+   from the config) and no other kernel; the decode step's CUDA-event
+   ms, device busy ms and idle share (torch.profiler) and its bound (the
+   dense words, the words of the experts that held rows in that step,
+   the f32 unembedding). (c) Packed against unpacked ``w1a8_eval``
+   prefill, tie codes forced, within PARITY_TOL·max|logit|: at
+   mixtral's full width over 2 layers, mamba2-1.3b's over its 48 (the
+   served tree against the f32 one of the same seed) and jamba's over its
+   period with 2 experts (the f32 tree of 16 would be 155 GB). (d)
+   mamba2-1.3b at full width and depth, served and timed as (b) (96
+   popcount launches a step). (e)
+   jamba-1.5-large-398b at full width over one period (8 layers: 1
+   attention, 7 Mamba-1, 4 MoE), packed: prefill and 5 decode steps,
+   each step's launches equal to the config's (30 popcount, 12 grouped),
+   and the step timed as (b). (f) For (d) and (e) (at capacity_factor =
+   num_experts, `plan_dispatch`'s no-drop bound, so that a token's
+   experts do not depend on its batch), prefill and 5 greedy decode
+   steps against one teacher-forced ``lm_forward`` of the prompt and the
+   emitted tokens, the decode's tie codes forced to the forward's
+   (`forced_by_rows`): within TF_TOL·max|logit|, argmax equal where
+   decided.
+
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
 (``python -m repro_torch.launch.serve --requests 512``).
@@ -194,6 +232,8 @@ record to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import pathlib
 import statistics
@@ -233,6 +273,10 @@ KERNELS = {
     "w1a8_matmul_popcount": (
         "src/repro_torch/csrc/w1a8_matmul_popcount.cu",
         "src/repro/kernels/w1a8_matmul/kernel.py:135"),
+    # the same library's grouped entry: one launch for a stack of experts
+    "w1a8_matmul_popcount_grouped": (
+        "src/repro_torch/csrc/w1a8_matmul_popcount.cu",
+        "src/repro/kernels/w1a8_matmul/kernel.py:135"),
     "w1a8_matmul_int": ("src/repro_torch/csrc/w1a8_matmul_int.cu",
                         "src/repro/kernels/w1a8_matmul/kernel.py:228"),
     # the counterpart of the reference's jitted postprocess (decode_head and
@@ -250,7 +294,8 @@ TENSOR_CORE_KERNELS = {
     "w1a8_conv3x3_pool2": "HMMA", "w1a8_conv3x3": "HMMA",
     "w1a8_matmul": "HMMA", "w1a8_conv3x3_pool2_popcount": "IMMA",
     "w1a8_conv3x3_popcount": "IMMA", "w1a8_matmul_popcount": "IMMA",
-    "w1a8_matmul_int": "IMMA", "w1a8_int_pe": "IMMA"}
+    "w1a8_matmul_popcount_grouped": "IMMA", "w1a8_matmul_int": "IMMA",
+    "w1a8_int_pe": "IMMA"}
 PROFILES = ("tuned", "default")  # the launcher's --profile, both driven
 AUTOTUNE_CMD = "PYTHONPATH=src python -m repro_torch.launch.autotune --batch 4"
 WINNERS = 22                   # 11 cells x 2 accum modes in the table
@@ -1968,13 +2013,14 @@ def check_lm_kernels(torch, np, dev, cfg) -> tuple:
     return records, {MM: 0.0, INT: 0.0}
 
 
-def lm_prefill_parity(torch, params, packed, cfg, prompts) -> dict:
-    """Phase 10c: prefill logits of the packed path against the unpacked
-    ``w1a8_eval`` path on the same card, the packed run's codes that round
-    across a tie forced to the unpacked run's (`train.ties`, each within
-    1e-3 of a tie on both sides): within LM_TOL·max|logit|, and greedy
-    tokens equal wherever the unpacked run's top-2 gap exceeds that. The
-    unforced difference is printed beside it."""
+def lm_prefill_parity(torch, params, packed, cfg, prompts,
+                      tol: float = LM_TOL) -> dict:
+    """Phase 10c (and 12c): prefill logits of the packed path against the
+    unpacked ``w1a8_eval`` path on the same card, the packed run's codes
+    that round across a tie forced to the unpacked run's (`train.ties`,
+    each within 1e-3 of a tie on both sides): within tol·max|logit|, and
+    greedy tokens equal wherever the unpacked run's top-2 gap exceeds
+    that. The unforced difference is printed beside it."""
     from repro_torch.models import layers
     from repro_torch.serve.engine import prefill
     from repro_torch.train import ties
@@ -1991,16 +2037,16 @@ def lm_prefill_parity(torch, params, packed, cfg, prompts) -> dict:
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     free_err = float((free - want).abs().max())
-    if not err <= LM_TOL * scale:
+    if not err <= tol * scale:
         raise AssertionError(f"packed prefill logits {err} off the unpacked "
-                             f"path's, > {LM_TOL} * {scale}")
+                             f"path's, > {tol} * {scale}")
     top2 = torch.topk(want, 2, dim=-1).values
-    decided = (top2[:, 0] - top2[:, 1]) > LM_TOL * scale
+    decided = (top2[:, 0] - top2[:, 1]) > tol * scale
     same = torch.argmax(got, -1) == torch.argmax(want, -1)
     if not bool(same[decided].all()):
         raise AssertionError("packed prefill: a greedy token differs where "
                              "the top-2 gap exceeds the tolerance")
-    return {"max_abs_err": err, "max_abs_logit": scale,
+    return {"max_abs_err": err, "max_abs_logit": scale, "tol": tol,
             "rel_err": err / scale, "unforced_max_abs_err": free_err,
             "codes_forced": sum(counts), "quantizer_calls": len(counts),
             "decided_rows": int(decided.sum()), "rows": int(len(decided))}
@@ -2325,6 +2371,554 @@ def drive_tiers(torch, dev, smi: str, lm_params) -> dict:
                 "compose_peak_bytes": peak}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the LM stack's MoE, SSM and hybrid families, packed
+# ---------------------------------------------------------------------------
+
+GROUPED = "w1a8_matmul_popcount_grouped"
+MOE_ARCH, SSM_ARCH = "mixtral-8x7b", "mamba2-1.3b"
+HYBRID_ARCH, HYBRID_LAYERS = "jamba-1.5-large-398b", 8   # one period
+# (arch, experts, K, N) of the expert projections the grouped entry is
+# held at, each at a decode cap (the launcher's slots) and a prefill cap
+GROUPED_SHAPES = (("mixtral-8x7b", 8, 4096, 14336),
+                  ("mixtral-8x7b", 8, 14336, 4096),
+                  ("kimi-k2-1t-a32b", 384, 7168, 2048),
+                  ("kimi-k2-1t-a32b", 384, 2048, 7168),
+                  ("jamba-1.5-large-398b", 16, 8192, 24576),
+                  ("jamba-1.5-large-398b", 16, 24576, 8192))
+# (what, cap, routed tokens): cap 8 takes the slots' 4 tokens whole; at
+# cap 64, 256 tokens fill mixtral's experts past the cap and leave kimi's
+# some 5 rows an expert
+GROUPED_CAPS = (("decode", 8, LM_SLOTS), ("prefill", 64, 256))
+MOE_PARITY_LAYERS = 2
+# jamba's one period unpacked in f32 holds 4 MoE layers of 16 experts,
+# 155 GB: its packed-against-unpacked prefill cuts the experts to 2 (top 2
+# of 2), some 45 GB; every projection keeps its shape, and the grouped
+# entry at 16 experts is held bit for bit in 12(a)
+HYBRID_PARITY_EXPERTS = 2
+# packed against unpacked prefill at full width, tie codes forced:
+# tests/test_torch_lm.py's contract (K ≤ 128 there, up to 24576 here: some
+# 10x more roundings a sum, still ~1e-6 relative), for mixtral over 2
+# layers, mamba2-1.3b over its 48 and jamba over its period
+PARITY_TOL = 1e-4
+# decode against the teacher-forced forward, both packed on the card, the
+# codes that round across a tie forced (`forced_by_rows`): sums in another
+# order (the scan against the recurrent step, the ring cache against the
+# full attention, cuBLAS at another M) some 1e-6 relative each, over up to
+# 48 layers
+TF_TOL, TF_STEPS = 1e-3, 5
+
+
+def grouped_counts(np, rng, e: int, top_k: int, cap: int, tokens: int):
+    """Rows each expert holds when ``tokens`` tokens each pick ``top_k``
+    distinct experts at random, expert 0 never (an empty expert in every
+    case), each clamped to ``cap``."""
+    counts = np.zeros(e, np.int64)
+    for _ in range(tokens):
+        counts[1 + rng.permutation(e - 1)[:top_k]] += 1
+    return np.minimum(counts, cap).astype(np.int32)
+
+
+def check_grouped(torch, np, dev, smi: str) -> list:
+    """Phase 12a: the grouped popcount entry, called as a packed MoE layer
+    calls it (div = α·step, bias 0), bit for bit against its plain version
+    on the card at mixtral's and kimi-k2's expert shapes, at a decode and
+    a prefill cap, an empty expert in each. Times it (CUDA events, and
+    device ms from graph replays) beside its plain version and f32
+    ``torch.bmm`` on codes·step and the unpacked ±1 of every expert (the
+    reference's arithmetic); the bound counts the sign words of the
+    experts that hold rows, their codes, every output row and the
+    constants, at 3.35 TB/s, against their int8 operations."""
+    from repro_torch import configs
+    from repro_torch.core import packing
+    from repro_torch.device import full_f32
+    from repro_torch.kernels.w1a8_matmul import ops as mm_ops
+    from repro_torch.kernels.w1a8_matmul import ref as mm_ref
+
+    rng = np.random.default_rng(SEED + 12)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    step = 0.05
+    records = []
+    for arch, e, k, n in GROUPED_SHAPES:
+        top_k = configs.get_config(arch).top_k
+        words = packing.packed_dim(k)
+        w = torch.randint(-2 ** 31, 2 ** 31 - 1, (e, words, n),
+                          dtype=torch.int32, device=dev, generator=gen)
+        div = torch.rand((e, n), device=dev, generator=gen) * step
+        bias = torch.zeros_like(div)
+        for what, cap, tokens in GROUPED_CAPS:
+            counts_np = grouped_counts(np, rng, e, top_k, cap, tokens)
+            counts = torch.from_numpy(counts_np).to(dev)
+            a = torch.from_numpy(rng.integers(0, 256, (e, cap, k),
+                                              dtype=np.uint8)).to(dev)
+
+            def run():
+                return mm_ops.w1a8_matmul_grouped(a, w, counts, div, bias,
+                                                  k=k)
+
+            def plain():
+                return mm_ref.w1a8_matmul_grouped_ref(a, w, counts, k, div,
+                                                      bias)
+            plain()                                  # warm
+            # the plain version is timed on the one call the check makes
+            # (seconds at kimi-k2's prefill cap)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = plain()
+            end.record()
+            end.synchronize()
+            _exact(torch, run(), want,
+                   f"grouped {arch} {what} {(e, cap, k, n)}")
+            del want
+            active = int((counts_np > 0).sum())
+            held = int(counts_np.sum())
+            nbytes = active * (words * n * 4 + 8 * n) + held * k \
+                + e * cap * n * 4 + e * 4
+            ops = 2 * held * k * n
+            rec = {"kernel": GROUPED, "arch": arch, "what": what,
+                   "shape": [e, cap, k, n], "experts_holding_rows": active,
+                   "rows_held": held, "bytes": nbytes, "ops": ops,
+                   "ms": cuda_ms(torch, run),
+                   "device_ms": graph_ms(torch, run),
+                   "plain_ms": start.elapsed_time(end)}
+            rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops,
+                                                     INT8_OPS_PER_S)
+            signs = torch.empty((e, k, n), dtype=torch.float32, device=dev)
+            for i in range(e):
+                signs[i] = packing.unpack_signs(w[i], k, dtype=torch.float32)
+            xq = a.to(torch.float32) * step
+
+            def library():
+                with full_f32():
+                    return torch.bmm(xq, signs)
+            rec["library_ms"] = cuda_ms(torch, library, reps=3, n=5)
+            rec["library_device_ms"] = graph_ms(torch, library, n=5, reps=3)
+            del signs, xq
+            records.append(rec)
+            print(f"[grouped] {arch} {what} (E, cap, K, N) = "
+                  f"{(e, cap, k, n)}, {active} experts hold {held} rows: "
+                  f"bit-exact with its plain version; {rec['ms']:.4f} ms, "
+                  f"device {rec['device_ms']:.5f} ms (plain "
+                  f"{rec['plain_ms']:.2f}, f32 torch.bmm "
+                  f"{rec['library_ms']:.4f}, device "
+                  f"{rec['library_device_ms']:.5f}, bound "
+                  f"{rec['bound_ms']:.5f} by {rec['bound_by']}) ({smi})",
+                  flush=True)
+        del w, div, bias
+    torch.cuda.empty_cache()
+    return records
+
+
+def lm_launches_per_step(cfg) -> dict:
+    """Launches of each popcount entry one packed decode step makes, from
+    the config: one 2-D launch a dense projection (4 an attention mixer,
+    2 a Mamba mixer's in and out projections, 2 or 3 a dense MLP), one
+    grouped launch an expert projection (3 an MoE FFN)."""
+    dense = grouped = 0
+    for i in range(cfg.num_layers):
+        mk, fk = cfg.mixer_kind(i % cfg.period), cfg.ffn_kind(i % cfg.period)
+        dense += 4 if mk.startswith("attn") else 2
+        if fk == "moe":
+            grouped += 3
+        elif fk == "dense":
+            dense += 3 if cfg.gated_mlp else 2
+    out = {"w1a8_matmul_popcount": float(dense)}
+    if grouped:
+        out[GROUPED] = float(grouped)
+    return out
+
+
+def expert_bytes_read(torch, fn, packed) -> int:
+    """Sign-word bytes of the experts that hold rows in one call of
+    ``fn`` (the rest read none), from the counts each grouped launch
+    gets."""
+    from repro_torch.models import moe
+    real, held = moe.w1a8_matmul_grouped, []
+
+    def counting(a, w, counts, div, bias, *, k):
+        held.append(int((counts > 0).sum()) * w[0].numel() * 4)
+        return real(a, w, counts, div, bias, k=k)
+    moe.w1a8_matmul_grouped = counting
+    try:
+        fn()
+    finally:
+        moe.w1a8_matmul_grouped = real
+    return sum(held)
+
+
+@contextlib.contextmanager
+def forced_by_rows(torch, recorded: list, tol: float = 1e-3):
+    """The port's quantizer with each input row's codes forced to those
+    of the nearest row of the same width among ``recorded``, one
+    teacher-forced forward's quantizer inputs, whose rows hold every
+    position of every layer (a linear's tokens, an MoE buffer's token and
+    expert rows). Matched by content, not by call: a prefill makes two
+    more calls an attention layer than a forward or a decode step (its
+    cache's K and V). Each code that differs must sit within ``tol`` of a
+    rounding tie in both runs (`train.ties`' rule), which a row matched
+    to another token or layer would fail. Yields the codes forced at each
+    call."""
+    from repro_torch.core.quant import quantize_act
+    from repro_torch.models import layers
+    real, counts = layers.quantize_act, []
+    widths = sorted({int(r.shape[-1]) for r in recorded})
+    rows_of = {k: torch.cat([r.reshape(-1, k) for r in recorded
+                             if r.shape[-1] == k]) for k in widths}
+
+    def forcing(x, step):
+        k = x.shape[-1]
+        cand = rows_of[k].to(x.device)
+        rows = x.detach().reshape(-1, k)
+        ref = cand[torch.cdist(rows, cand).argmin(1)].reshape(x.shape)
+        s = step.detach()
+        flip = quantize_act(x.detach(), s) != quantize_act(ref, s)
+        counts.append(int(flip.sum()))
+        if counts[-1]:
+            for v in (x.detach(), ref):
+                off = torch.abs(torch.remainder(v / s, 1.0) - 0.5)[flip]
+                if float(off.max()) > tol:
+                    raise AssertionError(
+                        f"quantizer call {len(counts) - 1}: a code differs "
+                        f"{float(off.max()):.6g} away from a rounding tie")
+            x = x + torch.where(flip, ref - x.detach(), 0.0)
+        return real(x, step)
+    layers.quantize_act = forcing
+    try:
+        yield counts
+    finally:
+        layers.quantize_act = real
+
+
+def decode_vs_forward(torch, cfg, params, prompts) -> dict:
+    """Phase 12f: prefill and TF_STEPS greedy decode steps against one
+    teacher-forced `lm_forward` over the prompt and the emitted tokens,
+    both packed on the card. The decode is run again on the same tokens
+    with its codes that round across a tie forced to the forward's
+    (`forced_by_rows`): on random weights one flipped code moves the
+    logits by percents (an attention softmax over random packed
+    projections is near one-hot, an MoE router near a tie picks another
+    expert), so only the forced run is held: each step's logits within
+    TF_TOL·max|logit| of the forward's at its position, and its argmax
+    the forward's wherever the top-2 gap exceeds that. The unforced
+    difference is printed beside it."""
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import lm_forward
+    from repro_torch.serve import prefill
+    from repro_torch.serve.engine import decode_step
+    from repro_torch.train import ties
+
+    s = prompts.shape[1]
+
+    def decode(toks=None):
+        logits, cache = prefill(cfg, params, prompts, max_len=LM_MAX_LEN,
+                                mode="w1a8_eval")
+        steps, fed = [logits], []
+        for i in range(TF_STEPS):
+            fed.append(torch.argmax(steps[-1], -1).to(torch.int32)
+                       if toks is None else toks[i])
+            logits, cache = decode_step(cfg, params, cache, fed[-1][:, None],
+                                        mode="w1a8_eval")
+            steps.append(logits)
+        return torch.stack(steps, 1), fed
+
+    with torch.no_grad():
+        free, toks = decode()
+        seq = torch.cat([prompts, torch.stack(toks, 1)], dim=1)
+        with ties.record("quantize_act", module=layers) as recorded:
+            full = lm_forward(cfg, params, seq, mode="w1a8_eval")[:, s - 1:]
+        with forced_by_rows(torch, recorded) as counts:
+            got, _ = decode(toks)
+    scale = float(full.abs().max())
+    err = float((got - full).abs().max())
+    if not err <= TF_TOL * scale:
+        raise AssertionError(f"{cfg.name}: decode logits {err} off the "
+                             f"teacher-forced forward's, > {TF_TOL} * "
+                             f"{scale}")
+    top2 = torch.topk(full, 2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > TF_TOL * scale
+    same = torch.argmax(got, -1) == torch.argmax(full, -1)
+    if not bool(same[decided].all()):
+        raise AssertionError(f"{cfg.name}: a greedy token differs from the "
+                             f"teacher-forced forward's where decided")
+    return {"max_abs_err": err, "max_abs_logit": scale,
+            "rel_err": err / scale, "tol": TF_TOL, "steps": TF_STEPS,
+            "unforced_max_abs_err": float((free - full).abs().max()),
+            "codes_forced": sum(counts), "quantizer_calls": len(counts),
+            "decided_tokens": int(decided.sum()),
+            "tokens": int(decided.numel())}
+
+
+def serve_family(torch, dev, smi: str, arch: str, packed) -> tuple:
+    """Phase 12b / 12d: the launcher's ``run_lm`` on packed params at full
+    width (8 requests, 16 tokens, slots 4), every launch count zeroed just
+    before and read just after: done-mask tokens equal to host-checked
+    ones (run_lm raises otherwise), each popcount entry's launches a
+    decode step equal to `lm_launches_per_step`'s, no other kernel.
+    Returns (record, launches, peak bytes)."""
+    import argparse
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch
+
+    cfg = configs.get_config(arch)
+    args = argparse.Namespace(
+        workload="lm", arch=arch, reduced=False, packed=True,
+        requests=LM_REQUESTS, max_new=LM_MAX_NEW, slots=LM_SLOTS,
+        max_len=LM_MAX_LEN, temperature=0.0, stop_token=[], seed=SEED,
+        device=str(dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(launch.KERNELS)
+    with torch.no_grad():
+        record = launch.run_lm(args, params=packed)
+    torch.cuda.synchronize()
+    counts = launch.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    want = lm_launches_per_step(cfg)
+    if record["kernel_launches_per_decode_step"] != want:
+        raise AssertionError(f"{arch} decode step: launches "
+                             f"{record['kernel_launches_per_decode_step']}, "
+                             f"want {want}")
+    if set(n for name, n in counts.items() if name not in want) - {0}:
+        raise AssertionError(f"{arch} serve launched other kernels: "
+                             f"{counts}")
+    print(f"[families serve] {arch} full width, packed, {LM_REQUESTS} "
+          f"requests x {LM_MAX_NEW} tokens, slots {LM_SLOTS}: done-mask "
+          f"tokens equal host-checked; launches a decode step {want} "
+          f"({record['decode_steps']} steps), in the run "
+          f"{ {k: v for k, v in counts.items() if v} }; "
+          f"{record['tok_per_s']:.2f} tok/s, tick p50 "
+          f"{record['tick_p50_ms']:.3f} ms, p95 {record['tick_p95_ms']:.3f} "
+          f"ms, peak memory {peak / 2 ** 30:.2f} GiB ({smi})", flush=True)
+    return record, counts, peak
+
+
+def time_decode_step(torch, cfg, packed, prompts, smi: str) -> dict:
+    """One packed decode step at M = slots after a prefill of
+    ``prompts``: CUDA-event ms, the torch.profiler step profile, and the
+    bound from the sign words it reads (the dense ones, and the experts'
+    that hold rows in this step) and the f32 unembedding."""
+    from repro_torch.models.transformer import tree_items
+    from repro_torch.serve import prefill
+    from repro_torch.serve.engine import decode_step
+
+    per = lm_launches_per_step(cfg)
+    with torch.no_grad():
+        logits, cache = prefill(cfg, packed, prompts, max_len=LM_MAX_LEN,
+                                mode="w1a8_eval")
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+
+        def step():
+            return decode_step(cfg, packed, cache, tok, mode="w1a8_eval")
+        step_ms = cuda_ms(torch, step, reps=3, n=5)
+        prof = step_profile(torch, step, int(sum(per.values())))
+        experts = expert_bytes_read(torch, step, packed)
+    dense = sum(int(x.numel()) * 4 for name, x in tree_items(packed)
+                if "w_packed" in name)
+    emb = int(packed["embed"]["emb"].numel()) * 4
+    step_bound = (dense + experts + emb) / HBM_BYTES_PER_S * 1e3
+    print(f"[families decode step] {cfg.name} ({cfg.num_layers} layers) at "
+          f"M = {LM_SLOTS}: {step_ms:.3f} ms (CUDA events), device busy "
+          f"{prof['device_busy_ms']:.4f} ms, profiled wall "
+          f"{prof['wall_ms']:.3f} ms, idle share "
+          f"{_num(prof['idle_share'], '.4f')}, "
+          f"{_num(prof['device_records'], '.0f')} device records a step "
+          f"({prof['device_timing']}); bound {step_bound:.4f} ms "
+          f"({dense / 1e9:.3f} GB of dense sign words, {experts / 1e9:.3f} "
+          f"GB of the experts that hold rows, {emb / 1e9:.3f} GB of f32 "
+          f"unembedding at 3.35 TB/s) ({smi})", flush=True)
+    for name, ms in prof["device_ms_by_kernel"].items():
+        print(f"[families decode step] {cfg.name} device ms a step "
+              f"{ms:.4f}: {name[:90]}", flush=True)
+    return {"step_ms": step_ms, "step_profile": prof,
+            "step_bound_ms": step_bound, "dense_sign_bytes": dense,
+            "expert_sign_bytes": experts, "emb_bytes": emb}
+
+
+def lm_launches_per_step_of(rec: dict) -> dict:
+    """The launches a decode step of a phase 12 path made, by kernel."""
+    if "serve" in rec:
+        return rec["serve"]["kernel_launches_per_decode_step"]
+    return {k: v / TF_STEPS for k, v in rec["decode_launches"].items() if v}
+
+
+def families_summary(families: dict) -> dict:
+    """Phase 12's numbers for the JSON line."""
+    out = {}
+    for key in ("moe", "ssm", "hybrid"):
+        rec = families[key]
+        out[rec["arch"]] = {
+            "launches_per_decode_step": lm_launches_per_step_of(rec),
+            "decode_step_ms": rec["step_ms"],
+            "decode_step_device_busy_ms":
+                rec["step_profile"]["device_busy_ms"],
+            "decode_step_idle_share": rec["step_profile"]["idle_share"],
+            "decode_step_bound_ms": rec["step_bound_ms"],
+            "peak_memory_bytes": rec["peak_memory_bytes"],
+            "init_s": rec["init_s"]}
+        if "serve" in rec:
+            out[rec["arch"]].update({k: rec["serve"][k] for k in (
+                "tok_per_s", "tick_p50_ms", "tick_p95_ms")})
+        for check in ("parity", "decode_vs_forward"):
+            if check in rec:
+                out[rec["arch"]][check] = rec[check]
+    return out
+
+
+def family_parity(torch, dev, cfg, prompts, packed=None) -> dict:
+    """Phase 12c: `lm_prefill_parity` of ``cfg`` at PARITY_TOL, the f32
+    params drawn with SEED and ``packed`` their `deploy_lm` where not
+    given; printed."""
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.serve import deploy_lm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    with torch.no_grad():
+        params = init_lm_params(cfg, gen, device=dev)
+        if packed is None:
+            packed = deploy_lm(params)
+        parity = lm_prefill_parity(torch, params, packed, cfg, prompts,
+                                   tol=PARITY_TOL)
+    del params, packed
+    torch.cuda.empty_cache()
+    print(f"[families parity] {cfg.name} full width, {cfg.num_layers} "
+          f"layers, {cfg.num_experts} experts: packed prefill logits vs "
+          f"unpacked w1a8_eval max_abs {parity['max_abs_err']:.6g} of "
+          f"max|logit| {parity['max_abs_logit']:.6g} (rel "
+          f"{parity['rel_err']:.3g}, tol {PARITY_TOL}; "
+          f"{parity['codes_forced']} tie codes forced over "
+          f"{parity['quantizer_calls']} quantizer calls; unforced max_abs "
+          f"{parity['unforced_max_abs_err']:.6g}); greedy tokens equal on "
+          f"{parity['decided_rows']} of {parity['rows']} decided rows",
+          flush=True)
+    return parity
+
+
+def drive_families(torch, np, dev, smi: str) -> dict:
+    """Phase 12: the grouped popcount entry (a); mixtral-8x7b at full
+    width and depth, packed (drawn stage by stage, `init_packed_lm`),
+    served through `run_lm` (b) and its decode step timed; its packed
+    prefill against the unpacked one over 2 layers (c); mamba2-1.3b the
+    same as (b) (d), decode ≡ forward (f) and (c) over 48 layers;
+    jamba-1.5-large-398b over one period (8 layers), packed, prefilled
+    and decoded 5 steps with every launch counted (e), decode ≡ forward
+    (f) and (c) with HYBRID_PARITY_EXPERTS experts. (e) and (f) set
+    capacity_factor = num_experts, `plan_dispatch`'s no-drop bound, so a
+    token's experts do not depend on the batch it came in."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import init_packed_lm
+    from repro_torch.serve.engine import decode_step, prefill
+
+    t0 = time.perf_counter()
+    grouped = check_grouped(torch, np, dev, smi)
+    print(f"[grouped] {len(grouped)} shapes in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = torch.tensor([[2 + i, 11, 7 + i % 3] for i in range(LM_SLOTS)],
+                           dtype=torch.int32, device=dev)
+    out = {"card": smi, "grouped": grouped, "launches": {}}
+
+    def packed_init(cfg):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        t0 = time.perf_counter()
+        packed = init_packed_lm(cfg, gen, device=dev)
+        torch.cuda.synchronize()
+        return packed, time.perf_counter() - t0
+
+    # (b) mixtral-8x7b, 32 layers, packed, served
+    cfg = configs.get_config(MOE_ARCH)
+    packed, init_s = packed_init(cfg)
+    record, counts, peak = serve_family(torch, dev, smi, MOE_ARCH, packed)
+    out["launches"]["lm moe serve"] = counts
+    out["moe"] = {"arch": MOE_ARCH, "init_s": init_s, "serve": record,
+                  "peak_memory_bytes": peak,
+                  **time_decode_step(torch, cfg, packed, prompts, smi)}
+    del packed
+    torch.cuda.empty_cache()
+    # (c) packed against unpacked prefill, mixtral's full width, 2 layers
+    cfg2 = dataclasses.replace(cfg, num_layers=MOE_PARITY_LAYERS)
+    out["moe"]["parity"] = family_parity(torch, dev, cfg2, prompts)
+    # (d) mamba2-1.3b, 48 layers, packed, served; (f) decode ≡ forward
+    cfg = configs.get_config(SSM_ARCH)
+    packed, init_s = packed_init(cfg)
+    record, counts, peak = serve_family(torch, dev, smi, SSM_ARCH, packed)
+    out["launches"]["lm ssm serve"] = counts
+    out["ssm"] = {"arch": SSM_ARCH, "init_s": init_s, "serve": record,
+                  "peak_memory_bytes": peak,
+                  **time_decode_step(torch, cfg, packed, prompts, smi),
+                  "decode_vs_forward": decode_vs_forward(torch, cfg, packed,
+                                                         prompts)}
+    # its packed prefill against the unpacked one over all 48 layers, the
+    # served tree (`init_packed_lm`) against `init_lm_params`' under the
+    # same seed
+    out["ssm"]["parity"] = family_parity(torch, dev, cfg, prompts, packed)
+    del packed
+    torch.cuda.empty_cache()
+    # (e) jamba over one period, packed: prefill and 5 decode steps
+    full = configs.get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, num_layers=HYBRID_LAYERS,
+                              capacity_factor=float(full.num_experts))
+    torch.cuda.reset_peak_memory_stats(dev)
+    packed, init_s = packed_init(cfg)
+    _zero(launch.KERNELS)
+    with torch.no_grad():
+        logits, cache = prefill(cfg, packed, prompts, max_len=LM_MAX_LEN,
+                                mode="w1a8_eval")
+        pre_counts = launch.launch_counts()
+        _zero(launch.KERNELS)
+        for _ in range(TF_STEPS):
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            logits, cache = decode_step(cfg, packed, cache, tok,
+                                        mode="w1a8_eval")
+        torch.cuda.synchronize()
+    step_counts = launch.launch_counts()
+    want = {k: v * TF_STEPS for k, v in lm_launches_per_step(cfg).items()}
+    got = {k: float(v) for k, v in step_counts.items() if v}
+    if got != want or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{HYBRID_ARCH} decode: launches {got}, want "
+                             f"{want}, logits finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    out["launches"]["lm hybrid"] = {
+        k: pre_counts.get(k, 0) + step_counts.get(k, 0)
+        for k in set(pre_counts) | set(step_counts)}
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[families hybrid] {HYBRID_ARCH} full width, {HYBRID_LAYERS} "
+          f"layers, packed (init {init_s:.1f} s): prefill launches "
+          f"{ {k: v for k, v in pre_counts.items() if v} }, {TF_STEPS} "
+          f"decode steps launches {got} (want {want}), logits finite; "
+          f"peak memory {peak / 2 ** 30:.2f} GiB ({smi})", flush=True)
+    out["hybrid"] = {"arch": HYBRID_ARCH, "layers": HYBRID_LAYERS,
+                     "init_s": init_s, "prefill_launches": pre_counts,
+                     "decode_launches": step_counts,
+                     "peak_memory_bytes": peak,
+                     **time_decode_step(torch, cfg, packed, prompts, smi),
+                     "decode_vs_forward": decode_vs_forward(torch, cfg,
+                                                            packed, prompts)}
+    del packed
+    torch.cuda.empty_cache()
+    # its packed prefill against the unpacked one over the period, the
+    # experts cut to HYBRID_PARITY_EXPERTS
+    out["hybrid"]["parity"] = family_parity(torch, dev, dataclasses.replace(
+        cfg, num_experts=HYBRID_PARITY_EXPERTS), prompts)
+    for key in ("ssm", "hybrid"):
+        tf = out[key]["decode_vs_forward"]
+        print(f"[families decode≡forward] {out[key]['arch']}: {TF_STEPS} "
+              f"greedy steps against the teacher-forced forward, max_abs "
+              f"{tf['max_abs_err']:.6g} of max|logit| "
+              f"{tf['max_abs_logit']:.6g} (rel {tf['rel_err']:.3g}, tol "
+              f"{TF_TOL}; {tf['codes_forced']} tie codes forced over "
+              f"{tf['quantizer_calls']} quantizer calls; unforced max_abs "
+              f"{tf['unforced_max_abs_err']:.6g}); argmax equal on "
+              f"{tf['decided_tokens']} of {tf['tokens']} decided ({smi})",
+              flush=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2398,11 +2992,24 @@ def main() -> int:
     del lm_params
     print(f"[tiers] phase 11 in {time.perf_counter() - t0:.1f} s", flush=True)
     by_path.update(tiers["launches"])
+    # what phases 10 and 11 left in reference cycles (their backends hold
+    # chatglm3-6b's f32 params) goes before phase 12 measures peak memory
+    before = torch.cuda.memory_allocated(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[families] device memory allocated before phase 12: "
+          f"{before / 2 ** 30:.2f} GiB, after collecting cycles "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB", flush=True)
+    t0 = time.perf_counter()
+    families = drive_families(torch, np, dev, smi)
+    print(f"[families] phase 12 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    by_path.update(families["launches"])
     # every driven path's launches: the three launcher runs, phase 5's
     # eager forwards (popcount on both pool routes, dot fused) and int
     # call, phase 7's integer forward, phase 9's QAT pipeline, phase 10's
-    # LM serve and int call, and phase 11's launcher fleet, real traffic
-    # and compose
+    # LM serve and int call, phase 11's launcher fleet, real traffic and
+    # compose, and phase 12's MoE and SSM serves and hybrid decode
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in KERNELS}
 
@@ -2440,6 +3047,30 @@ def main() -> int:
                 **{k: sum(r[k] for r in rows) for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                     "library_device_ms")}})
+            if not entry["launches"]:
+                raise AssertionError(f"{name}: no launch on its path")
+            kernels.append(entry)
+            continue
+        if name == GROUPED:
+            rows = families["grouped"]
+            t_ops = sum(r["ops"] / INT8_OPS_PER_S for r in rows)
+            t_bytes = sum(r["bytes"] / HBM_BYTES_PER_S for r in rows)
+            entry.update({
+                "max_abs_err": 0.0,
+                "tensor_core_instructions": sass[name],
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "shapes": [[r["arch"], r["what"], *r["shape"]]
+                           for r in rows],
+                "launches_per_decode_step": {
+                    families[key]["arch"]: lm_launches_per_step_of(
+                        families[key]).get(name, 0)
+                    for key in ("moe", "hybrid")},
+                **{k: sum(r[k] for r in rows) for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                    "library_device_ms")},
+                "by_shape": {k: [r[k] for r in rows] for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                    "library_device_ms", "experts_holding_rows")}})
             if not entry["launches"]:
                 raise AssertionError(f"{name}: no launch on its path")
             kernels.append(entry)
@@ -2509,7 +3140,7 @@ def main() -> int:
          "dispatch_profiles": dispatch_profiles, "winners": winners,
          "popcount_forward": pc_record, "nms": nms_record,
          "int_forward": int_record, "qat": qat_record, "lm": lm_record,
-         "tiers": tiers, "floor_device_ms": floor_ms},
+         "tiers": tiers, "families": families, "floor_device_ms": floor_ms},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],
@@ -2544,6 +3175,7 @@ def main() -> int:
                                  lm_record["peak_memory_bytes"],
                              "prefill_parity": lm_record["parity"]},
                       "tiers": tiers["summary"],
+                      "families": families_summary(families),
                       "trace_fallbacks": TRACE_FALLBACKS,
                       "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {

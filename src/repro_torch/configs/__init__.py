@@ -3,7 +3,9 @@ data (counterpart of ``repro/configs``).
 
 ``get_config(name)`` / ``get_reduced(name)`` resolve by the public dashed id
 (e.g. ``--arch chatglm3-6b``). ``ARCH_NAMES`` lists the archs in the
-reference's order; ``DENSE`` the ones the port serves so far. The paper's
+reference's order; ``SERVED`` the ones the serving path takes (every
+family but enc-dec and the VLM, which run forward only, as in the
+reference's tests). The paper's
 detector lives in `repro_torch.models.yolo`.
 """
 from __future__ import annotations
@@ -24,8 +26,10 @@ _MODULES = {
 }
 
 ARCH_NAMES = tuple(_MODULES)
-# the dense family: every layer attention + a dense MLP
-DENSE = ("chatglm3-6b", "qwen2.5-14b", "granite-20b", "gemma2-27b")
+# dense, MoE, SSM and hybrid, in the reference's order
+SERVED = ("kimi-k2-1t-a32b", "mixtral-8x7b", "mamba2-1.3b", "gemma2-27b",
+          "chatglm3-6b", "qwen2.5-14b", "granite-20b",
+          "jamba-1.5-large-398b")
 
 
 def _module(name: str):

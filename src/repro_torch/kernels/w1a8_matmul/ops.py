@@ -5,6 +5,8 @@
 ``csrc/w1a8_matmul_popcount.cu`` (popcount: exact int32 sum over the codes'
 bit-planes, after folding a per-channel Mul_prev into the codes and the
 uniform step m̄ into Div; ``mul_prev=None`` means the caller has done so).
+`w1a8_matmul_grouped` launches the popcount kernel's grouped entry once
+for a stack of experts (the MoE FFN's packed experts).
 `w1a8_matmul_int` runs ``csrc/w1a8_matmul_int.cu``, the exact int32 sum
 Σ_k sign·a (the reference forms it as (a − 128)·(±1) plus 128·colsum).
 
@@ -35,6 +37,11 @@ KERNEL = _build.Kernel("w1a8_matmul.cu", "w1a8_matmul",
 POPCOUNT_KERNEL = _build.Kernel("w1a8_matmul_popcount.cu",
                                 "w1a8_matmul_popcount",
                                 [_build.P] * 5 + _GEOMETRY_ARGS)
+# (a, w, div, bias, counts, out, experts, cap, k, n, grid_x, grid_y, bm, bn,
+# wm, wn, threads, stream)
+GROUPED_KERNEL = _build.Kernel("w1a8_matmul_popcount.cu",
+                               "w1a8_matmul_popcount_grouped",
+                               [_build.P] * 6 + [_build.I] * 11 + [_build.P])
 # (a, w, out, m, k, n, grid_x, grid_y, bm, bn, wm, wn, threads, stream)
 INT_KERNEL = _build.Kernel("w1a8_matmul_int.cu", "w1a8_matmul_int",
                            [_build.P] * 3 + [_build.I] * 10 + [_build.P])
@@ -123,6 +130,52 @@ def _launch(kernel: _build.Kernel, a2, w_packed, mul_prev, div_post, bias,
     if mul is not None:
         ptrs.append(mul.data_ptr())
     kernel(*ptrs, div.data_ptr(), bs.data_ptr(), out.data_ptr(), *geometry)
+    return out
+
+
+def w1a8_matmul_grouped(a_u8: torch.Tensor, w_packed: torch.Tensor,
+                        counts: torch.Tensor, div_post: torch.Tensor,
+                        bias: torch.Tensor, *, k: int) -> torch.Tensor:
+    """One popcount matmul per expert, in one launch: y[e] = (a[e] @
+    unpack(w_packed[e])) ⊙ div_post[e] + bias[e], the exact int32 sum
+    times div, for the rows e holds; rows from counts[e] on are 0.
+
+    a_u8: (E, cap, k) uint8 codes on one grid; w_packed: (E, ceil(k/32),
+    N) int32 words; counts: (E,) int (read on the device: an expert with
+    no row reads none of its words); div_post, bias: (E, N) f32. Returns
+    (E, cap, N) f32.
+    """
+    if not a_u8.is_cuda:
+        return _ref.w1a8_matmul_grouped_ref(a_u8, w_packed, counts, k,
+                                            div_post, bias)
+    e, cap = a_u8.shape[0], a_u8.shape[1]
+    n = w_packed.shape[-1]
+    if a_u8.dtype != torch.uint8 or a_u8.shape[2] != k:
+        raise TypeError(f"a_u8 must be uint8 (E, cap, {k}), got "
+                        f"{a_u8.dtype} {tuple(a_u8.shape)}")
+    if w_packed.dtype != torch.int32 or \
+            tuple(w_packed.shape) != (e, packed_dim(k), n):
+        raise ValueError(f"w_packed must be int32 ({e}, {packed_dim(k)}, N), "
+                         f"got {w_packed.dtype} {tuple(w_packed.shape)}")
+    dev = a_u8.device
+
+    def flat(x, dtype, numel):
+        x = x.to(dev, dtype).contiguous()
+        if x.numel() != numel:
+            raise ValueError(f"expected {numel} elements, got "
+                             f"{tuple(x.shape)}")
+        return x
+    a = a_u8.contiguous()
+    w = w_packed.to(dev).contiguous()
+    div, bs = flat(div_post, torch.float32, e * n), \
+        flat(bias, torch.float32, e * n)
+    cnt = flat(counts, torch.int32, e)
+    out = torch.empty((e, cap, n), dtype=torch.float32, device=dev)
+    g = matmul_launch(cap, n, "popcount")
+    GROUPED_KERNEL(a.data_ptr(), w.data_ptr(), div.data_ptr(), bs.data_ptr(),
+                   cnt.data_ptr(), out.data_ptr(), e, cap, k, n, *g.grid,
+                   g.bm, g.bn, g.wm, g.wn, g.threads,
+                   torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 

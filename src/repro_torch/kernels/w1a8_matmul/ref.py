@@ -8,7 +8,9 @@ rounding of the prologue mirrors the reference's Pallas body
 float32 product with ±1.
 
 The popcount version forms the same sum as an exact integer from the 8
-bit-planes of the codes (``w1a8_matmul_popcount_pallas``); the int version
+bit-planes of the codes (``w1a8_matmul_popcount_pallas``), and its grouped
+form one such product per expert (the MoE FFN's packed experts); the int
+version
 as (a − 128)·(±1) plus 128·colsum (``w1a8_matmul_int_pallas``).
 """
 from __future__ import annotations
@@ -126,6 +128,23 @@ def w1a8_matmul_popcount_ref(a_u8: torch.Tensor, w_packed: torch.Tensor,
     div_post, bias (N,) → (M, N) f32, or uint8 codes."""
     acc = xnor_accumulate(pad_codes(a_u8, k), w_packed)
     return popcount_epilogue(acc, div_post, bias, out_step)
+
+
+def w1a8_matmul_grouped_ref(a_u8: torch.Tensor, w_packed: torch.Tensor,
+                            counts: torch.Tensor, k: int,
+                            div_post: torch.Tensor,
+                            bias: torch.Tensor) -> torch.Tensor:
+    """The grouped popcount matmul: expert e's codes a_u8[e] (cap, k)
+    against its words w_packed[e] (ceil(k/32), N), with div_post[e] and
+    bias[e] (N,), as `w1a8_matmul_popcount_ref`; rows from counts[e] on
+    are 0. Returns (E, cap, N) f32."""
+    out = torch.stack([
+        w1a8_matmul_popcount_ref(a_u8[e], w_packed[e], k, div_post[e],
+                                 bias[e])
+        for e in range(a_u8.shape[0])])
+    rows = torch.arange(a_u8.shape[1], device=a_u8.device)
+    held = rows[None, :, None] < counts.to(a_u8.device)[:, None, None]
+    return torch.where(held, out, 0.0)
 
 
 def w1a8_matmul_int_ref(a_u8: torch.Tensor, w_packed: torch.Tensor,

@@ -9,9 +9,11 @@ included; "default": the dot kernels on the unfused pool route).
   lm       — continuous-batched decode of an LM arch (``--arch``, default
              granite-20b as the reference's; ``--reduced`` for its small
              variant) from a seeded random init through `LMBackend`.
-             ``--packed`` deploys 1-bit W1A8 weights (`deploy_lm`) and
-             decodes with them: every projection is one launch of the
-             popcount matmul. A warm pass, then the host-checked path and
+             ``--packed`` draws 1-bit W1A8 weights stage by stage
+             (`init_packed_lm`, equal to `deploy_lm` of the float init)
+             and decodes with them: every dense projection is one launch
+             of the popcount matmul, every expert projection one grouped
+             launch of it. A warm pass, then the host-checked path and
              the device done-mask path over the same request stream, whose
              tokens must be equal. The record is the done-mask run's, with
              the host-checked one under ``baseline_host_check``, and
@@ -92,7 +94,8 @@ from repro_torch.serve import (Autoscaler, AutoscalerConfig,
                                DetectionBackend, FleetMetrics, LMBackend,
                                Router, SamplingParams, Scheduler,
                                ServeRequest, deploy_lm,
-                               detections_to_prompt, packed_param_bytes)
+                               detections_to_prompt, init_packed_lm,
+                               packed_param_bytes)
 
 DEFAULT_OUT = str(pathlib.Path(__file__).resolve().parents[1] / "results"
                   / "BENCH_serve_cuda.json")
@@ -103,12 +106,14 @@ DEFAULT_OUT = str(pathlib.Path(__file__).resolve().parents[1] / "results"
 # post-processing kernel (`detect_postprocess`); `w1a8_matmul_int` and
 # `detect_nms` (the same kernel on decoded boxes) are called directly, and
 # the integer PE (`w1a8_int_pe`) runs the integer forward, one launch a
-# layer (`yolo.yolo_forward_int`).
+# layer (`yolo.yolo_forward_int`); a packed MoE layer launches the popcount
+# matmul's grouped entry (`w1a8_matmul_popcount_grouped`) once a projection.
 KERNELS = {"w1a8_conv3x3_pool2": fused_pool.KERNEL,
            "w1a8_conv3x3": conv_ops.KERNEL, "w1a8_matmul": mm_ops.KERNEL,
            "w1a8_conv3x3_pool2_popcount": fused_pool.POPCOUNT_KERNEL,
            "w1a8_conv3x3_popcount": conv_ops.POPCOUNT_KERNEL,
            "w1a8_matmul_popcount": mm_ops.POPCOUNT_KERNEL,
+           "w1a8_matmul_popcount_grouped": mm_ops.GROUPED_KERNEL,
            "w1a8_matmul_int": mm_ops.INT_KERNEL,
            "detect_nms": detection.NMS_KERNEL,
            "detect_postprocess": detection.POSTPROCESS_KERNEL,
@@ -418,18 +423,21 @@ def run_lm(args, params=None) -> dict:
     dev = resolve_device(args.device)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
-    if params is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(args.seed)
-        params = init_lm_params(cfg, gen, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
     mode, acct = "float", None
     if args.packed:
-        params = deploy_lm(params)
+        # a seeded init draws, packs and frees one leaf of one stage at a
+        # time: mixtral's f32 tree (187 GB) would not fit on the card
+        params = init_packed_lm(cfg, gen, device=dev) if params is None \
+            else deploy_lm(params)
         acct = packed_param_bytes(params)
         print(f"[packed] {acct['packed_bytes'] / 1e6:.1f} MB "
               f"(bf16-equivalent {acct['bf16_equivalent_bytes'] / 1e6:.1f} "
               f"MB, {acct['ratio']:.1f}x smaller)", flush=True)
         mode = "w1a8_eval"
+    elif params is None:
+        params = init_lm_params(cfg, gen, device=dev)
     sp = SamplingParams(max_new=args.max_new, temperature=args.temperature,
                         stop_tokens=tuple(args.stop_token))
 
@@ -608,7 +616,7 @@ def main(argv=None) -> dict:
                          "results/BENCH_serve_cuda.json in the package)")
     lm = ap.add_argument_group("lm and compose workloads")
     lm.add_argument("--arch", default="granite-20b",
-                    choices=configs.DENSE)
+                    choices=configs.SERVED)
     lm.add_argument("--reduced", action="store_true",
                     help="the arch's small variant")
     lm.add_argument("--max-new", type=int, default=16)

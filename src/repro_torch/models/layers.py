@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 import torch.nn.functional as F
@@ -125,12 +125,15 @@ class ModelConfig:
         return "dense"
 
 
-def _normal(gen, shape, std: float, dtype, device) -> torch.Tensor:
-    """N(0, std²) draws from ``gen``; on ``meta`` only the shape."""
-    if device.type == "meta":
-        return torch.empty(shape, dtype=dtype, device=device)
-    return torch.randn(shape, generator=gen, dtype=dtype,
-                       device=device).mul_(std)
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """One param leaf of one stage, as `transformer.init_lm_params` makes
+    it: N(0, std²) draws from the generator when ``std`` > 0, else the
+    constant ``fill`` (a number, or a function of (dtype, device) giving
+    the leaf)."""
+    shape: tuple
+    std: float = 0.0
+    fill: Any = 0.0
 
 
 def _div(x: torch.Tensor, v: float) -> torch.Tensor:
@@ -143,16 +146,14 @@ def _div(x: torch.Tensor, v: float) -> torch.Tensor:
 # Linear with W1A8 switch
 # ---------------------------------------------------------------------------
 
-def init_linear(gen, k: int, n: int, *, w1a8: bool, bias: bool = False,
-                dtype=torch.float32, scale: float = 1.0, device=None,
-                lead: tuple = ()) -> dict:
-    """One projection's params; ``lead`` prepends axes (stages) to each."""
-    dev = torch.device("cpu" if device is None else device)
-    p = {"w": _normal(gen, lead + (k, n), scale / math.sqrt(k), dtype, dev)}
+def init_linear(k: int, n: int, *, w1a8: bool, bias: bool = False,
+                scale: float = 1.0) -> dict:
+    """One projection's param leaves."""
+    p = {"w": Leaf((k, n), std=scale / math.sqrt(k))}
     if bias:
-        p["b"] = torch.zeros(lead + (n,), dtype=dtype, device=dev)
+        p["b"] = Leaf((n,))
     if w1a8:
-        p["act_step"] = torch.full(lead, 0.05, dtype=dtype, device=dev)
+        p["act_step"] = Leaf((), fill=0.05)
     return p
 
 
@@ -202,12 +203,10 @@ def linear(p: dict, x: torch.Tensor, mode: str = "float") -> torch.Tensor:
 # Norms
 # ---------------------------------------------------------------------------
 
-def init_norm(d: int, kind: str = "rms", dtype=torch.float32, device=None,
-              lead: tuple = ()) -> dict:
-    dev = torch.device("cpu" if device is None else device)
-    p = {"scale": torch.ones(lead + (d,), dtype=dtype, device=dev)}
+def init_norm(d: int, kind: str = "rms") -> dict:
+    p = {"scale": Leaf((d,), fill=1.0)}
     if kind == "layer":
-        p["bias"] = torch.zeros(lead + (d,), dtype=dtype, device=dev)
+        p["bias"] = Leaf((d,))
     return p
 
 
@@ -249,18 +248,17 @@ def rope(x: torch.Tensor, positions: torch.Tensor, *, theta: float,
 # Attention (GQA, SWA, softcap, cross)
 # ---------------------------------------------------------------------------
 
-def init_attention(gen, cfg: ModelConfig, dtype=torch.float32, device=None,
-                   lead: tuple = ()) -> dict:
+def init_attention(cfg: ModelConfig) -> dict:
     d, hd = cfg.d_model, cfg.hd
     he = cfg.heads_eff
-    kw = dict(w1a8=cfg.w1a8_body, dtype=dtype, device=device, lead=lead)
+    w1a8 = cfg.w1a8_body
     return {
-        "wq": init_linear(gen, d, he * hd, bias=cfg.qkv_bias, **kw),
-        "wk": init_linear(gen, d, cfg.num_kv_heads * hd, bias=cfg.qkv_bias,
-                          **kw),
-        "wv": init_linear(gen, d, cfg.num_kv_heads * hd, bias=cfg.qkv_bias,
-                          **kw),
-        "wo": init_linear(gen, he * hd, d, **kw),
+        "wq": init_linear(d, he * hd, w1a8=w1a8, bias=cfg.qkv_bias),
+        "wk": init_linear(d, cfg.num_kv_heads * hd, w1a8=w1a8,
+                          bias=cfg.qkv_bias),
+        "wv": init_linear(d, cfg.num_kv_heads * hd, w1a8=w1a8,
+                          bias=cfg.qkv_bias),
+        "wo": init_linear(he * hd, d, w1a8=w1a8),
     }
 
 
@@ -398,14 +396,13 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 # MLP (gated / plain)
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen, cfg: ModelConfig, d_ff: Optional[int] = None,
-             dtype=torch.float32, device=None, lead: tuple = ()) -> dict:
+def init_mlp(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    kw = dict(w1a8=cfg.w1a8_body, dtype=dtype, device=device, lead=lead)
-    p = {"up": init_linear(gen, d, f, **kw),
-         "down": init_linear(gen, f, d, **kw)}
+    w1a8 = cfg.w1a8_body
+    p = {"up": init_linear(d, f, w1a8=w1a8),
+         "down": init_linear(f, d, w1a8=w1a8)}
     if cfg.gated_mlp:
-        p["gate"] = init_linear(gen, d, f, **kw)
+        p["gate"] = init_linear(d, f, w1a8=w1a8)
     return p
 
 
@@ -430,14 +427,10 @@ def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor, mode: str
 # Embedding / head
 # ---------------------------------------------------------------------------
 
-def init_embed(gen, cfg: ModelConfig, dtype=torch.float32,
-               device=None) -> dict:
-    dev = torch.device("cpu" if device is None else device)
-    p = {"emb": _normal(gen, (cfg.vocab_size, cfg.d_model), 0.02, dtype,
-                        dev)}
+def init_embed(cfg: ModelConfig) -> dict:
+    p = {"emb": Leaf((cfg.vocab_size, cfg.d_model), std=0.02)}
     if not cfg.tie_embeddings:
-        p["head"] = _normal(gen, (cfg.d_model, cfg.vocab_size), 0.02, dtype,
-                            dev)
+        p["head"] = Leaf((cfg.d_model, cfg.vocab_size), std=0.02)
     return p
 
 

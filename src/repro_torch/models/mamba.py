@@ -1,0 +1,350 @@
+"""State-space mixers: Mamba-2 (SSD, chunked dual form) and Mamba-1
+(selective scan), both with O(1)-state decode steps (counterpart of
+``repro/models/mamba.py``).
+
+The training form processes the sequence in chunks, carrying the
+inter-chunk SSM state; where the reference scans over chunks with
+``lax.scan``, the port loops over them in Python. Mamba-1's in-chunk
+``lax.associative_scan`` becomes a loop over the chunk's steps that forms
+the same pair (cumulative decay, state from zero) and injects the carry
+after, as the reference does. Projections run through `layers.linear` (so
+packed ones through the popcount matmul); the einsums run in full f32.
+
+mamba2-1.3b uses SSD; jamba's mamba layers use Mamba-1 (d_state 16).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import full_f32, resolve_device
+from repro_torch.models.layers import Leaf, ModelConfig, init_linear, linear
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+def d_inner(cfg: ModelConfig) -> int:
+    return cfg.ssm_expand * cfg.d_model
+
+
+def _a_log_mamba2(h: int):
+    return lambda dtype, dev: torch.log(torch.linspace(
+        1.0, 16.0, h, dtype=torch.float32, device=dev).to(dtype))
+
+
+def _a_log_mamba1(di: int, n: int):
+    return lambda dtype, dev: torch.log(torch.arange(
+        1, n + 1, dtype=dtype, device=dev)).expand(di, n)
+
+
+def init_mamba(cfg: ModelConfig) -> dict:
+    """One Mamba mixer's param leaves."""
+    d, di, n = cfg.d_model, d_inner(cfg), cfg.ssm_state
+    w1a8 = cfg.w1a8_body
+    if cfg.ssm_kind == "mamba2":
+        h = di // cfg.ssm_headdim
+        g = 1                                    # single B/C group
+        proj_out = 2 * di + 2 * g * n + h        # z, x, B, C, dt
+        return {
+            "in_proj": init_linear(d, proj_out, w1a8=w1a8),
+            "out_proj": init_linear(di, d, w1a8=w1a8),
+            "conv_w": Leaf((cfg.ssm_conv, di + 2 * g * n), std=0.1),
+            "conv_b": Leaf((di + 2 * g * n,)),
+            "A_log": Leaf((h,), fill=_a_log_mamba2(h)),
+            "D": Leaf((h,), fill=1.0),
+            "dt_bias": Leaf((h,)),
+            "norm_scale": Leaf((di,), fill=1.0),
+        }
+    dt_rank = max(1, math.ceil(d / 16))
+    return {
+        "in_proj": init_linear(d, 2 * di, w1a8=w1a8),
+        "out_proj": init_linear(di, d, w1a8=w1a8),
+        "conv_w": Leaf((cfg.ssm_conv, di), std=0.1),
+        "conv_b": Leaf((di,)),
+        "x_proj": init_linear(di, dt_rank + 2 * n, w1a8=False),
+        "dt_proj": init_linear(dt_rank, di, w1a8=False, bias=True),
+        "A_log": Leaf((di, n), fill=_a_log_mamba1(di, n)),
+        "D": Leaf((di,), fill=1.0),
+    }
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as ``jax.nn.softplus`` forms it, logaddexp(x, 0):
+    ``F.softplus`` returns x itself above its threshold of 20."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _pad_seq(x: torch.Tensor, before: int, after: int) -> torch.Tensor:
+    """Zeros on axis 1 of x (B, S, ...)."""
+    pad = [0, 0] * (x.ndim - 2) + [before, after]
+    return F.pad(x, pad)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv (width W) + cache-friendly step form
+# ---------------------------------------------------------------------------
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """x (B,S,C), w (W,C): y[t] = Σ_i w[i]·x[t-W+1+i] + b, zero history,
+    as the reference's sum of shifted products (no cuDNN conv, which
+    would run in TF32)."""
+    width, s = w.shape[0], x.shape[1]
+    xp = _pad_seq(x, width - 1, 0)
+    acc = xp[:, 0:s, :] * w[0]
+    for i in range(1, width):
+        acc = acc + xp[:, i:i + s, :] * w[i]
+    return F.silu(acc + b)
+
+
+def causal_conv_step(x_new: torch.Tensor, conv_state: torch.Tensor,
+                     w: torch.Tensor, b: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Decode step. x_new (B,C); conv_state (B,W-1,C) past inputs. The
+    window's products are summed in `causal_conv`'s order."""
+    window = torch.cat([conv_state, x_new[:, None, :]], dim=1)
+    acc = window[:, 0] * w[0]
+    for i in range(1, w.shape[0]):
+        acc = acc + window[:, i] * w[i]
+    return F.silu(acc + b), window[:, 1:, :]
+
+
+def _conv_state(x_raw: torch.Tensor, width: int) -> torch.Tensor:
+    """The last W-1 conv inputs after a prompt, zeros before it."""
+    s = x_raw.shape[1]
+    if s >= width - 1:
+        return x_raw[:, s - (width - 1):, :]
+    return _pad_seq(x_raw, width - 1 - s, 0)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2: SSD chunked scan
+# ---------------------------------------------------------------------------
+
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                bmat: torch.Tensor, cmat: torch.Tensor, *, chunk: int = 128,
+                init_state: Optional[torch.Tensor] = None):
+    """SSD dual form. x (B,S,H,P), dt (B,S,H) ≥0, a (H,) <0,
+    bmat/cmat (B,S,N). Returns (y (B,S,H,P), final_state (B,H,P,N)).
+
+    The reference pads S to a multiple of ``chunk`` with dt = 0, where the
+    state passes through unchanged and x·dt adds zeros; the port's last
+    chunk is the short one instead."""
+    bsz, s, h, p = x.shape
+    n = bmat.shape[-1]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    state = init_state if init_state is not None else \
+        torch.zeros((bsz, h, p, n), dtype=x.dtype, device=x.device)
+    ys = []
+    with full_f32():
+        for c0 in range(0, s, chunk):
+            xc, dtc = x[:, c0:c0 + chunk], dt[:, c0:c0 + chunk]
+            bc, cc = bmat[:, c0:c0 + chunk], cmat[:, c0:c0 + chunk]
+            ln = xc.shape[1]
+            da = dtc * a                                     # (B,l,H)
+            da_cs = torch.cumsum(da, dim=1)
+            xdt = xc * dtc[..., None]
+            # intra-chunk (quadratic) term
+            scores = torch.einsum("bin,bjn->bij", cc, bc)    # (B,l,l)
+            diff = da_cs[:, :, None, :] - da_cs[:, None, :, :]
+            # mask BEFORE exp: where-after-exp leaks inf·0 = NaN into the
+            # backward
+            lmat = torch.exp(torch.where(tri[None, :ln, :ln, None], diff,
+                                         -1e30))
+            y_diag = torch.einsum("bij,bijh,bjhp->bihp", scores, lmat, xdt)
+            # inter-chunk: contribution of the carried state
+            state_decay = torch.exp(da_cs)                   # (B,l,H)
+            y_off = torch.einsum("bin,bhpn,bih->bihp", cc, state,
+                                 state_decay)
+            # new state: decay-weighted sum of this chunk + decayed carry
+            tail = torch.exp(da_cs[:, -1:, :] - da_cs)       # (B,l,H)
+            chunk_state = torch.einsum("bln,blhp,blh->bhpn", bc, xdt, tail)
+            state = state * torch.exp(da_cs[:, -1, :])[..., None, None] \
+                + chunk_state
+            ys.append(y_diag + y_off)
+    return torch.cat(ys, dim=1), state
+
+
+def _gated_norm(p: dict, y: torch.Tensor, z: torch.Tensor,
+                dtype) -> torch.Tensor:
+    """Mamba-2's y·silu(z), RMS-normed in f32 with ``norm_scale``."""
+    y = y * F.silu(z)
+    yf = y.to(torch.float32)
+    ms = torch.mean(yf * yf, dim=-1, keepdim=True)
+    return (yf * torch.rsqrt(ms + 1e-6) * p["norm_scale"]).to(dtype)
+
+
+def _mamba2_core(p: dict, cfg: ModelConfig, xin: torch.Tensor, mode: str):
+    """in_proj → conv → SSD → gate → norm → out_proj; also the conv's raw
+    input and the final state, for a prefill's cache."""
+    bsz, s, _ = xin.shape
+    di, n = d_inner(cfg), cfg.ssm_state
+    h, hp = di // cfg.ssm_headdim, cfg.ssm_headdim
+    proj = linear(p["in_proj"], xin, mode)
+    z, xbc_raw, dt_raw = torch.tensor_split(proj, [di, 2 * di + 2 * n],
+                                            dim=-1)
+    xbc = causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    xs, bmat, cmat = torch.tensor_split(xbc, [di, di + n], dim=-1)
+    dt = softplus(dt_raw + p["dt_bias"])                     # (B,S,H)
+    a = -torch.exp(p["A_log"])
+    xh = xs.reshape(bsz, s, h, hp)
+    y, state = ssd_chunked(xh, dt, a, bmat, cmat)
+    y = y + xh * p["D"][:, None]
+    y = _gated_norm(p, y.reshape(bsz, s, di), z, xin.dtype)
+    return linear(p["out_proj"], y, mode), xbc_raw, state
+
+
+def mamba2_mixer(p: dict, cfg: ModelConfig, xin: torch.Tensor, *,
+                 mode: str) -> torch.Tensor:
+    """Full Mamba-2 block: in_proj → conv → SSD → gate → norm →
+    out_proj."""
+    return _mamba2_core(p, cfg, xin, mode)[0]
+
+
+def mamba2_prefill(p: dict, cfg: ModelConfig, xin: torch.Tensor, *,
+                   mode: str):
+    """Like mamba2_mixer but also returns the decode cache after the
+    prompt."""
+    out, xbc_raw, state = _mamba2_core(p, cfg, xin, mode)
+    return out, {"conv": _conv_state(xbc_raw, cfg.ssm_conv), "ssm": state}
+
+
+def mamba2_decode_step(p: dict, cfg: ModelConfig, xin: torch.Tensor,
+                       cache: dict, mode: str) -> Tuple[torch.Tensor, dict]:
+    """One-token recurrent update. xin (B,1,D); cache {conv (B,W-1,C),
+    ssm (B,H,P,N)}: O(1) memory in sequence length."""
+    bsz = xin.shape[0]
+    di, n = d_inner(cfg), cfg.ssm_state
+    h, hp = di // cfg.ssm_headdim, cfg.ssm_headdim
+    proj = linear(p["in_proj"], xin[:, 0, :], mode)
+    z, xbc, dt_raw = torch.tensor_split(proj, [di, 2 * di + 2 * n], dim=-1)
+    xbc, conv_state = causal_conv_step(xbc, cache["conv"], p["conv_w"],
+                                       p["conv_b"])
+    xs, bmat, cmat = torch.tensor_split(xbc, [di, di + n], dim=-1)
+    dt = softplus(dt_raw + p["dt_bias"])                     # (B,H)
+    a = -torch.exp(p["A_log"])
+    da = torch.exp(dt * a)                                   # (B,H)
+    xh = xs.reshape(bsz, h, hp)
+    with full_f32():
+        ssm = cache["ssm"] * da[..., None, None] + torch.einsum(
+            "bhp,bn,bh->bhpn", xh, bmat, dt)
+        y = torch.einsum("bhpn,bn->bhp", ssm, cmat) + xh * p["D"][:, None]
+    y = _gated_norm(p, y.reshape(bsz, di), z, xin.dtype)
+    out = linear(p["out_proj"], y, mode)
+    return out[:, None, :], {"conv": conv_state, "ssm": ssm}
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1: chunked selective scan (jamba's mixer, d_state 16)
+# ---------------------------------------------------------------------------
+
+def selective_scan_chunked(u: torch.Tensor, dt: torch.Tensor,
+                           a: torch.Tensor, bmat: torch.Tensor,
+                           cmat: torch.Tensor, *, chunk: int = 128,
+                           init_state: Optional[torch.Tensor] = None):
+    """u/dt (B,S,C), a (C,N), bmat/cmat (B,S,N) → (y (B,S,C), state
+    (B,C,N)).
+
+    h_t = exp(dt·a)·h_{t-1} + dt·b_t·u_t ; y_t = ⟨h_t, c_t⟩. Per chunk,
+    the steps fold the reference's combine (a1, b1)∘(a2, b2) = (a1·a2,
+    b1·a2 + b2) from the chunk's first step on, then add the carry times
+    the cumulative decay. The last chunk is short where the reference pads
+    it with dt = 0 (decay 1, input 0: the state passes through).
+    """
+    bsz, s, c = u.shape
+    n = bmat.shape[-1]
+    state = init_state if init_state is not None else \
+        torch.zeros((bsz, c, n), dtype=u.dtype, device=u.device)
+    ys = []
+    with full_f32():
+        for c0 in range(0, s, chunk):
+            da = torch.exp(dt[:, c0:c0 + chunk, :, None] * a)  # (B,l,C,N)
+            dbu = dt[:, c0:c0 + chunk, :, None] \
+                * bmat[:, c0:c0 + chunk, None, :] * u[:, c0:c0 + chunk, :,
+                                                      None]
+            aa, hh = [da[:, 0]], [dbu[:, 0]]
+            for t in range(1, da.shape[1]):
+                aa.append(aa[-1] * da[:, t])
+                hh.append(hh[-1] * da[:, t] + dbu[:, t])
+            hs = torch.stack(hh, 1) + torch.stack(aa, 1) * state[:, None]
+            ys.append(torch.einsum("blcn,bln->blc", hs,
+                                   cmat[:, c0:c0 + chunk]))
+            state = hs[:, -1]
+    return torch.cat(ys, dim=1), state
+
+
+def _mamba1_core(p: dict, cfg: ModelConfig, xin: torch.Tensor, mode: str):
+    n = cfg.ssm_state
+    xz = linear(p["in_proj"], xin, mode)
+    xs_raw, z = torch.chunk(xz, 2, dim=-1)
+    xs = causal_conv(xs_raw, p["conv_w"], p["conv_b"])
+    proj = linear(p["x_proj"], xs, "float")
+    dt_rank = proj.shape[-1] - 2 * n
+    dt_lr, bmat, cmat = torch.tensor_split(proj, [dt_rank, dt_rank + n],
+                                           dim=-1)
+    dt = softplus(linear(p["dt_proj"], dt_lr, "float"))
+    a = -torch.exp(p["A_log"])
+    y, state = selective_scan_chunked(xs, dt, a, bmat, cmat)
+    y = (y + xs * p["D"]) * F.silu(z)
+    return linear(p["out_proj"], y, mode), xs_raw, state
+
+
+def mamba1_mixer(p: dict, cfg: ModelConfig, xin: torch.Tensor, *,
+                 mode: str) -> torch.Tensor:
+    return _mamba1_core(p, cfg, xin, mode)[0]
+
+
+def mamba1_prefill(p: dict, cfg: ModelConfig, xin: torch.Tensor, *,
+                   mode: str):
+    out, xs_raw, state = _mamba1_core(p, cfg, xin, mode)
+    return out, {"conv": _conv_state(xs_raw, cfg.ssm_conv), "ssm": state}
+
+
+def mamba1_decode_step(p: dict, cfg: ModelConfig, xin: torch.Tensor,
+                       cache: dict, mode: str) -> Tuple[torch.Tensor, dict]:
+    n = cfg.ssm_state
+    xz = linear(p["in_proj"], xin[:, 0, :], mode)
+    xs, z = torch.chunk(xz, 2, dim=-1)
+    xs, conv_state = causal_conv_step(xs, cache["conv"], p["conv_w"],
+                                      p["conv_b"])
+    proj = linear(p["x_proj"], xs, "float")
+    dt_rank = proj.shape[-1] - 2 * n
+    dt_lr, bmat, cmat = torch.tensor_split(proj, [dt_rank, dt_rank + n],
+                                           dim=-1)
+    dt = softplus(linear(p["dt_proj"], dt_lr, "float"))       # (B,C)
+    a = -torch.exp(p["A_log"])                                # (C,N)
+    da = torch.exp(dt[..., None] * a)
+    with full_f32():
+        ssm = cache["ssm"] * da + dt[..., None] * bmat[:, None, :] \
+            * xs[..., None]
+        y = torch.einsum("bcn,bn->bc", ssm, cmat) + xs * p["D"]
+    y = y * F.silu(z)
+    out = linear(p["out_proj"], y, mode)
+    return out[:, None, :], {"conv": conv_state, "ssm": ssm}
+
+
+def mamba_cache_shapes(cfg: ModelConfig, batch: int) -> dict:
+    """Shapes of one Mamba layer's decode state: the conv inputs and the
+    SSM state, the batch first."""
+    di, n = d_inner(cfg), cfg.ssm_state
+    if cfg.ssm_kind == "mamba2":
+        h, hp = di // cfg.ssm_headdim, cfg.ssm_headdim
+        return {"conv": (batch, cfg.ssm_conv - 1, di + 2 * n),
+                "ssm": (batch, h, hp, n)}
+    return {"conv": (batch, cfg.ssm_conv - 1, di), "ssm": (batch, di, n)}
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                     device=None) -> dict:
+    """Zero decode state of one Mamba layer on ``device`` (default: the
+    card)."""
+    dev = resolve_device(device)
+    return {k: torch.zeros(shape, dtype=dtype, device=dev)
+            for k, shape in mamba_cache_shapes(cfg, batch).items()}

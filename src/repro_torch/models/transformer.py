@@ -1,48 +1,32 @@
-"""Generic LM assembly over stage-stacked params (dense family).
+"""Generic LM assembly over stage-stacked params: dense / MoE / SSM /
+hybrid / enc-dec (counterpart of ``repro/models/transformer.py``).
 
-Counterpart of ``repro/models/transformer.py``. The layer pattern repeats
-with period ``cfg.period`` (1 for uniform stacks, 2 for gemma2's local /
-global pair). Each param leaf under ``params["slots"]`` carries a leading
-``(num_layers // period,)`` stage axis, as the reference's; where the
-reference scans over that axis, the port loops over it in Python.
+The layer pattern repeats with period ``cfg.period`` (1 for uniform stacks,
+2 for gemma2's local / global pair and jamba's MoE every other layer, 8
+for jamba's 1 attention : 7 Mamba). Each param leaf under
+``params["slots"]`` carries a leading ``(num_layers // period,)`` stage
+axis, as the reference's; where the reference scans over that axis, the
+port loops over it in Python.
 
 W1A8 (the paper's technique): every body projection runs through
 `layers.linear` in the requested mode; embedding and LM head stay full
-precision (the Conv1/Conv11 rule).
-
-Only the dense family is ported: a config with a Mamba mixer, an MoE FFN,
-an encoder or a modality prefix raises `NotImplementedError` naming the
-ROADMAP item that ports it.
+precision (the Conv1/Conv11 rule). MoE layers run `moe.moe_ffn` on the
+local path: the reference's sharded path (a ``ShardCtx``: expert-parallel
+all-to-all, TP psum) is not ported (ROADMAP.md, Queue 1, item 6).
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Optional
 
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import (ModelConfig, attention, embed,
+from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import (Leaf, ModelConfig, attention, embed,
                                        init_attention, init_embed, init_mlp,
                                        init_norm, mlp, norm, unembed)
-
-LATER = ("is not ported yet (ROADMAP.md, Queue 1, item 4: {what})")
-
-
-def check_dense(cfg: ModelConfig) -> None:
-    """Raises unless every layer of ``cfg`` is attention + a dense MLP."""
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder stack "
-            + LATER.format(what="encoder-decoder"))
-    for i in range(cfg.period):
-        if cfg.mixer_kind(i) == "mamba":
-            raise NotImplementedError(
-                f"{cfg.name}: the Mamba mixer "
-                + LATER.format(what="Mamba/hybrid and the mamba caches"))
-        if cfg.ffn_kind(i) == "moe":
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE FFN "
-                + LATER.format(what="MoE and _apply_moe"))
 
 
 def tree_map(fn, tree, *rest):
@@ -93,51 +77,138 @@ def stage(tree, i: int):
 
 
 # ---------------------------------------------------------------------------
-# Init
+# Init: a tree of `layers.Leaf` specs, then tensors drawn stage by stage
 # ---------------------------------------------------------------------------
 
-def _init_slot(gen, cfg: ModelConfig, mixer_kind: str, ffn_kind: str,
-               dtype, device, n_stages: int) -> dict:
-    """One slot's params for all stages at once: each leaf is drawn with
-    its leading (n_stages,) axis, so a full-width init holds no per-stage
-    copies to stack."""
-    lead = (n_stages,)
-    kw = dict(dtype=dtype, device=device, lead=lead)
-    slot = {"norm1": init_norm(cfg.d_model, cfg.norm_kind, **kw)}
-    slot["attn"] = init_attention(gen, cfg, **kw)
+@dataclasses.dataclass(frozen=True)
+class Stack:
+    """A subtree of leaf specs stacked over ``n`` stages: every leaf gets
+    a leading (n,) axis and is drawn one stage at a time."""
+    tree: Any
+    n: int
+
+
+def _init_slot(cfg: ModelConfig, mixer_kind: str, ffn_kind: str) -> dict:
+    slot = {"norm1": init_norm(cfg.d_model, cfg.norm_kind)}
+    if mixer_kind.startswith("attn"):
+        slot["attn"] = init_attention(cfg)
+    else:
+        slot["mamba"] = mb.init_mamba(cfg)
     if cfg.post_norms:
-        slot["post_norm1"] = init_norm(cfg.d_model, cfg.norm_kind, **kw)
+        slot["post_norm1"] = init_norm(cfg.d_model, cfg.norm_kind)
     if ffn_kind != "none":
-        slot["norm2"] = init_norm(cfg.d_model, cfg.norm_kind, **kw)
-        slot["mlp"] = init_mlp(gen, cfg, **kw)
+        slot["norm2"] = init_norm(cfg.d_model, cfg.norm_kind)
+        if ffn_kind == "moe":
+            slot["moe"] = moe_mod.init_moe(cfg)
+        else:
+            slot["mlp"] = init_mlp(cfg)
         if cfg.post_norms:
-            slot["post_norm2"] = init_norm(cfg.d_model, cfg.norm_kind, **kw)
+            slot["post_norm2"] = init_norm(cfg.d_model, cfg.norm_kind)
     return slot
+
+
+def lm_param_specs(cfg: ModelConfig) -> dict:
+    """The reference's param tree as leaf specs: ``embed``,
+    ``final_norm``, ``slots`` (one dict per slot of the period, stacked
+    over num_layers // period stages) and, for enc-dec, ``encoder`` and
+    ``cross``."""
+    period = cfg.period
+    assert cfg.num_layers % period == 0, (cfg.name, cfg.num_layers, period)
+    specs = {"embed": init_embed(cfg),
+             "final_norm": init_norm(cfg.d_model, cfg.norm_kind),
+             "slots": Stack(tuple(_init_slot(cfg, mk, fk)
+                                  for mk, fk in kinds(cfg)),
+                            cfg.num_layers // period)}
+    if cfg.encoder_layers:
+        enc_cfg = dataclasses.replace(cfg, num_layers=cfg.encoder_layers,
+                                      attn_every=0, local_global=False,
+                                      num_experts=0)
+        specs["encoder"] = {
+            "slots": Stack((_init_slot(enc_cfg, "attn", "dense"),),
+                           cfg.encoder_layers),
+            "final_norm": init_norm(cfg.d_model, cfg.norm_kind)}
+        specs["cross"] = Stack({"norm": init_norm(cfg.d_model,
+                                                  cfg.norm_kind),
+                                "attn": init_attention(cfg)},
+                               cfg.num_layers)
+    return specs
+
+
+def allocate(spec, lead: tuple, dtype, dev):
+    """Tensors for ``spec`` with constants filled; drawn leaves are left
+    empty."""
+    if isinstance(spec, Stack):
+        return allocate(spec.tree, (spec.n,), dtype, dev)
+    if isinstance(spec, Leaf):
+        t = torch.empty(lead + spec.shape, dtype=dtype, device=dev)
+        if not spec.std and dev.type != "meta":
+            fill = spec.fill
+            if callable(fill):
+                t.copy_(fill(dtype, dev))
+            else:
+                t.fill_(fill)
+        return t
+    if isinstance(spec, tuple):
+        return tuple(allocate(s, lead, dtype, dev) for s in spec)
+    return {k: allocate(v, lead, dtype, dev) for k, v in spec.items()}
+
+
+def write_leaf(out: dict, name: str, st: Optional[int],
+               x: torch.Tensor) -> None:
+    """`draw`'s default sink: ``x`` into stage ``st`` of ``out[name]``
+    (the whole leaf outside a stack)."""
+    (out[name] if st is None else out[name][st]).copy_(x)
+
+
+def draw(spec, out, gen, dtype, dev, sink=write_leaf,
+         st: Optional[int] = None) -> None:
+    """Draws the random leaves of ``spec`` in the spec's order, each one
+    stage's leaf at a time, N(0, 1) from ``gen`` times the leaf's std,
+    and hands it to ``sink(node, name, stage, tensor)`` with the node of
+    ``out`` that holds it (``stage`` None outside a stack). A stack draws
+    stage-major: every leaf of stage 0, then of stage 1, and so on."""
+    if isinstance(spec, Stack):
+        for i in range(spec.n):
+            draw(spec.tree, out, gen, dtype, dev, sink, i)
+        return
+    if isinstance(spec, tuple):
+        for s, o in zip(spec, out):
+            draw(s, o, gen, dtype, dev, sink, st)
+        return
+    for name, s in spec.items():
+        if not isinstance(s, Leaf):
+            draw(s, out[name], gen, dtype, dev, sink, st)
+        elif s.std:
+            x = torch.empty(s.shape, dtype=dtype, device=dev)
+            sink(out, name, st, x.normal_(generator=gen).mul_(s.std))
+            del x                        # gone before the next is drawn
+
+
+def materialize(specs, generator: Optional[torch.Generator], device=None,
+                dtype=torch.float32):
+    """Tensors for a spec tree on ``device`` (default: the card), random
+    leaves drawn from ``generator`` (which lives on ``device``). On
+    ``meta`` only the shapes are made and ``generator`` may be None."""
+    dev = resolve_device(device)
+    if generator is None and dev.type != "meta":
+        raise ValueError(f"init_lm_params needs a torch.Generator on {dev}")
+    out = allocate(specs, (), dtype, dev)
+    if dev.type != "meta":
+        draw(specs, out, generator, dtype, dev)
+    return out
 
 
 def init_lm_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                    device=None, dtype=torch.float32) -> dict:
-    """Random-init params in the reference's tree (``embed``,
-    ``final_norm``, ``slots``: a tuple of one stage-stacked dict per slot
-    of the period), drawn from ``generator``, which lives on ``device``
-    (default: the card). On ``device="meta"`` only the shapes are made and
+    """Random-init params in the reference's tree (`lm_param_specs`),
+    drawn from ``generator``, which lives on ``device`` (default: the
+    card). Each leaf of a stage-stacked subtree is allocated whole and
+    drawn one stage at a time, stage-major, so a packed init
+    (`serve.packed.init_packed_lm`) can draw the same values one stage's
+    leaf at a time. On ``device="meta"`` only the shapes are made and
     ``generator`` may be None: `count_lm_params` of a full config needs
     no memory."""
-    dev = resolve_device(device)
-    check_dense(cfg)
-    if generator is None and dev.type != "meta":
-        raise ValueError("init_lm_params needs a torch.Generator on "
-                         f"{dev}")
-    period = cfg.period
-    assert cfg.num_layers % period == 0, (cfg.name, cfg.num_layers, period)
-    n_stages = cfg.num_layers // period
-    params = {"embed": init_embed(generator, cfg, dtype, dev),
-              "final_norm": init_norm(cfg.d_model, cfg.norm_kind, dtype,
-                                      dev)}
-    params["slots"] = tuple(
-        _init_slot(generator, cfg, mk, fk, dtype, dev, n_stages)
-        for mk, fk in kinds(cfg))
-    return params
+    return materialize(lm_param_specs(cfg), generator, device, dtype)
 
 
 def count_lm_params(params) -> int:
@@ -158,22 +229,38 @@ def add_mixer_out(slot: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def ffn_block(slot: dict, cfg: ModelConfig, x: torch.Tensor, ffn_kind: str,
               mode: str) -> torch.Tensor:
-    """norm2 → dense MLP (→ post-norm) → residual add."""
+    """norm2 → dense MLP or MoE (→ post-norm) → residual add."""
     if ffn_kind == "none":
         return x
     h = norm(slot["norm2"], x, cfg.norm_kind)
-    out = mlp(slot["mlp"], cfg, h, mode)
+    if ffn_kind == "moe":                     # over every token, local path
+        b, s, d = h.shape
+        out = moe_mod.moe_ffn(slot["moe"], cfg, h.reshape(b * s, d),
+                              mode=mode).reshape(b, s, d)
+    else:
+        out = mlp(slot["mlp"], cfg, h, mode)
     if cfg.post_norms:
         out = norm(slot["post_norm2"], out, cfg.norm_kind)
     return x + out.to(x.dtype)
+
+
+def mamba_fns(cfg: ModelConfig) -> tuple:
+    """(mixer, prefill, decode step) of the config's SSM kind."""
+    if cfg.ssm_kind == "mamba2":
+        return mb.mamba2_mixer, mb.mamba2_prefill, mb.mamba2_decode_step
+    return mb.mamba1_mixer, mb.mamba1_prefill, mb.mamba1_decode_step
 
 
 def _apply_slot(slot: dict, cfg: ModelConfig, x: torch.Tensor, *,
                 mixer_kind: str, ffn_kind: str, mode: str,
                 positions: torch.Tensor) -> torch.Tensor:
     h = norm(slot["norm1"], x, cfg.norm_kind)
-    out = attention(slot["attn"], cfg, h, mode=mode, causal=True,
-                    window=window_of(cfg, mixer_kind), positions=positions)
+    if mixer_kind.startswith("attn"):
+        out = attention(slot["attn"], cfg, h, mode=mode, causal=True,
+                        window=window_of(cfg, mixer_kind),
+                        positions=positions)
+    else:
+        out = mamba_fns(cfg)[0](slot["mamba"], cfg, h, mode=mode)
     x = add_mixer_out(slot, cfg, x, out)
     return ffn_block(slot, cfg, x, ffn_kind, mode)
 
@@ -191,21 +278,50 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                prefix_embeds: Optional[torch.Tensor] = None,
                encoder_embeds: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
-    """tokens (B, S) int → logits (B, S, vocab)."""
-    check_dense(cfg)
-    if prefix_embeds is not None:
-        raise NotImplementedError(
-            "prefix_embeds " + LATER.format(what="the VLM prefix"))
-    if encoder_embeds is not None:
-        raise NotImplementedError(
-            "encoder_embeds " + LATER.format(what="encoder-decoder"))
+    """tokens (B, S) int → logits (B, S_total, vocab).
+
+    prefix_embeds: (B, S_p, D) modality stub (vision patches) prepended to
+    the token embeddings (internvl2). encoder_embeds: (B, S_enc, D)
+    encoder input features for enc-dec (seamless): the encoder stack runs,
+    then each decoder stage cross-attends to its output. As in the
+    reference, a tree with a ``cross`` stack runs it after every stage
+    even without ``encoder_embeds``: as non-causal self-attention."""
     x = embed(params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    enc_out = None
+    if encoder_embeds is not None:
+        enc_out = encode(cfg, params, encoder_embeds, mode=mode)
+    cross = params.get("cross")
     for st in range(stage_count(params)):
         slots = stage(params["slots"], st)
         for i, (mk, fk) in enumerate(kinds(cfg)):
             x = _apply_slot(slots[i], cfg, x, mixer_kind=mk, ffn_kind=fk,
                             mode=mode, positions=positions)
+        if cross is not None:
+            cr = stage(cross, st)
+            h = norm(cr["norm"], x, cfg.norm_kind)
+            x = x + attention(cr["attn"], cfg, h, mode=mode, causal=False,
+                              positions=positions,
+                              kv_x=enc_out).to(x.dtype)
     x = norm(params["final_norm"], x, cfg.norm_kind)
     return unembed(params["embed"], cfg, x)
+
+
+def encode(cfg: ModelConfig, params: dict, feats: torch.Tensor, *,
+           mode: str = "float") -> torch.Tensor:
+    """Bidirectional encoder over stub features (B, S_enc, D)."""
+    enc = params["encoder"]
+    b, s, _ = feats.shape
+    positions = torch.arange(s, device=feats.device).expand(b, s)
+    x = feats.to(params["embed"]["emb"].dtype)
+    for st in range(stage_count(enc)):
+        slot = stage(enc["slots"][0], st)
+        h = norm(slot["norm1"], x, cfg.norm_kind)
+        x = x + attention(slot["attn"], cfg, h, mode=mode, causal=False,
+                          positions=positions).to(x.dtype)
+        h = norm(slot["norm2"], x, cfg.norm_kind)
+        x = x + mlp(slot["mlp"], cfg, h, mode).to(x.dtype)
+    return norm(enc["final_norm"], x, cfg.norm_kind)

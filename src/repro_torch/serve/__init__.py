@@ -14,7 +14,7 @@ from repro_torch.serve.cache import (cache_bytes, init_cache,  # noqa: F401
 from repro_torch.serve.engine import (decode_step, generate,  # noqa: F401
                                       prefill)
 from repro_torch.serve.packed import (deploy_lm,  # noqa: F401
-                                      packed_param_bytes)
+                                      init_packed_lm, packed_param_bytes)
 from repro_torch.serve.scheduler import Scheduler  # noqa: F401
 from repro_torch.serve.compose import (ComposePipeline,  # noqa: F401
                                        ComposeRequest, ComposeResult,

@@ -1,13 +1,13 @@
-"""KV decode caches with static shapes (counterpart of
-``repro/serve/cache.py``; attention slots only, the Mamba states come with
-the Mamba slice).
+"""KV / SSM decode caches with static shapes (counterpart of
+``repro/serve/cache.py``).
 
 Layout: one cache entry per layer-slot, stacked over stages like the
 params. Attention caches are **ring buffers** (stages, B, L, KV, hd) ×2
 plus a ``pos`` plane recording the absolute position written at each ring
-slot; L = min(max_len, sliding_window) for windowed layers. Per-row
-``lengths`` (B,) drive causal masking, so rows at different positions
-coexist in one batch (continuous batching).
+slot; L = min(max_len, sliding_window) for windowed layers. Mamba caches
+are the O(1) recurrent states: the conv inputs (stages, B, W-1, C) and the
+SSM state. Per-row ``lengths`` (B,) drive causal masking, so rows at
+different positions coexist in one batch (continuous batching).
 
 Every leaf under ``cache["slots"]`` carries the batch on axis 1 (after the
 stage axis) and ``cache["lengths"]`` on axis 0 — `merge_rows` relies on
@@ -20,9 +20,9 @@ from typing import Sequence
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import mamba as mb
 from repro_torch.models.layers import ModelConfig
-from repro_torch.models.transformer import (check_dense, tree_leaves,
-                                            tree_map, window_of)
+from repro_torch.models.transformer import tree_leaves, tree_map, window_of
 
 # Unwritten ring slots carry this sentinel position: always masked out by
 # the `pc <= pos` validity test in engine._attn_decode.
@@ -38,17 +38,23 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device=None) -> dict:
     """Cache tree: {'slots': tuple per period-slot, 'lengths': (B,)}."""
     dev = resolve_device(device)
-    check_dense(cfg)
     n_stages = cfg.num_layers // cfg.period
     slots = []
     for i in range(cfg.period):
-        length = _attn_cache_len(cfg, cfg.mixer_kind(i), max_len)
-        shape = (n_stages, batch, length, cfg.num_kv_heads, cfg.hd)
-        slots.append({
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "pos": torch.full((n_stages, batch, length), BIGPOS,
-                              dtype=torch.int32, device=dev)})
+        kind = cfg.mixer_kind(i)
+        if kind.startswith("attn"):
+            length = _attn_cache_len(cfg, kind, max_len)
+            shape = (n_stages, batch, length, cfg.num_kv_heads, cfg.hd)
+            slots.append({
+                "k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "pos": torch.full((n_stages, batch, length), BIGPOS,
+                                  dtype=torch.int32, device=dev)})
+        else:
+            slots.append({k: torch.zeros((n_stages,) + shape, dtype=dtype,
+                                         device=dev)
+                          for k, shape in mb.mamba_cache_shapes(
+                              cfg, batch).items()})
     return {"slots": tuple(slots),
             "lengths": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 

@@ -1,16 +1,19 @@
 """Serving engine: prefill + decode with slot-based continuous batching
-(counterpart of ``repro/serve/engine.py``, dense family).
+(counterpart of ``repro/serve/engine.py``).
 
 `decode_step` — one token for every active row against the stage-stacked
 cache; the reference's scan over stages is a Python loop here. Windowed
-layers (gemma2's local ones) use **ring KV caches** bounded by the window.
-With packed W1A8 params (`serve.packed.deploy_lm`) each of a layer's seven
-projections is one launch of the popcount matmul, which reads 1 bit a
-weight.
+layers (gemma2's local ones, mixtral's) use **ring KV caches** bounded by
+the window; Mamba layers carry their O(1) conv and SSM states. With packed
+W1A8 params (`serve.packed.deploy_lm`) each dense projection is one launch
+of the popcount matmul, which reads 1 bit a weight, and each expert
+projection of an MoE layer one grouped launch of it for all the experts.
+As in the reference, an enc-dec tree's ``cross`` stack is not read here:
+the engine decodes the decoder stack alone.
 
-`decode_step` writes the new K/V rows into the cache's ring tensors in
-place (as a donated buffer would be) and returns the cache with the
-lengths advanced; `prefill` builds a fresh cache.
+`decode_step` writes the new K/V rows and Mamba states into the cache's
+tensors in place (as a donated buffer would be) and returns the cache with
+the lengths advanced; `prefill` builds a fresh cache.
 
 Sampling draws from a `torch.Generator` on the logits' device (Gumbel-max
 over exponential draws): the reference's ``jax.random.categorical`` draws
@@ -26,9 +29,9 @@ import torch
 
 from repro_torch.models.layers import (ModelConfig, _div, attention, embed,
                                        linear, norm, rope, softcap, unembed)
-from repro_torch.models.transformer import (add_mixer_out, check_dense,
-                                            ffn_block, kinds, stage,
-                                            stage_count, window_of)
+from repro_torch.models.transformer import (add_mixer_out, ffn_block,
+                                            kinds, mamba_fns,
+                                            stage, stage_count, window_of)
 from repro_torch.device import full_f32
 from repro_torch.serve.cache import BIGPOS, init_cache  # noqa: F401
 
@@ -82,17 +85,23 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor, *, mode: str = "float"
                 ) -> Tuple[torch.Tensor, dict]:
     """tokens (B, 1) → (logits (B, vocab), the cache advanced by one)."""
-    check_dense(cfg)
     pos = cache["lengths"]
     x = embed(params["embed"], tokens)
+    step_fn = mamba_fns(cfg)[2]
     for st in range(stage_count(params)):
         slots = stage(params["slots"], st)
         for i, (mk, fk) in enumerate(kinds(cfg)):
             slot, c = slots[i], cache["slots"][i]
             h = norm(slot["norm1"], x, cfg.norm_kind)
-            out = _attn_decode(slot["attn"], cfg, h, c["k"][st], c["v"][st],
-                               c["pos"][st], pos, mode=mode,
-                               window=window_of(cfg, mk))
+            if mk.startswith("attn"):
+                out = _attn_decode(slot["attn"], cfg, h, c["k"][st],
+                                   c["v"][st], c["pos"][st], pos, mode=mode,
+                                   window=window_of(cfg, mk))
+            else:
+                out, new = step_fn(slot["mamba"], cfg, h,
+                                   {k: v[st] for k, v in c.items()}, mode)
+                for k, v in new.items():
+                    c[k][st] = v.to(c[k].dtype)
             x = add_mixer_out(slot, cfg, x, out)
             x = ffn_block(slot, cfg, x, fk, mode)
     x = norm(params["final_norm"], x, cfg.norm_kind)
@@ -148,37 +157,54 @@ def decode_step_donemask(cfg: ModelConfig, params: dict, cache: dict,
     return cache, tok, tok_buf, n_gen, done
 
 
+def _attn_prefill(p, cfg: ModelConfig, h, c: dict, st: int, positions, *,
+                  mode: str, window: int):
+    """A prompt's attention; its K/V written into stage ``st`` of the
+    slot's cache ``c``."""
+    b, s = positions.shape
+    dev = h.device
+    hd, kvh = cfg.hd, cfg.num_kv_heads
+    k = linear(p["wk"], h, mode).reshape(b, s, kvh, hd)
+    v = linear(p["wv"], h, mode).reshape(b, s, kvh, hd)
+    kr = rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+    out = attention(p, cfg, h, mode=mode, causal=True, window=window,
+                    positions=positions)
+    length = c["k"].shape[2]
+    take = min(s, length)
+    src_from = s - take
+    ring = (torch.arange(take, device=dev) + src_from) % length
+    c["k"][st][:, ring] = kr[:, src_from:].to(c["k"].dtype)
+    c["v"][st][:, ring] = v[:, src_from:].to(c["v"].dtype)
+    c["pos"][st][:, ring] = torch.arange(
+        src_from, s, dtype=torch.int32, device=dev)[None, :]
+    return out
+
+
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            max_len: int, mode: str = "float") -> Tuple[torch.Tensor, dict]:
+            max_len: int, mode: str = "float"
+            ) -> Tuple[torch.Tensor, dict]:
     """Process the prompt (B, S) and build the decode cache: attention K/V
     for the prompt are written at positions [0, S), the last min(S, L) of
-    them into a windowed layer's ring."""
-    check_dense(cfg)
+    them into a windowed layer's ring; Mamba slots carry the post-prompt
+    recurrent state."""
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev).expand(b, s)
     x = embed(params["embed"], tokens)
     cache = init_cache(cfg, b, max_len, dtype=x.dtype, device=dev)
-    hd, kvh = cfg.hd, cfg.num_kv_heads
+    pre_fn = mamba_fns(cfg)[1]
     for st in range(stage_count(params)):
         slots = stage(params["slots"], st)
         for i, (mk, fk) in enumerate(kinds(cfg)):
             slot, c = slots[i], cache["slots"][i]
             h = norm(slot["norm1"], x, cfg.norm_kind)
-            k = linear(slot["attn"]["wk"], h, mode).reshape(b, s, kvh, hd)
-            v = linear(slot["attn"]["wv"], h, mode).reshape(b, s, kvh, hd)
-            kr = rope(k, positions, theta=cfg.rope_theta,
-                      fraction=cfg.rope_fraction)
-            out = attention(slot["attn"], cfg, h, mode=mode, causal=True,
-                            window=window_of(cfg, mk), positions=positions)
-            length = c["k"].shape[2]
-            take = min(s, length)
-            src_from = s - take
-            ring = (torch.arange(take, device=dev) + src_from) % length
-            c["k"][st][:, ring] = kr[:, src_from:].to(c["k"].dtype)
-            c["v"][st][:, ring] = v[:, src_from:].to(c["v"].dtype)
-            c["pos"][st][:, ring] = torch.arange(
-                src_from, s, dtype=torch.int32, device=dev)[None, :]
+            if mk.startswith("attn"):
+                out = _attn_prefill(slot["attn"], cfg, h, c, st, positions,
+                                    mode=mode, window=window_of(cfg, mk))
+            else:
+                out, new = pre_fn(slot["mamba"], cfg, h, mode=mode)
+                for k, v in new.items():
+                    c[k][st] = v.to(c[k].dtype)
             x = add_mixer_out(slot, cfg, x, out)
             x = ffn_block(slot, cfg, x, fk, mode)
     x = norm(params["final_norm"], x, cfg.norm_kind)

@@ -8,12 +8,19 @@ weight once, so its weight traffic drops by the same factor: chatglm3-6b's
 
 The packed tree keeps the reference's keys and leading stage axes; sign
 words are the reference's ``uint32`` bits in an int32 carrier.
+
+`init_packed_lm` gives `deploy_lm(init_lm_params(...))` without the f32
+tree, which for mixtral (187 GB) or jamba (1.6 TB) outgrows the card: it
+draws one leaf of one stage at a time, in `init_lm_params`'s order, packs
+it into its slot of the stacked words and frees it.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import packing
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
 from repro_torch.models.transformer import tree_items
 
 
@@ -57,17 +64,90 @@ def _pack_moe(p: dict) -> dict:
     return out
 
 
+def _is_linear(node: dict) -> bool:
+    return "w" in node and "act_step" in node
+
+
+def _is_moe(node: dict) -> bool:
+    return "router" in node and "up" in node and "act_step" in node
+
+
+EXPERTS = ("up", "gate", "down")
+
+
+def _allocate_packed(spec, lead: tuple, dev):
+    """`deploy_lm`'s tree for a spec tree, empty: the nodes it packs in
+    packed form, the rest as `transformer.allocate` makes them."""
+    if isinstance(spec, transformer.Stack):
+        return _allocate_packed(spec.tree, (spec.n,), dev)
+    if isinstance(spec, tuple):
+        return tuple(_allocate_packed(s, lead, dev) for s in spec)
+    if not isinstance(spec, dict):
+        return transformer.allocate(spec, lead, torch.float32, dev)
+
+    def empty(shape, dt):
+        return torch.empty(lead + shape, dtype=dt, device=dev)
+    if _is_linear(spec):
+        k, n = spec["w"].shape
+        out = {key: transformer.allocate(v, lead, torch.float32, dev)
+               for key, v in spec.items() if key != "w"}
+        out["act_step"] = torch.broadcast_to(
+            out["act_step"][..., None], lead + (k,)).contiguous()
+        out["w_packed"] = empty((packing.packed_dim(k), n), torch.int32)
+        out["alpha"] = empty((n,), torch.float32)
+        return out
+    if _is_moe(spec):
+        out = {key: transformer.allocate(v, lead, torch.float32, dev)
+               for key, v in spec.items() if key not in EXPERTS}
+        for name in EXPERTS:
+            e, k, n = spec[name].shape
+            out[name + "_packed"] = empty((e, packing.packed_dim(k), n),
+                                          torch.int32)
+            out[name + "_alpha"] = empty((e, 1, n), torch.float32)
+        return out
+    return {key: _allocate_packed(v, lead, dev) for key, v in spec.items()}
+
+
+def _pack_leaf(out: dict, name: str, st, w: torch.Tensor) -> None:
+    """`transformer.draw`'s sink for a packed init: a projection's or an
+    expert stack's drawn stage goes into its sign words and α; any other
+    leaf is written as drawn."""
+    kax = w.ndim - 2
+    if name == "w" and "w_packed" in out:
+        out["w_packed"][st] = packing.pack_signs(w, axis=kax)
+        out["alpha"][st] = _stage_mean_abs(w, kax).to(torch.float32)
+    elif name in EXPERTS and name + "_packed" in out:
+        out[name + "_packed"][st] = packing.pack_signs(w, axis=kax)
+        out[name + "_alpha"][st] = _stage_mean_abs(
+            w, kax, keepdim=True).to(torch.float32)
+    else:
+        transformer.write_leaf(out, name, st, w)
+
+
+@torch.no_grad()
+def init_packed_lm(cfg, generator, device=None) -> dict:
+    """``deploy_lm(init_lm_params(cfg, generator, device))``, leaf for
+    leaf, holding at most one f32 leaf of one stage at a time (jamba's
+    expert up-projection, (16, 8192, 24576), is 12.9 GB)."""
+    dev = resolve_device(device)
+    if generator is None:
+        raise ValueError(f"init_packed_lm needs a torch.Generator on {dev}")
+    specs = transformer.lm_param_specs(cfg)
+    out = _allocate_packed(specs, (), dev)
+    transformer.draw(specs, out, generator, torch.float32, dev, _pack_leaf)
+    return out
+
+
 @torch.no_grad()
 def deploy_lm(params):
     """Walk the param tree, packing every W1A8 projection (dicts holding
     both 'w' and 'act_step'). Non-quantized leaves pass through."""
     def walk(node):
         if isinstance(node, dict):
-            if "w" in node and "act_step" in node:
+            if _is_linear(node):
                 return _pack_linear(node)
-            if "router" in node and "up" in node:
-                return _pack_moe(node) if "act_step" in node else \
-                    {k: walk(v) for k, v in node.items()}
+            if _is_moe(node):
+                return _pack_moe(node)
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return type(node)(walk(v) for v in node)

@@ -1,13 +1,15 @@
-"""Port parity, the LM stack's dense family: the same numpy inputs and
-params through `repro` and `repro_torch` on the CPU, at the reduced
-configs (2 layers, d 64, vocab 128).
+"""Port parity, the LM stack (dense, MoE, SSM, hybrid, enc-dec and VLM
+families): the same numpy inputs and params through `repro` and
+`repro_torch` on the CPU, at the reduced configs (2 to 8 layers, d 64,
+vocab 128).
 
 Tolerances, and why:
 
 * float paths (layers, `lm_forward` in "float"): within 1e-5·max|y|. The
   two frameworks sum the same f32 products in another order; one rounding
-  of a sum of 64–128 terms is about 1e-7 relative, and two layers of norms,
-  softmax and residual adds keep it below 1e-5.
+  of a sum of 64–128 terms is about 1e-7 relative, and two layers (eight
+  for jamba) of norms, softmax, scans and residual adds keep it below
+  1e-5.
 * `w1a8_eval` and packed `lm_forward`: within 1e-4·max|logit| with the
   codes that round across a tie forced to the reference's
   (`train.ties`, each within 1e-3 of a tie on both sides). Without the
@@ -33,8 +35,10 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro.configs import shapes as jshapes  # noqa: E402
+from repro.core import quant as jquant  # noqa: E402
 from repro.core import w1a8 as jw1a8  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
 from repro.serve import packed as jpacked  # noqa: E402
 from repro_torch import configs, convert  # noqa: E402
@@ -42,9 +46,10 @@ from repro_torch.configs import shapes  # noqa: E402
 from repro_torch.core import packing, w1a8  # noqa: E402
 from repro_torch.models import layers, transformer  # noqa: E402
 from repro_torch.serve import packed  # noqa: E402
+from repro_torch.serve.engine import prefill  # noqa: E402
 from repro_torch.train import ties  # noqa: E402
 
-DENSE = configs.DENSE
+ARCHS = configs.ARCH_NAMES
 
 
 def _np(tree):
@@ -80,22 +85,27 @@ def ref_params(name, seed=0):
 
 @pytest.fixture
 def record_ref_quant(monkeypatch):
-    """Runs a reference call with every input of its projections'
-    `quantize_act` recorded, in call order (an ordered host callback, so
-    traced and scanned calls record too)."""
+    """Runs a reference call with every activation quantizer input
+    recorded, in call order (an ordered host callback, so traced and
+    scanned calls record too): the projections' `quantize_act`, the MoE
+    experts' `lsq_fake_quant` (w1a8_eval; replaced by its forward value)
+    and the packed experts' `repro.core.quant.quantize_act`."""
     def run(fn):
-        recorded, real = [], jlayers.quantize_act
+        recorded, real = [], jquant.quantize_act
 
         def recording(x, step):
             jax.debug.callback(lambda v: recorded.append(np.array(v)), x,
                                ordered=True)
             return real(x, step)
         monkeypatch.setattr(jlayers, "quantize_act", recording)
+        monkeypatch.setattr(jquant, "quantize_act", recording)
+        monkeypatch.setattr(jmoe, "lsq_fake_quant",
+                            lambda x, step, gs: recording(x, step) * step)
         try:
             out = fn()
             jax.effects_barrier()
         finally:
-            monkeypatch.setattr(jlayers, "quantize_act", real)
+            monkeypatch.undo()
         return out, recorded
     return run
 
@@ -131,7 +141,7 @@ def test_configs_are_the_reference_shapes():
         configs.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ARCHS)
 def test_count_lm_params_full_config_on_meta(name):
     """The full config's params, shapes only: the port builds them on
     ``meta``, the reference through ``jax.eval_shape``."""
@@ -143,30 +153,23 @@ def test_count_lm_params_full_config_on_meta(name):
     assert got == want
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "mamba2-1.3b",
-                                  "jamba-1.5-large-398b",
-                                  "seamless-m4t-medium"])
-def test_families_not_ported_raise(name):
-    cfg = configs.get_reduced(name)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        transformer.init_lm_params(cfg, torch.Generator(), device="cpu")
-
-
-def test_vlm_prefix_raises():
-    cfg = configs.get_reduced("internvl2-76b")
+def test_shard_ctx_raises():
+    """Only the single-device path is ported: the forward and the engine
+    take no ShardCtx, and refuse one."""
+    cfg = configs.get_reduced("mixtral-8x7b")
     p = transformer.init_lm_params(cfg, torch.Generator().manual_seed(0),
                                    device="cpu")
     toks = torch.zeros((1, 3), dtype=torch.int32)
-    assert transformer.lm_forward(cfg, p, toks).shape == (1, 3, 128)
-    with pytest.raises(NotImplementedError, match="VLM prefix"):
-        transformer.lm_forward(cfg, p, toks,
-                               prefix_embeds=torch.zeros((1, 4, 64)))
+    for fn in (lambda: transformer.lm_forward(cfg, p, toks, ctx=object()),
+               lambda: prefill(cfg, p, toks, max_len=8, ctx=object())):
+        with pytest.raises(TypeError, match="ctx"):
+            fn()
 
 
 def test_init_lm_params_tree_matches_reference():
     """Same keys, nesting and shapes as the reference's init; a seeded
     generator draws the same params twice."""
-    for name in DENSE:
+    for name in ARCHS:
         cfg = configs.get_reduced(name)
         p = transformer.init_lm_params(cfg, torch.Generator().manual_seed(3),
                                        device="cpu")
@@ -181,6 +184,46 @@ def test_init_lm_params_tree_matches_reference():
             transformer.tree_leaves(p), transformer.tree_leaves(again)))
     with pytest.raises(ValueError, match="Generator"):
         transformer.init_lm_params(cfg, None, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "kimi-k2-1t-a32b",
+                                  "mamba2-1.3b", "jamba-1.5-large-398b",
+                                  "seamless-m4t-medium", "gemma2-27b"])
+def test_init_packed_lm_equals_deploy_of_init(name):
+    """The stage-wise packed init (one f32 leaf of one stage at a time)
+    against `deploy_lm` of the whole f32 init, leaf for leaf, under the
+    same seed."""
+    cfg = configs.get_reduced(name)
+    want = packed.deploy_lm(transformer.init_lm_params(
+        cfg, torch.Generator().manual_seed(9), device="cpu"))
+    got = packed.init_packed_lm(cfg, torch.Generator().manual_seed(9),
+                                device="cpu")
+    items, want_items = transformer.tree_items(got), \
+        transformer.tree_items(want)
+    assert [k for k, _ in items] == [k for k, _ in want_items]
+    for (key, g), (_, w) in zip(items, want_items):
+        assert g.dtype == w.dtype and torch.equal(g, w), key
+
+
+def test_init_draws_stage_major():
+    """The f32 init draws the embedding, then every leaf of stage 0 in
+    slot order, then of stage 1: one stage's leaf at a time."""
+    cfg = configs.get_reduced("granite-20b")
+    p = transformer.init_lm_params(cfg, torch.Generator().manual_seed(9),
+                                   device="cpu")
+    gen = torch.Generator().manual_seed(9)
+
+    def draw(leaf, std):
+        return torch.empty(leaf.shape).normal_(generator=gen).mul_(std)
+    assert torch.equal(draw(p["embed"]["emb"], 0.02), p["embed"]["emb"])
+    attn = p["slots"][0]["attn"]
+    for st in range(2):
+        for key in ("wq", "wk", "wv", "wo"):
+            w = attn[key]["w"][st]
+            assert torch.equal(draw(w, w.shape[0] ** -0.5), w), (st, key)
+        for key in ("up", "down"):                    # not gated
+            w = p["slots"][0]["mlp"][key]["w"][st]
+            assert torch.equal(draw(w, w.shape[0] ** -0.5), w), (st, key)
 
 
 # ---------------------------------------------------------------------------
@@ -336,33 +379,78 @@ def test_mlp_and_embed(name):
 # lm_forward and deployment
 # ---------------------------------------------------------------------------
 
+def forward_inputs(cfg, rng):
+    """Tokens, and the modality inputs of the enc-dec (encoder_embeds)
+    and VLM (prefix_embeds) archs, as numpy."""
+    toks = rng.integers(0, cfg.vocab_size, (2, 11)).astype(np.int32)
+    extra = {}
+    if cfg.encoder_layers:
+        extra["encoder_embeds"] = rng.standard_normal(
+            (2, 7, cfg.d_model)).astype(np.float32)
+    if cfg.prefix_len:
+        extra["prefix_embeds"] = rng.standard_normal(
+            (2, cfg.prefix_len, cfg.d_model)).astype(np.float32)
+    return toks, extra
+
+
 @pytest.mark.parametrize("mode", ["float", "w1a8_eval", "packed"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ARCHS)
 def test_lm_forward(name, mode, record_ref_quant):
     cfg, jp, p = ref_params(name)
     jcfg = jconfigs.get_reduced(name)
-    rng = np.random.default_rng(18)
-    toks = rng.integers(0, cfg.vocab_size, (2, 11)).astype(np.int32)
+    toks, extra = forward_inputs(cfg, np.random.default_rng(18))
+    jextra = {k: jnp.asarray(v) for k, v in extra.items()}
+    textra = {k: _t(v) for k, v in extra.items()}
     if mode == "packed":
         jp = jpacked.deploy_lm(jp)
         p = convert.lm_params_from_numpy(_np(jp), device="cpu")
     jmode = "w1a8_eval" if mode == "packed" else mode
     if mode == "float":
-        want = jax.jit(lambda p, t: jtransformer.lm_forward(jcfg, p, t))(
-            jp, jnp.asarray(toks))
-        got = transformer.lm_forward(cfg, p, _t(toks), mode=jmode)
+        want = jax.jit(lambda p, t, e: jtransformer.lm_forward(
+            jcfg, p, t, **e))(jp, jnp.asarray(toks), jextra)
+        got = transformer.lm_forward(cfg, p, _t(toks), mode=jmode, **textra)
         _close(got, want, 1e-5, name)
         return
     want, recorded = record_ref_quant(lambda: jtransformer.lm_forward(
-        jcfg, jp, jnp.asarray(toks), mode=jmode))
+        jcfg, jp, jnp.asarray(toks), mode=jmode, **jextra))
     with forced(recorded) as counts:
-        got = transformer.lm_forward(cfg, p, _t(toks), mode=jmode)
-    assert len(counts) == len(recorded) == 7 * cfg.num_layers - \
-        (0 if cfg.gated_mlp else cfg.num_layers)
+        got = transformer.lm_forward(cfg, p, _t(toks), mode=jmode, **textra)
+    assert len(counts) == len(recorded) == quantizer_calls(cfg)
     _close(got, want, 1e-4, f"{name} {mode} ({sum(counts)} forced)")
 
 
-@pytest.mark.parametrize("name", DENSE)
+def quantizer_calls(cfg) -> int:
+    """Activation quantizer calls of one W1A8 forward: 4 an attention
+    mixer (q, k, v, o), 2 a Mamba mixer (in, out), 2 or 3 a dense MLP, 3
+    an MoE FFN (up, gate, down over the dispatch buffer); with an encoder,
+    its layers' and one cross-attention a decoder layer."""
+    mlp = 3 if cfg.gated_mlp else 2
+    n = 0
+    for i in range(cfg.num_layers):
+        n += 4 if cfg.mixer_kind(i % cfg.period).startswith("attn") else 2
+        n += {"none": 0, "moe": 3, "dense": mlp}[cfg.ffn_kind(i % cfg.period)]
+    if cfg.encoder_layers:
+        n += cfg.encoder_layers * (4 + mlp) + 4 * cfg.num_layers
+    return n
+
+
+def test_cross_stack_runs_without_encoder_embeds():
+    """As the reference's `lm_forward`, an enc-dec tree runs its cross
+    stack after every stage even without ``encoder_embeds``: the cross
+    slot then attends to the decoder's own states, non-causally."""
+    cfg, jp, p = ref_params("seamless-m4t-medium")
+    jcfg = jconfigs.get_reduced("seamless-m4t-medium")
+    toks, _ = forward_inputs(cfg, np.random.default_rng(18))
+    want = jax.jit(lambda p, t: jtransformer.lm_forward(jcfg, p, t))(
+        jp, jnp.asarray(toks))
+    got = transformer.lm_forward(cfg, p, _t(toks))
+    _close(got, want, 1e-5)
+    no_cross = {k: v for k, v in p.items() if k != "cross"}
+    assert not torch.allclose(transformer.lm_forward(cfg, no_cross,
+                                                     _t(toks)), got)
+
+
+@pytest.mark.parametrize("name", ARCHS)
 def test_deploy_lm_bit_exact(name):
     """The port's `deploy_lm` of the converted params against the
     reference's: same tree, sign words bit for bit, α within rtol 1e-6,
@@ -377,7 +465,7 @@ def test_deploy_lm_bit_exact(name):
     for (path, w), (_, g) in zip(jitems, items):
         key = jax.tree_util.keystr(path)
         g = g.numpy()
-        if "w_packed" in key:
+        if "_packed" in key:                      # w_, up_, gate_, down_
             assert g.dtype == np.int32 and w.dtype == np.uint32
             assert np.array_equal(g.view(np.uint32), w), key
         elif "alpha" in key:

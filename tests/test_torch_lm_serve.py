@@ -1,11 +1,17 @@
-"""Port parity, LM serving: ring caches, prefill and decode steps against
-the reference's, and `LMBackend` under the `Scheduler` (CPU, reduced
-configs).
+"""Port parity, LM serving: ring and Mamba caches, prefill and decode
+steps against the reference's, and `LMBackend` under the `Scheduler` (CPU,
+reduced configs), for the dense, MoE, SSM and hybrid families.
 
 Tolerances, and why:
 
-* float logits and cached K/V: within 1e-5·max|y| (the same f32 products
-  summed in another order, two layers); ring positions and lengths exact.
+* float logits, cached K/V and Mamba states: within 1e-5·max|y| (the same
+  f32 products summed in another order, two layers, eight for jamba);
+  ring positions and lengths exact.
+* decode ≡ teacher-forced forward (the port against itself): each step's
+  logits within 1e-5·max|logit| of `lm_forward`'s at that position. The
+  MoE archs' reduced configs set capacity_factor = num_experts, which
+  `plan_dispatch` documents as its no-drop bound, so a token's experts do
+  not depend on the batch it came in.
 * packed steps: within 1e-4·max|logit| with the codes that round across a
   tie forced to the reference's (`train.ties`, each within 1e-3 of a tie
   on both sides), as tests/test_torch_lm.py explains.
@@ -24,7 +30,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
+from repro.core import quant as jquant  # noqa: E402
 from repro.models import layers as jlayers  # noqa: E402
+from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
 from repro import serve as jserve  # noqa: E402
 from repro.serve import engine as jengine  # noqa: E402
@@ -38,7 +46,9 @@ from repro_torch.serve import cache as cache_mod  # noqa: E402
 from repro_torch.serve.engine import decode_step  # noqa: E402
 from repro_torch.train import ties  # noqa: E402
 
-DENSE = configs.DENSE
+ARCHS = configs.ARCH_NAMES
+# the MoE, SSM and hybrid families served
+NEW_FAMILIES = ("mixtral-8x7b", "mamba2-1.3b", "jamba-1.5-large-398b")
 
 
 def _np(tree):
@@ -69,23 +79,28 @@ def ref_params(name, packed=False):
 
 
 class RefQuant:
-    """Records the reference projections' `quantize_act` inputs in call
-    order (an ordered host callback, so jitted and scanned calls record
-    too), to force the port's tie codes."""
+    """Records the reference's activation quantizer inputs in call order
+    (an ordered host callback, so jitted and scanned calls record too), to
+    force the port's tie codes: the projections' `quantize_act`, the MoE
+    experts' `lsq_fake_quant` (w1a8_eval; replaced by its forward value)
+    and the packed experts' `repro.core.quant.quantize_act`."""
 
     def __init__(self, monkeypatch):
-        self.recorded, real = [], jlayers.quantize_act
+        self.recorded, real = [], jquant.quantize_act
 
         def recording(x, step):
             jax.debug.callback(lambda v: self.recorded.append(np.array(v)),
                                x, ordered=True)
             return real(x, step)
-        self.real, self.mp = real, monkeypatch
+        self.mp = monkeypatch
         monkeypatch.setattr(jlayers, "quantize_act", recording)
+        monkeypatch.setattr(jquant, "quantize_act", recording)
+        monkeypatch.setattr(jmoe, "lsq_fake_quant",
+                            lambda x, step, gs: recording(x, step) * step)
 
     def close(self):
         jax.effects_barrier()
-        self.mp.setattr(jlayers, "quantize_act", self.real)
+        self.mp.undo()
 
     def forced(self):
         return ties.forced([torch.from_numpy(a) for a in self.recorded],
@@ -96,7 +111,10 @@ class RefQuant:
 # the ring cache
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["gemma2-27b", "chatglm3-6b"])
+@pytest.mark.parametrize("name", ["gemma2-27b", "chatglm3-6b",
+                                  "mixtral-8x7b", "kimi-k2-1t-a32b",
+                                  "mamba2-1.3b", "jamba-1.5-large-398b",
+                                  "seamless-m4t-medium", "internvl2-76b"])
 def test_init_cache_matches_reference(name):
     """gemma2's local layers keep a ring of the window (8), its global
     layers max_len; every slot leaf carries the batch on axis 1."""
@@ -111,10 +129,11 @@ def test_init_cache_matches_reference(name):
     if name == "gemma2-27b":
         assert got["slots"][0]["k"].shape[2] == 8
         assert got["slots"][1]["k"].shape[2] == 32
-    assert int(got["slots"][0]["pos"].max()) == cache_mod.BIGPOS
+    attn = [c for c in got["slots"] if "pos" in c]
+    assert all(int(c["pos"].max()) == cache_mod.BIGPOS for c in attn)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ARCHS)
 def test_cache_bytes_full_config(name):
     assert cache_bytes(configs.get_config(name), 4, 4096) == \
         jserve.cache_bytes(jconfigs.get_config(name), 4, 4096)
@@ -177,8 +196,11 @@ def _ref_steps(jcfg, jp, prompt, mode, n):
     return [(np.asarray(lg), _np(c)) for lg, c in steps]
 
 
-STEP_CASES = [(name, "float") for name in DENSE] + \
-    [("chatglm3-6b", "packed"), ("gemma2-27b", "packed")]
+STEP_CASES = [(name, "float") for name in ("chatglm3-6b", "qwen2.5-14b",
+                                           "granite-20b", "gemma2-27b")
+              + NEW_FAMILIES] + \
+    [("chatglm3-6b", "packed"), ("gemma2-27b", "packed"),
+     ("mixtral-8x7b", "packed")]
 
 
 @pytest.mark.parametrize("name,mode", STEP_CASES)
@@ -224,6 +246,30 @@ def test_generate_greedy_equals_reference():
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("name", NEW_FAMILIES)
+def test_decode_equals_teacher_forced_forward(name):
+    """Prefill 4 tokens, then decode the next 6 of a fixed sequence: each
+    step's logits are the forward's over the whole sequence at that
+    position (the port against itself); and greedy `generate` emits the
+    reference's tokens."""
+    cfg, jcfg, jp, p = ref_params(name)
+    seq = np.random.default_rng(32).integers(
+        0, cfg.vocab_size, (2, 10)).astype(np.int32)
+    full = transformer.lm_forward(cfg, p, torch.from_numpy(seq))
+    logits, cache = prefill(cfg, p, torch.from_numpy(seq[:, :4]),
+                            max_len=16)
+    _close(logits, full[:, 3], 1e-5, "prefill")
+    for t in range(4, 10):
+        logits, cache = decode_step(cfg, p, cache,
+                                    torch.from_numpy(seq[:, t:t + 1]))
+        _close(logits, full[:, t], 1e-5, f"step at {t}")
+    want = jengine.generate(jcfg, jp, jnp.asarray(seq[:, :4]), max_new=5,
+                            max_len=16)
+    got = generate(cfg, p, torch.from_numpy(seq[:, :4]), max_new=5,
+                   max_len=16)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
 # ---------------------------------------------------------------------------
 # LMBackend under the Scheduler
 # ---------------------------------------------------------------------------
@@ -256,6 +302,25 @@ def test_backend_greedy_tokens_equal_reference(mode, monkeypatch):
                 done_mask=done_mask, device="cpu")).run(_requests()))
         assert got == want, (done_mask, got, want)
         assert len(counts) == len(rec.recorded)
+
+
+@pytest.mark.parametrize("name", NEW_FAMILIES)
+def test_backend_greedy_tokens_equal_reference_moe_ssm_hybrid(name):
+    """Float params: the port's `LMBackend`, both termination paths,
+    against the reference's `LMBackend` on the same params and stream."""
+    cfg, jcfg, jp, p = ref_params(name)
+
+    def reqs():                # one prompt length: one prefill to compile
+        return [ServeRequest(rid=i, prompt=[1 + i, 2, 3],
+                             sampling=SamplingParams(max_new=3 + i % 2))
+                for i in range(4)]
+    want = _tokens(jserve.Scheduler(jserve.LMBackend(
+        jcfg, jp, slots=2, max_len=16)).run(reqs()))
+    for done_mask in (False, True):
+        got = _tokens(Scheduler(LMBackend(
+            cfg, p, slots=2, max_len=16, done_mask=done_mask,
+            device="cpu")).run(reqs()))
+        assert got == want, (name, done_mask)
 
 
 @pytest.fixture(scope="module")
