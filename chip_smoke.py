@@ -121,9 +121,11 @@ Phases (any failure raises and the script exits non-zero):
    three launcher runs, phase 5's forwards and int call, phase 7's
    integer forward, phase 9's QAT pipeline, phase 10's LM serve and int
    call, phase 11's launcher fleet, real traffic and compose runs, phase
-   12's MoE and SSM serves and hybrid decode; the two matmuls also their
-   numbers at the LM shapes, under ``lm``, the grouped entry its phase
-   12a shapes), and as the last line ``{"ok": true, "device": {...}}``.
+   12's MoE and SSM serves and hybrid decode, phase 13's trained model
+   served; the two matmuls also their numbers at the LM shapes, under
+   ``lm``, the popcount matmul phase 13's launches under ``lm_trained``,
+   the grouped entry its phase 12a shapes) and phase 13's summary, and as
+   the last line ``{"ok": true, "device": {...}}``.
 9. Runs before phase 8's line: the paper's offline workflow (QAT, deploy,
    integer forward, Table 6, decode + NMS). One QAT train step at B = 2,
    320×320, on the card against the same step on the CPU from the same
@@ -221,6 +223,35 @@ Phases (any failure raises and the script exits non-zero):
    emitted tokens, the decode's tie codes forced to the forward's
    (`forced_by_rows`): within TF_TOL·max|logit|, argmax equal where
    decided.
+
+13. Runs before phase 8's line, after phase 12 freed its trees: LM QAT
+   training on the card. (a) One `lm_loss` + gradient of chatglm3-6b at
+   full width cut to 1 layer, B = 2, S = 32, ``w1a8_train``, on the card
+   against the CPU from the same seeded params and the port's batch, TF32
+   on globally, tie codes forced (`train.ties`): loss within 1e-5
+   relative, each gradient leaf within 1e-3·max|g| (the worst printed,
+   beside what a backward outside `full_f32` would give, and remat
+   against none on the card). (b) chatglm3-6b at full width, 4 layers
+   (1.08 B params), ``w1a8_train``, remat, B = 8 × S = 256 in 2
+   microbatches, 10 AdamW steps through `run_train` under the launcher's
+   schedule (lr 3e-4): the loss falls, and every update lowers its own
+   batch's loss; the loss curve, each step's CUDA-event ms, tokens/s, peak memory, the device
+   busy ms and idle share of a step (torch.profiler) and the bound (8·N·T
+   f32 operations at 67 T/s against the state's bytes). (e) (b)'s trained
+   params through `deploy_lm`: no leaf keeps a grad; packed prefill
+   against the unpacked ``w1a8_eval`` one within PARITY_TOL·max|logit|,
+   tie codes forced; served through `run_lm` (8 requests × 16 tokens,
+   slots 4) with every launch count zeroed before and read after:
+   done-mask tokens equal host-checked ones, 28 popcount launches a
+   decode step (7 × 4, from the config) and no other kernel; the decode
+   step timed as phase 12's. (c) ``python -m repro_torch.launch.train
+   --arch mamba2-1.3b --steps 3`` (48 layers, seq 128, batch 8, AdamW,
+   remat): exit 0, finite losses, its JSON line. (d) reduced chatglm3-6b
+   through `run_train` into ``build/ckpt_phase13/``, preempted by the
+   ``PREEMPT`` sentinel after step 4 of 8: `resume_or_init` restores the
+   saved state bit for bit and the resumed step-8 loss equals an
+   uninterrupted run's within 1e-5 relative (printed whether bit for
+   bit); the size a full-width checkpoint would write is printed.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -2919,6 +2950,525 @@ def drive_families(torch, np, dev, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: LM QAT training on the card, and the trained model served
+# ---------------------------------------------------------------------------
+
+LM_TRAIN_ARCH = "chatglm3-6b"  # at full width, depth cut
+LM_TRAIN_LAYERS = 4            # 1.08 B params; AdamW's f32 params, grads and
+                               # moments some 17 GB (28 layers: some 100 GB)
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 8, 256
+LM_TRAIN_MICRO, LM_TRAIN_STEPS, LM_TRAIN_LR = 2, 10, 3e-4
+LM_STEP_PARITY = (1, 2, 32)    # (a): layers, B, S; card against the CPU
+LM_STEP_LOSS_TOL, LM_STEP_GRAD_TOL = 1e-5, 1e-3
+LM_LAUNCH_ARCH, LM_LAUNCH_STEPS = "mamba2-1.3b", 3
+LM_CKPT_STEPS, LM_PREEMPT_AFTER = 8, 4
+LM_RESUME_TOL = 1e-5
+
+
+def _grad_errs(np, got: list, want: list, paths: list) -> dict:
+    """{path: max|got − want| / max|want|}, both moved to the host."""
+    out = {}
+    for path, g, w in zip(paths, got, want):
+        g = g.detach().double().cpu().numpy()
+        w = w.detach().double().cpu().numpy()
+        scale = float(np.abs(w).max())
+        out[path] = (float(np.abs(g - w).max()) / scale if scale > 0
+                     else float(np.abs(g).max()))
+    return out
+
+
+@contextlib.contextmanager
+def tf32_on(torch):
+    """cuBLAS and cuDNN TF32 on outside any `full_f32` block: an op that
+    escapes it then lands some 1e-3 off, which the checks see."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def check_lm_train_step(torch, np, dev, smi: str) -> dict:
+    """Phase 13a: one `lm_loss` + gradient of chatglm3-6b at full width,
+    cut to one layer, B = 2, S = 32, ``w1a8_train``, on the card against
+    the CPU from the same seeded params (drawn on the CPU) and the port's
+    batch, with TF32 on globally and the codes that round across a tie on
+    one side only forced to the CPU's (`train.ties`). Loss within
+    LM_STEP_LOSS_TOL relative, each gradient leaf within
+    LM_STEP_GRAD_TOL·max|g|. Also prints how far the same backward run
+    outside `full_f32` lands (what the check would catch), and the card's
+    remat gradients against its plain ones."""
+    import dataclasses
+    import functools
+
+    from repro_torch import configs
+    from repro_torch.data import pipeline as data
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import (init_lm_params, tree_items,
+                                                tree_map)
+    from repro_torch.train import step as train_step
+    from repro_torch.train import ties
+
+    n_layers, b, s = LM_STEP_PARITY
+    cfg = dataclasses.replace(configs.get_config(LM_TRAIN_ARCH),
+                              num_layers=n_layers)
+    t0 = time.perf_counter()
+    params_c = init_lm_params(cfg, torch.Generator().manual_seed(SEED),
+                              device="cpu")
+    params_g = tree_map(lambda t: t.to(dev), params_c)
+    ds = data.make_lm_dataset(cfg.vocab_size, s, b, seed=SEED)
+    tokens, labels = data.lm_batch(ds, 0, device="cpu")
+    batch_c = {"tokens": tokens, "labels": labels}
+    batch_g = {k: v.to(dev) for k, v in batch_c.items()}
+    paths = [p for p, _ in tree_items(params_c)]
+
+    def loss_fn(remat):
+        return functools.partial(train_step.lm_loss, cfg, mode="w1a8_train",
+                                 remat=remat)
+    with ties.record("lsq_fake_quant", module=layers) as recorded:
+        loss_c, grads_c = train_step.loss_and_grads(loss_fn(False), params_c,
+                                                    batch_c)
+    cpu_s = time.perf_counter() - t0
+    with tf32_on(torch):
+        with ties.forced(recorded, "lsq_fake_quant", module=layers) as forced:
+            loss_g, grads_g = train_step.loss_and_grads(loss_fn(False),
+                                                        params_g, batch_g)
+        # the same backward outside full_f32: TF32 wherever autograd runs
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                          params_g)
+        flat = [x for _, x in tree_items(leaves)]
+        with ties.forced(recorded, "lsq_fake_quant", module=layers):
+            loss = loss_fn(False)(leaves, batch_g)
+        tf32_grads = torch.autograd.grad(loss, flat)
+        # remat on the card against the plain step (no forcing: the
+        # recomputed forward calls the quantizer again)
+        loss_r, grads_r = train_step.loss_and_grads(loss_fn(True), params_g,
+                                                    batch_g)
+        loss_p, grads_p = train_step.loss_and_grads(loss_fn(False), params_g,
+                                                    batch_g)
+    torch.cuda.synchronize()
+    errs = _grad_errs(np, grads_g, grads_c, paths)
+    loss_rel = abs(float(loss_g) / float(loss_c) - 1.0)
+    worst = max(errs, key=errs.get)
+    if loss_rel > LM_STEP_LOSS_TOL or errs[worst] > LM_STEP_GRAD_TOL:
+        raise AssertionError(
+            f"LM train step on the card vs the CPU: loss {float(loss_g)} vs "
+            f"{float(loss_c)} (rel {loss_rel}), gradient leaves "
+            f"{sorted(errs.items(), key=lambda kv: -kv[1])[:6]} (·max|g|), "
+            f"{sum(forced)} inputs forced at ties and rails")
+    tf32_errs = _grad_errs(np, tf32_grads, grads_c, paths)
+    remat_errs = _grad_errs(np, grads_r, grads_p, paths)
+    remat_exact = bool(torch.equal(loss_r, loss_p)) and all(
+        torch.equal(x, y) for x, y in zip(grads_r, grads_p))
+    if (abs(float(loss_r) / float(loss_p) - 1.0) > LM_STEP_LOSS_TOL
+            or max(remat_errs.values()) > LM_STEP_GRAD_TOL):
+        raise AssertionError(f"remat on the card: loss {float(loss_r)} vs "
+                             f"{float(loss_p)}, gradient errors {remat_errs}")
+    record = {"layers": n_layers, "batch": b, "seq": s,
+              "loss_card": float(loss_g), "loss_cpu": float(loss_c),
+              "loss_rel_err": loss_rel, "worst_leaf": worst,
+              "max_grad_rel_err": errs[worst], "grad_rel_err": errs,
+              "forced_codes": sum(forced), "quantizer_calls": len(forced),
+              "tf32_backward_max_grad_rel_err": max(tf32_errs.values()),
+              "remat_bit_for_bit": remat_exact,
+              "remat_max_grad_rel_err": max(remat_errs.values()),
+              "cpu_s": cpu_s}
+    print(f"[lm train] (a) one step of {LM_TRAIN_ARCH} at full width, "
+          f"{n_layers} layer, B={b} S={s}, card vs CPU (TF32 on outside "
+          f"full_f32): loss {float(loss_g):.7g} vs {float(loss_c):.7g} (rel "
+          f"{loss_rel:.3g}, limit {LM_STEP_LOSS_TOL}); worst gradient leaf "
+          f"{worst} {errs[worst]:.3g}·max|g| (limit {LM_STEP_GRAD_TOL}); "
+          f"{sum(forced)} inputs forced at ties and LSQ's rails over "
+          f"{len(forced)} quantizer calls; a backward outside full_f32 would be "
+          f"{record['tf32_backward_max_grad_rel_err']:.3g}·max|g| off; remat "
+          f"vs none on the card: "
+          f"{'bit for bit' if remat_exact else 'not bit for bit'} (worst "
+          f"{record['remat_max_grad_rel_err']:.3g}·max|g|); CPU {cpu_s:.1f} "
+          f"s ({smi})", flush=True)
+    return record
+
+
+def train_bound(n_params: int, tokens: int, state_bytes: int) -> tuple:
+    """(bound ms, by): 8·N·T f32 operations (forward, remat's second
+    forward, backward) at the f32 peak, against the bytes a step must move
+    (params and AdamW moments read, and written back)."""
+    t_ops = 8.0 * n_params * tokens / FP32_OPS_PER_S
+    t_bytes = 2.0 * state_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def train_full_width(torch, dev, smi: str) -> tuple:
+    """Phase 13b: chatglm3-6b at full width, LM_TRAIN_LAYERS layers,
+    ``w1a8_train``, remat on, LM_TRAIN_BATCH × LM_TRAIN_SEQ a step in
+    LM_TRAIN_MICRO microbatches, LM_TRAIN_STEPS AdamW steps through
+    `run_train` under the launcher's schedule: the last loss must sit
+    below the first, and each update must lower the loss of the batch it
+    came from (a sharper test: over 10 steps at vocab 65024 the curve
+    wanders by more than it falls). CUDA-event
+    ms of each step, tokens/s, peak memory, the step's bound, and the device
+    busy ms and idle share of one more step (torch.profiler). Returns
+    (the trained params, the record)."""
+    import dataclasses
+    import math
+
+    from repro_torch import configs
+    from repro_torch.data import pipeline as data
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models.transformer import (count_lm_params,
+                                                init_lm_params, tree_items)
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train.loop import StepTimer, run_train
+    from repro_torch.train.step import lm_loss, make_train_step
+
+    cfg = dataclasses.replace(configs.get_config(LM_TRAIN_ARCH),
+                              num_layers=LM_TRAIN_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_lm_params(cfg, gen, device=dev)
+    n_params = count_lm_params(params)
+    opt = adamw(cosine_schedule(LM_TRAIN_LR, max(LM_TRAIN_STEPS // 20, 1),
+                                LM_TRAIN_STEPS))
+    step_fn = make_train_step(cfg, opt, microbatches=LM_TRAIN_MICRO,
+                              remat=True)
+    ds = data.make_lm_dataset(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                              seed=SEED)
+    batch_fn = make_batch_fn(cfg, ds, dev)
+    timer, losses, after = StepTimer(dev), [], []
+
+    def timed(p, s, batch):
+        with timer:
+            p, s, m = step_fn(p, s, batch)
+        losses.append(m["loss"])
+        # the same batch's loss under the updated params: the update must
+        # lower it (outside the timed region)
+        with torch.no_grad():
+            after.append(lm_loss(cfg, p, batch, mode="w1a8_train"))
+        return p, s, m
+    state = opt[0](params)
+    state_bytes = sum(int(x.numel()) * x.element_size() for _, x in
+                      tree_items({"params": params, "opt_state": state}))
+    t0 = time.perf_counter()
+    params, state, _ = run_train(
+        train_step=timed, params=params, opt_state=state, batch_fn=batch_fn,
+        steps=LM_TRAIN_STEPS, log_every=1,
+        print_fn=lambda line: print(f"[lm train] {line}", flush=True))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = timer.ms()
+    losses = [float(x) for x in losses]
+    after = [float(x) for x in after]
+    if not all(a < b for a, b in zip(after, losses)) or \
+            not all(map(math.isfinite, losses)):
+        raise AssertionError(f"LM train: an update did not lower its own "
+                             f"batch's loss: before {losses}, after {after}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"LM train: the loss did not fall: {losses}")
+    steady = statistics.median(ms[1:])
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    bound_ms, bound_by = train_bound(n_params, tokens, state_bytes)
+
+    live = {"p": params, "s": state}
+    batch = batch_fn(LM_TRAIN_STEPS)
+
+    def one_step():
+        live["p"], live["s"], _ = step_fn(live["p"], live["s"], batch)
+    prof = device_profile(torch, one_step, n=2)
+    prof["idle_share"] = (None if prof["device_launches"] is None
+                          else 1.0 - prof["device_busy_ms"] / prof["wall_ms"])
+    del live
+    record = {"arch": LM_TRAIN_ARCH, "layers": LM_TRAIN_LAYERS,
+              "params": n_params, "batch": LM_TRAIN_BATCH,
+              "seq": LM_TRAIN_SEQ, "microbatches": LM_TRAIN_MICRO,
+              "steps": LM_TRAIN_STEPS, "lr": LM_TRAIN_LR, "losses": losses,
+              "losses_after_update": after,
+              "step_ms": ms, "ms_per_step": steady,
+              "tokens_per_s": tokens / (steady / 1e3),
+              "peak_memory_bytes": peak, "state_bytes": state_bytes,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "step_profile": prof, "wall_s": wall_s}
+    print(f"[lm train] (b) {LM_TRAIN_ARCH} full width, {LM_TRAIN_LAYERS} "
+          f"layers ({n_params / 1e9:.3f} B params), w1a8_train, remat, "
+          f"B={LM_TRAIN_BATCH} S={LM_TRAIN_SEQ} in {LM_TRAIN_MICRO} "
+          f"microbatches, {LM_TRAIN_STEPS} AdamW steps: loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f} (each batch's after its update: "
+          f"{[round(x, 4) for x in after]}, each lower); ms a step (CUDA "
+          f"events) "
+          f"{[round(x, 2) for x in ms]}, median after the first "
+          f"{steady:.2f}; {record['tokens_per_s']:.1f} tokens/s; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; device busy "
+          f"{prof['device_busy_ms']:.2f} ms a step, profiled wall "
+          f"{prof['wall_ms']:.2f} ms, idle share "
+          f"{_num(prof['idle_share'], '.4f')}, "
+          f"{_num(prof['device_launches'], '.0f')} device records "
+          f"({prof['device_timing']}); bound {bound_ms:.2f} ms by "
+          f"{bound_by} (8·N·T = {8 * n_params * tokens:.4g} f32 operations "
+          f"at 67 T/s; {2 * state_bytes / 1e9:.2f} GB at 3.35 TB/s) ({smi})",
+          flush=True)
+    return params, cfg, record
+
+
+def serve_trained(torch, dev, smi: str, params, cfg) -> dict:
+    """Phase 13e: the trained params deployed (`deploy_lm`) and served.
+    Packed prefill against the unpacked ``w1a8_eval`` one of the same
+    trained tree, tie codes forced, within PARITY_TOL·max|logit|
+    (`lm_prefill_parity`); `run_lm` on the trained tree (8 requests × 16
+    tokens, slots 4) with every launch count zeroed before and read
+    after: done-mask tokens equal to host-checked ones, per decode step
+    exactly `lm_launches_per_step` popcount launches (7 × layers) and no
+    other kernel; the decode step timed as phase 12's."""
+    import argparse
+
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.transformer import tree_items
+    from repro_torch.serve import deploy_lm
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        packed = deploy_lm(params)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    if any(x.requires_grad or x.grad is not None
+           for _, x in tree_items(packed)):
+        raise AssertionError("deploy_lm: a packed leaf keeps a grad")
+    prompts = torch.tensor([[2 + i, 11, 7 + i % 3] for i in range(LM_SLOTS)],
+                           dtype=torch.int32, device=dev)
+    parity = lm_prefill_parity(torch, params, packed, cfg, prompts,
+                               tol=PARITY_TOL)
+    print(f"[lm train] (e) trained {LM_TRAIN_ARCH}, {cfg.num_layers} layers, "
+          f"deployed in {deploy_s:.2f} s: packed prefill logits vs unpacked "
+          f"w1a8_eval max_abs {parity['max_abs_err']:.6g} of max|logit| "
+          f"{parity['max_abs_logit']:.6g} (rel {parity['rel_err']:.3g}, tol "
+          f"{PARITY_TOL}; {parity['codes_forced']} tie codes forced over "
+          f"{parity['quantizer_calls']} quantizer calls; unforced max_abs "
+          f"{parity['unforced_max_abs_err']:.6g}); greedy tokens equal on "
+          f"{parity['decided_rows']} of {parity['rows']} decided rows",
+          flush=True)
+    args = argparse.Namespace(
+        workload="lm", arch=LM_TRAIN_ARCH, reduced=False, packed=True,
+        requests=LM_REQUESTS, max_new=LM_MAX_NEW, slots=LM_SLOTS,
+        max_len=LM_MAX_LEN, temperature=0.0, stop_token=[], seed=SEED,
+        device=str(dev))
+    want = lm_launches_per_step(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero(launch.KERNELS)
+    with torch.no_grad():
+        record = launch.run_lm(args, params=params, cfg=cfg)
+    torch.cuda.synchronize()
+    counts = launch.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if record["kernel_launches_per_decode_step"] != want:
+        raise AssertionError(f"trained model decode step: launches "
+                             f"{record['kernel_launches_per_decode_step']}, "
+                             f"want {want}")
+    if set(n for name, n in counts.items() if name not in want) - {0}:
+        raise AssertionError(f"trained model serve launched other kernels: "
+                             f"{counts}")
+    print(f"[lm train] (e) served packed through run_lm, {LM_REQUESTS} "
+          f"requests x {LM_MAX_NEW} tokens, slots {LM_SLOTS}: done-mask "
+          f"tokens equal host-checked; launches a decode step {want} "
+          f"({record['decode_steps']} steps), in the run "
+          f"{ {k: v for k, v in counts.items() if v} }; "
+          f"{record['tok_per_s']:.2f} tok/s, tick p50 "
+          f"{record['tick_p50_ms']:.3f} ms, p95 {record['tick_p95_ms']:.3f} "
+          f"ms, peak memory {peak / 2 ** 30:.2f} GiB ({smi})", flush=True)
+    step = time_decode_step(torch, cfg, packed, prompts, smi)
+    return {"deploy_s": deploy_s, "parity": parity, "serve": record,
+            "launches": counts, "per_decode_step": want,
+            "peak_memory_bytes": peak, **step}
+
+
+def run_launcher(smi: str) -> dict:
+    """Phase 13c: ``python -m repro_torch.launch.train --arch
+    LM_LAUNCH_ARCH --steps LM_LAUNCH_STEPS`` at its full published config
+    (all layers, the default seq 128 and batch 8, AdamW, remat on), in a
+    process of its own: exit 0, its loop lines and JSON line printed,
+    finite losses."""
+    import math
+    import os
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           LM_LAUNCH_ARCH, "--steps", str(LM_LAUNCH_STEPS)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"{' '.join(cmd[1:])} exited "
+                             f"{out.returncode}: {out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    record = json.loads(lines[-1])
+    if not (math.isfinite(record["first_loss"])
+            and math.isfinite(record["last_loss"])
+            and record["steps"] == LM_LAUNCH_STEPS):
+        raise AssertionError(f"launcher run: {record}")
+    for line in lines[:-1]:
+        print(f"[lm train] (c) {line}", flush=True)
+    print(f"[lm train] (c) {' '.join(cmd[1:])}: exit 0 in {wall_s:.1f} s; "
+          f"{lines[-1]} ({smi})", flush=True)
+    return {**record, "wall_s": wall_s}
+
+
+def resume_on_card(torch, dev, smi: str, full_state_bytes: int) -> dict:
+    """Phase 13d: reduced chatglm3-6b on the card through `run_train` into
+    ``build/ckpt_phase13/``; the PREEMPT sentinel appears during step
+    LM_PREEMPT_AFTER of LM_CKPT_STEPS, so the loop checkpoints there and
+    stops. `resume_or_init` restores it (the template on ``meta``): equal
+    to the saved state bit for bit. The resumed run's last loss against an
+    uninterrupted run's: within LM_RESUME_TOL relative (printed whether bit
+    for bit). The full-width state's checkpoint size is printed, not
+    written."""
+    import os
+    import shutil
+
+    from repro_torch import ckpt, configs
+    from repro_torch.data import pipeline as data
+    from repro_torch.models.transformer import init_lm_params, tree_items
+    from repro_torch.optim import adamw, cosine_schedule
+    from repro_torch.train.loop import resume_or_init, run_train
+    from repro_torch.train.step import make_train_step
+
+    cfg = configs.get_reduced(LM_TRAIN_ARCH)
+    opt = adamw(cosine_schedule(3e-3, 1, LM_CKPT_STEPS))
+    step_fn = make_train_step(cfg, opt, microbatches=2, remat=True)
+    ds = data.make_lm_dataset(cfg.vocab_size, 16, 8, seed=SEED)
+    d = ROOT / "build" / "ckpt_phase13"
+    shutil.rmtree(d, ignore_errors=True)
+    sentinel = d / "PREEMPT"
+
+    def init_fn(device):
+        gen = None
+        if device.type != "meta":
+            gen = torch.Generator(device=device)
+            gen.manual_seed(SEED)
+        params = init_lm_params(cfg, gen, device=device)
+        return {"params": params, "opt_state": opt[0](params)}
+
+    def run(state, start, ckpt_dir, preempt_at=None):
+        losses = {}
+
+        def batch_fn(i):
+            if i == preempt_at:
+                d.mkdir(parents=True, exist_ok=True)
+                sentinel.touch()
+            t, lab = data.lm_batch(ds, i, device=dev)
+            return {"tokens": t, "labels": lab}
+
+        def train_step(p, s, b):
+            p, s, m = step_fn(p, s, b)
+            losses[int(m["step"])] = m["loss"]
+            return p, s, m
+        p, s, n = run_train(train_step=train_step, params=state["params"],
+                            opt_state=state["opt_state"], batch_fn=batch_fn,
+                            steps=LM_CKPT_STEPS, start_step=start,
+                            ckpt_dir=ckpt_dir, print_fn=lambda _: None)
+        return {"params": p, "opt_state": s}, n, losses
+
+    saved, stopped, _ = run(init_fn(dev), 0, str(d),
+                            preempt_at=LM_PREEMPT_AFTER - 1)
+    if stopped != LM_PREEMPT_AFTER or \
+            ckpt.latest_step(str(d)) != LM_PREEMPT_AFTER:
+        raise AssertionError(f"preemption: stopped at {stopped}, latest "
+                             f"checkpoint {ckpt.latest_step(str(d))}")
+    os.remove(sentinel)
+    restored, start = resume_or_init(str(d), init_fn, device=dev,
+                                     print_fn=lambda _: None)
+    a, b = tree_items(restored), tree_items(saved)
+    exact = [p for p, _ in a] == [p for p, _ in b] and all(
+        x.dtype == y.dtype and x.device == y.device and torch.equal(x, y)
+        for (_, x), (_, y) in zip(a, b))
+    if start != LM_PREEMPT_AFTER or not exact:
+        raise AssertionError(f"restore at step {start}: not equal to the "
+                             f"saved state")
+    _, n, resumed = run(restored, start, str(d))
+    _, _, straight = run(init_fn(dev), 0, None)
+    last_r = float(resumed[LM_CKPT_STEPS])
+    last_s = float(straight[LM_CKPT_STEPS])
+    rel = abs(last_r / last_s - 1.0)
+    if n != LM_CKPT_STEPS or rel > LM_RESUME_TOL or \
+            ckpt.latest_step(str(d)) != LM_CKPT_STEPS:
+        raise AssertionError(f"resume: step {n}, loss {last_r} vs "
+                             f"uninterrupted {last_s}")
+    bitwise = last_r == last_s
+    print(f"[lm train] (d) reduced {LM_TRAIN_ARCH} on the card: preempted "
+          f"by the sentinel after step {LM_PREEMPT_AFTER} of {LM_CKPT_STEPS}, "
+          f"checkpointed, restored equal to the saved state bit for bit "
+          f"(template on meta); step {LM_CKPT_STEPS} loss resumed "
+          f"{last_r:.9g} vs uninterrupted {last_s:.9g} (rel {rel:.3g}, tol "
+          f"{LM_RESUME_TOL}; {'bit for bit' if bitwise else 'not bit for bit'}"
+          f"); a checkpoint of (b)'s full-width state would write "
+          f"{full_state_bytes / 1e9:.2f} GB (not written) ({smi})",
+          flush=True)
+    return {"stopped_at": stopped, "restored_step": start,
+            "restored_equal_saved": exact, "loss_resumed": last_r,
+            "loss_uninterrupted": last_s, "rel_err": rel,
+            "bit_for_bit": bitwise,
+            "full_width_checkpoint_bytes": full_state_bytes}
+
+
+def drive_lm_train(torch, np, dev, smi: str) -> dict:
+    """Phase 13: (a) `check_lm_train_step`, (b) `train_full_width`, (e)
+    `serve_trained` on (b)'s params, (c) `run_launcher`, (d)
+    `resume_on_card`. Returns the record, with (e)'s serve launches as the
+    path's."""
+    out = {"card": smi}
+    t0 = time.perf_counter()
+    out["step_parity"] = check_lm_train_step(torch, np, dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, cfg, out["train"] = train_full_width(torch, dev, smi)
+    out["serve"] = serve_trained(torch, dev, smi, params, cfg)
+    out["launches"] = out["serve"]["launches"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launcher"] = run_launcher(smi)
+    out["resume"] = resume_on_card(torch, dev, smi,
+                                   out["train"]["state_bytes"])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def lm_train_summary(rec: dict) -> dict:
+    """Phase 13's numbers for the kernels line."""
+    train, serve = rec["train"], rec["serve"]
+    return {
+        "arch": train["arch"], "layers": train["layers"],
+        "params": train["params"],
+        "step_parity": {k: rec["step_parity"][k] for k in (
+            "loss_rel_err", "worst_leaf", "max_grad_rel_err",
+            "tf32_backward_max_grad_rel_err", "remat_bit_for_bit")},
+        "loss_first": train["losses"][0], "loss_last": train["losses"][-1],
+        "ms_per_step": train["ms_per_step"],
+        "tokens_per_s": train["tokens_per_s"],
+        "step_device_busy_ms": train["step_profile"]["device_busy_ms"],
+        "step_idle_share": train["step_profile"]["idle_share"],
+        "peak_memory_bytes": train["peak_memory_bytes"],
+        "bound_ms": train["bound_ms"], "bound_by": train["bound_by"],
+        "launcher": {k: rec["launcher"][k] for k in (
+            "arch", "steps", "first_loss", "last_loss", "ms_per_step",
+            "tokens_per_s", "peak_memory_bytes")},
+        "resume": {k: rec["resume"][k] for k in (
+            "restored_equal_saved", "rel_err", "bit_for_bit")},
+        "serve": {"parity_rel_err": serve["parity"]["rel_err"],
+                  "launches_per_decode_step": serve["per_decode_step"],
+                  "tok_per_s": serve["serve"]["tok_per_s"],
+                  "decode_step_ms": serve["step_ms"],
+                  "decode_step_device_busy_ms":
+                      serve["step_profile"]["device_busy_ms"],
+                  "decode_step_idle_share":
+                      serve["step_profile"]["idle_share"],
+                  "decode_step_bound_ms": serve["step_bound_ms"]}}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3005,11 +3555,20 @@ def main() -> int:
     print(f"[families] phase 12 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     by_path.update(families["launches"])
+    # phase 13 trains at full width: phase 12's trees go first
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm_train = drive_lm_train(torch, np, dev, smi)
+    print(f"[lm train] phase 13 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    by_path["lm trained serve"] = lm_train["launches"]
     # every driven path's launches: the three launcher runs, phase 5's
     # eager forwards (popcount on both pool routes, dot fused) and int
     # call, phase 7's integer forward, phase 9's QAT pipeline, phase 10's
     # LM serve and int call, phase 11's launcher fleet, real traffic and
-    # compose, and phase 12's MoE and SSM serves and hybrid decode
+    # compose, phase 12's MoE and SSM serves and hybrid decode, and phase
+    # 13's trained model served
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in KERNELS}
 
@@ -3103,6 +3662,13 @@ def main() -> int:
                     "library_ms", "library_device_ms")}}
             entry["lm"]["kernel_device_ms"] = [
                 r["kernel_device_ms"] for r in lm_rows]
+        if name in lm_train["serve"]["per_decode_step"]:
+            # phase 13: the trained model, deployed and served
+            entry["lm_trained"] = {
+                "arch": LM_TRAIN_ARCH, "layers": LM_TRAIN_LAYERS,
+                "launches_per_decode_step":
+                    lm_train["serve"]["per_decode_step"][name],
+                "launches": lm_train["launches"].get(name, 0)}
         if popcount:
             # every call is held bit for bit: the worst difference found
             entry["max_abs_err"] = pc_errs[name]
@@ -3140,7 +3706,8 @@ def main() -> int:
          "dispatch_profiles": dispatch_profiles, "winners": winners,
          "popcount_forward": pc_record, "nms": nms_record,
          "int_forward": int_record, "qat": qat_record, "lm": lm_record,
-         "tiers": tiers, "families": families, "floor_device_ms": floor_ms},
+         "tiers": tiers, "families": families, "lm_train": lm_train,
+         "floor_device_ms": floor_ms},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],
@@ -3176,6 +3743,7 @@ def main() -> int:
                              "prefill_parity": lm_record["parity"]},
                       "tiers": tiers["summary"],
                       "families": families_summary(families),
+                      "lm_train": lm_train_summary(lm_train),
                       "trace_fallbacks": TRACE_FALLBACKS,
                       "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {

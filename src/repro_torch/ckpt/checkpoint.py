@@ -1,0 +1,128 @@
+"""Checkpoint save and restore for trees of tensors (nested dicts and
+tuples), in the reference's format (``repro/ckpt/checkpoint.py``):
+
+  * ``<dir>/step_%08d/`` holds one ``%05d.npy`` a leaf and ``manifest.json``
+    (``step``; ``arrays``: index, path, shape, dtype; ``metadata``). The
+    leaves come in ``jax.tree_util``'s flatten order (dict keys sorted,
+    tuples in order) and each ``path`` is its ``keystr`` spelling, e.g.
+    ``['params']['slots'][0]['attn']['q']['w']``. Sign words are
+    ``uint32`` on disk (int32 in the port), the optimizer's ``step`` int32,
+    floats float32 (`convert.lm_leaf_to_numpy`).
+  * atomic: the arrays and then the manifest land in ``step_N.tmp/``,
+    which ``os.rename`` commits; restore reads committed directories only.
+  * async: ``save_checkpoint(..., async_=True)`` copies every leaf to host
+    memory before it returns (a CPU tensor too: the copy is a snapshot,
+    never a view the next update could write through) and writes on a
+    thread; `wait_for_async` joins the writers.
+  * restore places the leaves on one device (default: the card). The
+    reference's ``shardings=`` (elastic restore onto a mesh) waits for the
+    distribution layer (ROADMAP.md, Queue 1, item 6).
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import threading
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.convert import lm_leaf_to_numpy
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import tree_items
+
+_PENDING: list = []
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree: Any, *,
+                    metadata: Optional[dict] = None,
+                    async_: bool = False) -> str:
+    """Writes ``tree`` as ``<ckpt_dir>/step_<step>``; returns that path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    items = tree_items(tree)
+    host = [lm_leaf_to_numpy(x) for _, x in items]    # snapshots
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    tmp = final + ".tmp"
+
+    def write():
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        entries = []
+        for i, (arr, (path, _)) in enumerate(zip(host, items)):
+            np.save(os.path.join(tmp, f"{i:05d}.npy"), arr)
+            entries.append({"index": i, "path": path,
+                            "shape": list(arr.shape), "dtype": str(arr.dtype)})
+        manifest = {"step": step, "arrays": entries,
+                    "metadata": metadata or {}}
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)                      # commit point
+
+    if async_:
+        t = threading.Thread(target=write, daemon=True)
+        t.start()
+        _PENDING.append(t)
+    else:
+        write()
+    return final
+
+
+def wait_for_async() -> None:
+    while _PENDING:
+        _PENDING.pop().join()
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = []
+    for name in os.listdir(ckpt_dir):
+        m = re.fullmatch(r"step_(\d+)", name)
+        if m and os.path.exists(os.path.join(ckpt_dir, name,
+                                             "manifest.json")):
+            steps.append(int(m.group(1)))
+    return max(steps) if steps else None
+
+
+def _leaf_from_numpy(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    if arr.dtype == np.uint32:             # sign words: same bits, int32
+        arr = arr.view(np.int32)
+    return torch.from_numpy(arr).to(dev)
+
+
+def _rebuild(template, leaf_at, path: str = ""):
+    """``template``'s shape with each leaf ``leaf_at(path, leaf)``."""
+    if isinstance(template, dict):
+        return {k: _rebuild(v, leaf_at, f"{path}[{k!r}]")
+                for k, v in template.items()}
+    if isinstance(template, tuple):
+        return tuple(_rebuild(v, leaf_at, f"{path}[{i}]")
+                     for i, v in enumerate(template))
+    return leaf_at(path, template)
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, tree_like: Any, *,
+                       device=None) -> tuple:
+    """Restores into the structure of ``tree_like`` (tensors, or shapes on
+    ``meta``), each leaf on ``device`` (default: the card) in its file's
+    dtype. Returns (tree, metadata)."""
+    dev = resolve_device(device)
+    d = os.path.join(ckpt_dir, f"step_{step:08d}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        manifest = json.load(f)
+    by_path = {e["path"]: e for e in manifest["arrays"]}
+
+    def leaf_at(path, like):
+        entry = by_path[path]
+        arr = np.load(os.path.join(d, f"{entry['index']:05d}.npy"))
+        if tuple(arr.shape) != tuple(like.shape):
+            raise ValueError(f"{path}: checkpoint {arr.shape} vs template "
+                             f"{tuple(like.shape)}")
+        return _leaf_from_numpy(arr, dev)
+    return _rebuild(tree_like, leaf_at), manifest["metadata"]

@@ -82,9 +82,11 @@ def int_artifact_from_numpy(art_np: dict, device=None) -> dict:
 
 def lm_params_from_numpy(tree, device=None):
     """An LM param tree of numpy arrays (the reference's ``init_lm_params``
-    or ``deploy_lm`` output, its leaves converted with ``np.asarray``) →
-    the port's tree on ``device``, nested the same. ``uint32`` sign words
-    become int32 with the same bits; floats become float32."""
+    or ``deploy_lm`` output, or an optimizer state over one, its leaves
+    converted with ``np.asarray``) → the port's tree on ``device``, nested
+    the same. ``uint32`` sign words become int32 with the same bits; an
+    int32 leaf (the optimizer's ``step``) stays int32; floats become
+    float32."""
     dev = resolve_device(device)
 
     def walk(node):
@@ -92,20 +94,31 @@ def lm_params_from_numpy(tree, device=None):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return tuple(walk(v) for v in node)
+        if np.asarray(node).dtype == np.int32:
+            return torch.from_numpy(np.array(node)).to(dev)
         return _tensor(node, dev)
     return walk(tree)
 
 
+def lm_leaf_to_numpy(x: torch.Tensor) -> np.ndarray:
+    """One leaf of the port's LM tree → numpy as the reference holds it:
+    int32 sign words (one axis or more) as ``uint32`` (same bits), a 0-dim
+    int32 counter (the optimizer's ``step``) as int32, floats as
+    ``float32``; C-ordered, and a copy, never a view of the tensor's
+    memory."""
+    arr = x.detach().to("cpu", copy=True).contiguous().numpy()
+    if arr.dtype == np.int32:
+        return arr.view(np.uint32) if arr.ndim else arr
+    return arr.astype(np.float32, copy=False)
+
+
 def lm_params_to_numpy(tree):
-    """The port's LM param tree → numpy, nested the same: int32 sign words
-    as the reference's ``uint32`` (same bits), floats as ``float32``."""
+    """The port's LM param tree (or an optimizer state over one) → numpy,
+    nested the same, each leaf by `lm_leaf_to_numpy`."""
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return tuple(walk(v) for v in node)
-        arr = node.detach().cpu().numpy()
-        if arr.dtype == np.int32:
-            return arr.view(np.uint32)
-        return arr.astype(np.float32)
+        return lm_leaf_to_numpy(node)
     return walk(tree)

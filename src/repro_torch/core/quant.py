@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import full_f32
+
 ACT_QMAX = 255  # uint8 activations, ReLU-style non-negative range [0, 255]
 
 
@@ -138,3 +140,34 @@ def fold_codes_to_uniform_step(a_u8: torch.Tensor,
     codes = torch.clamp(round_half_away(a_u8.to(torch.float32) * (m / mbar)),
                         0, ACT_QMAX).to(torch.uint8)
     return codes, mbar
+
+
+# ---------------------------------------------------------------------------
+# Eq. 3-2 / 3-4: sign-controlled accumulation (reference semantics)
+# ---------------------------------------------------------------------------
+
+def _exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the promoted dtype of the two. Floats run in full f32 (no
+    TF32 on the card). Integers are summed exactly: in int64 on the CPU,
+    in float64 on the card (which has no integer matmul; exact while
+    |sum| < 2^53), then cast to the promoted dtype."""
+    out = torch.promote_types(a.dtype, b.dtype)
+    if out.is_floating_point:
+        with full_f32():
+            return a.to(out) @ b.to(out)
+    wide = torch.int64 if a.device.type == "cpu" else torch.float64
+    return (a.to(wide) @ b.to(wide)).to(out)
+
+
+def sign_accumulate(acts: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
+    """y_o = Σ_i s_{o,i} a_i, the binary PE's reference (Eq. 3-2).
+
+    acts: (..., K) uint8-valued; signs: (K, N) ∈ {-1, +1}. Integer-exact
+    where both are integers."""
+    return _exact_matmul(acts, signs)
+
+
+def sign_accumulate_fused(acts: torch.Tensor, mul_prev: torch.Tensor,
+                          signs: torch.Tensor) -> torch.Tensor:
+    """Eq. 3-4: y_o = Σ_i s_{o,i} (m_i a_i), Mul_prev fused into the PE."""
+    return _exact_matmul(acts * mul_prev, signs)

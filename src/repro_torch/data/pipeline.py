@@ -1,14 +1,24 @@
-"""The synthetic detection set: coloured rectangles on noise, the boxes as
-labels. The detector's QAT trains on these.
+"""Synthetic datasets, deterministic in (seed, step, shard), as the
+reference's (``repro/data/pipeline.py``).
+
+LM:        token streams with an induced bigram structure, so the loss
+           falls (a model can learn the transition table).
+Detection: coloured rectangles on noise, the boxes as labels. The
+           detector's QAT trains on these.
 
 A batch is a pure function of (seed, step, shard), with no iterator state,
 as the reference's is. ``jax.random`` cannot be reproduced without JAX, so
-the port's batches are its own: the boxes, classes and presence come from
-``np.random.default_rng([seed + 77, step, shard])`` on the host, and the
-noise from a ``torch.Generator`` on the batch's device, seeded by the same
-host generator. The ranges, the painting and `yolo_target` are the
-reference's (``repro/data/pipeline.py``); `yolo_target` is bit-exact with
-it on the same boxes and classes.
+the port's batches are its own draws with the reference's structure.
+
+* LM: x0, the per-sequence offset, the noise mask and the noise tokens come
+  from ``np.random.default_rng([seed, step, shard])`` on the host; the
+  recurrence, the 10% noise and the label roll are the reference's.
+* Detection: the boxes, classes and presence come from
+  ``np.random.default_rng([seed + 77, step, shard])`` on the host, and the
+  noise from a ``torch.Generator`` on the batch's device, seeded by the
+  same host generator. The ranges, the painting and `yolo_target` are the
+  reference's; `yolo_target` is bit-exact with it on the same boxes and
+  classes.
 """
 from __future__ import annotations
 
@@ -19,6 +29,52 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.yolo import GRID, INPUT_SIZE, NUM_ANCHORS, NUM_CLASSES
+
+
+@dataclasses.dataclass(frozen=True)
+class LMDataset:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+
+
+def make_lm_dataset(vocab_size: int, seq_len: int, global_batch: int,
+                    seed: int = 0) -> LMDataset:
+    return LMDataset(vocab_size, seq_len, global_batch, seed)
+
+
+LM_MULT = 31
+LM_OFFSETS = 7
+LM_NOISE = 0.1
+
+
+def lm_batch(ds: LMDataset, step: int, *, shard: int = 0,
+             num_shards: int = 1, device=None) -> tuple:
+    """→ (tokens, labels), each (global_batch / num_shards, seq_len) int32
+    on ``device`` (default: the card).
+
+    Token stream: x_{t+1} = (31·x_t + c_b) mod V from a uniform x_0, with
+    c_b ∈ [0, 7) drawn per sequence (a bigram table to learn); the stream
+    starts at x_1, as the reference's scan emits it. Each token is then
+    replaced by a uniform one with probability 0.1. Labels are the tokens
+    rolled left by one."""
+    dev = resolve_device(device)
+    bsz, v = ds.global_batch // num_shards, ds.vocab_size
+    rng = np.random.default_rng([ds.seed, int(step), int(shard)])
+    x = rng.integers(0, v, (bsz, 1))
+    offs = rng.integers(0, LM_OFFSETS, (bsz, 1))
+    mult = LM_MULT % v or 1
+    seq = np.empty((bsz, ds.seq_len), np.int64)
+    for t in range(ds.seq_len):
+        x = (x * mult + offs) % v
+        seq[:, t:t + 1] = x
+    noise = rng.random(seq.shape) < LM_NOISE
+    rand = rng.integers(0, v, seq.shape)
+    tokens = np.where(noise, rand, seq).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    return (torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(labels).to(dev))
 
 
 @dataclasses.dataclass(frozen=True)

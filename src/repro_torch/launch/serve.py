@@ -417,12 +417,14 @@ def lm_requests(n: int, sampling: SamplingParams) -> list:
                          sampling=sampling) for i in range(n)]
 
 
-def run_lm(args, params=None) -> dict:
+def run_lm(args, params=None, cfg=None) -> dict:
     """``params``: float params to serve in place of the seeded init
-    (deployed first under ``--packed``)."""
+    (deployed first under ``--packed``); ``cfg``: their config, where it
+    is not ``--arch``'s (a depth-cut one, say)."""
     dev = resolve_device(args.device)
-    cfg = (configs.get_reduced(args.arch) if args.reduced
-           else configs.get_config(args.arch))
+    if cfg is None:
+        cfg = (configs.get_reduced(args.arch) if args.reduced
+               else configs.get_config(args.arch))
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     mode, acct = "float", None

@@ -33,6 +33,7 @@ from repro_torch.data import pipeline as data
 from repro_torch.device import full_f32, resolve_device
 from repro_torch.models import detection, yolo
 from repro_torch.optim import adamw
+from repro_torch.train.loop import StepTimer
 from repro_torch.train.yolo_qat import make_yolo_train_step, yolo_loss
 
 HELD_OUT_STEP = 999     # the batch that judges training, like for like
@@ -45,38 +46,6 @@ def held_out_loss(params: dict, batch: tuple) -> torch.Tensor:
     img, boxes, classes = batch
     with torch.no_grad(), full_f32():
         return yolo_loss(params, img, data.yolo_target(boxes, classes))
-
-
-class _StepTimer:
-    """ms of each timed region: CUDA events on the card (read once, at the
-    end, so the loop makes no host sync), the host clock on the CPU."""
-
-    def __init__(self, dev: torch.device):
-        self.cuda = dev.type == "cuda"
-        self.marks = []
-
-    def __enter__(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks.append([ev, None])
-        else:
-            self.marks.append([time.perf_counter(), None])
-        return self
-
-    def __exit__(self, *exc):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            self.marks[-1][1] = ev
-        else:
-            self.marks[-1][1] = time.perf_counter()
-
-    def ms(self) -> list:
-        if self.cuda:
-            torch.cuda.synchronize()
-            return [a.elapsed_time(b) for a, b in self.marks]
-        return [1e3 * (b - a) for a, b in self.marks]
 
 
 def train(steps: int, batch: int, seed: int = 0, device=None) -> tuple:
@@ -97,7 +66,7 @@ def train(steps: int, batch: int, seed: int = 0, device=None) -> tuple:
           f"{dev})…", flush=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    timer, logged = _StepTimer(dev), []
+    timer, logged = StepTimer(dev), []
     t0 = time.perf_counter()
     for i in range(steps):
         img, boxes, classes = data.detection_batch(ds, i, device=dev)

@@ -20,6 +20,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba as mb
@@ -27,19 +28,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (Leaf, ModelConfig, attention, embed,
                                        init_attention, init_embed, init_mlp,
                                        init_norm, mlp, norm, unembed)
-
-
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of a param or cache tree (nested dicts and
-    tuples; anything else is a leaf), with the matching subtrees of
-    ``rest``, in ``tree``'s shape."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(tree_map(fn, v, *(r[i] for r in rest))
-                     for i, v in enumerate(tree))
-    return fn(tree, *rest)
+# the param and cache trees' map and leaves (nested dicts and tuples)
+from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: F401
 
 
 def tree_items(tree, path: str = ""):
@@ -52,10 +42,6 @@ def tree_items(tree, path: str = ""):
         return [item for i, v in enumerate(tree)
                 for item in tree_items(v, f"{path}[{i}]")]
     return [(path, tree)]
-
-
-def tree_leaves(tree) -> list:
-    return [leaf for _, leaf in tree_items(tree)]
 
 
 def kinds(cfg: ModelConfig) -> list:
@@ -276,8 +262,8 @@ def stage_count(params: dict) -> int:
 def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                mode: str = "float",
                prefix_embeds: Optional[torch.Tensor] = None,
-               encoder_embeds: Optional[torch.Tensor] = None
-               ) -> torch.Tensor:
+               encoder_embeds: Optional[torch.Tensor] = None,
+               remat: bool = False) -> torch.Tensor:
     """tokens (B, S) int → logits (B, S_total, vocab).
 
     prefix_embeds: (B, S_p, D) modality stub (vision patches) prepended to
@@ -285,7 +271,14 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     encoder input features for enc-dec (seamless): the encoder stack runs,
     then each decoder stage cross-attends to its output. As in the
     reference, a tree with a ``cross`` stack runs it after every stage
-    even without ``encoder_embeds``: as non-causal self-attention."""
+    even without ``encoder_embeds``: as non-causal self-attention.
+
+    remat: each stage (with its cross stage) runs under
+    ``torch.utils.checkpoint`` where autograd records, as the reference's
+    ``jax.checkpoint``: its activations are recomputed in the backward,
+    not kept. A stage draws no random number and reads no state the
+    forward changes, so the recomputed forward quantizes exactly as the
+    first did."""
     x = embed(params["embed"], tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -295,7 +288,8 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     if encoder_embeds is not None:
         enc_out = encode(cfg, params, encoder_embeds, mode=mode)
     cross = params.get("cross")
-    for st in range(stage_count(params)):
+
+    def run_stage(x: torch.Tensor, st: int) -> torch.Tensor:
         slots = stage(params["slots"], st)
         for i, (mk, fk) in enumerate(kinds(cfg)):
             x = _apply_slot(slots[i], cfg, x, mixer_kind=mk, ffn_kind=fk,
@@ -306,6 +300,16 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             x = x + attention(cr["attn"], cfg, h, mode=mode, causal=False,
                               positions=positions,
                               kv_x=enc_out).to(x.dtype)
+        return x
+
+    checkpointed = remat and torch.is_grad_enabled()
+    for st in range(stage_count(params)):
+        if checkpointed:
+            x = torch.utils.checkpoint.checkpoint(
+                run_stage, x, st, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            x = run_stage(x, st)
     x = norm(params["final_norm"], x, cfg.norm_kind)
     return unembed(params["embed"], cfg, x)
 

@@ -26,19 +26,26 @@ def full_like0(x: torch.Tensor, value: float) -> torch.Tensor:
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` (nested dicts; anything else is a
-    leaf), with the matching subtrees of ``rest``, in ``tree``'s shape."""
+    """``fn`` over the leaves of ``tree`` (nested dicts and tuples, as the
+    LM tree's ``slots``; anything else is a leaf), with the matching
+    subtrees of ``rest``, in ``tree``'s shape."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, v, *(r[i] for r in rest))
+                     for i, v in enumerate(tree))
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
     """The leaves in the reference's order: ``jax.tree_util`` visits dict
-    keys sorted (``conv1, conv10, conv11, conv2, …``; ``act_step, b, w``)."""
+    keys sorted (``conv1, conv10, conv11, conv2, …``; ``act_step, b, w``)
+    and tuples in order."""
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
@@ -149,7 +156,7 @@ def adafactor(lr, *, decay: float = 0.8, eps: float = 1e-30,
             rms = torch.sqrt(torch.mean(torch.square(u)) + 1e-12)
             u = u / torch.clamp(rms / full_like0(rms, clip_threshold),
                                 min=1.0)
-            return -lr_t * u, nv
+            return [-lr_t * u, nv]        # a list: a leaf to tree_map
 
         pairs = tree_map(upd, grads, state["v"])
         updates = tree_map(lambda t: t[0], pairs)

@@ -53,7 +53,7 @@ def _pack_linear(p: dict) -> dict:
 def _pack_moe(p: dict) -> dict:
     """An MoE FFN's expert stacks (..., E, K, N): sign words along K and
     α with K kept as 1, as the reference packs them."""
-    out = dict(p)
+    out = {k: v.detach() for k, v in p.items()}
     for name in ("up", "gate", "down"):
         w = p[name].detach()
         kax = w.ndim - 2
@@ -141,7 +141,9 @@ def init_packed_lm(cfg, generator, device=None) -> dict:
 @torch.no_grad()
 def deploy_lm(params):
     """Walk the param tree, packing every W1A8 projection (dicts holding
-    both 'w' and 'act_step'). Non-quantized leaves pass through."""
+    both 'w' and 'act_step'). Non-quantized leaves pass through detached:
+    a trained tree's leaves may require grad, and no leaf of the packed
+    tree keeps a grad or a graph."""
     def walk(node):
         if isinstance(node, dict):
             if _is_linear(node):
@@ -151,7 +153,7 @@ def deploy_lm(params):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
             return type(node)(walk(v) for v in node)
-        return node
+        return node.detach()
     return walk(params)
 
 

@@ -1,2 +1,3 @@
-"""Training: the detector's QAT (the paper's §3.2 recipe). Counterpart of
-``repro/train``; the LM training loop is not ported yet."""
+"""Training: the detector's QAT (the paper's §3.2 recipe) and the LM train
+step and loop. Counterpart of ``repro/train``; the pipelined LM step waits
+for the distribution layer."""

@@ -1,0 +1,129 @@
+"""The training loop with its fault-tolerance plumbing. Counterpart of
+``repro/train/loop.py``.
+
+Restart contract: a checkpoint holds (params, opt_state) and the step; the
+data is a pure function of the step, so a resume is exact. Preemption:
+SIGTERM or a ``<ckpt_dir>/PREEMPT`` sentinel file makes the loop checkpoint
+(synchronously) and stop at the next step boundary. A watchdog reports a
+step whose host time exceeds ``watchdog_factor`` × the median of the last
+50. The loss is read on the host (a sync with the card) on logged steps
+only.
+"""
+from __future__ import annotations
+
+import os
+import signal
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import ckpt as ckpt_lib
+from repro_torch.device import resolve_device
+
+
+class _PreemptFlag:
+    def __init__(self):
+        self.hit = False
+
+    def install(self):
+        try:
+            signal.signal(signal.SIGTERM, lambda *_: setattr(self, "hit", True))
+        except ValueError:
+            pass                    # not the main thread (tests)
+
+
+def run_train(*, train_step: Callable, params, opt_state,
+              batch_fn: Callable, steps: int,
+              ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
+              start_step: int = 0, log_every: int = 10,
+              async_ckpt: bool = True, watchdog_factor: float = 3.0,
+              print_fn: Callable = print) -> tuple:
+    """Runs ``train_step`` from ``start_step`` to ``steps``; batch_fn(step)
+    → batch dict. Returns (params, opt_state, the step it stopped at)."""
+    flag = _PreemptFlag()
+    flag.install()
+    durations = []
+    step = start_step
+    for step in range(start_step, steps):
+        t0 = time.perf_counter()
+        batch = batch_fn(step)
+        params, opt_state, metrics = train_step(params, opt_state, batch)
+        if step % log_every == 0 or step == steps - 1:
+            loss = float(metrics["loss"])
+            print_fn(f"step {step:5d} loss {loss:.4f} "
+                     f"gnorm {float(metrics['grad_norm']):.3f}")
+            if not np.isfinite(loss):
+                raise FloatingPointError(f"loss diverged at step {step}")
+        dt = time.perf_counter() - t0
+        durations.append(dt)
+        med = float(np.median(durations[-50:]))
+        if len(durations) > 5 and dt > watchdog_factor * med:
+            print_fn(f"[watchdog] step {step} took {dt:.2f}s "
+                     f"(median {med:.2f}s) — straggler suspected")
+        preempt = flag.hit or (ckpt_dir and
+                               os.path.exists(os.path.join(ckpt_dir,
+                                                           "PREEMPT")))
+        if ckpt_dir and ((step + 1) % ckpt_every == 0 or preempt or
+                         step == steps - 1):
+            ckpt_lib.save_checkpoint(
+                ckpt_dir, step + 1,
+                {"params": params, "opt_state": opt_state},
+                metadata={"loss": float(metrics["loss"])},
+                async_=async_ckpt and not preempt)
+        if preempt:
+            print_fn(f"[preempt] checkpointed at step {step + 1}; exiting")
+            break
+    ckpt_lib.wait_for_async()
+    return params, opt_state, step + 1
+
+
+def resume_or_init(ckpt_dir: Optional[str], init_fn: Callable, device=None,
+                   print_fn: Callable = print) -> tuple:
+    """→ (state, start step): the latest checkpoint of ``ckpt_dir`` restored
+    on ``device`` (default: the card), else ``init_fn(device)``.
+    ``init_fn(device)`` builds the state on a device; on ``meta`` it gives
+    the restore template without allocating."""
+    dev = resolve_device(device)
+    template = init_fn(torch.device("meta"))    # jax.eval_shape's counterpart
+    if ckpt_dir:
+        last = ckpt_lib.latest_step(ckpt_dir)
+        if last is not None:
+            state, _ = ckpt_lib.restore_checkpoint(ckpt_dir, last, template,
+                                                   device=dev)
+            print_fn(f"[resume] restored step {last} from {ckpt_dir}")
+            return state, last
+    return init_fn(dev), 0
+
+
+class StepTimer:
+    """ms of each timed region: CUDA events on the card (read once, at the
+    end, so the loop makes no host sync), the host clock on the CPU."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.marks = []
+
+    def __enter__(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append([ev, None])
+        else:
+            self.marks.append([time.perf_counter(), None])
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks[-1][1] = ev
+        else:
+            self.marks[-1][1] = time.perf_counter()
+
+    def ms(self) -> list:
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in self.marks]
+        return [1e3 * (b - a) for a, b in self.marks]

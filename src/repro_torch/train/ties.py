@@ -11,6 +11,13 @@ run's replaced by the recorded value, after checking that it sits within
 ``tol`` of a tie in both runs. The replacement is a constant added to the
 input, so a gradient still flows through the forward's own input.
 
+LSQ's backward passes the gradient only where 0 ≤ x / step ≤ 255, so an
+input that sits within an ulp of a rail (x near 0, say the product of a
+gated MLP) can take the gradient in one run and not in the other with
+the same code: the forward agrees bit for bit and a gradient leaf does
+not. For ``lsq_fake_quant``, `forced` replaces such inputs too, checked
+to sit within ``tol`` of the rail in both runs.
+
 The quantizer is ``models.yolo``'s ``lsq_fake_quant`` (the QAT forward,
 ``train=True``) or ``quantize_act`` (the eval forward), or the same name in
 another ``module``: ``models.layers`` for the LM projections (the
@@ -23,7 +30,7 @@ import contextlib
 
 import torch
 
-from repro_torch.core.quant import quantize_act
+from repro_torch.core.quant import ACT_QMAX, quantize_act
 from repro_torch.models import yolo
 
 QUANTIZERS = ("lsq_fake_quant", "quantize_act")
@@ -62,27 +69,41 @@ def record(quantizer: str = "lsq_fake_quant", module=None):
 @contextlib.contextmanager
 def forced(recorded: list, quantizer: str = "lsq_fake_quant",
            tol: float = 1e-3, module=None):
-    """Yields a list that gets the number of codes forced at each call of
+    """Yields a list that gets the number of inputs forced at each call of
     ``quantizer`` in the forward inside the block, which must make as many
     calls, in the same order, as the recorded run. Raises if a differing
-    code is not within ``tol`` of a rounding tie in both runs."""
+    code is not within ``tol`` of a rounding tie in both runs, or (for
+    ``lsq_fake_quant``) an input on the other side of a rail not within
+    ``tol`` of it in both."""
     counts, pending = [], iter(recorded)
+    rails = quantizer == "lsq_fake_quant"
+
+    def in_range(v: torch.Tensor) -> torch.Tensor:
+        return (v >= 0) & (v <= ACT_QMAX)
+
+    def check(flip, offs, what: str) -> None:
+        for off in offs:
+            if bool(flip.any()) and float(off[flip].max()) > tol:
+                raise AssertionError(
+                    f"{quantizer} call {len(counts) - 1}: an input differs "
+                    f"{float(off[flip].max()):.6g} away from a {what}")
 
     def wrap(real):
         def forcing(x, step, *rest):
             ref = torch.as_tensor(next(pending)).to(x.device)
             s = step.detach()
-            flip = quantize_act(x.detach(), s) != quantize_act(ref, s)
-            counts.append(int(flip.sum()))
+            xs, rs = x.detach() / s, ref / s
+            code = quantize_act(x.detach(), s) != quantize_act(ref, s)
+            rail = (in_range(xs) != in_range(rs)) & ~code if rails \
+                else torch.zeros_like(code)
+            counts.append(int(code.sum()) + int(rail.sum()))
             if counts[-1]:
-                for v in (x.detach(), ref):
-                    off = torch.abs(torch.remainder(v / s, 1.0) - 0.5)[flip]
-                    if float(off.max()) > tol:
-                        raise AssertionError(
-                            f"{quantizer} call {len(counts) - 1}: a code "
-                            f"differs {float(off.max()):.6g} away from a "
-                            f"rounding tie")
-                x = x + torch.where(flip, ref - x.detach(), 0.0)
+                check(code, [torch.abs(torch.remainder(v, 1.0) - 0.5)
+                             for v in (xs, rs)], "rounding tie")
+                check(rail, [torch.minimum(torch.abs(v),
+                                           torch.abs(v - ACT_QMAX))
+                             for v in (xs, rs)], "rail")
+                x = x + torch.where(code | rail, ref - x.detach(), 0.0)
             return real(x, step, *rest)
         return forcing
 

@@ -7,18 +7,18 @@ the raw tw, th at the assigned cells, BCE on objectness and classes.
 
 Autograd runs the conv backward at ``torch.autograd.grad``, long after the
 forward's `device.full_f32` block has closed, and cuDNN's default would
-compute the gradients in TF32. So the backward runs inside `full_f32` too.
+compute the gradients in TF32. So the backward runs inside `full_f32` too
+(`train.step.loss_and_grads`).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.data.pipeline import yolo_target
-from repro_torch.device import full_f32
 from repro_torch.models import yolo
 from repro_torch.models.yolo import GRID, NUM_ANCHORS, NUM_CLASSES
-from repro_torch.optim import (apply_updates, clip_by_global_norm,
-                               tree_leaves, tree_map)
+from repro_torch.optim import apply_updates, clip_by_global_norm
+from repro_torch.train import step
 
 
 def _bce_logits(logit: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -58,12 +58,9 @@ def loss_and_grads(params: dict, images: torch.Tensor,
                    target: torch.Tensor) -> tuple:
     """→ (loss, grads in params' shape), forward and backward in full f32.
     ``params`` is not changed."""
-    leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-    flat = tree_leaves(leaves)
-    with torch.enable_grad(), full_f32():
-        loss = yolo_loss(leaves, images, target)
-        grads = dict(zip(map(id, flat), torch.autograd.grad(loss, flat)))
-    return loss.detach(), tree_map(lambda p: grads[id(p)], leaves)
+    loss, flat = step.loss_and_grads(
+        lambda p, _: yolo_loss(p, images, target), params, None)
+    return loss, step.unflatten_like(params, flat)
 
 
 def make_yolo_train_step(optimizer, *, max_grad_norm: float = 5.0):

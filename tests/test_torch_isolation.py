@@ -55,6 +55,20 @@ def test_entry_points_raise_without_cuda():
         yolo.yolo_forward_int(int_art, np.zeros((1, 64, 64, 3), np.uint8))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         alignment.run(size=64)
+    # LM training: the launchers, restore and resume default to the card
+    from repro_torch import ckpt
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch import train_lm_w1a8
+    from repro_torch.train.loop import resume_or_init
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "chatglm3-6b", "--reduced",
+                           "--steps", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_lm_w1a8.main(["--steps", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ckpt.restore_checkpoint("no_such_dir", 1, {})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resume_or_init(None, lambda d: {})
 
 
 def test_lm_entry_points_raise_without_cuda():
