@@ -124,8 +124,8 @@ Phases (any failure raises and the script exits non-zero):
    12's MoE and SSM serves and hybrid decode, phase 13's trained model
    served; the two matmuls also their numbers at the LM shapes, under
    ``lm``, the popcount matmul phase 13's launches under ``lm_trained``,
-   the grouped entry its phase 12a shapes) and phase 13's summary, and as
-   the last line ``{"ok": true, "device": {...}}``.
+   the grouped entry its phase 12a shapes), phase 13's and phase 14's
+   summaries, and as the last line ``{"ok": true, "device": {...}}``.
 9. Runs before phase 8's line: the paper's offline workflow (QAT, deploy,
    integer forward, Table 6, decode + NMS). One QAT train step at B = 2,
    320×320, on the card against the same step on the CPU from the same
@@ -252,6 +252,34 @@ Phases (any failure raises and the script exits non-zero):
    saved state bit for bit and the resumed step-8 loss equals an
    uninterrupted run's within 1e-5 relative (printed whether bit for
    bit); the size a full-width checkpoint would write is printed.
+
+14. Runs after phase 13 freed its trees, before phase 8's line: the
+   distribution layer on one card (no kernel of the port: the reference's
+   distribution layer reaches no Pallas kernel). (a) `QTensor.quantize_s8`,
+   `quantize_b1` (per tensor and per slice) and `pack_b1` of a seeded f32
+   tensor of chatglm3-6b's MLP up-projection gradient shape (4096 ×
+   13696) on the card against the CPU: codes, words and scales bit for
+   bit; each wire's bytes beside the f32 bytes. On a one-rank NCCL group
+   (a FileStore under ``build/``): (c) `make_pipeline_train_step` (1F1B,
+   one stage, M 2) on phase 13's model (chatglm3-6b at full width, 4
+   layers, B 8 × S 256) from phase 13's seeded params and first batch,
+   SGD-M, against the one-device `make_train_step` of the same row groups,
+   TF32 on outside `full_f32`: loss within 1e-5 relative; the f32 grad
+   wire's every gradient leaf within 1e-3·max|g|, the one-device run's tie
+   codes forced in the order the pipeline calls the quantizer
+   (`dist.pipeline.stage_calls`); the int8 grad wire's every leaf within
+   3%·max|g| and off the f32 one; then CUDA-event ms of AdamW steps beside
+   phase 13's. (b) `tree_quantized_allreduce` over a seeded unit-normal
+   tree of (c)'s gradient shapes (1.08 G elements): within the reference's
+   3% of the input, both legs' int8 codes and the output equal to a
+   one-rank gloo group's on the CPU bit for bit, CUDA-event ms a tree
+   against an f32 ``all_reduce`` of every leaf. (d) ``torchrun
+   --nproc-per-node 1 -m repro_torch.launch.train --arch mamba2-1.3b
+   --pipeline 1f1b --pipeline-stages 1 --microbatches 2 --grad-wire int8
+   --steps 3 --ckpt-dir build/ckpt_phase14`` at the full published
+   config: exit 0, the ``[pipeline]`` line, backend ``nccl``; the
+   one-device launcher restores its checkpoint (some 16 GB, removed
+   after); its ms a step, tokens/s and peak memory. About 105 s.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -3469,6 +3497,409 @@ def lm_train_summary(rec: dict) -> dict:
                   "decode_step_bound_ms": serve["step_bound_ms"]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the distribution layer on one card (wires, NCCL, the pipeline)
+# ---------------------------------------------------------------------------
+
+WIRE_SHAPE = (4096, 13696)     # chatglm3-6b's MLP up-projection gradient
+DIST_MICRO, DIST_LR = 2, 1e-2  # (c): 1F1B microbatches; SGD-M's lr
+DIST_INT8_TOL = 0.03           # the reference's int8-wire envelope
+DIST_TIMED_STEPS = 3           # (c): AdamW steps timed, the first a warm-up
+LM_PHASE13_MS = 539.56         # phase 13's step, PERF.md (PR 25)
+LAUNCH_PHASE13_MS = 888.25     # phase 13's mamba2-1.3b launcher step
+
+
+def _tree_rel(torch, got: list, want: list) -> float:
+    d = sum(float(torch.sum((g.double() - w.double()) ** 2))
+            for g, w in zip(got, want))
+    n = sum(float(torch.sum(w.double() ** 2)) for w in want)
+    return (d / n) ** 0.5
+
+
+def check_wires(torch, dev, smi: str) -> dict:
+    """Phase 14a: `QTensor.quantize_s8`, `quantize_b1` (per tensor and
+    per slice) and `pack_b1` of a seeded f32 tensor of WIRE_SHAPE on the
+    card against the CPU: codes, words and scales bit for bit."""
+    from repro_torch.core.qtensor import QTensor
+    x_c = torch.randn(WIRE_SHAPE, generator=torch.Generator().manual_seed(
+        SEED))
+    x_g = x_c.to(dev)
+    wires = {"s8": lambda x: QTensor.quantize_s8(x),
+             "b1": lambda x: QTensor.quantize_b1(x),
+             "b1_per_slice": lambda x: QTensor.quantize_b1(x, per_slice=True),
+             "b1_packed_axis0": lambda x: QTensor.pack_b1(x, axis=0)}
+    record = {"shape": list(WIRE_SHAPE), "f32_bytes": x_c.numel() * 4}
+    for name, fn in wires.items():
+        got, want = fn(x_g), fn(x_c)
+        torch.cuda.synchronize()
+        for what in ("data", "scale"):
+            a, b = getattr(got, what).cpu(), getattr(want, what)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"wire {name}: {what} on the card is not "
+                                     f"the CPU's bit for bit")
+        ms = cuda_ms(torch, lambda fn=fn: fn(x_g), reps=3, n=5)
+        record[name] = {"wire_bytes": got.wire_bytes(), "ms": ms}
+    print(f"[dist] (a) wires at {WIRE_SHAPE} on the card = CPU bit for bit "
+          f"(codes, words, scales): "
+          + "; ".join(f"{k} {record[k]['wire_bytes']} B ({record[k]['ms']:.4f}"
+                      f" ms)" for k in wires)
+          + f" against {record['f32_bytes']} B of f32 ({smi})", flush=True)
+    return record
+
+
+def _recording_codes(coll):
+    """Patches `collectives.s8_codes` to keep every code tensor it makes
+    (the all-reduce's two legs, leaf by leaf); returns (restore, codes)."""
+    real, codes = coll.s8_codes, []
+
+    def recording(x, scale):
+        out = real(x, scale)
+        codes.append(out)
+        return out
+    coll.s8_codes = recording
+    return (lambda: setattr(coll, "s8_codes", real)), codes
+
+
+def _one_rank_group(torch, backend: str, name: str):
+    """A one-rank process group over a FileStore under build/, and its
+    (data, stage) mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    path = ROOT / "build" / f"store_{name}"
+    path.parent.mkdir(exist_ok=True)
+    path.unlink(missing_ok=True)
+    dist.init_process_group(backend, store=dist.FileStore(str(path), 1),
+                            rank=0, world_size=1)
+    return make_pipeline_mesh(1, device="cuda" if backend == "nccl"
+                              else "cpu")
+
+
+def pipelined_step(torch, dev, mesh, smi: str) -> tuple:
+    """Phase 14c: `make_pipeline_train_step` (1F1B, one stage, DIST_MICRO
+    microbatches) on phase 13's model (LM_TRAIN_ARCH at full width,
+    LM_TRAIN_LAYERS layers) from phase 13's seeded params and first batch,
+    against the one-device `make_train_step` of the same row groups, SGD-M
+    (its moment after a step is the clipped gradient), TF32 on outside
+    `full_f32`. The f32 grad wire: loss within LM_STEP_LOSS_TOL, each
+    gradient leaf within LM_STEP_GRAD_TOL·max|g|, the one-device run's tie
+    codes forced in the pipeline's call order (`dist.pipeline.stage_calls`:
+    the backward's recompute calls the quantizer again). The int8 wire:
+    each leaf within DIST_INT8_TOL·max|g| (the wire's own bound at one data
+    rank is max|g|/254) and off the f32 step. Then CUDA-event ms of
+    DIST_TIMED_STEPS AdamW steps. Returns (record, {path: shape} of the
+    gradients)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import pipeline as data
+    from repro_torch.dist.pipeline import stage_calls
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import init_lm_params, tree_items
+    from repro_torch.optim import adamw, sgdm
+    from repro_torch.train import ties
+    from repro_torch.train.step import make_pipeline_train_step, \
+        make_train_step
+
+    cfg = dataclasses.replace(configs.get_config(LM_TRAIN_ARCH),
+                              num_layers=LM_TRAIN_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_lm_params(cfg, gen, device=dev)
+    ds = data.make_lm_dataset(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                              seed=SEED)
+    batch = make_batch_fn(cfg, ds, dev)(0)
+    opt = sgdm(DIST_LR)
+    one = make_train_step(cfg, opt, microbatches=DIST_MICRO, remat=False)
+    with tf32_on(torch), ties.record("lsq_fake_quant",
+                                     module=layers) as recorded:
+        _, s_one, m_one = one(params, opt[0](params), batch)
+    paths = [p for p, _ in tree_items(s_one["m"])]
+    want = [x for _, x in tree_items(s_one["m"])]
+    del s_one
+    per_mb = len(recorded) // DIST_MICRO
+    order = [x for m in stage_calls(1, DIST_MICRO, "1f1b", 0)
+             for x in recorded[m * per_mb:(m + 1) * per_mb]]
+    got, out = {}, {}
+    for wire in ("fp32", "int8"):
+        step = make_pipeline_train_step(cfg, opt, mesh=mesh,
+                                        num_micro=DIST_MICRO, grad_wire=wire)
+        with tf32_on(torch), ties.forced(order, "lsq_fake_quant",
+                                         module=layers) as forced:
+            _, s, m = step(params, opt[0](params), batch)
+        got[wire] = [x for _, x in tree_items(s["m"])]
+        out[wire] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "forced": sum(forced), "calls": len(forced)}
+        del s
+    del recorded, order
+    loss_rel = abs(out["fp32"]["loss"] / float(m_one["loss"]) - 1.0)
+    errs = {p: float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for p, g, w in zip(paths, got["fp32"], want)}
+    worst = max(errs, key=errs.get)
+    int8_errs = {p: float((g - w).abs().max())
+                 / max(float(w.abs().max()), 1e-30)
+                 for p, g, w in zip(paths, got["int8"], want)}
+    int8_worst = max(int8_errs, key=int8_errs.get)
+    int8_rel = _tree_rel(torch, got["int8"], want)
+    int8_vs_fp32 = _tree_rel(torch, got["int8"], got["fp32"])
+    if loss_rel > LM_STEP_LOSS_TOL or errs[worst] > LM_STEP_GRAD_TOL or \
+            abs(out["int8"]["loss"] / float(m_one["loss"]) - 1.0) > \
+            LM_STEP_LOSS_TOL or not 0.0 < int8_vs_fp32 or \
+            int8_errs[int8_worst] > DIST_INT8_TOL:
+        raise AssertionError(
+            f"pipelined step vs one device: loss rel {loss_rel}, worst leaf "
+            f"{worst} {errs[worst]}·max|g|, int8 worst leaf {int8_worst} "
+            f"{int8_errs[int8_worst]}·max|g|, {int8_rel} of the tree "
+            f"({int8_vs_fp32} off the f32 wire); {out}")
+    shapes = {p: tuple(g.shape) for p, g in zip(paths, want)}
+    del got, want
+
+    # CUDA-event ms of AdamW steps, as phase 13's (no forcing)
+    aopt = adamw(LM_TRAIN_LR)
+    astep = make_pipeline_train_step(cfg, aopt, mesh=mesh,
+                                     num_micro=DIST_MICRO)
+    live = {"p": params, "s": aopt[0](params)}
+    del params
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for _ in range(DIST_TIMED_STEPS):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        live["p"], live["s"], _ = astep(live["p"], live["s"], batch)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated(dev)
+    del live
+    steady = statistics.median(ms[1:])
+    record = {"arch": LM_TRAIN_ARCH, "layers": LM_TRAIN_LAYERS,
+              "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+              "microbatches": DIST_MICRO, "schedule": "1f1b", "stages": 1,
+              "loss_one_device": float(m_one["loss"]),
+              "loss_rel_err": loss_rel, "worst_leaf": worst,
+              "max_grad_rel_err": errs[worst],
+              "int8_worst_leaf": int8_worst,
+              "int8_max_grad_rel_err": int8_errs[int8_worst],
+              "int8_tree_rel_err": int8_rel,
+              "int8_vs_fp32_tree_rel": int8_vs_fp32, **{
+                  f"{w}_{k}": v for w, r in out.items()
+                  for k, v in r.items()},
+              "adamw_step_ms": ms, "ms_per_step": steady,
+              "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / (steady / 1e3),
+              "peak_memory_bytes": peak}
+    print(f"[dist] (c) make_pipeline_train_step (1f1b, 1 stage, M "
+          f"{DIST_MICRO}) on {LM_TRAIN_ARCH} at full width, {LM_TRAIN_LAYERS} "
+          f"layers, B={LM_TRAIN_BATCH} S={LM_TRAIN_SEQ}, NCCL: loss "
+          f"{out['fp32']['loss']:.7g} vs one device {float(m_one['loss']):.7g}"
+          f" (rel {loss_rel:.3g}, limit {LM_STEP_LOSS_TOL}); fp32 wire worst "
+          f"leaf {worst} {errs[worst]:.3g}·max|g| (limit {LM_STEP_GRAD_TOL}),"
+          f" {out['fp32']['forced']} inputs forced at ties and rails over "
+          f"{out['fp32']['calls']} quantizer calls; int8 wire worst leaf "
+          f"{int8_worst} {int8_errs[int8_worst]:.4f}·max|g| (limit "
+          f"{DIST_INT8_TOL}), {int8_rel:.4f} of the tree, {int8_vs_fp32:.4f} "
+          f"off the f32 wire; AdamW steps (CUDA events) "
+          f"{[round(x, 2) for x in ms]} ms, {steady:.2f} after the first "
+          f"(phase 13's one-device remat step: {LM_PHASE13_MS} ms), "
+          f"{record['tokens_per_s']:.1f} tokens/s, peak "
+          f"{peak / 2 ** 30:.2f} GiB ({smi})", flush=True)
+    return record, shapes
+
+
+def allreduce_on_nccl(torch, dev, mesh, shapes: dict, smi: str) -> tuple:
+    """Phase 14b on the card: `tree_quantized_allreduce` over a seeded
+    unit-normal tree of (c)'s gradient shapes on the one-rank NCCL group,
+    its two legs' codes kept; within DIST_INT8_TOL of the input (n = 1; the
+    reference's envelope is for unit-normal gradients). CUDA-event ms a
+    tree against an f32 `all_reduce` of every leaf. Returns (record, the
+    tree, (output, codes)), the last two on the host."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as coll
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    tree = {p: torch.randn(s, generator=gen, device=dev)
+            for p, s in shapes.items()}
+    restore, codes = _recording_codes(coll)
+    try:
+        out = coll.tree_quantized_allreduce(tree, mesh, "data")
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    rel = _tree_rel(torch, list(out.values()), list(tree.values()))
+    if not 0.0 < rel <= DIST_INT8_TOL:
+        raise AssertionError(f"int8 all-reduce on NCCL: {rel} of the tree")
+    group = mesh.get_group("data")
+
+    def f32_allreduce():
+        for g in tree.values():
+            dist.all_reduce(g.clone(), group=group)
+    ms = cuda_ms(torch, lambda: coll.tree_quantized_allreduce(
+        tree, mesh, "data"), reps=3, n=2)
+    ms_f32 = cuda_ms(torch, f32_allreduce, reps=3, n=2)
+    n = sum(int(g.numel()) for g in tree.values())
+    # the least it must move: each f32 input read once, each output written
+    bound = 1e3 * 8 * n / HBM_BYTES_PER_S
+    record = {"leaves": len(tree), "elements": n, "tree_rel_err": rel,
+              "ms": ms, "f32_allreduce_ms": ms_f32, "bound_ms": bound,
+              "wire_bytes": coll.wire_bytes_saved(tree, 2)}
+    card = ({k: v.cpu() for k, v in out.items()}, [c.cpu() for c in codes])
+    return record, {k: v.cpu() for k, v in tree.items()}, card
+
+
+def allreduce_on_gloo(torch, tree: dict, card: tuple, rec: dict,
+                      smi: str) -> dict:
+    """Phase 14b on the CPU: the same call over a one-rank gloo group; its
+    codes on both legs and its output equal the card's bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import collectives as coll
+    mesh = _one_rank_group(torch, "gloo", "phase14_gloo")
+    try:
+        restore, codes = _recording_codes(coll)
+        try:
+            out = coll.tree_quantized_allreduce(tree, mesh, "data")
+        finally:
+            restore()
+    finally:
+        dist.destroy_process_group()
+    card_out, card_codes = card
+    same = len(codes) == len(card_codes) and all(
+        torch.equal(a, b) for a, b in zip(codes, card_codes)) and all(
+        torch.equal(out[k], card_out[k]) for k in out)
+    if not same:
+        raise AssertionError("int8 all-reduce: the card's (NCCL) codes or "
+                             "output differ from the CPU's (gloo)")
+    rec["codes_equal_cpu"] = True
+    rec["code_tensors"] = len(codes)
+    print(f"[dist] (b) tree_quantized_allreduce over a seeded unit-normal "
+          f"tree of the {rec['leaves']} gradient shapes of (c)'s step "
+          f"({rec['elements'] / 1e9:.3f} G elements) on a one-rank NCCL "
+          f"group: both legs' int8 codes "
+          f"({len(codes)} tensors) and the output equal a one-rank gloo "
+          f"group's on the CPU bit for bit; {rec['tree_rel_err']:.4f} of the "
+          f"tree off the input (limit {DIST_INT8_TOL}); {rec['ms']:.2f} ms a "
+          f"tree (CUDA events) against {rec['f32_allreduce_ms']:.2f} for an "
+          f"f32 all_reduce of each leaf and a bound of {rec['bound_ms']:.2f} "
+          f"(8 bytes an element at 3.35 TB/s) ({smi})", flush=True)
+    return rec
+
+
+def run_pipelined_launcher(smi: str) -> dict:
+    """Phase 14d: ``torchrun --nproc-per-node 1 -m repro_torch.launch.train
+    --arch LM_LAUNCH_ARCH --pipeline 1f1b --pipeline-stages 1
+    --microbatches 2 --grad-wire int8 --steps LM_LAUNCH_STEPS --ckpt-dir
+    build/ckpt_phase14`` at the full published config: exit 0, the
+    ``[pipeline]`` line, backend NCCL; then the one-device launcher
+    restores its checkpoint (``--steps LM_LAUNCH_STEPS``: restored, no step
+    to run). The checkpoint is removed after."""
+    import math
+    import os
+    import shutil
+
+    d = ROOT / "build" / "ckpt_phase14"
+    shutil.rmtree(d, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+           "--arch", LM_LAUNCH_ARCH, "--pipeline", "1f1b",
+           "--pipeline-stages", "1", "--microbatches", "2", "--grad-wire",
+           "int8", "--steps", str(LM_LAUNCH_STEPS), "--ckpt-dir", str(d)]
+    try:
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                             text=True, timeout=600)
+        wall_s = time.perf_counter() - t0
+        if out.returncode:
+            raise AssertionError(f"torchrun exited {out.returncode}: "
+                                 f"{out.stderr[-3000:]}")
+        lines = out.stdout.strip().splitlines()
+        record = json.loads(lines[-1])
+        banner = "[pipeline] 1f1b n=1 M=2 bubble=0.000 grad-wire=int8"
+        if lines[0] != banner or record["backend"] != "nccl" or \
+                record["steps"] != LM_LAUNCH_STEPS or not all(
+                map(math.isfinite, (record["first_loss"],
+                                    record["last_loss"]))):
+            raise AssertionError(f"pipelined launcher: {lines}")
+        for line in lines[:-1]:
+            print(f"[dist] (d) {line}", flush=True)
+        t0 = time.perf_counter()
+        back = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             LM_LAUNCH_ARCH, "--steps", str(LM_LAUNCH_STEPS), "--ckpt-dir",
+             str(d)], cwd=ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        restore_s = time.perf_counter() - t0
+        if back.returncode:
+            raise AssertionError(f"one-device restore exited "
+                                 f"{back.returncode}: {back.stderr[-3000:]}")
+        blines = back.stdout.strip().splitlines()
+        restored = json.loads(blines[-1])
+        if blines[0] != f"[resume] restored step {LM_LAUNCH_STEPS} from {d}" \
+                or restored["start_step"] != LM_LAUNCH_STEPS:
+            raise AssertionError(f"one-device restore: {blines}")
+        ckpt_bytes = sum(f.stat().st_size for f in d.rglob("*.npy"))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    print(f"[dist] (d) torchrun --nproc-per-node 1 {' '.join(cmd[6:])}: "
+          f"exit 0 in {wall_s:.1f} s, backend {record['backend']}; "
+          f"{_num(record['ms_per_step'], '.2f')} ms a step (phase 13's "
+          f"one-device launcher: {LAUNCH_PHASE13_MS}), "
+          f"{_num(record['tokens_per_s'], '.1f')} tokens/s, peak "
+          f"{record['peak_memory_bytes'] / 2 ** 30:.2f} GiB; its checkpoint "
+          f"({ckpt_bytes / 1e9:.2f} GB) restored by the one-device launcher "
+          f"in {restore_s:.1f} s ({smi})", flush=True)
+    return {**record, "wall_s": wall_s, "restore_s": restore_s,
+            "checkpoint_bytes": ckpt_bytes}
+
+
+def drive_dist(torch, dev, smi: str) -> dict:
+    """Phase 14: (a) `check_wires`; on a one-rank NCCL group (c)
+    `pipelined_step` and (b) `allreduce_on_nccl` at its gradients' shapes,
+    then (b) `allreduce_on_gloo` against it; (d)
+    `run_pipelined_launcher`."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    out = {"card": smi, "wires": check_wires(torch, dev, smi)}
+    mesh = _one_rank_group(torch, "nccl", "phase14_nccl")
+    try:
+        out["step"], shapes = pipelined_step(torch, dev, mesh, smi)
+        gc.collect()
+        out["allreduce"], host, card = allreduce_on_nccl(torch, dev, mesh,
+                                                         shapes, smi)
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["allreduce"] = allreduce_on_gloo(torch, host, card,
+                                         out["allreduce"], smi)
+    del host, card
+    gc.collect()
+    out["launcher"] = run_pipelined_launcher(smi)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def dist_summary(rec: dict) -> dict:
+    """Phase 14's numbers for the kernels line."""
+    step, ar = rec["step"], rec["allreduce"]
+    return {
+        "wires": {k: v for k, v in rec["wires"].items()},
+        "allreduce": {k: ar[k] for k in (
+            "elements", "tree_rel_err", "ms", "f32_allreduce_ms",
+            "bound_ms", "codes_equal_cpu")},
+        "pipelined_step": {k: step[k] for k in (
+            "arch", "layers", "loss_rel_err", "max_grad_rel_err",
+            "int8_max_grad_rel_err", "int8_tree_rel_err", "fp32_forced",
+            "ms_per_step",
+            "tokens_per_s", "peak_memory_bytes")},
+        "launcher": {k: rec["launcher"][k] for k in (
+            "arch", "backend", "steps", "first_loss", "last_loss",
+            "ms_per_step", "tokens_per_s", "peak_memory_bytes", "bubble")},
+        "wall_s": rec["wall_s"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3563,6 +3994,13 @@ def main() -> int:
     print(f"[lm train] phase 13 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     by_path["lm trained serve"] = lm_train["launches"]
+    # phase 14 runs the distribution layer: phase 13's trees are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist_rec = drive_dist(torch, dev, smi)
+    print(f"[dist] phase 14 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     # every driven path's launches: the three launcher runs, phase 5's
     # eager forwards (popcount on both pool routes, dot fused) and int
     # call, phase 7's integer forward, phase 9's QAT pipeline, phase 10's
@@ -3707,7 +4145,7 @@ def main() -> int:
          "popcount_forward": pc_record, "nms": nms_record,
          "int_forward": int_record, "qat": qat_record, "lm": lm_record,
          "tiers": tiers, "families": families, "lm_train": lm_train,
-         "floor_device_ms": floor_ms},
+         "dist": dist_rec, "floor_device_ms": floor_ms},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],
@@ -3744,6 +4182,7 @@ def main() -> int:
                       "tiers": tiers["summary"],
                       "families": families_summary(families),
                       "lm_train": lm_train_summary(lm_train),
+                      "dist": dist_summary(dist_rec),
                       "trace_fallbacks": TRACE_FALLBACKS,
                       "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {

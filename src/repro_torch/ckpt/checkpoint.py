@@ -16,7 +16,7 @@ tuples), in the reference's format (``repro/ckpt/checkpoint.py``):
     thread; `wait_for_async` joins the writers.
   * restore places the leaves on one device (default: the card). The
     reference's ``shardings=`` (elastic restore onto a mesh) waits for the
-    distribution layer (ROADMAP.md, Queue 1, item 6).
+    sharded model (ROADMAP.md, Queue 1, item 6b).
 """
 from __future__ import annotations
 
@@ -32,7 +32,7 @@ import torch
 
 from repro_torch.convert import lm_leaf_to_numpy
 from repro_torch.device import resolve_device
-from repro_torch.models.transformer import tree_items
+from repro_torch.models.transformer import tree_items, tree_map_with_path
 
 _PENDING: list = []
 
@@ -96,17 +96,6 @@ def _leaf_from_numpy(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(dev)
 
 
-def _rebuild(template, leaf_at, path: str = ""):
-    """``template``'s shape with each leaf ``leaf_at(path, leaf)``."""
-    if isinstance(template, dict):
-        return {k: _rebuild(v, leaf_at, f"{path}[{k!r}]")
-                for k, v in template.items()}
-    if isinstance(template, tuple):
-        return tuple(_rebuild(v, leaf_at, f"{path}[{i}]")
-                     for i, v in enumerate(template))
-    return leaf_at(path, template)
-
-
 def restore_checkpoint(ckpt_dir: str, step: int, tree_like: Any, *,
                        device=None) -> tuple:
     """Restores into the structure of ``tree_like`` (tensors, or shapes on
@@ -125,4 +114,4 @@ def restore_checkpoint(ckpt_dir: str, step: int, tree_like: Any, *,
             raise ValueError(f"{path}: checkpoint {arr.shape} vs template "
                              f"{tuple(like.shape)}")
         return _leaf_from_numpy(arr, dev)
-    return _rebuild(tree_like, leaf_at), manifest["metadata"]
+    return tree_map_with_path(leaf_at, tree_like), manifest["metadata"]

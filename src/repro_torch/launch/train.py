@@ -1,11 +1,12 @@
 """The LM training launcher: ``python -m repro_torch.launch.train --arch
-<id> [...]``, counterpart of ``repro/launch/train.py`` on one device.
+<id> [...]``, counterpart of ``repro/launch/train.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3-6b
         [--reduced] [--steps 100] [--seq-len 128] [--global-batch 8]
         [--microbatches 1] [--lr 3e-4] [--mode w1a8_train|float]
         [--optimizer adamw|adafactor|sgdm] [--ckpt-dir DIR] [--seed 0]
-        [--device cpu]
+        [--pipeline none|1f1b|gpipe] [--pipeline-stages 4]
+        [--grad-wire fp32|int8] [--device cpu]
 
 Runs on the card unless ``--device cpu``. A cosine schedule with a warm-up
 of steps / 20; remat on unless ``--reduced``; resume from the latest
@@ -13,32 +14,62 @@ checkpoint of ``--ckpt-dir`` (the loop checkpoints every 50 steps, at a
 preemption and at the last step). Enc-dec archs get ``encoder_embeds`` and
 vision archs ``prefix_embeds``, 0.1·N(0, 1) from a ``torch.Generator``
 seeded by the step on the batch's device (the port's own draws, as the
-sampler's are). The reference's mesh flags (``--production-mesh``,
-``--pipeline``, ``--pipeline-stages``, ``--grad-wire``) wait for the
-distribution layer (ROADMAP.md, Queue 1, item 6) and are not defined.
+sampler's are).
+
+``--pipeline 1f1b|gpipe`` trains pipelined (`train.step.
+make_pipeline_train_step`) over a (world // n, n) mesh of ('data',
+'stage'), n = ``--pipeline-stages``, one rank a device, under
+``torchrun``:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch
+        qwen2.5-14b --reduced --pipeline 1f1b --pipeline-stages 2
+        --microbatches 2 --grad-wire int8 --device cpu
+
+The world comes from torchrun's environment (without it, one rank). The
+backend is NCCL on the card and gloo with ``--device cpu``; without NCCL
+the card's run raises. The global batch splits into the data ranks'
+shards × ``--microbatches``; ``--grad-wire int8`` reduces the gradients
+across the data ranks over `dist.collectives.tree_quantized_allreduce`.
+Each rank restores or initialises the whole tree and keeps its stage's
+slice (`dist.sharding.stage_slice`); rank 0 writes each checkpoint in the
+one-device layout after an all-gather of the slices over 'stage', so the
+one-device launcher and the reference's ``restore_checkpoint`` read it.
+Adafactor is refused there: its factored moments and update clip reduce
+across the layers a stage splits. The reference's ``--production-mesh``
+needs the sharded model (``ShardCtx``), which is not ported (ROADMAP.md,
+Queue 1, item 6b), and is not defined.
 
 Prints the loop's lines, then one JSON line: arch, steps run, first and
 last loss, mean ms a step (CUDA events around each step on the card, the
 host clock on the CPU; the first step, which warms up, left out), tokens
-per second from it, and peak device memory on the card.
+per second from it, and peak device memory on the card; pipelined, also
+the world, the mesh, the schedule, the wire, the bubble fraction and the
+backend. Under torchrun only rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import sys
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.data import pipeline as data
+from repro_torch.ckpt import save_checkpoint
 from repro_torch.device import resolve_device
+from repro_torch.dist import sharding
+from repro_torch.dist.collectives import all_reduce
+from repro_torch.dist.pipeline import bubble_fraction, bubble_fraction_1f1b
+from repro_torch.launch.mesh import make_pipeline_mesh
 from repro_torch.launch.serve import card_name
 from repro_torch.models.transformer import count_lm_params, init_lm_params
 from repro_torch.optim import adafactor, adamw, cosine_schedule, sgdm
 from repro_torch.train.loop import StepTimer, resume_or_init, run_train
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import make_pipeline_train_step, make_train_step
 
 OPTIMIZERS = {"adamw": adamw, "adafactor": adafactor, "sgdm": sgdm}
 EMBED_STD = 0.1
@@ -59,6 +90,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="tiny config (CPU-scale)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--pipeline", default="none",
+                    choices=["none", "gpipe", "1f1b"],
+                    help="pipelined training schedule (dist/pipeline)")
+    ap.add_argument("--pipeline-stages", type=int, default=4,
+                    help="pipeline depth n; mesh = (ranks/n, n) over "
+                         "('data', 'stage')")
+    ap.add_argument("--grad-wire", default="fp32",
+                    choices=["fp32", "int8"],
+                    help="DP gradient all-reduce wire format "
+                         "(int8 → dist/collectives.tree_quantized_allreduce)")
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs on the CPU")
     return ap.parse_args(argv)
@@ -88,16 +129,60 @@ def make_batch_fn(cfg, ds, dev: torch.device):
     return batch_fn
 
 
+def start_ranks(dev: torch.device) -> tuple:
+    """(this rank's device, backend) with the default process group
+    started: NCCL on the card (the rank's ``LOCAL_RANK`` card), gloo on the
+    CPU; torchrun's world from its environment, else a world of one."""
+    backend = "gloo"
+    if dev.type == "cuda":
+        if not dist.is_nccl_available():
+            raise RuntimeError("--pipeline on the card needs NCCL, which "
+                               "this torch lacks; pass --device cpu to run "
+                               "gloo ranks on the CPU")
+        backend = "nccl"
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    if "RANK" in os.environ:
+        dist.init_process_group(backend)
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return dev, backend
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
     dev = resolve_device(args.device)
+    if args.pipeline == "none":
+        return train(args, dev)
+    if args.optimizer == "adafactor":
+        raise SystemExit("--pipeline does not support --optimizer adafactor:"
+                         " its factored moments and update clip reduce "
+                         "across the layers a stage splits")
+    dev, backend = start_ranks(dev)
+    try:
+        world, n_st = dist.get_world_size(), args.pipeline_stages
+        if world % n_st:
+            raise SystemExit(f"{world} devices do not split into "
+                             f"{n_st} pipeline stages")
+        return train(args, dev, make_pipeline_mesh(n_st, device=dev),
+                     backend)
+    finally:
+        dist.destroy_process_group()
+
+
+def train(args, dev: torch.device, mesh=None, backend=None) -> dict:
+    """The run: one device, or with ``mesh`` this rank's share of a
+    pipelined one."""
+    rank = dist.get_rank() if mesh is not None else 0
+
+    def say(*line):
+        if rank == 0:
+            print(*line, flush=True)
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get_config(args.arch))
     sched = cosine_schedule(args.lr, max(args.steps // 20, 1), args.steps)
     opt = OPTIMIZERS[args.optimizer](sched)
-    step_fn = make_train_step(cfg, opt, mode=args.mode,
-                              microbatches=args.microbatches,
-                              remat=not args.reduced)
 
     def init_fn(d: torch.device) -> dict:
         gen = None
@@ -107,7 +192,43 @@ def main(argv=None) -> dict:
         params = init_lm_params(cfg, gen, device=d)
         return {"params": params, "opt_state": opt[0](params)}
 
-    state, start = resume_or_init(args.ckpt_dir, init_fn, device=dev)
+    template = init_fn(torch.device("meta"))
+    loop_kw, extra = {}, {}
+    if mesh is None:
+        step_fn = make_train_step(cfg, opt, mode=args.mode,
+                                  microbatches=args.microbatches,
+                                  remat=not args.reduced)
+    else:
+        n_st, num_micro = args.pipeline_stages, max(args.microbatches, 1)
+        step_fn = make_pipeline_train_step(
+            cfg, opt, mesh=mesh, num_micro=num_micro, mode=args.mode,
+            schedule=args.pipeline, grad_wire=args.grad_wire)
+        bf = (bubble_fraction_1f1b if args.pipeline == "1f1b"
+              else bubble_fraction)(n_st, num_micro)
+        say(f"[pipeline] {args.pipeline} n={n_st} M={num_micro} "
+            f"bubble={bf:.3f} grad-wire={args.grad_wire}")
+        extra = {"world": dist.get_world_size(),
+                 "mesh": {"data": dist.get_world_size() // n_st,
+                          "stage": n_st},
+                 "pipeline": args.pipeline, "microbatches": num_micro,
+                 "grad_wire": args.grad_wire, "bubble": bf,
+                 "backend": backend}
+
+        def save(ckpt_dir, step, tree, **kw):
+            whole = sharding.gather_stages(tree, template, mesh,
+                                           cfg.num_layers)
+            if rank == 0:
+                save_checkpoint(ckpt_dir, step, whole, **kw)
+
+        def agree(flag: bool) -> bool:
+            return bool(all_reduce(torch.tensor(int(flag), device=dev), None,
+                                   dist.ReduceOp.MAX))
+        loop_kw = {"save": save, "agree": agree}
+
+    state, start = resume_or_init(args.ckpt_dir, init_fn, device=dev,
+                                  print_fn=say)
+    if mesh is not None:
+        state = sharding.stage_slice(state, mesh, cfg.num_layers)
     ds = data.make_lm_dataset(cfg.vocab_size, args.seq_len,
                               args.global_batch, seed=args.seed)
     timer, losses = StepTimer(dev), []
@@ -124,7 +245,7 @@ def main(argv=None) -> dict:
                           opt_state=state["opt_state"],
                           batch_fn=make_batch_fn(cfg, ds, dev),
                           steps=args.steps, start_step=start,
-                          ckpt_dir=args.ckpt_dir)
+                          ckpt_dir=args.ckpt_dir, print_fn=say, **loop_kw)
     ms = timer.ms()
     timed = ms[1:] if len(ms) > 1 else ms
     ms_step = statistics.mean(timed) if timed else None
@@ -132,7 +253,7 @@ def main(argv=None) -> dict:
     record = {
         "arch": args.arch, "reduced": args.reduced, "mode": args.mode,
         "optimizer": args.optimizer, "device": card_name(dev),
-        "params": count_lm_params(state["params"]),
+        "params": count_lm_params(template["params"]),
         "start_step": start, "steps": end,
         "first_loss": float(losses[0]) if losses else None,
         "last_loss": float(losses[-1]) if losses else None,
@@ -140,8 +261,8 @@ def main(argv=None) -> dict:
         "ms_per_step": ms_step,
         "tokens_per_s": tokens / (ms_step / 1e3) if ms_step else None,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
-                              if dev.type == "cuda" else None)}
-    print(json.dumps(record), flush=True)
+                              if dev.type == "cuda" else None), **extra}
+    say(json.dumps(record))
     return record
 
 

@@ -12,7 +12,7 @@ W1A8 (the paper's technique): every body projection runs through
 `layers.linear` in the requested mode; embedding and LM head stay full
 precision (the Conv1/Conv11 rule). MoE layers run `moe.moe_ffn` on the
 local path: the reference's sharded path (a ``ShardCtx``: expert-parallel
-all-to-all, TP psum) is not ported (ROADMAP.md, Queue 1, item 6).
+all-to-all, TP psum) is not ported (ROADMAP.md, Queue 1, item 6b).
 """
 from __future__ import annotations
 
@@ -42,6 +42,18 @@ def tree_items(tree, path: str = ""):
         return [item for i, v in enumerate(tree)
                 for item in tree_items(v, f"{path}[{i}]")]
     return [(path, tree)]
+
+
+def tree_map_with_path(fn, tree, path: str = ""):
+    """``tree``'s shape with each leaf ``fn(path, leaf)``, paths spelled as
+    `tree_items`'s."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map_with_path(fn, v, f"{path}[{i}]")
+                     for i, v in enumerate(tree))
+    return fn(path, tree)
 
 
 def kinds(cfg: ModelConfig) -> list:

@@ -49,6 +49,12 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def unflatten_like(tree, flat: list):
+    """``flat`` (in `tree_leaves` order of ``tree``) in tree's shape."""
+    by_id = dict(zip(map(id, tree_leaves(tree)), flat))
+    return tree_map(lambda p: by_id[id(p)], tree)
+
+
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
     return torch.zeros_like(p, dtype=torch.float32)
 
@@ -64,14 +70,24 @@ def apply_updates(params, updates):
                         params, updates)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """→ (grads scaled to a global norm of at most ``max_norm``, the norm
-    before scaling). Squares summed in f32, leaf by leaf in the reference's
+def sum_of_squares(grads) -> torch.Tensor:
+    """Σ g² over every leaf, in f32, leaf by leaf in the reference's
     order."""
     with torch.no_grad():
         total = 0
         for g in tree_leaves(grads):
             total = total + torch.sum(torch.square(g.to(torch.float32)))
+        return total
+
+
+def clip_by_global_norm(grads, max_norm: float, total=None):
+    """→ (grads scaled to a global norm of at most ``max_norm``, the norm
+    before scaling). ``total``: the sum of squares over the whole tree
+    where ``grads`` holds only part of it (default: `sum_of_squares` of
+    ``grads``)."""
+    with torch.no_grad():
+        if total is None:
+            total = sum_of_squares(grads)
         gnorm = torch.sqrt(total)
         scale = torch.clamp(full_like0(gnorm, max_norm) / (gnorm + 1e-9),
                             max=1.0)

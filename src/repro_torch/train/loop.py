@@ -39,9 +39,18 @@ def run_train(*, train_step: Callable, params, opt_state,
               ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
               start_step: int = 0, log_every: int = 10,
               async_ckpt: bool = True, watchdog_factor: float = 3.0,
-              print_fn: Callable = print) -> tuple:
+              print_fn: Callable = print,
+              save: Callable = ckpt_lib.save_checkpoint,
+              agree: Callable = bool) -> tuple:
     """Runs ``train_step`` from ``start_step`` to ``steps``; batch_fn(step)
-    → batch dict. Returns (params, opt_state, the step it stopped at)."""
+    → batch dict. Returns (params, opt_state, the step it stopped at).
+
+    ``save(ckpt_dir, step, tree, metadata=, async_=)`` writes a checkpoint
+    and ``agree(flag)`` turns this process's preemption flag into the one
+    every process of a job acts on; a job of several ranks passes both (a
+    rank of a pipeline gathers its stage's slices and only rank 0 writes;
+    the flag is all-reduced), so all ranks checkpoint and stop at the same
+    step."""
     flag = _PreemptFlag()
     flag.install()
     durations = []
@@ -62,12 +71,11 @@ def run_train(*, train_step: Callable, params, opt_state,
         if len(durations) > 5 and dt > watchdog_factor * med:
             print_fn(f"[watchdog] step {step} took {dt:.2f}s "
                      f"(median {med:.2f}s) — straggler suspected")
-        preempt = flag.hit or (ckpt_dir and
-                               os.path.exists(os.path.join(ckpt_dir,
-                                                           "PREEMPT")))
+        preempt = agree(bool(flag.hit or (ckpt_dir and os.path.exists(
+            os.path.join(ckpt_dir, "PREEMPT")))))
         if ckpt_dir and ((step + 1) % ckpt_every == 0 or preempt or
                          step == steps - 1):
-            ckpt_lib.save_checkpoint(
+            save(
                 ckpt_dir, step + 1,
                 {"params": params, "opt_state": opt_state},
                 metadata={"loss": float(metrics["loss"])},

@@ -1,7 +1,7 @@
 """The LM train step: QAT loss, microbatch gradient accumulation, clip,
 update. Counterpart of ``repro/train/step.py`` (`lm_loss`,
-`make_train_step`); the pipelined step waits for the distribution layer
-(ROADMAP.md, Queue 1, item 6).
+`make_train_step`, and the pipelined `make_pipeline_train_step` over
+``dist.pipeline``).
 
 Gradients come from ``torch.autograd.grad`` on detached copies of the
 param leaves, so a step changes no tensor it was handed. Autograd runs the
@@ -20,30 +20,40 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.device import full_f32
-from repro_torch.models.transformer import lm_forward
+from repro_torch.dist.collectives import all_reduce, axis_size
+from repro_torch.dist.pipeline import (pipeline_train_local,
+                                       reduce_pipeline_outputs)
+from repro_torch.models.layers import embed, norm, unembed
+from repro_torch.models.transformer import _apply_slot, lm_forward
 from repro_torch.optim import (apply_updates, clip_by_global_norm,
                                tree_leaves, tree_map)
-from repro_torch.optim.optimizers import full_like0
+from repro_torch.optim.optimizers import (full_like0, sum_of_squares,
+                                          unflatten_like)
 
 Z_LOSS = 1e-4
 EMBEDS = ("encoder_embeds", "prefix_embeds")
 
 
+def token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token NLL, log-softmax in f32, plus the z-loss
+    1e-4·mean(logsumexp²)."""
+    logits = logits.to(torch.float32)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    zloss = Z_LOSS * torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return torch.mean(nll) + zloss
+
+
 def lm_loss(cfg, params: dict, batch: dict, *, mode: str,
             remat: bool = True) -> torch.Tensor:
-    """Mean next-token NLL over the batch's tokens (the modality prefix's
-    logits dropped), log-softmax in f32, plus the z-loss
-    1e-4·mean(logsumexp²). ``batch``: tokens and labels (B, S) int, and
+    """`token_loss` over the batch's tokens (the modality prefix's logits
+    dropped). ``batch``: tokens and labels (B, S) int, and
     ``encoder_embeds`` / ``prefix_embeds`` where the arch takes them."""
     kw = {k: batch[k] for k in EMBEDS if k in batch}
     logits = lm_forward(cfg, params, batch["tokens"], mode=mode,
                         remat=remat, **kw)
     seq = batch["tokens"].shape[1]
-    logits = logits[:, -seq:, :].to(torch.float32)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, batch["labels"].long()[..., None])[..., 0]
-    zloss = Z_LOSS * torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    return torch.mean(nll) + zloss
+    return token_loss(logits[:, -seq:, :], batch["labels"])
 
 
 def loss_and_grads(loss_fn: Callable, params, batch) -> tuple:
@@ -58,12 +68,6 @@ def loss_and_grads(loss_fn: Callable, params, batch) -> tuple:
         grads = torch.autograd.grad(loss, flat, allow_unused=True,
                                     materialize_grads=True)
     return loss.detach(), list(grads)
-
-
-def unflatten_like(params, flat: list):
-    """``flat`` (in `tree_leaves` order of ``params``) in params' shape."""
-    by_id = dict(zip(map(id, tree_leaves(params)), flat))
-    return tree_map(lambda p: by_id[id(p)], params)
 
 
 def accumulated_grads(loss_fn: Callable, params, batch: dict,
@@ -114,6 +118,110 @@ def make_train_step(cfg, optimizer, *, mode: str = "w1a8_train",
         loss, grads = accumulated_grads(loss_fn, params, batch, microbatches)
         grads, gnorm = clip_by_global_norm(unflatten_like(params, grads),
                                            max_grad_norm)
+        updates, opt_state = update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        metrics = {"loss": loss, "grad_norm": gnorm,
+                   "step": opt_state["step"]}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_pipeline_train_step(cfg, optimizer, *, mesh, num_micro: int,
+                             mode: str = "w1a8_train",
+                             schedule: str = "1f1b",
+                             grad_wire: str = "fp32",
+                             max_grad_norm: float = 1.0,
+                             stage_axis: str = "stage",
+                             dp_axis: str = "data"):
+    """The pipelined train_step(params, opt_state, batch) → (params,
+    opt_state, metrics) of one rank of ``mesh`` ((data, stage)).
+
+    The body's ``num_layers`` slots partition into ``n = |stage_axis|``
+    contiguous stages; microbatches stream through the 1F1B (or GPipe)
+    schedule of ``dist.pipeline``. The embedding runs before the pipeline
+    and its VJP after it, on the input cotangent the pipeline returns; the
+    final norm, ``unembed`` and the z-loss are the loss head. Grads reduce
+    across ``dp_axis``, over the int8 wire when ``grad_wire == 'int8'``.
+
+    A rank holds its stage's rows of the layer-stacked leaves of params
+    and optimizer state (`dist.sharding.stage_slice`), every other leaf
+    whole; ``batch`` is the global batch, of which the rank takes its
+    data shard's rows. The clip's global norm sums the squares of the
+    stage-sliced leaves over ``stage_axis`` and adds the replicated
+    leaves' once, so every rank clips by the one norm and the replicated
+    leaves stay equal across ranks. ``optimizer`` must update leaf by leaf
+    and element by element (AdamW, SGD-M): Adafactor's factored moments
+    and update clip reduce across the layers of a leaf."""
+    n = axis_size(mesh, stage_axis)
+    dp_n = axis_size(mesh, dp_axis)
+    if cfg.period != 1:
+        raise ValueError("--pipeline needs a uniform layer stack (period 1);"
+                         f" {cfg.name} has period {cfg.period}")
+    if cfg.encoder_layers or cfg.frontend == "vision":
+        raise ValueError(f"--pipeline does not support {cfg.name}'s "
+                         "encoder/vision front-end")
+    if cfg.ffn_kind(0) == "moe":
+        raise ValueError("--pipeline does not support MoE FFNs yet")
+    if cfg.num_layers % n:
+        raise ValueError(f"{cfg.num_layers} layers do not partition into "
+                         f"{n} pipeline stages")
+    lps = cfg.num_layers // n
+    mk, fk = cfg.mixer_kind(0), cfg.ffn_kind(0)
+    _, update = optimizer
+    stage_group, dp_group = mesh.get_group(stage_axis), \
+        mesh.get_group(dp_axis)
+    shard = mesh.get_local_rank(dp_axis)
+
+    def stage_fn(w, x):
+        b, s, _ = x.shape
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        for i in range(lps):
+            slot = tree_map(lambda leaf: leaf[i], w)
+            x = _apply_slot(slot, cfg, x, mixer_kind=mk, ffn_kind=fk,
+                            mode=mode, positions=positions)
+        return x
+
+    def loss_fn(top, y, aux):
+        h = norm(top["final_norm"], y, cfg.norm_kind)
+        return token_loss(unembed(top["embed"], cfg, h), aux["labels"])
+
+    local = pipeline_train_local(stage_fn, loss_fn, mesh=mesh,
+                                 axis=stage_axis, num_stages=n,
+                                 num_micro=num_micro, schedule=schedule)
+
+    def train_step(params, opt_state, batch):
+        tokens, labels = batch["tokens"], batch["labels"]
+        bsz = tokens.shape[0]
+        if bsz % dp_n or (bsz // dp_n) % num_micro:
+            raise ValueError(f"global batch {bsz} must split into {dp_n} DP"
+                             f" shards × {num_micro} microbatches")
+        rows = bsz // dp_n
+        tokens = tokens[shard * rows:(shard + 1) * rows]
+        labels = labels[shard * rows:(shard + 1) * rows]
+        emb = params["embed"]["emb"].detach().requires_grad_(True)
+        with torch.enable_grad():
+            x = embed({"emb": emb}, tokens)
+        split = (num_micro, rows // num_micro)
+        top = {"embed": params["embed"], "final_norm": params["final_norm"]}
+        out = local(params["slots"][0], top,
+                    x.detach().reshape(split + x.shape[1:]),
+                    {"labels": labels.reshape(split + labels.shape[1:])})
+        loss, gw, gtop, dxs = reduce_pipeline_outputs(
+            *out, mesh=mesh, axis=stage_axis, dp_axis=dp_axis,
+            grad_wire=grad_wire)
+        # the embedding's VJP on this data shard's rows, summed over the
+        # shards as the reference's global cotangent sums them
+        (g_front,) = torch.autograd.grad(x, emb, dxs.reshape(x.shape))
+        g_front = all_reduce(g_front, dp_group)
+        g_embed = dict(gtop["embed"])
+        g_embed["emb"] = g_embed["emb"] + g_front
+        grads = {"embed": g_embed, "final_norm": gtop["final_norm"],
+                 "slots": (gw,)}
+        total = sum_of_squares({"embed": g_embed,
+                                "final_norm": gtop["final_norm"]}) + \
+            all_reduce(sum_of_squares(gw), stage_group)
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm, total)
         updates, opt_state = update(grads, opt_state, params)
         params = apply_updates(params, updates)
         metrics = {"loss": loss, "grad_norm": gnorm,

@@ -339,12 +339,50 @@ def test_launch_train_flags_and_resume(tmp_path, flags):
     assert lines[0] == f"[resume] restored step 2 from {tmp_path}"
 
 
-@pytest.mark.parametrize("flag", ["--production-mesh", "--pipeline",
-                                  "--pipeline-stages", "--grad-wire"])
+# a value of each mesh flag that argparse refuses, and why: the sharded
+# model's --production-mesh is not defined (ROADMAP.md, Queue 1, item 6b);
+# the pipeline flags take the reference's choices and types
+# (src/repro/launch/train.py:30-41)
+MESH_FLAG_REFUSALS = {
+    "--production-mesh": ("1f1b", "unrecognized arguments"),
+    "--pipeline": ("zb-h1", "invalid choice"),
+    "--pipeline-stages": ("1f1b", "invalid int value"),
+    "--grad-wire": ("bf16", "invalid choice")}
+
+
+@pytest.mark.parametrize("flag", list(MESH_FLAG_REFUSALS))
 def test_launch_train_rejects_the_mesh_flags(flag, capsys):
+    value, why = MESH_FLAG_REFUSALS[flag]
     with pytest.raises(SystemExit):
-        launch_train.parse_args(["--arch", "chatglm3-6b", flag, "1f1b"])
-    assert "unrecognized arguments" in capsys.readouterr().err
+        launch_train.parse_args(["--arch", "chatglm3-6b", flag, value])
+    assert why in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flag,values", [
+    ("--pipeline", ["none", "gpipe", "1f1b"]),
+    ("--pipeline-stages", ["1", "2", "4", "16"]),
+    ("--grad-wire", ["fp32", "int8"])])
+def test_launch_train_mesh_flags_take_the_reference_s_choices(flag, values):
+    for v in values:
+        args = launch_train.parse_args(["--arch", "chatglm3-6b", flag, v])
+        got = getattr(args, flag[2:].replace("-", "_"))
+        assert got == (int(v) if flag == "--pipeline-stages" else v)
+
+
+def test_launch_train_pipeline_stages_must_divide_the_world():
+    """One rank (no torchrun) does not split into 2 stages: the reference's
+    message, and the process group is gone after."""
+    import torch.distributed as dist
+    with pytest.raises(SystemExit, match="1 devices do not split into 2 "
+                                         "pipeline stages"):
+        launch_train.main(["--arch", "qwen2.5-14b", "--reduced", "--device",
+                           "cpu", "--pipeline", "1f1b", "--pipeline-stages",
+                           "2", "--steps", "1"])
+    assert not dist.is_initialized()
+    with pytest.raises(SystemExit, match="adafactor"):
+        launch_train.main(["--arch", "qwen2.5-14b", "--reduced", "--device",
+                           "cpu", "--pipeline", "1f1b", "--optimizer",
+                           "adafactor"])
 
 
 def test_launch_train_defaults_are_the_reference_s():
@@ -353,6 +391,25 @@ def test_launch_train_defaults_are_the_reference_s():
             args.lr, args.mode, args.optimizer, args.reduced, args.ckpt_dir,
             args.seed, args.device) == (100, 128, 8, 1, 3e-4, "w1a8_train",
                                         "adamw", False, None, 0, None)
+    assert (args.pipeline, args.pipeline_stages, args.grad_wire) == \
+        ("none", 4, "fp32")
+
+
+def test_launch_train_pipelined_on_one_rank(tmp_path):
+    """--pipeline without torchrun: a world of one gloo rank, one stage;
+    the JSON line names the world, the mesh and the backend, and the
+    checkpoint resumes in the one-device launcher."""
+    base = ["--arch", "chatglm3-6b", "--reduced", "--device", "cpu",
+            "--seq-len", "8", "--global-batch", "4",
+            "--ckpt-dir", str(tmp_path)]
+    rec, lines = _run_main(launch_train.main, base + [
+        "--steps", "2", "--pipeline", "gpipe", "--pipeline-stages", "1",
+        "--microbatches", "2", "--grad-wire", "int8"])
+    assert lines[0] == "[pipeline] gpipe n=1 M=2 bubble=0.000 grad-wire=int8"
+    assert (rec["world"], rec["mesh"], rec["backend"], rec["steps"]) == \
+        (1, {"data": 1, "stage": 1}, "gloo", 2)
+    again, lines = _run_main(launch_train.main, base + ["--steps", "3"])
+    assert again["start_step"] == 2 and again["steps"] == 3
 
 
 def test_launch_train_lm_w1a8(tmp_path):

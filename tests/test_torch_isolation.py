@@ -64,6 +64,10 @@ def test_entry_points_raise_without_cuda():
         launch_train.main(["--arch", "chatglm3-6b", "--reduced",
                            "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "qwen2.5-14b", "--reduced", "--steps",
+                           "1", "--pipeline", "1f1b", "--pipeline-stages",
+                           "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         train_lm_w1a8.main(["--steps", "2"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ckpt.restore_checkpoint("no_such_dir", 1, {})
