@@ -122,10 +122,11 @@ Phases (any failure raises and the script exits non-zero):
    integer forward, phase 9's QAT pipeline, phase 10's LM serve and int
    call, phase 11's launcher fleet, real traffic and compose runs, phase
    12's MoE and SSM serves and hybrid decode, phase 13's trained model
-   served; the two matmuls also their numbers at the LM shapes, under
-   ``lm``, the popcount matmul phase 13's launches under ``lm_trained``,
-   the grouped entry its phase 12a shapes), phase 13's and phase 14's
-   summaries, and as the last line ``{"ok": true, "device": {...}}``.
+   served, phase 15's sharded MoE serves; the two matmuls also their
+   numbers at the LM shapes, under ``lm``, the popcount matmul phase 13's
+   launches under ``lm_trained``, the grouped entry its phase 12a
+   shapes), phase 13's, 14's and 15's summaries, and as the last line
+   ``{"ok": true, "device": {...}}``.
 9. Runs before phase 8's line: the paper's offline workflow (QAT, deploy,
    integer forward, Table 6, decode + NMS). One QAT train step at B = 2,
    320×320, on the card against the same step on the CPU from the same
@@ -221,7 +222,7 @@ Phases (any failure raises and the script exits non-zero):
    experts do not depend on its batch), prefill and 5 greedy decode
    steps against one teacher-forced ``lm_forward`` of the prompt and the
    emitted tokens, the decode's tie codes forced to the forward's
-   (`forced_by_rows`): within TF_TOL·max|logit|, argmax equal where
+   (`train.ties.forced_by_rows`): within TF_TOL·max|logit|, argmax equal where
    decided.
 
 13. Runs before phase 8's line, after phase 12 freed its trees: LM QAT
@@ -280,6 +281,35 @@ Phases (any failure raises and the script exits non-zero):
    config: exit 0, the ``[pipeline]`` line, backend ``nccl``; the
    one-device launcher restores its checkpoint (some 16 GB, removed
    after); its ms a step, tokens/s and peak memory. About 105 s.
+
+15. Runs after phase 14, before phase 8's line: the sharded model on a
+   one-rank NCCL ('data', 'model') = (1, 1) mesh (no kernel of the port
+   beyond the grouped popcount entry: the reference's sharded layer
+   reaches no Pallas kernel). (a) mixtral-8x7b at full width and depth,
+   packed, served greedy (two waves of 4 slots, prefill and 15 decode
+   steps each) under a `ShardCtx` with the uint8 dispatch wire off and
+   on: off, every step's logits and tokens equal the local path's bit
+   for bit (at ep = 1 the all-to-all is a copy and the grouped launches
+   see the same codes and counts); on, equal bit for bit to the local
+   path with its expert outputs rounded through bf16 (codes · step
+   re-quantize to the same codes; the return leg is bf16); 96 grouped
+   launches a decode step; a decode step's CUDA-event ms with the wire
+   off and on. (b) mixtral at full width cut to 2 layers (3.03 G params),
+   B 8 × S 256, SGD-M without clip: `make_train_step(ctx=)` from
+   `shard_tree` of the seeded params against the one-device step, whose
+   gradients are moved to the host first, codes forced to its
+   (`train.ties`): loss within 1e-5 relative, every leaf within
+   1e-3·max|g|; then sharded steps' CUDA-event ms and peak memory. (c)
+   ``--arch mixtral-8x7b --reduced --production-mesh --steps 2
+   --ckpt-dir build/ckpt_phase15`` through `launch.train.train(args, dev,
+   mesh)`: its checkpoint restored whole and elastically onto the mesh
+   bit for bit, the one-device launcher resumes it (``--steps 3``), and
+   ``torchrun --nproc-per-node 1 -m repro_torch.launch.train
+   --production-mesh`` exits non-zero naming the 256 ranks it needs. (d)
+   `sp_decode_attention` at jamba-1.5-large-398b's attention (64 heads,
+   8 KV heads, head dim 128), B 4, one shard of 32768 positions, within
+   1e-5 of a plain full-softmax attention, finite zeros where cur_pos
+   precedes the shard; its CUDA-event ms. Prints one ``sharded`` line.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -2461,7 +2491,7 @@ HYBRID_PARITY_EXPERTS = 2
 # layers, mamba2-1.3b over its 48 and jamba over its period
 PARITY_TOL = 1e-4
 # decode against the teacher-forced forward, both packed on the card, the
-# codes that round across a tie forced (`forced_by_rows`): sums in another
+# codes that round across a tie forced (`ties.forced_by_rows`): sums in another
 # order (the scan against the recurrent step, the ring cache against the
 # full attention, cuBLAS at another M) some 1e-6 relative each, over up to
 # 48 layers
@@ -2607,55 +2637,12 @@ def expert_bytes_read(torch, fn, packed) -> int:
     return sum(held)
 
 
-@contextlib.contextmanager
-def forced_by_rows(torch, recorded: list, tol: float = 1e-3):
-    """The port's quantizer with each input row's codes forced to those
-    of the nearest row of the same width among ``recorded``, one
-    teacher-forced forward's quantizer inputs, whose rows hold every
-    position of every layer (a linear's tokens, an MoE buffer's token and
-    expert rows). Matched by content, not by call: a prefill makes two
-    more calls an attention layer than a forward or a decode step (its
-    cache's K and V). Each code that differs must sit within ``tol`` of a
-    rounding tie in both runs (`train.ties`' rule), which a row matched
-    to another token or layer would fail. Yields the codes forced at each
-    call."""
-    from repro_torch.core.quant import quantize_act
-    from repro_torch.models import layers
-    real, counts = layers.quantize_act, []
-    widths = sorted({int(r.shape[-1]) for r in recorded})
-    rows_of = {k: torch.cat([r.reshape(-1, k) for r in recorded
-                             if r.shape[-1] == k]) for k in widths}
-
-    def forcing(x, step):
-        k = x.shape[-1]
-        cand = rows_of[k].to(x.device)
-        rows = x.detach().reshape(-1, k)
-        ref = cand[torch.cdist(rows, cand).argmin(1)].reshape(x.shape)
-        s = step.detach()
-        flip = quantize_act(x.detach(), s) != quantize_act(ref, s)
-        counts.append(int(flip.sum()))
-        if counts[-1]:
-            for v in (x.detach(), ref):
-                off = torch.abs(torch.remainder(v / s, 1.0) - 0.5)[flip]
-                if float(off.max()) > tol:
-                    raise AssertionError(
-                        f"quantizer call {len(counts) - 1}: a code differs "
-                        f"{float(off.max()):.6g} away from a rounding tie")
-            x = x + torch.where(flip, ref - x.detach(), 0.0)
-        return real(x, step)
-    layers.quantize_act = forcing
-    try:
-        yield counts
-    finally:
-        layers.quantize_act = real
-
-
 def decode_vs_forward(torch, cfg, params, prompts) -> dict:
     """Phase 12f: prefill and TF_STEPS greedy decode steps against one
     teacher-forced `lm_forward` over the prompt and the emitted tokens,
     both packed on the card. The decode is run again on the same tokens
     with its codes that round across a tie forced to the forward's
-    (`forced_by_rows`): on random weights one flipped code moves the
+    (`ties.forced_by_rows`): on random weights one flipped code moves the
     logits by percents (an attention softmax over random packed
     projections is near one-hot, an MoE router near a tie picks another
     expert), so only the forced run is held: each step's logits within
@@ -2687,7 +2674,8 @@ def decode_vs_forward(torch, cfg, params, prompts) -> dict:
         seq = torch.cat([prompts, torch.stack(toks, 1)], dim=1)
         with ties.record("quantize_act", module=layers) as recorded:
             full = lm_forward(cfg, params, seq, mode="w1a8_eval")[:, s - 1:]
-        with forced_by_rows(torch, recorded) as counts:
+        with ties.forced_by_rows(recorded, "quantize_act",
+                                 module=layers) as counts:
             got, _ = decode(toks)
     scale = float(full.abs().max())
     err = float((got - full).abs().max())
@@ -3560,16 +3548,23 @@ def _recording_codes(coll):
     return (lambda: setattr(coll, "s8_codes", real)), codes
 
 
-def _one_rank_group(torch, backend: str, name: str):
-    """A one-rank process group over a FileStore under build/, and its
-    (data, stage) mesh."""
+def _one_rank_group(torch, backend: str, name: str) -> None:
+    """A one-rank process group over a FileStore under build/ (NCCL on
+    the card's device 0)."""
     import torch.distributed as dist
-    from repro_torch.launch.mesh import make_pipeline_mesh
     path = ROOT / "build" / f"store_{name}"
     path.parent.mkdir(exist_ok=True)
     path.unlink(missing_ok=True)
+    if backend == "nccl":
+        torch.cuda.set_device(0)
     dist.init_process_group(backend, store=dist.FileStore(str(path), 1),
                             rank=0, world_size=1)
+
+
+def _pipeline_mesh(torch, backend: str, name: str):
+    """`_one_rank_group` and its (data, stage) mesh."""
+    from repro_torch.launch.mesh import make_pipeline_mesh
+    _one_rank_group(torch, backend, name)
     return make_pipeline_mesh(1, device="cuda" if backend == "nccl"
                               else "cpu")
 
@@ -3755,7 +3750,7 @@ def allreduce_on_gloo(torch, tree: dict, card: tuple, rec: dict,
     import torch.distributed as dist
 
     from repro_torch.dist import collectives as coll
-    mesh = _one_rank_group(torch, "gloo", "phase14_gloo")
+    mesh = _pipeline_mesh(torch, "gloo", "phase14_gloo")
     try:
         restore, codes = _recording_codes(coll)
         try:
@@ -3862,7 +3857,7 @@ def drive_dist(torch, dev, smi: str) -> dict:
     import torch.distributed as dist
     t0 = time.perf_counter()
     out = {"card": smi, "wires": check_wires(torch, dev, smi)}
-    mesh = _one_rank_group(torch, "nccl", "phase14_nccl")
+    mesh = _pipeline_mesh(torch, "nccl", "phase14_nccl")
     try:
         out["step"], shapes = pipelined_step(torch, dev, mesh, smi)
         gc.collect()
@@ -3898,6 +3893,450 @@ def dist_summary(rec: dict) -> dict:
             "arch", "backend", "steps", "first_loss", "last_loss",
             "ms_per_step", "tokens_per_s", "peak_memory_bytes", "bubble")},
         "wall_s": rec["wall_s"]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the sharded model on one card (ShardCtx, EP MoE, SP decode)
+# ---------------------------------------------------------------------------
+
+SHARD_WAVES = 2                # (a): 8 requests through slots 4, 16 tokens
+SHARD_TRAIN_LAYERS = 2         # (b): mixtral at full width, 3.03 G params
+SHARD_TIMED_STEPS = 3          # (b): sharded steps timed, the first a warm-up
+SHARD_LR, SHARD_NO_CLIP = 1e-2, 1e9
+SHARD_LOSS_TOL, SHARD_GRAD_TOL = 1e-5, 1e-3
+SHARD_LAUNCH_STEPS = 2         # (c): the launcher's sharded run
+SP_HEADS, SP_KV, SP_HD = 64, 8, 128   # jamba-1.5-large-398b's attention
+SP_BATCH, SP_POSITIONS = 4, 32768     # one shard of long_500k's 512k / 16
+SP_TOL = 1e-5
+
+
+def _shard_mesh(torch, name: str):
+    """A one-rank NCCL group (`_one_rank_group`) and its ('data',
+    'model') = (1, 1) mesh."""
+    from repro_torch.launch.mesh import make_test_mesh
+    _one_rank_group(torch, "nccl", name)
+    return make_test_mesh(1, 1, device="cuda")
+
+
+def _greedy_waves(torch, dev, cfg, params, ctx) -> tuple:
+    """SHARD_WAVES waves of LM_SLOTS prompts, each a prefill and
+    LM_MAX_NEW - 1 greedy decode steps: (every step's logits, tokens)."""
+    from repro_torch.serve.engine import decode_step, prefill
+    logits_all, toks_all = [], []
+    with torch.no_grad():
+        for w in range(SHARD_WAVES):
+            prompts = torch.tensor(
+                [[2 + i + LM_SLOTS * w, 11, 7 + (i + w) % 3]
+                 for i in range(LM_SLOTS)], dtype=torch.int32, device=dev)
+            logits, cache = prefill(cfg, params, prompts, max_len=LM_MAX_LEN,
+                                    mode="w1a8_eval", ctx=ctx)
+            for i in range(LM_MAX_NEW):
+                logits_all.append(logits)
+                toks_all.append(torch.argmax(logits, -1).to(torch.int32))
+                if i < LM_MAX_NEW - 1:
+                    logits, cache = decode_step(
+                        cfg, params, cache, toks_all[-1][:, None],
+                        mode="w1a8_eval", ctx=ctx)
+    return torch.stack(logits_all), torch.stack(toks_all)
+
+
+@contextlib.contextmanager
+def _bf16_return_leg(torch, moe):
+    """The local path with each MoE layer's expert outputs rounded
+    through bf16, as the uint8 wire's return leg rounds them."""
+    real = moe._expert_mm
+
+    def rounded(p, name, *args, **kw):
+        y = real(p, name, *args, **kw)
+        return y.to(torch.bfloat16).to(y.dtype) if name == "down" else y
+    moe._expert_mm = rounded
+    try:
+        yield
+    finally:
+        moe._expert_mm = real
+
+
+def _decode_step_fn(torch, dev, cfg, params, ctx):
+    """A packed decode step at M = LM_SLOTS after a prefill, under
+    ``ctx``: a closure (its cache is written in place each call)."""
+    from repro_torch.serve.engine import decode_step, prefill
+    prompts = torch.tensor([[2 + i, 11, 7 + i % 3] for i in range(LM_SLOTS)],
+                           dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        logits, cache = prefill(cfg, params, prompts, max_len=LM_MAX_LEN,
+                                mode="w1a8_eval", ctx=ctx)
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+
+    def step():
+        with torch.no_grad():
+            return decode_step(cfg, params, cache, tok, mode="w1a8_eval",
+                               ctx=ctx)
+    return step
+
+
+def sharded_serve(torch, dev, mesh, smi: str) -> tuple:
+    """Phase 15a: mixtral-8x7b at full width and depth, packed, served
+    greedy (prefill and 15 decode steps, two waves of LM_SLOTS) under a
+    `ShardCtx` on the (1, 1) mesh with the uint8 wire off and on, against
+    the local path: off, every step's logits and tokens bit for bit; on,
+    bit for bit against the local path with its expert outputs rounded
+    through bf16. Launches counted over the sharded runs; a decode step's
+    launches; its CUDA-event ms local, wire off and on, in turns (local,
+    off, on, on, off, local). No torch.profiler trace: traces of the
+    sharded step lost their device records on the card (every try)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import ShardCtx
+    from repro_torch.serve import init_packed_lm
+
+    cfg = configs.get_config(MOE_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    packed = init_packed_lm(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    local = _greedy_waves(torch, dev, cfg, packed, None)
+    with _bf16_return_leg(torch, moe):
+        local_bf16 = _greedy_waves(torch, dev, cfg, packed, None)
+    out = {"arch": MOE_ARCH, "layers": cfg.num_layers, "init_s": init_s,
+           "steps": SHARD_WAVES * LM_MAX_NEW}
+    counts, steps = {}, {"local": _decode_step_fn(torch, dev, cfg, packed,
+                                                  None)}
+    for wire in (False, True):
+        ctx = ShardCtx(mesh, ("data",), "model", "data", a2a_quant=wire)
+        _zero(launch.KERNELS)
+        logits, toks = _greedy_waves(torch, dev, cfg, packed, ctx)
+        torch.cuda.synchronize()
+        for k, v in launch.launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        want_logits, want_toks = local_bf16 if wire else local
+        if not (torch.equal(logits, want_logits) and
+                torch.equal(toks, want_toks)):
+            raise AssertionError(
+                f"{MOE_ARCH} under a ShardCtx, wire {'on' if wire else 'off'}"
+                f": logits off by {float((logits - want_logits).abs().max())}"
+                f", tokens equal {bool(torch.equal(toks, want_toks))}")
+        key = "wire_on" if wire else "wire_off"
+        steps[key] = _decode_step_fn(torch, dev, cfg, packed, ctx)
+        _zero(launch.KERNELS)
+        steps[key]()
+        torch.cuda.synchronize()
+        per_step = {k: v for k, v in launch.launch_counts().items() if v}
+        if per_step.get(GROUPED) != 3 * cfg.num_layers:
+            raise AssertionError(f"{MOE_ARCH} sharded decode step: {per_step}"
+                                 f", want {3 * cfg.num_layers} grouped")
+        out[key] = {"launches_per_decode_step": per_step}
+    ms = {key: [] for key in steps}
+    for key in ("local", "wire_off", "wire_on", "wire_on", "wire_off",
+                "local"):
+        ms[key].append(cuda_ms(torch, steps[key], reps=3, n=3))
+    for key in steps:
+        out.setdefault(key, {})["decode_step_ms"] = ms[key]
+    wire_gap = float((local_bf16[0] - local[0]).abs().max())
+    del packed, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def timed(key):
+        return " and ".join(f"{m:.3f}" for m in out[key]["decode_step_ms"])
+
+    print(f"[sharded] (a) {MOE_ARCH} full width, {cfg.num_layers} layers, "
+          f"packed (init {init_s:.1f} s), under a ShardCtx on (data 1, "
+          f"model 1), {out['steps']} greedy steps at slots {LM_SLOTS}: wire "
+          f"off = local path bit for bit (logits, tokens); wire on = local "
+          f"path with bf16 expert outputs bit for bit (it moves the logits "
+          f"up to {wire_gap:.6g} from the unrounded path); a decode step "
+          f"{out['wire_off']['launches_per_decode_step']}; decode step ms "
+          f"(CUDA events, in turns) local {timed('local')}, wire off "
+          f"{timed('wire_off')}, wire on {timed('wire_on')} ({smi})",
+          flush=True)
+    out["wire_logit_gap"] = wire_gap
+    return out, counts
+
+
+def sharded_train_step_check(torch, np, dev, mesh, smi: str) -> dict:
+    """Phase 15b: mixtral-8x7b at full width cut to SHARD_TRAIN_LAYERS
+    layers, ``w1a8_train``, B LM_TRAIN_BATCH × S LM_TRAIN_SEQ, SGD-M with
+    no clip (its moment after a step is the gradient): the one-device
+    `make_train_step` first, its quantizer inputs recorded and its
+    gradients moved to the host, then `make_train_step(ctx=)` on the (1, 1)
+    mesh from `shard_tree` of the same params, codes forced to the first
+    run's (`train.ties`): loss within SHARD_LOSS_TOL relative, every leaf
+    within SHARD_GRAD_TOL·max|g|; then SHARD_TIMED_STEPS sharded steps
+    timed (CUDA events) and the peak memory."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data import pipeline as data
+    from repro_torch.dist import sharding
+    from repro_torch.launch.train import make_batch_fn
+    from repro_torch.models import layers, moe
+    from repro_torch.models.transformer import (ShardCtx, count_lm_params,
+                                                init_lm_params, tree_items)
+    from repro_torch.optim import sgdm
+    from repro_torch.train import ties
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH),
+                              num_layers=SHARD_TRAIN_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = init_lm_params(cfg, gen, device=dev)
+    n_params = count_lm_params(params)
+    ds = data.make_lm_dataset(cfg.vocab_size, LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                              seed=SEED)
+    batch = make_batch_fn(cfg, ds, dev)(0)
+    opt = sgdm(SHARD_LR)
+    paths = [p for p, _ in tree_items(params)]
+    one = make_train_step(cfg, opt, remat=False, max_grad_norm=SHARD_NO_CLIP)
+    with contextlib.ExitStack() as stack:
+        recs = [stack.enter_context(ties.record("lsq_fake_quant",
+                                                module=mod))
+                for mod in (layers, moe)]
+        stepped, state, metrics = one(params, opt[0](params), batch)
+    want_loss = float(metrics["loss"])
+    want = [g.cpu() for _, g in tree_items(state["m"])]
+    del stepped, state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = ShardCtx(mesh, ("data",), "model", "data")
+    p = sharding.shard_tree(params, cfg, mesh)   # at (1, 1): the tree itself
+    del params
+    s = sharding.shard_tree(opt[0](p), cfg, mesh)
+    step = make_train_step(cfg, opt, remat=False, max_grad_norm=SHARD_NO_CLIP,
+                           ctx=ctx)
+    with contextlib.ExitStack() as stack:
+        counts = [stack.enter_context(ties.forced(rec, "lsq_fake_quant",
+                                                  module=mod))
+                  for rec, mod in zip(recs, (layers, moe))]
+        p, s, metrics = step(p, s, batch)
+    del recs
+    loss = float(metrics["loss"])
+    errs = {}
+    for path, (_, g), w in zip(paths, tree_items(s["m"]), want):
+        w = w.to(dev)               # one leaf back on the card at a time
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        errs[path] = err / scale if scale > 0 else err
+    del want, w
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    if not (loss_rel <= SHARD_LOSS_TOL and errs[worst] <= SHARD_GRAD_TOL):
+        raise AssertionError(f"sharded step: loss rel {loss_rel}, worst leaf "
+                             f"{worst} {errs[worst]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for _ in range(SHARD_TIMED_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p, s, metrics = step(p, s, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated(dev)
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    del p, s, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"arch": MOE_ARCH, "layers": SHARD_TRAIN_LAYERS,
+           "params": n_params, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ,
+           "loss": loss, "loss_rel_err": loss_rel, "worst_leaf": worst,
+           "max_grad_rel_err": errs[worst],
+           "codes_forced": sum(map(sum, counts)),
+           "quantizer_calls": sum(map(len, counts)),
+           "ms_per_step": ms[1:], "tokens_per_s": tokens / (
+               statistics.mean(ms[1:]) / 1e3),
+           "peak_memory_bytes": peak}
+    print(f"[sharded] (b) {MOE_ARCH} full width, {SHARD_TRAIN_LAYERS} "
+          f"layers ({n_params / 1e9:.3f} G params), B {LM_TRAIN_BATCH} x S "
+          f"{LM_TRAIN_SEQ}, SGD-M: make_train_step(ctx=) on (1, 1) against "
+          f"the one-device step: loss rel {loss_rel:.3g} (tol "
+          f"{SHARD_LOSS_TOL}), worst leaf {worst} {errs[worst]:.3g}·max|g| "
+          f"(tol {SHARD_GRAD_TOL}); {rec['codes_forced']} codes forced over "
+          f"{rec['quantizer_calls']} quantizer calls; sharded steps "
+          f"{', '.join(f'{m:.2f}' for m in ms[1:])} ms (CUDA events), "
+          f"{rec['tokens_per_s']:.1f} tokens/s, peak "
+          f"{peak / 2 ** 30:.2f} GiB ({smi})", flush=True)
+    return rec
+
+
+def sharded_launcher(torch, dev, mesh, smi: str) -> dict:
+    """Phase 15c: ``--arch mixtral-8x7b --reduced --production-mesh
+    --steps SHARD_LAUNCH_STEPS --ckpt-dir build/ckpt_phase15`` through
+    `launch.train.train(args, dev, mesh)` on the (1, 1) mesh; its
+    checkpoint restored whole and elastically onto the mesh, bit for bit;
+    the one-device launcher resumes it (``--steps 3``). Then ``torchrun
+    --nproc-per-node 1 -m repro_torch.launch.train --production-mesh``
+    must exit non-zero naming the 256 ranks it needs."""
+    import os
+    import shutil
+
+    from repro_torch import configs
+    from repro_torch.ckpt import latest_step, restore_checkpoint
+    from repro_torch.dist import sharding
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.transformer import init_lm_params, tree_items
+
+    d = ROOT / "build" / "ckpt_phase15"
+    shutil.rmtree(d, ignore_errors=True)
+    base = ["--arch", MOE_ARCH, "--reduced", "--ckpt-dir", str(d)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    try:
+        record = launch_train.train(launch_train.parse_args(
+            base + ["--production-mesh", "--steps",
+                    str(SHARD_LAUNCH_STEPS)]), dev, mesh)
+        if not (record["sharded"] and record["backend"] == "nccl" and
+                record["steps"] == SHARD_LAUNCH_STEPS and
+                latest_step(str(d)) == SHARD_LAUNCH_STEPS):
+            raise AssertionError(f"sharded launcher: {record}")
+        cfg = configs.get_reduced(MOE_ARCH)
+        meta = init_lm_params(cfg, None, device="meta")
+        template = {"params": meta,
+                    "opt_state": launch_train.OPTIMIZERS["adamw"](0.1)[0](
+                        meta)}
+        whole, _ = restore_checkpoint(str(d), SHARD_LAUNCH_STEPS, template,
+                                      device=dev)
+        held, _ = restore_checkpoint(
+            str(d), SHARD_LAUNCH_STEPS, template, device=dev,
+            shardings=sharding.tree_shardings(template, cfg, mesh),
+            mesh=mesh)
+        if not all(torch.equal(a, b) for (_, a), (_, b) in
+                   zip(tree_items(whole), tree_items(held))):
+            raise AssertionError("elastic restore onto (1, 1) differs from "
+                                 "the whole restore")
+        again = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *base,
+             "--steps", str(SHARD_LAUNCH_STEPS + 1)], cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=300)
+        lines = again.stdout.strip().splitlines()
+        if again.returncode or lines[0] != (
+                f"[resume] restored step {SHARD_LAUNCH_STEPS} from {d}") or \
+                json.loads(lines[-1])["start_step"] != SHARD_LAUNCH_STEPS:
+            raise AssertionError(f"one-device resume: {again.returncode} "
+                                 f"{lines} {again.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    refused = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "1", "-m", "repro_torch.launch.train",
+         "--arch", MOE_ARCH, "--reduced", "--production-mesh", "--steps",
+         "1"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    said = refused.stdout + refused.stderr
+    if refused.returncode == 0 or "needs 256 ranks" not in said:
+        raise AssertionError(f"torchrun --production-mesh on one rank: exit "
+                             f"{refused.returncode}: {said[-2000:]}")
+    print(f"[sharded] (c) launcher --production-mesh on (1, 1) via train("
+          f"args, dev, mesh): {SHARD_LAUNCH_STEPS} steps, backend "
+          f"{record['backend']}, {_num(record['ms_per_step'], '.2f')} ms a "
+          f"step; checkpoint restored whole = elastic onto the mesh bit for "
+          f"bit; the one-device launcher resumed it at step "
+          f"{SHARD_LAUNCH_STEPS}; torchrun --nproc-per-node 1 "
+          f"--production-mesh exit {refused.returncode}, naming 256 ranks "
+          f"({smi})", flush=True)
+    return {**record, "refused_exit": refused.returncode}
+
+
+def sp_check(torch, dev, mesh, smi: str) -> dict:
+    """Phase 15d: `sp_decode_attention` over the mesh's 'data' axis at
+    jamba-1.5-large-398b's attention shapes, B SP_BATCH, one shard of
+    SP_POSITIONS positions, against a plain full-softmax attention within
+    SP_TOL; a cur_pos before the shard's first position gives finite
+    zeros; CUDA-event ms against the bytes bound of reading K and V."""
+    import math
+
+    from repro_torch.device import full_f32
+    from repro_torch.serve.sp import sp_decode_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    q = torch.randn((SP_BATCH, SP_HEADS, SP_HD), generator=gen, device=dev)
+    kv = (SP_BATCH, SP_POSITIONS, SP_KV, SP_HD)
+    k = torch.randn(kv, generator=gen, device=dev)
+    v = torch.randn(kv, generator=gen, device=dev)
+    pos = torch.arange(SP_POSITIONS, dtype=torch.int32,
+                       device=dev).expand(SP_BATCH, -1)
+    cur = torch.tensor([SP_POSITIONS - 1, 20000, 5, 32000],
+                       dtype=torch.int32, device=dev)
+
+    def plain(cur_pos):
+        g = SP_HEADS // SP_KV
+        with full_f32():
+            qg = q.reshape(SP_BATCH, SP_KV, g, SP_HD)
+            logits = torch.einsum("bkgd,btkd->bkgt", qg, k) / torch.tensor(
+                math.sqrt(SP_HD), device=dev)
+            valid = pos <= cur_pos[:, None]
+            logits = torch.where(valid[:, None, None, :], logits, -math.inf)
+            probs = torch.softmax(logits, dim=-1)
+            return torch.einsum("bkgt,btkd->bkgd", probs, v).reshape(
+                SP_BATCH, SP_HEADS, SP_HD)
+
+    with torch.no_grad():
+        got = sp_decode_attention(mesh, "data", q, k, v, pos, cur)
+        err = float((got - plain(cur)).abs().max())
+        early = sp_decode_attention(mesh, "data", q, k, v, pos + SP_POSITIONS,
+                                    torch.full_like(cur, 100))
+        ms = cuda_ms(torch, lambda: sp_decode_attention(
+            mesh, "data", q, k, v, pos, cur), reps=5, n=10)
+    if not (err <= SP_TOL and bool(torch.isfinite(early).all())
+            and not bool(early.any())):
+        raise AssertionError(f"sp_decode_attention: {err} off the plain "
+                             f"attention; empty shard finite zeros "
+                             f"{bool(torch.isfinite(early).all())}")
+    nbytes = 2 * k.numel() * 4 + pos.numel() * 4 + q.numel() * 8
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    del q, k, v, pos
+    torch.cuda.empty_cache()
+    print(f"[sharded] (d) sp_decode_attention at {SP_HEADS} heads, {SP_KV} "
+          f"KV heads, head dim {SP_HD}, B {SP_BATCH}, {SP_POSITIONS} "
+          f"positions a shard: max_abs {err:.3g} against the plain attention"
+          f" (tol {SP_TOL}); a shard past cur_pos gives finite zeros; "
+          f"{ms:.4f} ms (CUDA events), bound {bound_ms:.4f} ms (bytes at "
+          f"3.35 TB/s) ({smi})", flush=True)
+    return {"max_abs_err": err, "ms": ms, "bound_ms": bound_ms,
+            "positions": SP_POSITIONS, "batch": SP_BATCH}
+
+
+def drive_sharded(torch, np, dev, smi: str) -> dict:
+    """Phase 15: on a one-rank NCCL group's (1, 1) mesh, (a)
+    `sharded_serve`, (b) `sharded_train_step_check`, (c)
+    `sharded_launcher`, (d) `sp_check`."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    mesh = _shard_mesh(torch, "phase15_nccl")
+    try:
+        out = {"card": smi}
+        out["serve"], out["launches"] = sharded_serve(torch, dev, mesh, smi)
+        out["train_step"] = sharded_train_step_check(torch, np, dev, mesh,
+                                                     smi)
+        out["launcher"] = sharded_launcher(torch, dev, mesh, smi)
+        out["sp"] = sp_check(torch, dev, mesh, smi)
+    finally:
+        dist.destroy_process_group()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def sharded_summary(rec: dict) -> dict:
+    """Phase 15's numbers for the `sharded` line and the JSON line."""
+    serve, step = rec["serve"], rec["train_step"]
+    return {
+        "serve": {"arch": serve["arch"], "layers": serve["layers"],
+                  "steps": serve["steps"],
+                  **{k: serve[k]["decode_step_ms"]
+                     for k in ("local", "wire_off", "wire_on")},
+                  "launches_per_decode_step":
+                      serve["wire_off"]["launches_per_decode_step"]},
+        "train_step": {k: step[k] for k in (
+            "arch", "layers", "params", "loss_rel_err", "max_grad_rel_err",
+            "codes_forced", "ms_per_step", "tokens_per_s",
+            "peak_memory_bytes")},
+        "launcher": {k: rec["launcher"][k] for k in (
+            "steps", "backend", "ms_per_step", "refused_exit")},
+        "sp": rec["sp"], "wall_s": rec["wall_s"]}
 
 
 def main() -> int:
@@ -4001,6 +4440,12 @@ def main() -> int:
     dist_rec = drive_dist(torch, dev, smi)
     print(f"[dist] phase 14 in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = drive_sharded(torch, np, dev, smi)
+    by_path["sharded moe serve"] = sharded["launches"]
+    print(f"[sharded] phase 15 in {sharded['wall_s']:.1f} s", flush=True)
+    print("sharded " + json.dumps(sharded_summary(sharded)), flush=True)
     # every driven path's launches: the three launcher runs, phase 5's
     # eager forwards (popcount on both pool routes, dot fused) and int
     # call, phase 7's integer forward, phase 9's QAT pipeline, phase 10's
@@ -4059,9 +4504,11 @@ def main() -> int:
                 "shapes": [[r["arch"], r["what"], *r["shape"]]
                            for r in rows],
                 "launches_per_decode_step": {
-                    families[key]["arch"]: lm_launches_per_step_of(
+                    **{families[key]["arch"]: lm_launches_per_step_of(
                         families[key]).get(name, 0)
-                    for key in ("moe", "hybrid")},
+                       for key in ("moe", "hybrid")},
+                    f"{MOE_ARCH} sharded": sharded["serve"]["wire_off"][
+                        "launches_per_decode_step"].get(name, 0)},
                 **{k: sum(r[k] for r in rows) for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                     "library_device_ms")},
@@ -4145,7 +4592,7 @@ def main() -> int:
          "popcount_forward": pc_record, "nms": nms_record,
          "int_forward": int_record, "qat": qat_record, "lm": lm_record,
          "tiers": tiers, "families": families, "lm_train": lm_train,
-         "dist": dist_rec, "floor_device_ms": floor_ms},
+         "dist": dist_rec, "sharded": sharded, "floor_device_ms": floor_ms},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],
@@ -4183,6 +4630,7 @@ def main() -> int:
                       "families": families_summary(families),
                       "lm_train": lm_train_summary(lm_train),
                       "dist": dist_summary(dist_rec),
+                      "sharded": sharded_summary(sharded),
                       "trace_fallbacks": TRACE_FALLBACKS,
                       "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {

@@ -14,9 +14,11 @@ tuples), in the reference's format (``repro/ckpt/checkpoint.py``):
     memory before it returns (a CPU tensor too: the copy is a snapshot,
     never a view the next update could write through) and writes on a
     thread; `wait_for_async` joins the writers.
-  * restore places the leaves on one device (default: the card). The
-    reference's ``shardings=`` (elastic restore onto a mesh) waits for the
-    sharded model (ROADMAP.md, Queue 1, item 6b).
+  * restore places the leaves on one device (default: the card), whole,
+    or with ``shardings=`` and ``mesh=`` each leaf's block on this rank of
+    the mesh (elastic restore: any mesh, whatever layout wrote the
+    checkpoint, which always holds whole leaves). A leaf's file is mapped,
+    not read, so a rank reads its block alone.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ import torch
 
 from repro_torch.convert import lm_leaf_to_numpy
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import placement_block
 from repro_torch.models.transformer import tree_items, tree_map_with_path
 
 _PENDING: list = []
@@ -97,21 +100,31 @@ def _leaf_from_numpy(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def restore_checkpoint(ckpt_dir: str, step: int, tree_like: Any, *,
-                       device=None) -> tuple:
+                       device=None, shardings: Any = None,
+                       mesh=None) -> tuple:
     """Restores into the structure of ``tree_like`` (tensors, or shapes on
     ``meta``), each leaf on ``device`` (default: the card) in its file's
-    dtype. Returns (tree, metadata)."""
+    dtype. ``shardings`` (a tree of placements, `dist.sharding.
+    tree_shardings` of ``tree_like``) with ``mesh``: each leaf is this
+    rank's block. Returns (tree, metadata)."""
+    if (shardings is None) != (mesh is None):
+        raise ValueError("restore_checkpoint takes shardings and mesh "
+                         "together")
     dev = resolve_device(device)
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     by_path = {e["path"]: e for e in manifest["arrays"]}
+    pls = dict(tree_items(shardings)) if shardings is not None else {}
 
     def leaf_at(path, like):
         entry = by_path[path]
-        arr = np.load(os.path.join(d, f"{entry['index']:05d}.npy"))
+        arr = np.load(os.path.join(d, f"{entry['index']:05d}.npy"),
+                      mmap_mode="r")
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"{path}: checkpoint {arr.shape} vs template "
                              f"{tuple(like.shape)}")
-        return _leaf_from_numpy(arr, dev)
+        if path in pls:
+            arr = placement_block(arr, pls[path], mesh)
+        return _leaf_from_numpy(np.array(arr), dev)
     return tree_map_with_path(leaf_at, tree_like), manifest["metadata"]

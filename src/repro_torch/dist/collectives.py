@@ -50,6 +50,73 @@ def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
+def all_to_all_rows(x: torch.Tensor, group) -> torch.Tensor:
+    """``lax.all_to_all(x, split_axis=0, concat_axis=0, tiled=False)``:
+    dim 0 (the group's size) splits into one chunk a rank; chunk j goes to
+    rank j, which puts what it receives from rank i at i."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """`all_to_all_rows`, whose backward is itself (a permutation)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_to_all_rows(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_rows(g, ctx.group), None
+
+
+class _SumForward(torch.autograd.Function):
+    """All-reduce SUM forward, identity backward: a ``psum`` whose output
+    every rank of the group uses whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Identity forward, all-reduce SUM backward: where a computation
+    split over the group starts, each rank's cotangent is a part."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable `all_to_all_rows`."""
+    return _AllToAll.apply(x, group)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group``; its gradient passes through unchanged
+    (Megatron's *g*: the output is replicated over the group)."""
+    return _SumForward.apply(x, group)
+
+
+def sum_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged; its gradient summed over ``group`` (Megatron's
+    *f*: the ranks' partial cotangents of a split computation)."""
+    return _SumBackward.apply(x, group)
+
+
 def all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     """The ranks' ``x`` concatenated along dim 0 in rank order (a tiled
     all-gather)."""

@@ -26,17 +26,24 @@ port's key strings (`models.transformer.tree_items`, which
 ``ckpt/checkpoint.py`` writes): ``"['slots'][0]['attn']['wq']['w']"``.
 `tree_shardings` and `pipeline_tree_shardings` give each leaf its DTensor
 placements, one `Shard(dim)` or `Replicate()` a mesh dim.
+
+A rank holds its block of each leaf (`shard_tree`, which reads only that
+block of a numpy memmap); `gather_tree` all-gathers the blocks back into
+the whole tree. `moe_in_layout` re-lays one MoE layer's held leaves to
+the reference's ``shard_map`` ``in_specs`` where the two differ.
 """
 from __future__ import annotations
 
 import re
 
+import numpy as np
 from torch.distributed.tensor import Replicate, Shard
 
+from repro_torch.core.packing import packed_dim
 from repro_torch.dist.collectives import all_gather_rows
 from repro_torch.launch.mesh import axis_sizes
-from repro_torch.models.transformer import tree_items, tree_map_with_path
-from repro_torch.optim.optimizers import tree_map
+from repro_torch.optim.optimizers import (tree_items, tree_map,
+                                          tree_map_with_path)
 
 # leaf names of column-parallel projections (shard output dim over model)
 _COL_PARALLEL = ("wq", "wk", "wv", "up", "gate", "in_proj", "x_proj",
@@ -45,6 +52,11 @@ _COL_PARALLEL = ("wq", "wk", "wv", "up", "gate", "in_proj", "x_proj",
 _ROW_PARALLEL = ("wo", "down", "out_proj", "shared_down")
 
 _KEY_RE = re.compile(r"\['([^']+)'\]")
+
+
+def path_keys(path: str) -> list:
+    """The dict keys of a leaf path, outermost first."""
+    return _KEY_RE.findall(path)
 
 
 def dp_axes(mesh) -> tuple:
@@ -108,7 +120,7 @@ def param_spec(path: str, shape, cfg, mesh) -> tuple:
     innermost module keys). shape: the leaf's shape (with or without the
     stacked stage dim)."""
     sizes = axis_sizes(mesh)
-    keys = _KEY_RE.findall(path)
+    keys = path_keys(path)
     ndim = len(shape)
     if ndim == 0 or not keys:
         return ()
@@ -225,6 +237,143 @@ def gather_stages(tree, template, mesh, num_layers: int,
             return all_gather_rows(leaf, group)
         return leaf
     return tree_map(one, tree, template)
+
+
+def full_spec(spec: tuple, ndim: int) -> tuple:
+    """``spec`` with the trailing Nones it drops put back."""
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def block(leaf, dim: int, axis: str, mesh):
+    """This rank's block of ``leaf`` along ``dim`` split over ``axis``."""
+    n = leaf.shape[dim] // axis_sizes(mesh)[axis]
+    r = mesh.get_local_rank(axis)
+    idx = [slice(None)] * leaf.ndim
+    idx[dim] = slice(r * n, (r + 1) * n)
+    return leaf[tuple(idx)]
+
+
+def gather_dim(x, dim: int, axis: str, mesh):
+    """The blocks of ``x`` along ``dim`` all-gathered over ``axis``."""
+    if axis_sizes(mesh)[axis] == 1:
+        return x
+    out = all_gather_rows(x.movedim(dim, 0), mesh.get_group(axis))
+    return out.movedim(0, dim).contiguous()
+
+
+def gather_leaf(x, spec: tuple, mesh):
+    """The whole leaf from this rank's block under ``spec``; every rank of
+    the spec's axes calls it."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            x = gather_dim(x, dim, axis, mesh)
+    return x
+
+
+def tree_specs(template, cfg, mesh) -> dict:
+    """{leaf path: its `param_spec`, full length} from a tree of whole
+    leaves (tensors, or their shapes on ``meta``)."""
+    return {p: full_spec(param_spec(p, tuple(leaf.shape), cfg, mesh),
+                         leaf.ndim) for p, leaf in tree_items(template)}
+
+
+def placement_block(leaf, pls: list, mesh):
+    """This rank's block of a whole leaf under its placements (one
+    `Shard` or `Replicate` a mesh dim; a view)."""
+    for axis, pl in zip(axis_sizes(mesh), pls):
+        if isinstance(pl, Shard):
+            leaf = block(leaf, pl.dim, axis, mesh)
+    return leaf
+
+
+def shard_by(tree, shardings, mesh):
+    """This rank's block of every leaf of ``tree`` under ``shardings`` (a
+    tree of placements, `tree_shardings`'): a copy, so the whole leaf can
+    go, or the leaf itself where the block is all of it. A numpy leaf (a
+    memmap of a checkpoint's array) gives a numpy copy of the block alone,
+    which is all that is read."""
+    def one(leaf, pls):
+        part = placement_block(leaf, pls, mesh)
+        if part.shape == leaf.shape:
+            return leaf
+        return np.array(part) if isinstance(part, np.ndarray) \
+            else part.clone()
+    return tree_map(one, tree, shardings)
+
+
+def shard_tree(tree, cfg, mesh):
+    """`shard_by` under `tree_shardings`."""
+    return shard_by(tree, tree_shardings(tree, cfg, mesh), mesh)
+
+
+def gather_tree(tree, template, cfg, mesh):
+    """The whole tree back from each rank's `shard_tree` of ``template``
+    (the whole tree, or its shapes on ``meta``). Every rank calls it."""
+    specs = tree_specs(template, cfg, mesh)
+    return tree_map_with_path(lambda p, leaf: gather_leaf(leaf, specs[p],
+                                                          mesh), tree)
+
+
+def _moe_whole_shape(cfg, name: str) -> tuple:
+    """A one-stage MoE leaf's whole shape."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    fs = f * cfg.shared_experts
+    return {"router": (d, e), "act_step": (),
+            "up": (e, d, f), "gate": (e, d, f), "down": (e, f, d),
+            "up_packed": (e, packed_dim(d), f),
+            "gate_packed": (e, packed_dim(d), f),
+            "down_packed": (e, packed_dim(f), d),
+            "up_alpha": (e, 1, f), "gate_alpha": (e, 1, f),
+            "down_alpha": (e, 1, d),
+            "shared_up": (d, fs), "shared_gate": (d, fs),
+            "shared_down": (fs, d)}[name]
+
+
+def _moe_in_spec(name: str, ep, tp, tp_sh) -> tuple:
+    """The reference's ``_apply_moe`` ``in_specs`` of one leaf."""
+    if name in ("up", "gate", "up_packed", "gate_packed", "up_alpha",
+                "gate_alpha"):
+        return (ep, None, tp)
+    if name in ("down", "down_packed"):
+        return (ep, tp, None)
+    if name == "down_alpha":
+        return (ep, None, None)
+    if name in ("shared_up", "shared_gate"):
+        return (None, tp_sh)
+    if name == "shared_down":
+        return (tp_sh, None)
+    return ()                                 # router, act_step: whole
+
+
+def moe_in_layout(slot_moe: dict, cfg, mesh, ep, tp, tp_sh) -> dict:
+    """One MoE layer's leaves as this rank holds them (`tree_shardings`)
+    re-laid to the reference's ``in_specs`` for ep / tp / tp_sh (axis
+    names or None, `models.transformer.moe_axes`): a dim held split and
+    wanted whole is all-gathered, one held whole and wanted split is cut
+    to this rank's block. Reduced mixtral packed at |model| = 2 splits
+    ``up_packed``'s F but not ``down_packed``'s 3 words, so the layer runs
+    with F whole and ``up_packed`` is gathered. Float and QAT leaves
+    always agree (their F splits wherever d_ff does): the gather has no
+    gradient, and a leaf that needs one raises."""
+    out = {}
+    for name, leaf in slot_moe.items():
+        shape = _moe_whole_shape(cfg, name)
+        held = full_spec(param_spec(f"['moe'][{name!r}]", shape, cfg, mesh),
+                         len(shape))
+        want = full_spec(_moe_in_spec(name, ep, tp, tp_sh), len(shape))
+        for dim, (h, w) in enumerate(zip(held, want)):
+            if h == w:
+                continue
+            if h is not None:
+                if leaf.requires_grad:
+                    raise NotImplementedError(
+                        f"MoE leaf {name} held split over {h} and run whole"
+                        f": the gather has no gradient")
+                leaf = gather_dim(leaf, dim, h, mesh)
+            if w is not None:
+                leaf = block(leaf, dim, w, mesh)
+        out[name] = leaf
+    return out
 
 
 def spec_report(tree, cfg, mesh, *, only_sharded: bool = False) -> str:

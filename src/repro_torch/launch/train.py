@@ -6,7 +6,7 @@
         [--microbatches 1] [--lr 3e-4] [--mode w1a8_train|float]
         [--optimizer adamw|adafactor|sgdm] [--ckpt-dir DIR] [--seed 0]
         [--pipeline none|1f1b|gpipe] [--pipeline-stages 4]
-        [--grad-wire fp32|int8] [--device cpu]
+        [--grad-wire fp32|int8] [--production-mesh] [--device cpu]
 
 Runs on the card unless ``--device cpu``. A cosine schedule with a warm-up
 of steps / 20; remat on unless ``--reduced``; resume from the latest
@@ -35,16 +35,28 @@ slice (`dist.sharding.stage_slice`); rank 0 writes each checkpoint in the
 one-device layout after an all-gather of the slices over 'stage', so the
 one-device launcher and the reference's ``restore_checkpoint`` read it.
 Adafactor is refused there: its factored moments and update clip reduce
-across the layers a stage splits. The reference's ``--production-mesh``
-needs the sharded model (``ShardCtx``), which is not ported (ROADMAP.md,
-Queue 1, item 6b), and is not defined.
+across the layers a stage splits.
+
+``--production-mesh`` trains the sharded model on the reference's (16,
+16) mesh of ('data', 'model'), 256 ranks under ``torchrun`` (any other
+world exits naming the 256 it needs): `ShardCtx(mesh, ("data",),
+"model", "data")` for an MoE arch (None for the experts' axis otherwise),
+`train.step.make_train_step(ctx=)`, each rank holding its block of the
+params and optimizer state under `dist.sharding.tree_shardings`, restored
+elastically (`resume_or_init(shardings=, mesh=)`) from a checkpoint any
+layout wrote; rank 0 writes each checkpoint whole after
+`dist.sharding.gather_tree`. It and ``--pipeline`` are separate mesh
+layouts; Adafactor is refused (its factored moments reduce across a
+leaf's rows and columns, which the blocks split). `train` takes any
+('data', 'model') mesh, so a smaller one drives the same branch.
 
 Prints the loop's lines, then one JSON line: arch, steps run, first and
 last loss, mean ms a step (CUDA events around each step on the card, the
 host clock on the CPU; the first step, which warms up, left out), tokens
 per second from it, and peak device memory on the card; pipelined, also
 the world, the mesh, the schedule, the wire, the bubble fraction and the
-backend. Under torchrun only rank 0 prints.
+backend; sharded, the world, the mesh and the backend. Under torchrun
+only rank 0 prints.
 """
 from __future__ import annotations
 
@@ -64,9 +76,11 @@ from repro_torch.device import resolve_device
 from repro_torch.dist import sharding
 from repro_torch.dist.collectives import all_reduce
 from repro_torch.dist.pipeline import bubble_fraction, bubble_fraction_1f1b
-from repro_torch.launch.mesh import make_pipeline_mesh
+from repro_torch.launch.mesh import (axis_sizes, make_pipeline_mesh,
+                                     make_production_mesh)
 from repro_torch.launch.serve import card_name
-from repro_torch.models.transformer import count_lm_params, init_lm_params
+from repro_torch.models.transformer import (ShardCtx, count_lm_params,
+                                            init_lm_params)
 from repro_torch.optim import adafactor, adamw, cosine_schedule, sgdm
 from repro_torch.train.loop import StepTimer, resume_or_init, run_train
 from repro_torch.train.step import make_pipeline_train_step, make_train_step
@@ -100,6 +114,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                     choices=["fp32", "int8"],
                     help="DP gradient all-reduce wire format "
                          "(int8 → dist/collectives.tree_quantized_allreduce)")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the sharded model on the (16, 16) mesh of "
+                         "('data', 'model'): 256 ranks under torchrun")
     ap.add_argument("--device", default=None,
                     help="default: the card; 'cpu' runs on the CPU")
     return ap.parse_args(argv)
@@ -136,7 +153,7 @@ def start_ranks(dev: torch.device) -> tuple:
     backend = "gloo"
     if dev.type == "cuda":
         if not dist.is_nccl_available():
-            raise RuntimeError("--pipeline on the card needs NCCL, which "
+            raise RuntimeError("a mesh on the card needs NCCL, which "
                                "this torch lacks; pass --device cpu to run "
                                "gloo ranks on the CPU")
         backend = "nccl"
@@ -150,9 +167,34 @@ def start_ranks(dev: torch.device) -> tuple:
     return dev, backend
 
 
+PRODUCTION_RANKS = 256
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
+    if args.pipeline != "none" and args.production_mesh:
+        raise SystemExit("--pipeline and --production-mesh are separate "
+                         "mesh layouts; pick one")
     dev = resolve_device(args.device)
+    if args.production_mesh:
+        if args.optimizer == "adafactor":
+            raise SystemExit("--production-mesh does not support "
+                             "--optimizer adafactor: its factored moments "
+                             "reduce across the rows and columns a rank's "
+                             "block splits")
+        dev, backend = start_ranks(dev)
+        try:
+            world = dist.get_world_size()
+            if world != PRODUCTION_RANKS:
+                raise SystemExit(
+                    f"--production-mesh needs {PRODUCTION_RANKS} ranks (the "
+                    f"(16, 16) mesh of ('data', 'model')); this run has "
+                    f"{world}: launch it under torchrun with "
+                    f"{PRODUCTION_RANKS} ranks")
+            return train(args, dev, make_production_mesh(device=dev),
+                         backend)
+        finally:
+            dist.destroy_process_group()
     if args.pipeline == "none":
         return train(args, dev)
     if args.optimizer == "adafactor":
@@ -173,8 +215,10 @@ def main(argv=None) -> dict:
 
 def train(args, dev: torch.device, mesh=None, backend=None) -> dict:
     """The run: one device, or with ``mesh`` this rank's share of a
-    pipelined one."""
+    pipelined one (('data', 'stage')) or of the sharded model (('data',
+    'model'))."""
     rank = dist.get_rank() if mesh is not None else 0
+    sharded = mesh is not None and "model" in axis_sizes(mesh)
 
     def say(*line):
         if rank == 0:
@@ -193,11 +237,33 @@ def train(args, dev: torch.device, mesh=None, backend=None) -> dict:
         return {"params": params, "opt_state": opt[0](params)}
 
     template = init_fn(torch.device("meta"))
-    loop_kw, extra = {}, {}
+    loop_kw, extra, restore_kw = {}, {}, {}
+
+    def agree(flag: bool) -> bool:
+        return bool(all_reduce(torch.tensor(int(flag), device=dev), None,
+                               dist.ReduceOp.MAX))
     if mesh is None:
         step_fn = make_train_step(cfg, opt, mode=args.mode,
                                   microbatches=args.microbatches,
                                   remat=not args.reduced)
+    elif sharded:
+        ctx = ShardCtx(mesh, ("data",), "model",
+                       "data" if cfg.num_experts else None)
+        step_fn = make_train_step(cfg, opt, mode=args.mode,
+                                  microbatches=args.microbatches, ctx=ctx,
+                                  remat=not args.reduced)
+        extra = {"world": dist.get_world_size(), "mesh": axis_sizes(mesh),
+                 "sharded": True,
+                 "backend": backend or dist.get_backend()}
+        restore_kw = {"shardings": sharding.tree_shardings(template, cfg,
+                                                           mesh),
+                      "mesh": mesh}
+
+        def save(ckpt_dir, step, tree, **kw):
+            whole = sharding.gather_tree(tree, template, cfg, mesh)
+            if rank == 0:
+                save_checkpoint(ckpt_dir, step, whole, **kw)
+        loop_kw = {"save": save, "agree": agree}
     else:
         n_st, num_micro = args.pipeline_stages, max(args.microbatches, 1)
         step_fn = make_pipeline_train_step(
@@ -219,15 +285,11 @@ def train(args, dev: torch.device, mesh=None, backend=None) -> dict:
                                            cfg.num_layers)
             if rank == 0:
                 save_checkpoint(ckpt_dir, step, whole, **kw)
-
-        def agree(flag: bool) -> bool:
-            return bool(all_reduce(torch.tensor(int(flag), device=dev), None,
-                                   dist.ReduceOp.MAX))
         loop_kw = {"save": save, "agree": agree}
 
     state, start = resume_or_init(args.ckpt_dir, init_fn, device=dev,
-                                  print_fn=say)
-    if mesh is not None:
+                                  print_fn=say, **restore_kw)
+    if mesh is not None and not sharded:
         state = sharding.stage_slice(state, mesh, cfg.num_layers)
     ds = data.make_lm_dataset(cfg.vocab_size, args.seq_len,
                               args.global_batch, seed=args.seed)

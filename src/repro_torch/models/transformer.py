@@ -10,9 +10,18 @@ port loops over it in Python.
 
 W1A8 (the paper's technique): every body projection runs through
 `layers.linear` in the requested mode; embedding and LM head stay full
-precision (the Conv1/Conv11 rule). MoE layers run `moe.moe_ffn` on the
-local path: the reference's sharded path (a ``ShardCtx``: expert-parallel
-all-to-all, TP psum) is not ported (ROADMAP.md, Queue 1, item 6b).
+precision (the Conv1/Conv11 rule).
+
+MoE layers run `moe.moe_ffn`: every expert local without a `ShardCtx`;
+with one, expert-parallel over ``ctx.ep_axis`` (all-to-all of the
+dispatch buffer), the expert hidden dim tensor-parallel over
+``ctx.tp_axis`` (its sum over the model ranks), as the reference's
+``shard_map`` does. One rank computes what its shard of the reference's
+global arrays would: under a ctx ``tokens`` are this rank's share of the
+batch over ``ctx.dp_axes``, every non-MoE leaf is whole, and each MoE leaf
+is the rank's shard under `dist.sharding.tree_shardings` (where that
+layout differs from the reference's ``in_specs``, `_apply_moe` re-lays
+the leaf first).
 """
 from __future__ import annotations
 
@@ -23,37 +32,16 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models import mamba as mb
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (Leaf, ModelConfig, attention, embed,
                                        init_attention, init_embed, init_mlp,
                                        init_norm, mlp, norm, unembed)
-# the param and cache trees' map and leaves (nested dicts and tuples)
-from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: F401
-
-
-def tree_items(tree, path: str = ""):
-    """(path, leaf) pairs in ``jax.tree_util``'s order: dict keys sorted,
-    tuples in order; a path reads like ``jax.tree_util.keystr``'s."""
-    if isinstance(tree, dict):
-        return [item for k in sorted(tree)
-                for item in tree_items(tree[k], f"{path}[{k!r}]")]
-    if isinstance(tree, tuple):
-        return [item for i, v in enumerate(tree)
-                for item in tree_items(v, f"{path}[{i}]")]
-    return [(path, tree)]
-
-
-def tree_map_with_path(fn, tree, path: str = ""):
-    """``tree``'s shape with each leaf ``fn(path, leaf)``, paths spelled as
-    `tree_items`'s."""
-    if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, f"{path}[{k!r}]")
-                for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(tree_map_with_path(fn, v, f"{path}[{i}]")
-                     for i, v in enumerate(tree))
-    return fn(path, tree)
+# the param and cache trees' map, leaves and paths (nested dicts and tuples)
+from repro_torch.optim.optimizers import (tree_items,  # noqa: F401
+                                          tree_leaves, tree_map,
+                                          tree_map_with_path)
 
 
 def kinds(cfg: ModelConfig) -> list:
@@ -72,6 +60,23 @@ def window_of(cfg: ModelConfig, mixer_kind: str) -> int:
 def stage(tree, i: int):
     """Stage ``i`` of stage-stacked slots: every leaf indexed on axis 0."""
     return tree_map(lambda x: x[i], tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Distribution context threaded through the model (None ⇒ local).
+    ``mesh`` is a `DeviceMesh` (`launch.mesh`); the axes name its dims."""
+    mesh: Any
+    dp_axes: tuple            # axes the batch / tokens are sharded over
+    tp_axis: Optional[str]    # tensor-parallel axis (FFN hidden)
+    ep_axis: Optional[str]    # expert-parallel axis (None ⇒ replicated)
+    a2a_quant: bool = False   # uint8-wire MoE dispatch
+
+
+def check_ctx(ctx) -> None:
+    if ctx is not None and not isinstance(ctx, ShardCtx):
+        raise TypeError(f"ctx must be a ShardCtx or None, got "
+                        f"{type(ctx).__name__}")
 
 
 # ---------------------------------------------------------------------------
@@ -225,16 +230,52 @@ def add_mixer_out(slot: dict, cfg: ModelConfig, x: torch.Tensor,
     return x + out.to(x.dtype)
 
 
+def moe_axes(cfg: ModelConfig, slot_moe: dict, ctx: ShardCtx) -> tuple:
+    """(ep, tp, shared tp) axis names of one MoE layer under ``ctx``, the
+    reference's choices: EP only where the experts split evenly; the
+    expert hidden dim F split only where every F-indexed leaf splits (the
+    packed words too); the shared experts' F likewise."""
+    sizes = axis_sizes(ctx.mesh)
+    ep = ctx.ep_axis if (ctx.ep_axis and cfg.num_experts %
+                         sizes[ctx.ep_axis] == 0) else None
+    tp = ctx.tp_axis
+    tp_n = sizes[tp] if tp else 1
+    packed = "up_packed" in slot_moe
+    ok = tp and cfg.d_ff % tp_n == 0 and \
+        (not packed or (cfg.d_ff // 32) % tp_n == 0)
+    sh_ok = tp and cfg.shared_experts and \
+        (cfg.d_ff * cfg.shared_experts) % tp_n == 0
+    return ep, tp if ok else None, tp if sh_ok else None
+
+
+def _apply_moe(slot_moe: dict, cfg: ModelConfig, x: torch.Tensor,
+               mode: str, ctx: Optional[ShardCtx]) -> torch.Tensor:
+    b, s, d = x.shape
+    toks = x.reshape(b * s, d)
+    if ctx is None:
+        return moe_mod.moe_ffn(slot_moe, cfg, toks,
+                               mode=mode).reshape(b, s, d)
+    from repro_torch.dist.sharding import moe_in_layout
+    ep, tp, tp_sh = moe_axes(cfg, slot_moe, ctx)
+
+    def group(axis):
+        return None if axis is None else ctx.mesh.get_group(axis)
+    y = moe_mod.moe_ffn(moe_in_layout(slot_moe, cfg, ctx.mesh, ep, tp,
+                                      tp_sh),
+                        cfg, toks, mode=mode, ep_group=group(ep),
+                        tp_group=group(tp), shared_tp=group(tp_sh),
+                        a2a_quant=ctx.a2a_quant)
+    return y.reshape(b, s, d)
+
+
 def ffn_block(slot: dict, cfg: ModelConfig, x: torch.Tensor, ffn_kind: str,
-              mode: str) -> torch.Tensor:
+              mode: str, ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """norm2 → dense MLP or MoE (→ post-norm) → residual add."""
     if ffn_kind == "none":
         return x
     h = norm(slot["norm2"], x, cfg.norm_kind)
-    if ffn_kind == "moe":                     # over every token, local path
-        b, s, d = h.shape
-        out = moe_mod.moe_ffn(slot["moe"], cfg, h.reshape(b * s, d),
-                              mode=mode).reshape(b, s, d)
+    if ffn_kind == "moe":
+        out = _apply_moe(slot["moe"], cfg, h, mode, ctx)
     else:
         out = mlp(slot["mlp"], cfg, h, mode)
     if cfg.post_norms:
@@ -251,7 +292,8 @@ def mamba_fns(cfg: ModelConfig) -> tuple:
 
 def _apply_slot(slot: dict, cfg: ModelConfig, x: torch.Tensor, *,
                 mixer_kind: str, ffn_kind: str, mode: str,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor,
+                ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     h = norm(slot["norm1"], x, cfg.norm_kind)
     if mixer_kind.startswith("attn"):
         out = attention(slot["attn"], cfg, h, mode=mode, causal=True,
@@ -260,7 +302,7 @@ def _apply_slot(slot: dict, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         out = mamba_fns(cfg)[0](slot["mamba"], cfg, h, mode=mode)
     x = add_mixer_out(slot, cfg, x, out)
-    return ffn_block(slot, cfg, x, ffn_kind, mode)
+    return ffn_block(slot, cfg, x, ffn_kind, mode, ctx)
 
 
 def stage_count(params: dict) -> int:
@@ -275,6 +317,7 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                mode: str = "float",
                prefix_embeds: Optional[torch.Tensor] = None,
                encoder_embeds: Optional[torch.Tensor] = None,
+               ctx: Optional[ShardCtx] = None,
                remat: bool = False) -> torch.Tensor:
     """tokens (B, S) int → logits (B, S_total, vocab).
 
@@ -290,7 +333,11 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     ``jax.checkpoint``: its activations are recomputed in the backward,
     not kept. A stage draws no random number and reads no state the
     forward changes, so the recomputed forward quantizes exactly as the
-    first did."""
+    first did.
+
+    ctx: a `ShardCtx`; MoE layers then run sharded (see the module's
+    docstring for what this rank's ``tokens`` and ``params`` hold)."""
+    check_ctx(ctx)
     x = embed(params["embed"], tokens)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
@@ -298,14 +345,14 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     positions = torch.arange(s, device=x.device).expand(b, s)
     enc_out = None
     if encoder_embeds is not None:
-        enc_out = encode(cfg, params, encoder_embeds, mode=mode)
+        enc_out = encode(cfg, params, encoder_embeds, mode=mode, ctx=ctx)
     cross = params.get("cross")
 
     def run_stage(x: torch.Tensor, st: int) -> torch.Tensor:
         slots = stage(params["slots"], st)
         for i, (mk, fk) in enumerate(kinds(cfg)):
             x = _apply_slot(slots[i], cfg, x, mixer_kind=mk, ffn_kind=fk,
-                            mode=mode, positions=positions)
+                            mode=mode, positions=positions, ctx=ctx)
         if cross is not None:
             cr = stage(cross, st)
             h = norm(cr["norm"], x, cfg.norm_kind)
@@ -327,8 +374,11 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 
 
 def encode(cfg: ModelConfig, params: dict, feats: torch.Tensor, *,
-           mode: str = "float") -> torch.Tensor:
-    """Bidirectional encoder over stub features (B, S_enc, D)."""
+           mode: str = "float",
+           ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """Bidirectional encoder over stub features (B, S_enc, D); its layers
+    are dense, so ``ctx`` changes nothing."""
+    check_ctx(ctx)
     enc = params["encoder"]
     b, s, _ = feats.shape
     positions = torch.arange(s, device=feats.device).expand(b, s)

@@ -49,6 +49,30 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_items(tree, path: str = ""):
+    """(path, leaf) pairs in ``jax.tree_util``'s order: dict keys sorted,
+    tuples in order; a path reads like ``jax.tree_util.keystr``'s."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in tree_items(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, tuple):
+        return [item for i, v in enumerate(tree)
+                for item in tree_items(v, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def tree_map_with_path(fn, tree, path: str = ""):
+    """``tree``'s shape with each leaf ``fn(path, leaf)``, paths spelled as
+    `tree_items`'s."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map_with_path(fn, v, f"{path}[{i}]")
+                     for i, v in enumerate(tree))
+    return fn(path, tree)
+
+
 def unflatten_like(tree, flat: list):
     """``flat`` (in `tree_leaves` order of ``tree``) in tree's shape."""
     by_id = dict(zip(map(id, tree_leaves(tree)), flat))

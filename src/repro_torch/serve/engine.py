@@ -11,6 +11,10 @@ projection of an MoE layer one grouped launch of it for all the experts.
 As in the reference, an enc-dec tree's ``cross`` stack is not read here:
 the engine decodes the decoder stack alone.
 
+With a `ShardCtx` (``ctx=``) the MoE layers run sharded, as in
+`models.transformer.lm_forward`: this rank's rows of the batch, every
+non-MoE leaf whole, each MoE leaf the rank's shard.
+
 `decode_step` writes the new K/V rows and Mamba states into the cache's
 tensors in place (as a donated buffer would be) and returns the cache with
 the lengths advanced; `prefill` builds a fresh cache.
@@ -29,8 +33,8 @@ import torch
 
 from repro_torch.models.layers import (ModelConfig, _div, attention, embed,
                                        linear, norm, rope, softcap, unembed)
-from repro_torch.models.transformer import (add_mixer_out, ffn_block,
-                                            kinds, mamba_fns,
+from repro_torch.models.transformer import (add_mixer_out, check_ctx,
+                                            ffn_block, kinds, mamba_fns,
                                             stage, stage_count, window_of)
 from repro_torch.device import full_f32
 from repro_torch.serve.cache import BIGPOS, init_cache  # noqa: F401
@@ -82,9 +86,10 @@ def _attn_decode(p, cfg: ModelConfig, x, kc, vc, pc, pos, *, mode,
 # ---------------------------------------------------------------------------
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor, *, mode: str = "float"
-                ) -> Tuple[torch.Tensor, dict]:
+                tokens: torch.Tensor, *, mode: str = "float",
+                ctx=None) -> Tuple[torch.Tensor, dict]:
     """tokens (B, 1) → (logits (B, vocab), the cache advanced by one)."""
+    check_ctx(ctx)
     pos = cache["lengths"]
     x = embed(params["embed"], tokens)
     step_fn = mamba_fns(cfg)[2]
@@ -103,7 +108,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 for k, v in new.items():
                     c[k][st] = v.to(c[k].dtype)
             x = add_mixer_out(slot, cfg, x, out)
-            x = ffn_block(slot, cfg, x, fk, mode)
+            x = ffn_block(slot, cfg, x, fk, mode, ctx)
     x = norm(params["final_norm"], x, cfg.norm_kind)
     logits = unembed(params["embed"], cfg, x)[:, 0, :]
     return logits, {"slots": cache["slots"], "lengths": pos + 1}
@@ -130,7 +135,7 @@ def decode_step_donemask(cfg: ModelConfig, params: dict, cache: dict,
                          stop_tokens: torch.Tensor, max_new: torch.Tensor,
                          temp: torch.Tensor,
                          generator: Optional[torch.Generator], *,
-                         mode: str = "float") -> tuple:
+                         mode: str = "float", ctx=None) -> tuple:
     """One decode tick with **device-side stop detection**: sampling, the
     token-buffer append and the stop-token / max_new tests stay on the
     device; a host reads back only the (B,) bool ``done``.
@@ -145,7 +150,7 @@ def decode_step_donemask(cfg: ModelConfig, params: dict, cache: dict,
     Returns (cache, last_tok, tok_buf, n_gen, done).
     """
     logits, cache = decode_step(cfg, params, cache, last_tok[:, None],
-                                mode=mode)
+                                mode=mode, ctx=ctx)
     tok = sample_tokens(logits, temp, generator)
     live = ~done
     bi = torch.arange(tok_buf.shape[0], device=tok_buf.device)
@@ -181,12 +186,13 @@ def _attn_prefill(p, cfg: ModelConfig, h, c: dict, st: int, positions, *,
 
 
 def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            max_len: int, mode: str = "float"
-            ) -> Tuple[torch.Tensor, dict]:
+            max_len: int, mode: str = "float",
+            ctx=None) -> Tuple[torch.Tensor, dict]:
     """Process the prompt (B, S) and build the decode cache: attention K/V
     for the prompt are written at positions [0, S), the last min(S, L) of
     them into a windowed layer's ring; Mamba slots carry the post-prompt
     recurrent state."""
+    check_ctx(ctx)
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev).expand(b, s)
@@ -206,7 +212,7 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
                 for k, v in new.items():
                     c[k][st] = v.to(c[k].dtype)
             x = add_mixer_out(slot, cfg, x, out)
-            x = ffn_block(slot, cfg, x, fk, mode)
+            x = ffn_block(slot, cfg, x, fk, mode, ctx)
     x = norm(params["final_norm"], x, cfg.norm_kind)
     logits = unembed(params["embed"], cfg, x)[:, -1, :]
     return logits, {"slots": cache["slots"],
@@ -217,11 +223,12 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
 def generate(cfg: ModelConfig, params: dict, prompts: torch.Tensor, *,
              max_new: int, max_len: int, mode: str = "float",
              temperature: float = 0.0,
-             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+             generator: Optional[torch.Generator] = None,
+             ctx=None) -> torch.Tensor:
     """Greedy / temperature sampling: (B, S) prompts → (B, max_new)
     tokens. A positive temperature draws from ``generator``."""
     logits, cache = prefill(cfg, params, prompts, max_len=max_len,
-                            mode=mode)
+                            mode=mode, ctx=ctx)
     temp = torch.full((prompts.shape[0],), float(temperature),
                       dtype=torch.float32, device=prompts.device)
     gen = generator if temperature > 0 else None
@@ -234,6 +241,6 @@ def generate(cfg: ModelConfig, params: dict, prompts: torch.Tensor, *,
         if i == max_new - 1:
             break
         logits, cache = decode_step(cfg, params, cache, nxt[:, None],
-                                    mode=mode)
+                                    mode=mode, ctx=ctx)
         nxt = sample_tokens(logits, temp, gen)
     return torch.stack(toks, dim=1)

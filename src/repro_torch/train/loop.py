@@ -21,6 +21,7 @@ import torch
 
 from repro_torch import ckpt as ckpt_lib
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard_by
 
 
 class _PreemptFlag:
@@ -88,21 +89,29 @@ def run_train(*, train_step: Callable, params, opt_state,
 
 
 def resume_or_init(ckpt_dir: Optional[str], init_fn: Callable, device=None,
-                   print_fn: Callable = print) -> tuple:
+                   print_fn: Callable = print, shardings=None,
+                   mesh=None) -> tuple:
     """→ (state, start step): the latest checkpoint of ``ckpt_dir`` restored
     on ``device`` (default: the card), else ``init_fn(device)``.
     ``init_fn(device)`` builds the state on a device; on ``meta`` it gives
-    the restore template without allocating."""
+    the restore template without allocating. ``shardings`` (placements,
+    `dist.sharding.tree_shardings` of the template) with ``mesh``: elastic
+    restore, each leaf this rank's block whatever mesh wrote the
+    checkpoint; a fresh state is cut to the blocks likewise."""
     dev = resolve_device(device)
     template = init_fn(torch.device("meta"))    # jax.eval_shape's counterpart
     if ckpt_dir:
         last = ckpt_lib.latest_step(ckpt_dir)
         if last is not None:
-            state, _ = ckpt_lib.restore_checkpoint(ckpt_dir, last, template,
-                                                   device=dev)
+            state, _ = ckpt_lib.restore_checkpoint(
+                ckpt_dir, last, template, device=dev, shardings=shardings,
+                mesh=mesh)
             print_fn(f"[resume] restored step {last} from {ckpt_dir}")
             return state, last
-    return init_fn(dev), 0
+    state = init_fn(dev)
+    if shardings is not None:
+        state = shard_by(state, shardings, mesh)
+    return state, 0
 
 
 class StepTimer:

@@ -11,20 +11,46 @@ and the backward both run inside `full_f32`. With ``microbatches`` > 1
 the batch splits along dim 0 into equal slices; each slice's loss and
 grads are summed in f32 and the sums divided by the count, as the
 reference's ``lax.scan`` does. No graph is held across slices.
+
+With a `ShardCtx` (``make_train_step(ctx=)``, `sharded_train_step`) a rank
+holds its block of every param and optimizer leaf between steps
+(`dist.sharding.shard_tree`) and takes its rows of the global batch over
+``ctx.dp_axes``. The non-MoE leaves are all-gathered whole for the step;
+the MoE layers run sharded on the held leaves (`models.moe`). Each rank
+differentiates its shard's loss over the number of data shards; a leaf's
+gradient is then summed over the data ranks unless the leaf is split over
+them (the experts under EP are whole on their rank), the MoE act step's
+over the model ranks too where the expert hidden dim is split (each model
+rank sees its slice of the quantized activations), and cut back to the
+rank's block. LSQ scales a step's gradient by 1/sqrt(rows · 255), and a
+rank quantizes its own rows: the act steps' gradients are scaled to the
+one-device step's rows (a linear's B·S; an MoE buffer's E·cap at the
+whole batch's capacity). The clip's global norm sums each leaf's squares
+once over the mesh. The optimizer must update element by element (AdamW,
+SGD-M): Adafactor's factored moments reduce across a leaf's rows and
+columns.
 """
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Optional
 
 import torch
 
+from repro_torch.core.quant import lsq_grad_scale
 from repro_torch.device import full_f32
+from repro_torch.dist import sharding
 from repro_torch.dist.collectives import all_reduce, axis_size
 from repro_torch.dist.pipeline import (pipeline_train_local,
                                        reduce_pipeline_outputs)
+from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.layers import embed, norm, unembed
-from repro_torch.models.transformer import _apply_slot, lm_forward
+from repro_torch.models.moe import plan_dispatch
+from repro_torch.models.transformer import (_apply_slot, check_ctx,
+                                            init_lm_params, lm_forward,
+                                            moe_axes, tree_items,
+                                            tree_map_with_path)
 from repro_torch.optim import (apply_updates, clip_by_global_norm,
                                tree_leaves, tree_map)
 from repro_torch.optim.optimizers import (full_like0, sum_of_squares,
@@ -44,13 +70,15 @@ def token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean(nll) + zloss
 
 
-def lm_loss(cfg, params: dict, batch: dict, *, mode: str,
+def lm_loss(cfg, params: dict, batch: dict, *, mode: str, ctx=None,
             remat: bool = True) -> torch.Tensor:
     """`token_loss` over the batch's tokens (the modality prefix's logits
     dropped). ``batch``: tokens and labels (B, S) int, and
-    ``encoder_embeds`` / ``prefix_embeds`` where the arch takes them."""
+    ``encoder_embeds`` / ``prefix_embeds`` where the arch takes them.
+    ``ctx``: a `ShardCtx` for `lm_forward` (the batch is then this rank's
+    rows)."""
     kw = {k: batch[k] for k in EMBEDS if k in batch}
-    logits = lm_forward(cfg, params, batch["tokens"], mode=mode,
+    logits = lm_forward(cfg, params, batch["tokens"], mode=mode, ctx=ctx,
                         remat=remat, **kw)
     seq = batch["tokens"].shape[1]
     return token_loss(logits[:, -seq:, :], batch["labels"])
@@ -101,7 +129,7 @@ def accumulated_grads(loss_fn: Callable, params, batch: dict,
 
 def make_train_step(cfg, optimizer, *, mode: str = "w1a8_train",
                     microbatches: int = 1, max_grad_norm: float = 1.0,
-                    remat: bool = True,
+                    ctx=None, remat: bool = True,
                     loss_fn: Optional[Callable] = None):
     """→ train_step(params, opt_state, batch) → (params, opt_state,
     metrics), metrics ``{"loss", "grad_norm", "step"}`` as tensors on the
@@ -109,7 +137,15 @@ def make_train_step(cfg, optimizer, *, mode: str = "w1a8_train",
 
     batch: dict of tensors whose dim 0 is the step's global batch, split
     into ``microbatches`` equal slices accumulated in f32. ``loss_fn(params,
-    batch)`` replaces `lm_loss` (mode and remat then unused)."""
+    batch)`` replaces `lm_loss` (mode and remat then unused). ``ctx``: a
+    `ShardCtx`; the step is then `sharded_train_step`'s."""
+    check_ctx(ctx)
+    if ctx is not None:
+        if loss_fn is not None:
+            raise ValueError("a sharded step takes no loss_fn")
+        return sharded_train_step(cfg, optimizer, ctx, mode=mode,
+                                  microbatches=microbatches,
+                                  max_grad_norm=max_grad_norm, remat=remat)
     _, update = optimizer
     loss_fn = loss_fn or functools.partial(lm_loss, cfg, mode=mode,
                                            remat=remat)
@@ -119,6 +155,112 @@ def make_train_step(cfg, optimizer, *, mode: str = "w1a8_train",
         grads, gnorm = clip_by_global_norm(unflatten_like(params, grads),
                                            max_grad_norm)
         updates, opt_state = update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        metrics = {"loss": loss, "grad_norm": gnorm,
+                   "step": opt_state["step"]}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def _sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` summed over the ranks of each mesh axis in ``axes``."""
+    for axis in axes:
+        if axis_sizes(mesh)[axis] > 1:
+            x = all_reduce(x, mesh.get_group(axis))
+    return x
+
+
+def _dp_index(mesh, dp_axes: tuple) -> int:
+    """This rank's data shard: its coordinates on ``dp_axes``, row-major."""
+    idx = 0
+    for axis in dp_axes:
+        idx = idx * axis_sizes(mesh)[axis] + mesh.get_local_rank(axis)
+    return idx
+
+
+def sharded_train_step(cfg, optimizer, ctx, *, mode: str = "w1a8_train",
+                       microbatches: int = 1, max_grad_norm: float = 1.0,
+                       remat: bool = True):
+    """train_step(params, opt_state, batch) → (params, opt_state, metrics)
+    of one rank of ``ctx.mesh`` (the module's docstring says what a rank
+    holds and how the gradients reduce). ``params`` and ``opt_state`` are
+    the rank's `dist.sharding.shard_tree` of the whole trees; ``batch`` is
+    the global batch, of which the rank takes its rows. metrics: the whole
+    batch's loss and the global grad norm, equal on every rank. Every rank
+    of the mesh calls it."""
+    _, update = optimizer
+    mesh, dp_axes = ctx.mesh, tuple(ctx.dp_axes)
+    sizes = axis_sizes(mesh)
+    dp_n = math.prod(sizes[a] for a in dp_axes)
+    shard = _dp_index(mesh, dp_axes)
+    specs = sharding.tree_specs(init_lm_params(cfg, None, device="meta"),
+                                cfg, mesh)
+    moe_tp = bool(cfg.num_experts) and moe_axes(cfg, {}, ctx)[1] is not None
+    loss_fn = functools.partial(lm_loss, cfg, mode=mode, ctx=ctx,
+                                remat=remat)
+
+    def shard_loss(params, batch):
+        loss = loss_fn(params, batch)
+        return loss / full_like0(loss, dp_n)
+
+    def reduce_axes(keys: list, spec: tuple) -> list:
+        held = {a for a in spec if a is not None}
+        axes = [] if held & set(dp_axes) else list(dp_axes)
+        if "moe" in keys and keys[-1] == "act_step" and moe_tp:
+            axes.append(ctx.tp_axis)
+        return axes
+
+    def act_step_scale(keys: list, tokens: int) -> float:
+        """The one-device step's LSQ grad scale over this rank's."""
+        if "moe" in keys:
+            e = cfg.num_experts
+            local = e * plan_dispatch(cfg, tokens).capacity
+            whole = e * plan_dispatch(cfg, tokens * dp_n).capacity
+        else:
+            local, whole = tokens, tokens * dp_n
+        return lsq_grad_scale(whole) / lsq_grad_scale(local)
+
+    def train_step(params, opt_state, batch):
+        bsz = batch["tokens"].shape[0]
+        if bsz % dp_n or (bsz // dp_n) % microbatches:
+            raise ValueError(f"global batch {bsz} must split into {dp_n} "
+                             f"data shards × {microbatches} microbatches")
+        rows = bsz // dp_n
+        local = {k: v[shard * rows:(shard + 1) * rows]
+                 for k, v in batch.items()}
+        run = tree_map_with_path(
+            lambda p, x: x if "moe" in sharding.path_keys(p)
+            else sharding.gather_leaf(x, specs[p], mesh), params)
+        loss, grads = accumulated_grads(shard_loss, run, local, microbatches)
+        del run
+        seq = local["tokens"].shape[1] + (
+            local["prefix_embeds"].shape[1] if "prefix_embeds" in local
+            else 0)
+        tokens = rows // microbatches * seq
+        out, total = [], None
+        for i, (path, _) in enumerate(tree_items(params)):
+            g, grads[i] = grads[i], None      # each whole gradient goes
+            keys, spec = sharding.path_keys(path), specs[path]
+            if keys[-1] == "act_step":
+                g = g * act_step_scale(keys, tokens)
+            g = _sum_over(g, mesh, reduce_axes(keys, spec))
+            if "moe" not in keys:
+                g = sharding.placement_block(
+                    g, sharding.placements(spec, mesh), mesh).contiguous()
+            out.append(g)
+            held = {a for a in spec if a is not None}
+            copies = math.prod(n for a, n in sizes.items() if a not in held)
+            sq = torch.sum(torch.square(g.to(torch.float32)))
+            sq = sq / full_like0(sq, copies)
+            total = sq if total is None else total + sq
+        loss = _sum_over(loss, mesh, dp_axes)
+        total = _sum_over(total, mesh, list(sizes))
+        grads, gnorm = clip_by_global_norm(unflatten_like(params, out),
+                                           max_grad_norm, total)
+        del out                       # only the clipped gradients stay
+        updates, opt_state = update(grads, opt_state, params)
+        del grads
         params = apply_updates(params, updates)
         metrics = {"loss": loss, "grad_norm": gnorm,
                    "step": opt_state["step"]}

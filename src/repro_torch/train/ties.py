@@ -66,6 +66,36 @@ def record(quantizer: str = "lsq_fake_quant", module=None):
         yield inputs
 
 
+def _force(x, ref, s, rails: bool, tol: float, counts: list,
+           quantizer: str):
+    """``x`` with each code that differs from ``ref``'s (and, with
+    ``rails``, each input on the other side of a rail) replaced by
+    ``ref``'s value, after checking it sits within ``tol`` of the tie
+    (rail) in both; appends the number forced to ``counts``."""
+    def in_range(v: torch.Tensor) -> torch.Tensor:
+        return (v >= 0) & (v <= ACT_QMAX)
+
+    def check(flip, offs, what: str) -> None:
+        for off in offs:
+            if bool(flip.any()) and float(off[flip].max()) > tol:
+                raise AssertionError(
+                    f"{quantizer} call {len(counts) - 1}: an input differs "
+                    f"{float(off[flip].max()):.6g} away from a {what}")
+
+    xs, rs = x.detach() / s, ref / s
+    code = quantize_act(x.detach(), s) != quantize_act(ref, s)
+    rail = (in_range(xs) != in_range(rs)) & ~code if rails \
+        else torch.zeros_like(code)
+    counts.append(int(code.sum()) + int(rail.sum()))
+    if counts[-1]:
+        check(code, [torch.abs(torch.remainder(v, 1.0) - 0.5)
+                     for v in (xs, rs)], "rounding tie")
+        check(rail, [torch.minimum(torch.abs(v), torch.abs(v - ACT_QMAX))
+                     for v in (xs, rs)], "rail")
+        x = x + torch.where(code | rail, ref - x.detach(), 0.0)
+    return x
+
+
 @contextlib.contextmanager
 def forced(recorded: list, quantizer: str = "lsq_fake_quant",
            tol: float = 1e-3, module=None):
@@ -78,32 +108,48 @@ def forced(recorded: list, quantizer: str = "lsq_fake_quant",
     counts, pending = [], iter(recorded)
     rails = quantizer == "lsq_fake_quant"
 
-    def in_range(v: torch.Tensor) -> torch.Tensor:
-        return (v >= 0) & (v <= ACT_QMAX)
-
-    def check(flip, offs, what: str) -> None:
-        for off in offs:
-            if bool(flip.any()) and float(off[flip].max()) > tol:
-                raise AssertionError(
-                    f"{quantizer} call {len(counts) - 1}: an input differs "
-                    f"{float(off[flip].max()):.6g} away from a {what}")
-
     def wrap(real):
         def forcing(x, step, *rest):
             ref = torch.as_tensor(next(pending)).to(x.device)
-            s = step.detach()
-            xs, rs = x.detach() / s, ref / s
-            code = quantize_act(x.detach(), s) != quantize_act(ref, s)
-            rail = (in_range(xs) != in_range(rs)) & ~code if rails \
-                else torch.zeros_like(code)
-            counts.append(int(code.sum()) + int(rail.sum()))
-            if counts[-1]:
-                check(code, [torch.abs(torch.remainder(v, 1.0) - 0.5)
-                             for v in (xs, rs)], "rounding tie")
-                check(rail, [torch.minimum(torch.abs(v),
-                                           torch.abs(v - ACT_QMAX))
-                             for v in (xs, rs)], "rail")
-                x = x + torch.where(code | rail, ref - x.detach(), 0.0)
+            x = _force(x, ref, step.detach(), rails, tol, counts, quantizer)
+            return real(x, step, *rest)
+        return forcing
+
+    with _patched(quantizer, wrap, module):
+        yield counts
+
+
+@contextlib.contextmanager
+def forced_by_rows(recorded: list, quantizer: str = "lsq_fake_quant",
+                   tol: float = 1e-3, module=None, splits: tuple = (1,)):
+    """`forced`, with each input row's reference the nearest row of the
+    same width among ``recorded`` (matched by content, not by call): for
+    a run that calls the quantizer on other shapes than the recorded one,
+    such as one rank of a sharded step (its rows of the batch; an MoE
+    buffer laid out by expert shard). ``splits``: the recorded rows are
+    also offered cut into n column blocks for each n (a rank's slice of a
+    tensor-parallel hidden dim). A row matched to another token or layer
+    fails the tie check. Yields the inputs forced at each call."""
+    rows_of: dict = {}
+    for r in recorded:
+        r = torch.as_tensor(r)
+        w = r.shape[-1]
+        for n in splits:
+            if w % n == 0:
+                blocks = r.reshape(-1, n, w // n).transpose(0, 1)
+                rows_of.setdefault(w // n, []).append(
+                    blocks.reshape(-1, w // n))
+    rows_of = {k: torch.cat(v) for k, v in rows_of.items()}
+    counts: list = []
+    rails = quantizer == "lsq_fake_quant"
+
+    def wrap(real):
+        def forcing(x, step, *rest):
+            k = x.shape[-1]
+            cand = rows_of[k].to(x.device)
+            rows = x.detach().reshape(-1, k)
+            ref = cand[torch.cdist(rows, cand).argmin(1)].reshape(x.shape)
+            x = _force(x, ref, step.detach(), rails, tol, counts, quantizer)
             return real(x, step, *rest)
         return forcing
 

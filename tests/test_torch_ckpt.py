@@ -340,7 +340,7 @@ def test_launch_train_flags_and_resume(tmp_path, flags):
 
 
 # a value of each mesh flag that argparse refuses, and why: the sharded
-# model's --production-mesh is not defined (ROADMAP.md, Queue 1, item 6b);
+# model's --production-mesh is a switch (store_true), which takes no value;
 # the pipeline flags take the reference's choices and types
 # (src/repro/launch/train.py:30-41)
 MESH_FLAG_REFUSALS = {
@@ -385,14 +385,35 @@ def test_launch_train_pipeline_stages_must_divide_the_world():
                            "adafactor"])
 
 
+def test_launch_train_production_mesh_rules():
+    """--production-mesh parses as a switch; with --pipeline it exits with
+    the reference's message; a world of one rank (no torchrun) exits
+    naming the 256 ranks it needs, and the process group is gone after."""
+    import torch.distributed as dist
+    base = ["--arch", "mixtral-8x7b", "--reduced", "--device", "cpu"]
+    assert launch_train.parse_args(base + ["--production-mesh"]) \
+        .production_mesh
+    assert not launch_train.parse_args(base).production_mesh
+    with pytest.raises(SystemExit, match=r"^--pipeline and --production-mesh"
+                                         r" are separate mesh layouts; pick "
+                                         r"one$"):
+        launch_train.main(base + ["--production-mesh", "--pipeline", "1f1b"])
+    with pytest.raises(SystemExit, match="needs 256 ranks"):
+        launch_train.main(base + ["--production-mesh", "--steps", "1"])
+    assert not dist.is_initialized()
+    with pytest.raises(SystemExit, match="adafactor"):
+        launch_train.main(base + ["--production-mesh", "--optimizer",
+                                  "adafactor"])
+
+
 def test_launch_train_defaults_are_the_reference_s():
     args = launch_train.parse_args(["--arch", "mamba2-1.3b"])
     assert (args.steps, args.seq_len, args.global_batch, args.microbatches,
             args.lr, args.mode, args.optimizer, args.reduced, args.ckpt_dir,
             args.seed, args.device) == (100, 128, 8, 1, 3e-4, "w1a8_train",
                                         "adamw", False, None, 0, None)
-    assert (args.pipeline, args.pipeline_stages, args.grad_wire) == \
-        ("none", 4, "fp32")
+    assert (args.pipeline, args.pipeline_stages, args.grad_wire,
+            args.production_mesh) == ("none", 4, "fp32", False)
 
 
 def test_launch_train_pipelined_on_one_rank(tmp_path):

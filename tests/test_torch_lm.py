@@ -154,8 +154,12 @@ def test_count_lm_params_full_config_on_meta(name):
 
 
 def test_shard_ctx_raises():
-    """Only the single-device path is ported: the forward and the engine
-    take no ShardCtx, and refuse one."""
+    """The forward and the engine refuse a ctx that is not a ShardCtx, and
+    take a ShardCtx: on a (1, 1) mesh of one gloo rank the sharded MoE
+    gives the local path's logits bit for bit."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
     cfg = configs.get_reduced("mixtral-8x7b")
     p = transformer.init_lm_params(cfg, torch.Generator().manual_seed(0),
                                    device="cpu")
@@ -164,6 +168,19 @@ def test_shard_ctx_raises():
                lambda: prefill(cfg, p, toks, max_len=8, ctx=object())):
         with pytest.raises(TypeError, match="ctx"):
             fn()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        ctx = transformer.ShardCtx(make_test_mesh(1, 1, device="cpu"),
+                                   ("data",), "model", "data")
+        with torch.no_grad():
+            assert torch.equal(transformer.lm_forward(cfg, p, toks, ctx=ctx),
+                               transformer.lm_forward(cfg, p, toks))
+            got, _ = prefill(cfg, p, toks, max_len=8, ctx=ctx)
+            want, _ = prefill(cfg, p, toks, max_len=8)
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_init_lm_params_tree_matches_reference():

@@ -121,10 +121,12 @@ def test_plan_dispatch_over_a_grid():
             jcfg = dataclasses.replace(jconfigs.get_config(name),
                                        capacity_factor=cf)
             for t in (1, 2, 3, 4, 7, 8, 12, 33, 100, 512, 4096):
-                got = moe.plan_dispatch(cfg, t)
-                want = jmoe.plan_dispatch(jcfg, t, 1)
-                assert dataclasses.astuple(got) == \
-                    dataclasses.astuple(want)[:3], (name, cf, t)
+                assert moe.plan_dispatch(cfg, t).ep == 1
+                for ep in (1, 2, 4):
+                    got = moe.plan_dispatch(cfg, t, ep)
+                    want = jmoe.plan_dispatch(jcfg, t, ep)
+                    assert dataclasses.astuple(got) == \
+                        dataclasses.astuple(want), (name, cf, t, ep)
 
 
 def test_top_k_ties_as_jax():

@@ -93,6 +93,8 @@ def _torch(tree):
     if isinstance(tree, tuple):
         return tuple(_torch(v) for v in tree)
     if isinstance(tree, np.ndarray):
+        if tree.dtype == np.uint32:          # sign words: same bits, int32
+            tree = tree.view(np.int32)
         return torch.from_numpy(tree.copy())
     return tree
 
@@ -230,7 +232,145 @@ def lm_pipeline(rank: int, world: int, inputs: dict) -> dict:
     return _np(out)
 
 
-PROGRAMS = {"dist_checks": dist_checks, "lm_pipeline": lm_pipeline}
+# ---------------------------------------------------------------------------
+# The sharded model (tests/test_torch_moe_ep.py, test_torch_sp.py,
+# test_torch_sharded_step.py), on a (data 2, model 2) mesh
+# ---------------------------------------------------------------------------
+
+def forced_rows(recorded: list, tp: int):
+    """The port's two W1A8 activation quantizers (`layers.quantize_act`:
+    projections, packed experts, the uint8 wire; `moe.lsq_fake_quant`:
+    the QAT experts) with each input row forced to the codes of its
+    nearest row among ``recorded`` (`train.ties.forced_by_rows`; a
+    tensor-parallel rank's hidden slice among the recorded rows' ``tp``
+    column blocks). Yields one list of counts a quantizer."""
+    import contextlib
+
+    from repro_torch.models import layers, moe
+    from repro_torch.train import ties
+    import torch
+    rec = [torch.from_numpy(a) for a in recorded]
+    stack = contextlib.ExitStack()
+    counts = [stack.enter_context(ties.forced_by_rows(
+        rec, q, module=mod, splits=(1, tp)))
+        for q, mod in (("quantize_act", layers), ("lsq_fake_quant", moe),
+                       ("lsq_fake_quant", layers))]
+    return stack, counts
+
+
+def moe_ep(rank: int, world: int, inputs: dict) -> dict:
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import ShardCtx, _apply_moe
+    mesh = make_test_mesh(2, 2, device="cpu")
+    shard = mesh.get_local_rank("data")
+    out = {"coords": (shard, mesh.get_local_rank("model"))}
+    for name, case in inputs["cases"].items():
+        cfg = dataclasses.replace(configs.get_reduced(case["arch"]),
+                                  **case["over"])
+        ctx = ShardCtx(mesh, ("data",), "model", "data",
+                       a2a_quant=case["a2a"])
+        held = sharding.shard_tree({"moe": _torch(case["params"])}, cfg,
+                                   mesh)["moe"]
+        x = torch.from_numpy(case["x"])
+        rows = x.shape[0] // 2
+        stack, counts = forced_rows(case["recorded"], 2)
+        with torch.no_grad(), stack:
+            y = _apply_moe(held, cfg, x[shard * rows:(shard + 1) * rows],
+                           case["mode"], ctx)
+        out[name] = {"y": y, "forced": sum(map(sum, counts))}
+    return _np(out)
+
+
+def sp_ranks(rank: int, world: int, inputs: dict) -> dict:
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.serve import sp
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    a = _torch(inputs)
+    t = a["k"].shape[1] // world
+    part = slice(rank * t, (rank + 1) * t)
+    out = {}
+    for name, cur in a["cur_pos"].items():
+        out[name] = sp.sp_decode_attention(
+            mesh, "data", a["q"], a["k"][:, part], a["v"][:, part],
+            a["pos"][:, part], cur)
+        out[name + "_partial"] = sp.sp_attention_local(
+            a["q"], a["k"][:, part], a["v"][:, part], a["pos"][:, part], cur)
+    return _np(out)
+
+
+def sharded_step(rank: int, world: int, inputs: dict) -> dict:
+    """The sharded SGD-M step of each arch (no clip, so the moment is the
+    gradient), tie codes forced to the reference's by rows; the
+    launcher's --production-mesh branch on this mesh; elastic restores."""
+    import torch
+
+    from repro_torch import configs, convert
+    from repro_torch.ckpt import latest_step, restore_checkpoint
+    from repro_torch.dist import sharding
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import ShardCtx, init_lm_params
+    from repro_torch.optim import sgdm
+    from repro_torch.train.step import make_train_step
+    mesh = make_test_mesh(2, 2, device="cpu")
+    out = {"coords": (mesh.get_local_rank("data"),
+                      mesh.get_local_rank("model"))}
+    for name, case in inputs["steps"].items():
+        cfg = configs.get_reduced(name)
+        ctx = ShardCtx(mesh, ("data",), "model",
+                       "data" if cfg.num_experts else None)
+        params = convert.lm_params_from_numpy(case["params"], device="cpu")
+        opt = sgdm(inputs["lr"])
+        p = sharding.shard_tree(params, cfg, mesh)
+        s = sharding.shard_tree(opt[0](params), cfg, mesh)
+        step = make_train_step(cfg, opt, ctx=ctx, remat=False,
+                               max_grad_norm=inputs["max_norm"])
+        stack, counts = forced_rows(case["recorded"], 2)
+        with stack:
+            p, s, metrics = step(p, s, _torch(case["batch"]))
+        out[name] = {"loss": metrics["loss"],
+                     "grad_norm": metrics["grad_norm"],
+                     "forced": sum(map(sum, counts)), "m": s["m"],
+                     "params": p,
+                     "grads": sharding.gather_tree(s["m"], params, cfg,
+                                                   mesh)}
+    # the launcher's sharded branch, on this mesh
+    args = launch_train.parse_args(inputs["launch"])
+    out["launch"] = launch_train.train(args, torch.device("cpu"), mesh)
+    # elastic restores: a one-device checkpoint onto this mesh, and the
+    # launcher's onto (data 4, model 1)
+    cfg = configs.get_reduced(inputs["elastic_arch"])
+    for key, mesh_of, ckpt in (("onto_2x2", mesh, inputs["one_device_ckpt"]),
+                               ("onto_4x1", make_test_mesh(4, 1, "cpu"),
+                                args.ckpt_dir)):
+        params = init_lm_params(cfg, None, device="meta")
+        template = {"params": params,
+                    "opt_state": sgdm(0.1)[0](params) if key == "onto_2x2"
+                    else launch_train.OPTIMIZERS[args.optimizer](0.1)[0](
+                        params)}
+        last = latest_step(ckpt)
+        held, _ = restore_checkpoint(
+            ckpt, last, template, device="cpu",
+            shardings=sharding.tree_shardings(template, cfg, mesh_of),
+            mesh=mesh_of)
+        out[key] = {"coords": {a: mesh_of.get_local_rank(a)
+                               for a in ("data", "model")},
+                    "held": held,
+                    "whole": sharding.gather_tree(held, template, cfg,
+                                                  mesh_of)}
+    return _np(out)
+
+
+PROGRAMS = {"dist_checks": dist_checks, "lm_pipeline": lm_pipeline,
+            "moe_ep": moe_ep, "sp": sp_ranks, "sharded_step": sharded_step}
 
 
 def main(argv) -> None:
