@@ -122,7 +122,8 @@ Phases (any failure raises and the script exits non-zero):
    integer forward, phase 9's QAT pipeline, phase 10's LM serve and int
    call, phase 11's launcher fleet, real traffic and compose runs, phase
    12's MoE and SSM serves and hybrid decode, phase 13's trained model
-   served, phase 15's sharded MoE serves; the two matmuls also their
+   served, phase 15's sharded MoE serves, phase 16's kernel suite under
+   ``tables``; the two matmuls also their
    numbers at the LM shapes, under ``lm``, the popcount matmul phase 13's
    launches under ``lm_trained``, the grouped entry its phase 12a
    shapes), phase 13's, 14's and 15's summaries, and as the last line
@@ -310,6 +311,26 @@ Phases (any failure raises and the script exits non-zero):
    8 KV heads, head dim 128), B 4, one shard of 32768 positions, within
    1e-5 of a plain full-softmax attention, finite zeros where cur_pos
    precedes the shard; its CUDA-event ms. Prints one ``sharded`` line.
+16. Runs after phase 15, before phase 8's line: the tooling. (a) The
+   kernel suite of ``launch/tables.py`` on the card (the W1A8 linear's
+   float path, packed plain path and popcount kernel at (256, 4096, 4096)
+   and (64, 1152, 128), CUDA-event µs beside the H100 bound), its
+   launches counted (21 popcount matmuls a shape) and listed under
+   ``tables`` in phase 8's line. (b) ``python -m
+   repro_torch.launch.quickstart`` and ``serve_lm`` on the card, each in a
+   process of its own: exit 0, quickstart's two ``verify.compare`` rows
+   100% within their LSB (0.05, 0.02), serve_lm's greedy requests' tokens
+   equal to the same script's run on the CPU here. (c) The dry run
+   against the card, on the local path: phase 13's train step
+   (chatglm3-6b, 4 layers, B 8 × S 256, 2 microbatches, remat, AdamW) and
+   phase 10's packed decode step (chatglm3-6b, 4 slots, max_len 128, f32)
+   traced by `launch.dryrun`'s counter on ``meta`` and under
+   ``FakeTensorMode``, then run on the card under the same counter: FLOPs
+   by dtype equal; the predicted peak within 0.5–2× of
+   ``max_memory_allocated``; the costs bound at most the CUDA-event ms.
+   (d) mixtral-8x7b ``decode_32k`` at (16, 16) traced by
+   `launch.dryrun.run_cell` on this machine's host, its ``trace_s``.
+   Prints one ``tooling`` line.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -4339,6 +4360,217 @@ def sharded_summary(rec: dict) -> dict:
         "sp": rec["sp"], "wall_s": rec["wall_s"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the tooling on the card (tables, examples, the dry run's counts)
+# ---------------------------------------------------------------------------
+
+TABLES_PATH = "tables"
+CAL_MEM_RANGE = (0.5, 2.0)      # predicted / measured peak memory
+DRY_CELL = ("mixtral-8x7b", "decode_32k")   # a production cell, (16, 16)
+
+
+def tables_kernels(torch, smi: str) -> tuple:
+    """Phase 16a: `launch.tables.kernels` on the card, every launch count
+    zeroed before and read after; returns (its rows, its launches)."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch import tables
+    _zero(launch.KERNELS)
+    rows = tables.kernels("cuda")
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launch.launch_counts().items() if v}
+    want = (tables.CUDA_ITERS + 1) * len(tables.KERNEL_SHAPES)
+    if counts != {"w1a8_matmul_popcount": want}:
+        raise AssertionError(f"kernel suite launches {counts}, want "
+                             f"{want} popcount matmuls")
+    for tag, value, note in rows:
+        print(f"[tooling] (a) {tag},{value},\"{note}\"", flush=True)
+    return rows, counts
+
+
+def run_example(module: str, smi: str, *args) -> tuple:
+    """``python -m repro_torch.launch.<module>`` in a process of its own
+    on the card: exit 0; (its JSON line, wall s)."""
+    import os
+    cmd = [sys.executable, "-m", f"repro_torch.launch.{module}", *args]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    wall_s = time.perf_counter() - t0
+    if out.returncode:
+        raise AssertionError(f"{module} exited {out.returncode}: "
+                             f"{out.stdout[-2000:]} {out.stderr[-3000:]}")
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"[tooling] (b) {module}: {line}", flush=True)
+    return json.loads(lines[-1]), wall_s
+
+
+def examples(smi: str) -> dict:
+    """Phase 16b: quickstart and serve_lm on the card; quickstart's two
+    compare rows inside their envelopes, serve_lm's greedy requests' tokens
+    equal to the same script's on the CPU."""
+    from repro_torch.launch import serve_lm
+    qs, qs_s = run_example("quickstart", smi)
+    if not (qs["linear_in_envelope"] and qs["detector_in_envelope"]
+            and qs["lm_finite"]):
+        raise AssertionError(f"quickstart outside its envelopes: {qs}")
+    card, lm_s = run_example("serve_lm", smi)
+    cpu = serve_lm.run(device="cpu")
+    for rid in card["greedy"]:
+        got, want = card["requests"][str(rid)], cpu["requests"][rid]
+        if got != want:
+            raise AssertionError(f"serve_lm request {rid}: card {got}, "
+                                 f"cpu {want}")
+    print(f"[tooling] (b) quickstart exit 0 in {qs_s:.1f} s: linear "
+          f"within 1 LSB of {0.05} {qs['linear']['within_1lsb']:.4f}, "
+          f"detector within 1 LSB of {0.02} "
+          f"{qs['detector']['within_1lsb']:.4f}; serve_lm exit 0 in "
+          f"{lm_s:.1f} s, {len(card['greedy'])} greedy requests equal to "
+          f"the CPU's ({smi})", flush=True)
+    return {"quickstart": {k: qs[k] for k in (
+        "linear", "detector", "lm_logits_shape", "wall_s")},
+        "quickstart_process_s": qs_s, "serve_lm_process_s": lm_s,
+        "serve_lm_tokens": card["tokens"], "serve_lm_wall_s": card["wall_s"]}
+
+
+def calibrate(torch, dev, smi: str, kind: str) -> dict:
+    """Phase 16c, one cell on the local path: phase 13's train step or
+    phase 10's packed decode step, traced by the dry run's `Counter` on
+    ``meta`` and under ``FakeTensorMode``, then run on the card under the
+    same counter: FLOPs by dtype equal; the predicted peak within
+    CAL_MEM_RANGE of ``max_memory_allocated``; the costs bound (each
+    dtype's FLOPs at its peak, `launch.costs.analytic_bytes` at the HBM
+    rate) at most the CUDA-event ms."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import costs
+    from repro_torch.launch import dryrun as dr
+
+    if kind == "train":
+        arch = LM_TRAIN_ARCH
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  num_layers=LM_TRAIN_LAYERS)
+        spec = ShapeSpec("phase13", "train", LM_TRAIN_SEQ, LM_TRAIN_BATCH)
+        micro = LM_TRAIN_MICRO
+
+        def build(device, generator=None):
+            return dr.build_train_cell(arch, spec, None, microbatches=micro,
+                                       cfg=cfg, optimizer="adamw",
+                                       device=device, generator=generator)
+    else:
+        arch = LM_ARCH
+        cfg = configs.get_config(arch)
+        spec = ShapeSpec("phase10", "decode", LM_MAX_LEN, LM_SLOTS)
+        micro = 1
+
+        def build(device, generator=None):
+            return dr.build_decode_cell(arch, spec, None, cfg=cfg,
+                                        dtype=torch.float32, device=device,
+                                        generator=generator)
+    t0 = time.perf_counter()
+    meta_cell, meta, _ = dr.trace(build)
+    _, fake, _ = dr.trace(build, fake=True)
+    trace_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    with torch.no_grad():
+        cell = build(dev, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    card, _ = dr.count(cell)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = cuda_ms(torch, cell.run, reps=3, n=2)
+    del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not meta.flops == fake.flops == card.flops:
+        raise AssertionError(f"{kind}: FLOPs by dtype meta {meta.flops}, "
+                             f"fake {fake.flops}, card {card.flops}")
+    ana = costs.analytic_bytes(cfg, spec, meta_cell.params, 1,
+                               microbatches=micro, model_axis=1)
+    terms = dr.roofline_terms(meta.flops, ana, 0.0)
+    bound_ms = 1e3 * max(terms["t_compute_s"], terms["t_memory_s"])
+    ratio = meta.peak / peak
+    print(f"[tooling] (c) {kind} ({arch}, {cfg.num_layers} layers, "
+          f"{spec.global_batch} × {spec.seq_len}): FLOPs by dtype "
+          f"{meta.flops} traced on meta and fake = the card's; peak "
+          f"predicted {meta.peak / 2 ** 30:.3f} GiB "
+          f"{dict(sorted(meta.peak_by.items()))}, measured "
+          f"{peak / 2 ** 30:.3f} GiB (ratio {ratio:.4f}); bound "
+          f"{bound_ms:.4f} ms ({terms['bottleneck']}) against "
+          f"{ms:.2f} ms measured (CUDA events; bound/measured "
+          f"{bound_ms / ms:.4f}); traced in {trace_s:.1f} s ({smi})",
+          flush=True)
+    if not CAL_MEM_RANGE[0] <= ratio <= CAL_MEM_RANGE[1]:
+        raise AssertionError(f"{kind}: predicted peak {meta.peak} against "
+                             f"{peak} measured")
+    if bound_ms > ms:
+        raise AssertionError(f"{kind}: bound {bound_ms} ms above the "
+                             f"measured {ms} ms")
+    return {"arch": arch, "layers": cfg.num_layers,
+            "flops_by_dtype": meta.flops,
+            "predicted_peak_bytes": meta.peak,
+            "predicted_by_category": meta.peak_by,
+            "measured_peak_bytes": peak, "memory_ratio": ratio,
+            "bound_ms": bound_ms, "bound_by": terms["bottleneck"],
+            "ms": ms, "bound_over_measured": bound_ms / ms,
+            "trace_s": trace_s}
+
+
+def dry_cell(smi: str) -> dict:
+    """Phase 16d: the dry run's production cell DRY_CELL on the (16, 16)
+    mesh, traced on this machine's host."""
+    from repro_torch.launch import dryrun as dr
+    t0 = time.perf_counter()
+    rec = dr.run_cell(*DRY_CELL, multi_pod=False)
+    wall = time.perf_counter() - t0
+    if rec["status"] != "ok" or not rec["cost"]["flops"]:
+        raise AssertionError(f"dry run of {DRY_CELL}: {rec}")
+    print(f"[tooling] (d) {' '.join(DRY_CELL)} at 16x16: trace_s "
+          f"{rec['trace_s']} ({wall:.1f} s with the build), FLOPs "
+          f"{rec['cost']['flops_by_dtype']}, peak "
+          f"{rec['memory']['peak_bytes'] / 2 ** 30:.2f} GiB, fits "
+          f"{rec['fits']}, reference layout "
+          f"{rec['reference_layout_bytes'] / 2 ** 30:.2f} GiB, "
+          f"{rec['roofline']['bottleneck']}-bound (host of {smi})",
+          flush=True)
+    return {k: rec[k] for k in ("trace_s", "fits", "reference_layout_bytes",
+                                "roofline")} | {
+        "peak_bytes": rec["memory"]["peak_bytes"], "wall_s": wall}
+
+
+def drive_tooling(torch, dev, smi: str) -> dict:
+    """Phase 16: (a) `tables_kernels`, (b) `examples`, (c) `calibrate`
+    the train and decode cells, (d) `dry_cell`."""
+    t0 = time.perf_counter()
+    out = {"card": smi}
+    out["kernels_suite"], out["launches"] = tables_kernels(torch, smi)
+    out["examples"] = examples(smi)
+    out["calibration"] = {kind: calibrate(torch, dev, smi, kind)
+                          for kind in ("train", "decode")}
+    out["dry_cell"] = dry_cell(smi)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def tooling_summary(rec: dict) -> dict:
+    """Phase 16's numbers for the `tooling` line and the JSON line."""
+    return {"kernels_suite": [list(r) for r in rec["kernels_suite"]],
+            "launches": rec["launches"], "examples": rec["examples"],
+            "calibration": {k: {key: v[key] for key in (
+                "flops_by_dtype", "predicted_peak_bytes",
+                "measured_peak_bytes", "memory_ratio", "bound_ms", "ms",
+                "bound_over_measured")}
+                for k, v in rec["calibration"].items()},
+            "dry_cell": rec["dry_cell"], "wall_s": rec["wall_s"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4350,11 +4582,10 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import card_name
     from repro_torch.kernels import _build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_name("cuda:0")
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     entries = check_table()
@@ -4446,12 +4677,19 @@ def main() -> int:
     by_path["sharded moe serve"] = sharded["launches"]
     print(f"[sharded] phase 15 in {sharded['wall_s']:.1f} s", flush=True)
     print("sharded " + json.dumps(sharded_summary(sharded)), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tooling = drive_tooling(torch, dev, smi)
+    by_path[TABLES_PATH] = tooling["launches"]
+    print(f"[tooling] phase 16 in {tooling['wall_s']:.1f} s", flush=True)
+    print("tooling " + json.dumps(tooling_summary(tooling)), flush=True)
     # every driven path's launches: the three launcher runs, phase 5's
     # eager forwards (popcount on both pool routes, dot fused) and int
     # call, phase 7's integer forward, phase 9's QAT pipeline, phase 10's
     # LM serve and int call, phase 11's launcher fleet, real traffic and
-    # compose, phase 12's MoE and SSM serves and hybrid decode, and phase
-    # 13's trained model served
+    # compose, phase 12's MoE and SSM serves and hybrid decode, phase 13's
+    # trained model served, phase 15's sharded serves and phase 16's
+    # kernel suite
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in KERNELS}
 
@@ -4592,7 +4830,8 @@ def main() -> int:
          "popcount_forward": pc_record, "nms": nms_record,
          "int_forward": int_record, "qat": qat_record, "lm": lm_record,
          "tiers": tiers, "families": families, "lm_train": lm_train,
-         "dist": dist_rec, "sharded": sharded, "floor_device_ms": floor_ms},
+         "dist": dist_rec, "sharded": sharded, "tooling": tooling,
+         "floor_device_ms": floor_ms},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],
@@ -4631,6 +4870,7 @@ def main() -> int:
                       "lm_train": lm_train_summary(lm_train),
                       "dist": dist_summary(dist_rec),
                       "sharded": sharded_summary(sharded),
+                      "tooling": tooling_summary(tooling),
                       "trace_fallbacks": TRACE_FALLBACKS,
                       "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {

@@ -2,17 +2,22 @@
 from __future__ import annotations
 
 import contextlib
+import subprocess
 from typing import Optional, Union
 
 import torch
+from torch._guards import active_fake_mode
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """``None`` means the card. Asking for CUDA without one raises: an entry
-    point never carries on quietly on the CPU unless the caller asked."""
+    point never carries on quietly on the CPU unless the caller asked.
+    Under a ``FakeTensorMode`` (the dry run's trace) a CUDA device needs no
+    card: its tensors hold no data."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() \
+            and active_fake_mode() is None:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
@@ -36,3 +41,21 @@ def full_f32():
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn
         torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def card_name(device: Optional[Union[str, torch.device]] = None) -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them, for
+    every time a record or a line states; "cpu" for a CPU device, and the
+    name alone where nvidia-smi cannot run."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return "cpu"
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader", f"--id={dev.index or 0}"],
+            capture_output=True, text=True, check=True, timeout=30)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return torch.cuda.get_device_name(dev)

@@ -174,6 +174,65 @@ def param_spec(path: str, shape, cfg, mesh) -> tuple:
     return ()
 
 
+def _axsize(sizes: dict, axes) -> int:
+    return int(np.prod([sizes[a] for a in axes])) if axes else 1
+
+
+def cache_spec(path: str, shape, cfg, mesh, *, dp: tuple, long_ctx: bool,
+               seq_shard_fallback: bool = False) -> tuple:
+    """The spec of one KV / SSM cache leaf (`serve.cache.init_cache`'s
+    tree), the reference's dry-run layout (``_cache_shardings``): the batch
+    over ``dp`` where it divides; for long context (a batch smaller than
+    the dp size) the KV sequence over 'data' (SP); KV heads, conv and SSM
+    channels over 'model' where they divide. ``seq_shard_fallback``
+    shards the KV sequence over 'model' where the KV heads do not split.
+    Entries are an axis name, a tuple of them, or None, trailing Nones
+    kept; like `param_spec` it reads only the mesh's axis names and
+    sizes."""
+    sizes = axis_sizes(mesh)
+    model = "model"
+    if "lengths" in path:
+        return ()
+    dp = tuple(dp)
+    batch_ok = bool(dp) and shape[1] % _axsize(sizes, dp) == 0
+    bspec = dp if batch_ok else None
+    if "['k']" in path or "['v']" in path:             # (st, B, L, KV, hd)
+        seq = "data" if (long_ctx and shape[2] % sizes["data"] == 0
+                         and not batch_ok) else None
+        kvs = model if shape[3] % sizes[model] == 0 else None
+        if kvs is None and seq is None and seq_shard_fallback and \
+                shape[2] % sizes[model] == 0:
+            seq = model
+        return (None, bspec, seq, kvs, None)
+    if "['pos']" in path:                               # (st, B, L)
+        seq = "data" if (long_ctx and shape[2] % sizes["data"] == 0
+                         and not batch_ok) else None
+        kvs_possible = cfg.num_kv_heads % sizes[model] == 0
+        if not kvs_possible and seq is None and seq_shard_fallback and \
+                shape[2] % sizes[model] == 0:
+            seq = model
+        return (None, bspec, seq)
+    if "conv" in path:                                  # (st, B, W-1, C)
+        c = model if shape[-1] % sizes[model] == 0 else None
+        return (None, bspec, None, c)
+    if "ssm" in path:                       # (st, B, H, P, N) | (st, B, C, N)
+        c = model if shape[2] % sizes[model] == 0 else None
+        return tuple([None, bspec, c] + [None] * (len(shape) - 3))
+    return ()
+
+
+def spec_block_bytes(spec: tuple, shape, itemsize: int, mesh) -> int:
+    """The bytes of one rank's block of a leaf under ``spec`` (entries an
+    axis name, a tuple of them, or None)."""
+    sizes = axis_sizes(mesh)
+    n = int(np.prod(shape)) if len(shape) else 1
+    for entry in spec:
+        if entry is not None:
+            n //= _axsize(sizes, entry if isinstance(entry, tuple)
+                          else (entry,))
+    return n * itemsize
+
+
 def placements(spec: tuple, mesh) -> list:
     """The DTensor placements of ``spec`` on ``mesh``: for each mesh dim,
     `Shard(d)` where the spec puts that axis on tensor dim d, else

@@ -6,6 +6,15 @@ point (no PyTorch headers, so a build takes seconds). The libraries go to
 every source and the flags, and are built at first use: all missing sources
 at once, one nvcc process each, started together. Importing this module
 builds nothing.
+
+Every wrapper also has a shape-only path: a tensor that holds no data (a
+`FakeTensor` under ``FakeTensorMode``, or one on ``meta``; `shape_only`)
+launches nothing and runs no plain version; the wrapper returns an empty
+result of the kernel's shape and dtype. Whichever path a call takes, it
+reports its work to the active `WATCHERS` (``launch.dryrun``'s counters)
+through `work`: 2·M·N·K operations of the kernel's class and the bytes of
+its operands and result, with the plain version's own ops hidden from the
+watchers, so a traced step and a run step count alike.
 """
 from __future__ import annotations
 
@@ -19,6 +28,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, List, Sequence
+
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -163,6 +174,44 @@ def capturing():
             if kernel.launches != n:
                 captured.counts[kernel] = kernel.launches - n
             kernel.launches = n
+
+
+# Objects with ``kernel(name, flops, kind, nbytes)``, told of every wrapper
+# call; `hidden` is True inside one.
+WATCHERS: list = []
+_depth = 0
+
+
+def shape_only(t) -> bool:
+    """True for a tensor that holds no data: fake or on ``meta``."""
+    return t.is_meta or isinstance(t, FakeTensor)
+
+
+def hidden() -> bool:
+    """True while a wrapper's own work runs (its plain version's ops are
+    not the watchers' to count)."""
+    return _depth > 0
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+@contextlib.contextmanager
+def work(name: str, flops: int, kind: str, in_bytes: int):
+    """One wrapper call: the watchers get ``flops`` of ``kind`` (``int8``:
+    popcount and int8 tensor-core sums; ``bf16``: the dot kernels; ``none``:
+    no contraction) and the bytes of its inputs plus the result the body
+    yields into the list it is given; the ops inside are hidden."""
+    global _depth
+    out: list = []
+    _depth += 1
+    try:
+        yield out
+    finally:
+        _depth -= 1
+    for w in WATCHERS:
+        w.kernel(name, flops, kind, in_bytes + nbytes(*out))
 
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -5,7 +5,8 @@ Post+MaxPool stage chain) as one CUDA kernel per accum mode:
 
 Only the pooled uint8 codes leave the kernel: activation traffic for a pool
 layer drops from (write HW + read HW + write HW/4) to (write HW/4). A CPU
-tensor runs the plain version (conv, requant, 2×2 max).
+tensor runs the plain version (conv, requant, 2×2 max); a fake or meta
+tensor gives the result's shape alone (`_build.shape_only`).
 """
 from __future__ import annotations
 
@@ -49,13 +50,37 @@ def w1a8_conv3x3_pool2(a_u8: torch.Tensor, w_packed: torch.Tensor,
     popcount = accum == "popcount"
     if not popcount and mul_prev is None:
         raise ValueError("accum='dot' needs mul_prev")
-    if not a_u8.is_cuda:
-        if popcount:
-            return _ref.w1a8_conv3x3_pool2_popcount_ref(
+    cout = w_packed.shape[1]
+    with _build.work(
+            "w1a8_conv3x3_pool2_popcount" if popcount
+            else "w1a8_conv3x3_pool2",
+            2 * b * h * wd * 9 * cin * cout, "int8" if popcount else "bf16",
+            _build.nbytes(a_u8, w_packed, None if popcount else mul_prev,
+                          div_post, bias)) as out:
+        if _build.shape_only(a_u8):
+            from repro_torch.kernels.w1a8_conv.ops import cuda_operands
+            cuda_operands(a_u8, w_packed, None if popcount else mul_prev,
+                          div_post, bias, cin)
+            y = torch.empty((b, h // 2, wd // 2, cout), dtype=torch.uint8,
+                            device=a_u8.device)
+        elif a_u8.is_cuda:
+            y = _launch(a_u8, w_packed, mul_prev, div_post, bias, cin,
+                        out_step, accum, rows)
+        elif popcount:
+            y = _ref.w1a8_conv3x3_pool2_popcount_ref(
                 a_u8, w_packed, cin, div_post, bias, out_step)
-        return _ref.w1a8_conv3x3_pool2_ref(a_u8, w_packed, cin, mul_prev,
-                                           div_post, bias, out_step)
+        else:
+            y = _ref.w1a8_conv3x3_pool2_ref(a_u8, w_packed, cin, mul_prev,
+                                            div_post, bias, out_step)
+        out.append(y)
+    return y
+
+
+def _launch(a_u8, w_packed, mul_prev, div_post, bias, cin: int,
+            out_step: float, accum: str, rows: int) -> torch.Tensor:
     from repro_torch.kernels.w1a8_conv.ops import cuda_operands
+    popcount = accum == "popcount"
+    b, h, wd, _ = a_u8.shape
     a, w, mul, div, bs = cuda_operands(a_u8, w_packed,
                                        None if popcount else mul_prev,
                                        div_post, bias, cin)

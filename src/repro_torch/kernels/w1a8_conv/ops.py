@@ -13,7 +13,8 @@ into Div; with ``mul_prev=None`` the caller has done so already (the
 detector's forward, whose producers quantize onto one grid).
 
 A CUDA tensor launches the kernel in ``csrc/`` (or raises); a CPU tensor
-runs the plain version in ``ref.py``.
+runs the plain version in ``ref.py``; a fake or meta tensor gives the
+result's shape alone (`_build.shape_only`).
 """
 from __future__ import annotations
 
@@ -90,15 +91,33 @@ def w1a8_conv3x3(a_u8: torch.Tensor, w_packed: torch.Tensor,
     if popcount:
         a_u8, div_post = fold_operands(a_u8, mul_prev, div_post)
         mul_prev = None
-        if not a_u8.is_cuda:
-            return _ref.w1a8_conv3x3_popcount_ref(a_u8, w_packed, cin,
-                                                  div_post, bias,
-                                                  cfg.out_step)
     elif mul_prev is None:
         raise ValueError("accum='dot' needs mul_prev")
-    elif not a_u8.is_cuda:
-        return _ref.w1a8_conv3x3_ref(a_u8, w_packed, cin, mul_prev, div_post,
-                                     bias, cfg.out_step)
+    b, h, wd = a_u8.shape[:3]
+    with _build.work(
+            "w1a8_conv3x3_popcount" if popcount else "w1a8_conv3x3",
+            2 * b * h * wd * 9 * cin * w_packed.shape[1],
+            "int8" if popcount else "bf16",
+            _build.nbytes(a_u8, w_packed, mul_prev, div_post, bias)) as out:
+        if _build.shape_only(a_u8):
+            cuda_operands(a_u8, w_packed, mul_prev, div_post, bias, cin)
+            y = _conv_out(a_u8, w_packed, cfg)
+        elif a_u8.is_cuda:
+            y = _launch(a_u8, w_packed, mul_prev, div_post, bias, cin, cfg)
+        elif popcount:
+            y = _ref.w1a8_conv3x3_popcount_ref(a_u8, w_packed, cin, div_post,
+                                               bias, cfg.out_step)
+        else:
+            y = _ref.w1a8_conv3x3_ref(a_u8, w_packed, cin, mul_prev,
+                                      div_post, bias, cfg.out_step)
+        out.append(y)
+    return y
+
+
+def _launch(a_u8, w_packed, mul_prev, div_post, bias, cin: int,
+            cfg: KernelConfig) -> torch.Tensor:
+    """Launches the popcount kernel where ``mul_prev`` is None, else the
+    dot kernel."""
     a, w, mul, div, bs = cuda_operands(a_u8, w_packed, mul_prev, div_post,
                                        bias, cin)
     out = _conv_out(a, w, cfg)
@@ -108,7 +127,7 @@ def w1a8_conv3x3(a_u8: torch.Tensor, w_packed: torch.Tensor,
                 int(out.dtype == torch.uint8), *g.grid[:2], g.bn, g.wm, g.wn,
                 g.row_px, g.threads, g.smem,
                 torch.cuda.current_stream(a.device).cuda_stream)
-    if popcount:
+    if mul is None:
         POPCOUNT_KERNEL(a.data_ptr(), w.data_ptr(), div.data_ptr(),
                         bs.data_ptr(), out.data_ptr(), *geometry)
     else:

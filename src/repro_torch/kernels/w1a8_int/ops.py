@@ -5,7 +5,8 @@ entry point and one launch count: `w1a8_int_pe` (the sign PE with Mul_prev
 fused into the accumulation, conv2–conv10, 3×3 or 1×1), `int_pe_conv1`
 (3×3 dense Q5.11 weights on the pixel codes) and `int_pe_head` (conv11's
 1×1 dense Q1.15 weights, the int64 raw head). A CUDA tensor launches the
-kernel (or raises); a CPU tensor runs the plain version in ``ref.py``. Each
+kernel (or raises); a CPU tensor runs the plain version in ``ref.py``; a
+fake or meta tensor gives the result's shape alone. Each
 launch computes one layer with its epilogue and, where asked, the 2×2 max,
 and writes the next layer's uint8 codes (the head: int64).
 
@@ -65,14 +66,23 @@ def w1a8_int_pe(x_u8: torch.Tensor, w_packed: torch.Tensor,
     if w_packed.dtype != torch.int32 or w_packed.shape[0] != packed_dim(k):
         raise ValueError(f"w_packed must be int32 ({packed_dim(k)}, N), got "
                          f"{w_packed.dtype} {tuple(w_packed.shape)}")
-    if not x_u8.is_cuda:
-        shift_range(post_shift)
-        return _ref.w1a8_int_pe_ref(x_u8, w_packed, m_raw, post_mult, b_pre,
-                                    post_shift, ksize=ksize, pool=pool)
-    if planes is None:
-        planes = _planes.sign_planes(m_raw)
-    return _launch(W1A8, x_u8, w_packed, planes, post_mult, b_pre,
-                   post_shift, shifts, ksize, pool, w_packed.shape[1])
+    n = w_packed.shape[1]
+    with _build.work("w1a8_int_pe", _flops(x_u8, k, n), "int8",
+                     _build.nbytes(x_u8, w_packed, m_raw, post_mult, b_pre,
+                                   post_shift)) as out:
+        if _build.shape_only(x_u8):
+            y = _result(W1A8, x_u8, n, pool)
+        elif x_u8.is_cuda:
+            if planes is None:
+                planes = _planes.sign_planes(m_raw)
+            y = _launch(W1A8, x_u8, w_packed, planes, post_mult, b_pre,
+                        post_shift, shifts, ksize, pool, n)
+        else:
+            shift_range(post_shift)
+            y = _ref.w1a8_int_pe_ref(x_u8, w_packed, m_raw, post_mult, b_pre,
+                                     post_shift, ksize=ksize, pool=pool)
+        out.append(y)
+    return y
 
 
 def int_pe_conv1(x_u8: torch.Tensor, w_raw: torch.Tensor,
@@ -85,14 +95,23 @@ def int_pe_conv1(x_u8: torch.Tensor, w_raw: torch.Tensor,
     Returns uint8 codes, pooled with ``pool``. ``planes``: w_raw's digit
     planes (`planes.dense_planes`)."""
     _check_dense(x_u8, w_raw, 3)
-    if not x_u8.is_cuda:
-        shift_range(post_shift)
-        return _ref.int_pe_conv1_ref(x_u8, w_raw, b_shifted, post_mult,
-                                     post_shift, pool=pool)
-    if planes is None:
-        planes = _planes.dense_planes(w_raw, x_u8.shape[-1], 3)
-    return _launch(CONV1, x_u8, None, planes, post_mult, b_shifted,
-                   post_shift, shifts, 3, pool, w_raw.shape[1])
+    k, n = w_raw.shape
+    with _build.work("int_pe_conv1", _flops(x_u8, k, n), "int8",
+                     _build.nbytes(x_u8, w_raw, b_shifted, post_mult,
+                                   post_shift)) as out:
+        if _build.shape_only(x_u8):
+            y = _result(CONV1, x_u8, n, pool)
+        elif x_u8.is_cuda:
+            if planes is None:
+                planes = _planes.dense_planes(w_raw, x_u8.shape[-1], 3)
+            y = _launch(CONV1, x_u8, None, planes, post_mult, b_shifted,
+                        post_shift, shifts, 3, pool, n)
+        else:
+            shift_range(post_shift)
+            y = _ref.int_pe_conv1_ref(x_u8, w_raw, b_shifted, post_mult,
+                                      post_shift, pool=pool)
+        out.append(y)
+    return y
 
 
 def int_pe_head(x_u8: torch.Tensor, w_raw: torch.Tensor, m_raw: torch.Tensor,
@@ -105,14 +124,38 @@ def int_pe_head(x_u8: torch.Tensor, w_raw: torch.Tensor, m_raw: torch.Tensor,
     `planes.head_weights`)."""
     _check_dense(x_u8, w_raw, 1)
     shift_range(shift)
-    if not x_u8.is_cuda:
-        return _ref.int_pe_head_ref(x_u8, w_raw, m_raw, b_shifted, shift)
-    if planes is None:
-        planes = _planes.dense_planes(
-            _planes.head_weights(m_raw.to(w_raw.device), w_raw),
-            x_u8.shape[-1], 1)
-    return _launch(HEAD, x_u8, None, planes, None, b_shifted, int(shift),
-                   None, 1, False, w_raw.shape[1])
+    k, n = w_raw.shape
+    with _build.work("int_pe_head", _flops(x_u8, k, n), "int8",
+                     _build.nbytes(x_u8, w_raw, m_raw, b_shifted)) as out:
+        if _build.shape_only(x_u8):
+            y = _result(HEAD, x_u8, n, False)
+        elif x_u8.is_cuda:
+            if planes is None:
+                planes = _planes.dense_planes(
+                    _planes.head_weights(m_raw.to(w_raw.device), w_raw),
+                    x_u8.shape[-1], 1)
+            y = _launch(HEAD, x_u8, None, planes, None, b_shifted,
+                        int(shift), None, 1, False, n)
+        else:
+            y = _ref.int_pe_head_ref(x_u8, w_raw, m_raw, b_shifted, shift)
+        out.append(y)
+    return y
+
+
+def _flops(x_u8: torch.Tensor, k: int, n: int) -> int:
+    """2·M·N·K of a layer over x_u8's B·H·W pixels."""
+    b, h, wd = x_u8.shape[:3]
+    return 2 * b * h * wd * n * k
+
+
+def _result(kind: int, x_u8: torch.Tensor, n: int,
+            pool: bool) -> torch.Tensor:
+    """An empty result: (B, H, W, N), or (B, H/2, W/2, N) with ``pool``;
+    int64 for the head, else uint8 codes."""
+    b, h, wd = x_u8.shape[:3]
+    shape = (b, h // 2, wd // 2, n) if pool else (b, h, wd, n)
+    return torch.empty(shape, device=x_u8.device,
+                       dtype=torch.int64 if kind == HEAD else torch.uint8)
 
 
 def _check_dense(x_u8: torch.Tensor, w_raw: torch.Tensor, ksize: int) -> None:
@@ -162,9 +205,7 @@ def _launch(kind: int, x_u8, wbits, planes, mult, bias, shift, shifts,
     bias = vec(bias, n)
     shift_t = vec(shift, n) if per_channel else None
     g = pe_launch(kind, b, h, wd, cin, n, ksize, pool, planes.shape[0])
-    shape = (b, h // 2, wd // 2, n) if pool else (b, h, wd, n)
-    out = torch.empty(shape, device=dev,
-                      dtype=torch.int64 if kind == HEAD else torch.uint8)
+    out = _result(kind, x, n, pool)
 
     def ptr(t):
         return None if t is None else t.data_ptr()

@@ -11,7 +11,9 @@ for a stack of experts (the MoE FFN's packed experts).
 Σ_k sign·a (the reference forms it as (a − 128)·(±1) plus 128·colsum).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
-version in ``ref.py``. Leading dims of ``a_u8`` fold into M. All three
+version in ``ref.py``; a fake or meta tensor gives the result's shape
+alone (`_build.shape_only`), and every call reports its work
+(`_build.work`). Leading dims of ``a_u8`` fold into M. All three
 kernels run on the tensor cores with the launch geometry of
 `geometry.matmul_launch` (the int kernel with popcount's); they mask the
 ragged M, N and K edges themselves, so nothing is padded.
@@ -64,22 +66,38 @@ def w1a8_matmul(a_u8: torch.Tensor, w_packed: torch.Tensor,
     lead = a_u8.shape[:-1]
     n = w_packed.shape[1]
     a2 = a_u8.reshape(-1, a_u8.shape[-1])[:, :k]
-    if cfg.accum == "popcount":
+    popcount = cfg.accum == "popcount"
+    if popcount:
         a2, div_post = fold_operands(a2, mul_prev, div_post)
-        if not a2.is_cuda:
+        mul_prev = None
+    elif mul_prev is None:
+        raise ValueError("accum='dot' needs mul_prev")
+    name = "w1a8_matmul_popcount" if popcount else "w1a8_matmul"
+    with _build.work(name, 2 * a2.shape[0] * n * k,
+                     "int8" if popcount else "bf16",
+                     _build.nbytes(a2, w_packed, mul_prev, div_post, bias)
+                     ) as out:
+        if _build.shape_only(a2):
+            _check(a2, w_packed, k)
+            y = _result(a2.shape[0], n, cfg, a2.device)
+        elif a2.is_cuda:
+            y = _launch(POPCOUNT_KERNEL if popcount else KERNEL, a2,
+                        w_packed, mul_prev, div_post, bias, k, cfg)
+        elif popcount:
             y = _ref.w1a8_matmul_popcount_ref(a2, w_packed, k, div_post,
                                               bias, cfg.out_step)
         else:
-            y = _launch(POPCOUNT_KERNEL, a2, w_packed, None, div_post, bias,
-                        k, cfg)
-    elif mul_prev is None:
-        raise ValueError("accum='dot' needs mul_prev")
-    elif not a2.is_cuda:
-        y = _ref.w1a8_matmul_ref(a2, w_packed, k, mul_prev, div_post, bias,
-                                 cfg.out_step)
-    else:
-        y = _launch(KERNEL, a2, w_packed, mul_prev, div_post, bias, k, cfg)
+            y = _ref.w1a8_matmul_ref(a2, w_packed, k, mul_prev, div_post,
+                                     bias, cfg.out_step)
+        out.append(y)
     return y.reshape(lead + (n,))
+
+
+def _result(m: int, n: int, cfg: KernelConfig, dev) -> torch.Tensor:
+    """The (m, n) result: uint8 codes with ``cfg.out_step``, else f32."""
+    quant = cfg.out_step is not None
+    return torch.empty((m, n), dtype=torch.uint8 if quant else torch.float32,
+                       device=dev)
 
 
 def fold_operands(a_u8: torch.Tensor, mul_prev: Optional[torch.Tensor],
@@ -120,8 +138,7 @@ def _launch(kernel: _build.Kernel, a2, w_packed, mul_prev, div_post, bias,
             or bs.numel() != n:
         raise ValueError("mul_prev must be (k,), div_post and bias (N,)")
     quant = cfg.out_step is not None
-    out = torch.empty((m, n), dtype=torch.uint8 if quant else torch.float32,
-                      device=dev)
+    out = _result(m, n, cfg, dev)
     g = matmul_launch(m, n, cfg.accum)
     geometry = (m, k, n, float(cfg.out_step if quant else 1.0), int(quant),
                 *g.grid, g.bm, g.bn, g.wm, g.wn, g.threads,
@@ -145,11 +162,26 @@ def w1a8_matmul_grouped(a_u8: torch.Tensor, w_packed: torch.Tensor,
     no row reads none of its words); div_post, bias: (E, N) f32. Returns
     (E, cap, N) f32.
     """
-    if not a_u8.is_cuda:
-        return _ref.w1a8_matmul_grouped_ref(a_u8, w_packed, counts, k,
-                                            div_post, bias)
     e, cap = a_u8.shape[0], a_u8.shape[1]
     n = w_packed.shape[-1]
+    with _build.work("w1a8_matmul_popcount_grouped", 2 * e * cap * n * k,
+                     "int8", _build.nbytes(a_u8, w_packed, counts, div_post,
+                                           bias)) as out:
+        if _build.shape_only(a_u8):
+            _check_grouped(a_u8, w_packed, k)
+            y = torch.empty((e, cap, n), dtype=torch.float32,
+                            device=a_u8.device)
+        elif a_u8.is_cuda:
+            y = _launch_grouped(a_u8, w_packed, counts, div_post, bias, k)
+        else:
+            y = _ref.w1a8_matmul_grouped_ref(a_u8, w_packed, counts, k,
+                                             div_post, bias)
+        out.append(y)
+    return y
+
+
+def _check_grouped(a_u8, w_packed, k: int) -> None:
+    e, n = a_u8.shape[0], w_packed.shape[-1]
     if a_u8.dtype != torch.uint8 or a_u8.shape[2] != k:
         raise TypeError(f"a_u8 must be uint8 (E, cap, {k}), got "
                         f"{a_u8.dtype} {tuple(a_u8.shape)}")
@@ -157,6 +189,13 @@ def w1a8_matmul_grouped(a_u8: torch.Tensor, w_packed: torch.Tensor,
             tuple(w_packed.shape) != (e, packed_dim(k), n):
         raise ValueError(f"w_packed must be int32 ({e}, {packed_dim(k)}, N), "
                          f"got {w_packed.dtype} {tuple(w_packed.shape)}")
+
+
+def _launch_grouped(a_u8, w_packed, counts, div_post, bias,
+                    k: int) -> torch.Tensor:
+    _check_grouped(a_u8, w_packed, k)
+    e, cap = a_u8.shape[0], a_u8.shape[1]
+    n = w_packed.shape[-1]
     dev = a_u8.device
 
     def flat(x, dtype, numel):
@@ -191,11 +230,25 @@ def w1a8_matmul_int(a_u8: torch.Tensor, w_packed: torch.Tensor,
     cores), so it needs no zero-point correction and does not read
     colsum; its shape is still checked, and the plain version uses it.
     """
-    k = a_u8.shape[1]
-    if not a_u8.is_cuda:
-        return _ref.w1a8_matmul_int_ref(a_u8, w_packed, colsum)
+    m, k = a_u8.shape
+    n = w_packed.shape[1]
+    with _build.work("w1a8_matmul_int", 2 * m * n * k, "int8",
+                     _build.nbytes(a_u8, w_packed, colsum)) as out:
+        if _build.shape_only(a_u8):
+            _check(a_u8, w_packed, k)
+            y = torch.empty((m, n), dtype=torch.int32, device=a_u8.device)
+        elif a_u8.is_cuda:
+            y = _launch_int(a_u8, w_packed, colsum)
+        else:
+            y = _ref.w1a8_matmul_int_ref(a_u8, w_packed, colsum)
+        out.append(y)
+    return y
+
+
+def _launch_int(a_u8, w_packed, colsum) -> torch.Tensor:
+    m, k = a_u8.shape
     _check(a_u8, w_packed, k)
-    m, n = a_u8.shape[0], w_packed.shape[1]
+    n = w_packed.shape[1]
     if colsum.numel() != n:
         raise ValueError(f"colsum must hold N={n} sums, got "
                          f"{colsum.numel()}")

@@ -45,13 +45,12 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import card_name, resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels import config as kc
 from repro_torch.kernels.config import KernelConfig
@@ -339,15 +338,6 @@ def _is_reduced(op: str, dims) -> bool:
     return op == "matmul" or dims[0] <= REDUCED_MAX_H
 
 
-def card_line(device: torch.device) -> str:
-    """The card's name and power limit as nvidia-smi prints them."""
-    if device.type != "cuda":
-        return "cpu"
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
-
-
 def write_json(path: pathlib.Path, header: dict, entries: dict) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps({**header, "entries": entries}, indent=1,
@@ -370,7 +360,7 @@ def run(args) -> int:
         cells = [(op, dims) for op, dims in cells if _is_reduced(op, dims)]
     committed_bench = _read_entries(bench_out)
     table = _read_entries(table_out)
-    header = {"version": 1, "device": key_dev, "card": card_line(dev),
+    header = {"version": 1, "device": key_dev, "card": card_name(dev),
               "batch": args.batch}
     print(header["card"], flush=True)
 

@@ -8,15 +8,40 @@ must run under ``torchrun`` (`init_device_mesh` then starts it from the
 environment); a mesh axis's process group is ``mesh.get_group(axis)``.
 
 Functions, not module constants: importing this module touches no process
-group. The reference's ``HW`` table describes a TPU v5e and is not copied;
-the H100's constants wait for the port's costs tooling (ROADMAP.md, Queue
-1, item 7).
+group. ``HW`` holds the H100's constants for the dry run and the costs
+tooling (``launch/dryrun.py``, ``launch/costs.py``), under the reference's
+key names where the meaning is the same; the reference's table describes
+a TPU v5e. An H100 job is nodes of 8 cards on NVLink joined by NICs, so
+the reference's one ``ici_bw`` has no counterpart: a collective's link
+is NVLink where its ranks lie in one node, else the NIC (`link_bw`).
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+
+# NVIDIA H100 80GB HBM3, 700 W (SXM5): the NVIDIA H100 Tensor Core GPU
+# datasheet (dense peaks, no sparsity) and the DGX H100 system's (8 GPUs a
+# node on NVLink 4, one 400 Gb/s ConnectX-7 NIC a GPU).
+HW = {
+    "name": "NVIDIA H100 80GB HBM3, 700 W (datasheet)",
+    "peak_flops_bf16": 989.4e12,    # bf16 tensor cores, dense
+    "peak_ops_int8": 1978.9e12,     # int8 tensor cores, dense (popcount too)
+    "peak_flops_f32": 66.9e12,      # f32 on the CUDA cores (TF32 off)
+    "hbm_bw": 3.35e12,              # B/s, HBM3
+    "hbm_bytes": 80e9,              # HBM3 capacity
+    "gpus_per_node": 8,             # DGX H100
+    "nvlink_bw": 450e9,             # B/s a direction, NVLink 4 (900 both)
+    "nic_bw": 50e9,                 # B/s, one 400 Gb/s NIC a GPU
+}
+
+
+def link_bw(intra_node: bool) -> float:
+    """The B/s a rank sends at in a collective: NVLink inside a node, the
+    NIC across nodes."""
+    return HW["nvlink_bw"] if intra_node else HW["nic_bw"]
 
 
 def mesh_device_type(device=None) -> str:

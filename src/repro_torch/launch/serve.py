@@ -74,14 +74,13 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.core import verify
-from repro_torch.device import resolve_device
+from repro_torch.device import card_name, resolve_device
 from repro_torch.kernels.w1a8_conv import fused_pool
 from repro_torch.kernels.w1a8_conv import ops as conv_ops
 from repro_torch.kernels.w1a8_int import ops as int_ops
@@ -205,21 +204,6 @@ def check_alignment(params: dict, images, raw_wire: dict, device,
     if not (rep.max_abs < 0.02 and rep.within_1lsb == 1.0):
         raise AssertionError(f"raw head outside the envelope: {rep.row()}")
     return rep
-
-
-def card_name(dev) -> str:
-    """The card's name and power limit, as nvidia-smi gives them ("cpu"
-    on the CPU)."""
-    if dev.type != "cuda":
-        return "cpu"
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader", f"--id={dev.index or 0}"],
-            capture_output=True, text=True, check=True, timeout=30)
-        return out.stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return torch.cuda.get_device_name(dev)
 
 
 def _configs(backend) -> dict:

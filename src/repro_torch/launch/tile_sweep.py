@@ -25,11 +25,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
-import subprocess
 
 import numpy as np
 import torch
 
+from repro_torch.device import card_name
 from repro_torch.kernels.config import ACCUMS, KernelConfig
 from repro_torch.kernels.w1a8_conv import fused_pool, geometry
 from repro_torch.kernels.w1a8_conv import ops as conv_ops
@@ -229,9 +229,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_name(dev)
     rng = np.random.default_rng(args.seed)
     sizes = yolo.spatial_sizes(yolo.INPUT_SIZE)
     layers = []

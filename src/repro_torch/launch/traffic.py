@@ -55,8 +55,8 @@ import time
 
 import numpy as np
 
-from repro_torch.device import resolve_device
-from repro_torch.launch.serve import (card_name, check_bit_exact,
+from repro_torch.device import card_name, resolve_device
+from repro_torch.launch.serve import (check_bit_exact,
                                       launch_counts, write_record)
 from repro_torch.models import yolo
 from repro_torch.serve import (Autoscaler, AutoscalerConfig,

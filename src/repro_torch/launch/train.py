@@ -78,7 +78,7 @@ from repro_torch.dist.collectives import all_reduce
 from repro_torch.dist.pipeline import bubble_fraction, bubble_fraction_1f1b
 from repro_torch.launch.mesh import (axis_sizes, make_pipeline_mesh,
                                      make_production_mesh)
-from repro_torch.launch.serve import card_name
+from repro_torch.device import card_name
 from repro_torch.models.transformer import (ShardCtx, count_lm_params,
                                             init_lm_params)
 from repro_torch.optim import adafactor, adamw, cosine_schedule, sgdm

@@ -104,10 +104,7 @@ def _launch(kernel: _build.Kernel, dev: torch.device, inputs: tuple,
     """Launches one of the kernel's two entry points: (two input pointers,
     the three outputs, sizes beginning with the batch, max_out, the
     thresholds, the stream)."""
-    nb = sizes[0]
-    out_b = torch.empty((nb, max_out, 4), dtype=torch.float32, device=dev)
-    out_s = torch.empty((nb, max_out), dtype=torch.float32, device=dev)
-    out_c = torch.empty((nb, max_out), dtype=torch.int32, device=dev)
+    out_b, out_s, out_c = _empty_detections(sizes[0], max_out, dev)
     kernel(*inputs, out_b.data_ptr(), out_s.data_ptr(), out_c.data_ptr(),
            *sizes, max_out, float(iou_thresh), float(score_thresh),
            torch.cuda.current_stream(dev).cuda_stream)
@@ -127,9 +124,30 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, *,
     8,000: the launch fails with cudaErrorInvalidValue); CPU tensors run
     `nms_plain`. The two agree bit for bit.
     """
-    if not boxes.is_cuda:
-        return nms_plain(boxes, scores, iou_thresh=iou_thresh,
-                         score_thresh=score_thresh, max_out=max_out)
+    with _build.work("detect_nms", 0, "none",
+                     _build.nbytes(boxes, scores)) as out:
+        if _build.shape_only(boxes):
+            res = _empty_detections(scores.shape[0], max_out, boxes.device)
+        elif boxes.is_cuda:
+            res = _nms_launch(boxes, scores, iou_thresh, score_thresh,
+                              max_out)
+        else:
+            res = nms_plain(boxes, scores, iou_thresh=iou_thresh,
+                            score_thresh=score_thresh, max_out=max_out)
+        out.extend(res)
+    return res
+
+
+def _empty_detections(nb: int, max_out: int, dev) -> tuple:
+    """Post-processing's three results, empty: (nb, max_out, 4) boxes and
+    (nb, max_out) scores in f32, (nb, max_out) int32 classes."""
+    return (torch.empty((nb, max_out, 4), dtype=torch.float32, device=dev),
+            torch.empty((nb, max_out), dtype=torch.float32, device=dev),
+            torch.empty((nb, max_out), dtype=torch.int32, device=dev))
+
+
+def _nms_launch(boxes, scores, iou_thresh: float, score_thresh: float,
+                max_out: int) -> tuple:
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise TypeError(f"nms on the card takes float32 boxes and scores, "
                         f"got {boxes.dtype} and {scores.dtype}")
@@ -193,10 +211,23 @@ def postprocess(raw: torch.Tensor, *, iou_thresh: float = 0.45,
     launch fails with cudaErrorInvalidValue), or raises; a CPU tensor runs
     `decode_head` and `nms_plain`. The two agree bit for bit.
     """
-    if not raw.is_cuda:
-        dec = decode_head(raw)
-        return nms_plain(dec["boxes"], dec["scores"], iou_thresh=iou_thresh,
-                         score_thresh=score_thresh, max_out=max_out)
+    with _build.work("detect_postprocess", 0, "none",
+                     _build.nbytes(raw)) as out:
+        if _build.shape_only(raw):
+            res = _empty_detections(raw.shape[0], max_out, raw.device)
+        elif raw.is_cuda:
+            res = _postprocess_launch(raw, iou_thresh, score_thresh, max_out)
+        else:
+            dec = decode_head(raw)
+            res = nms_plain(dec["boxes"], dec["scores"],
+                            iou_thresh=iou_thresh,
+                            score_thresh=score_thresh, max_out=max_out)
+        out.extend(res)
+    return res
+
+
+def _postprocess_launch(raw, iou_thresh: float, score_thresh: float,
+                        max_out: int) -> tuple:
     if raw.dtype != torch.float32:
         raise TypeError(f"postprocess on the card takes a float32 head, got "
                         f"{raw.dtype}")

@@ -5,9 +5,9 @@
 The training form processes the sequence in chunks, carrying the
 inter-chunk SSM state; where the reference scans over chunks with
 ``lax.scan``, the port loops over them in Python. Mamba-1's in-chunk
-``lax.associative_scan`` becomes a loop over the chunk's steps that forms
-the same pair (cumulative decay, state from zero) and injects the carry
-after, as the reference does. Projections run through `layers.linear` (so
+``lax.associative_scan`` becomes `pair_scan`, a doubling scan that forms
+the same pair (cumulative decay, state from zero) in a tree of log2(l)
+steps, and the carry is injected after, as the reference does. Projections run through `layers.linear` (so
 packed ones through the popcount matmul); the einsums run in full f32.
 
 mamba2-1.3b uses SSD; jamba's mamba layers use Mamba-1 (d_state 16).
@@ -245,6 +245,20 @@ def mamba2_decode_step(p: dict, cfg: ModelConfig, xin: torch.Tensor,
 # Mamba-1: chunked selective scan (jamba's mixer, d_state 16)
 # ---------------------------------------------------------------------------
 
+def pair_scan(aa: torch.Tensor, hh: torch.Tensor) -> tuple:
+    """The inclusive scan of (a, h) pairs along dim 1 under (a1, h1)∘(a2,
+    h2) = (a1·a2, h1·a2 + h2), in log2(l) doubling steps (Hillis–Steele):
+    after the step of span d each position holds the combine of the 2d
+    steps that end at it. A chunk of 128 takes 7 steps of a few ops each
+    where a fold over it takes three ops a position."""
+    d = 1
+    while d < aa.shape[1]:
+        hh = torch.cat([hh[:, :d], hh[:, :-d] * aa[:, d:] + hh[:, d:]], 1)
+        aa = torch.cat([aa[:, :d], aa[:, :-d] * aa[:, d:]], 1)
+        d *= 2
+    return aa, hh
+
+
 def selective_scan_chunked(u: torch.Tensor, dt: torch.Tensor,
                            a: torch.Tensor, bmat: torch.Tensor,
                            cmat: torch.Tensor, *, chunk: int = 128,
@@ -253,10 +267,11 @@ def selective_scan_chunked(u: torch.Tensor, dt: torch.Tensor,
     (B,C,N)).
 
     h_t = exp(dt·a)·h_{t-1} + dt·b_t·u_t ; y_t = ⟨h_t, c_t⟩. Per chunk,
-    the steps fold the reference's combine (a1, b1)∘(a2, b2) = (a1·a2,
-    b1·a2 + b2) from the chunk's first step on, then add the carry times
-    the cumulative decay. The last chunk is short where the reference pads
-    it with dt = 0 (decay 1, input 0: the state passes through).
+    `pair_scan` combines the steps with the reference's (a1, b1)∘(a2, b2)
+    = (a1·a2, b1·a2 + b2) in a tree, as its ``lax.associative_scan``
+    does, then the carry times the cumulative decay is added. The last
+    chunk is short where the reference pads it with dt = 0 (decay 1,
+    input 0: the state passes through).
     """
     bsz, s, c = u.shape
     n = bmat.shape[-1]
@@ -269,11 +284,8 @@ def selective_scan_chunked(u: torch.Tensor, dt: torch.Tensor,
             dbu = dt[:, c0:c0 + chunk, :, None] \
                 * bmat[:, c0:c0 + chunk, None, :] * u[:, c0:c0 + chunk, :,
                                                       None]
-            aa, hh = [da[:, 0]], [dbu[:, 0]]
-            for t in range(1, da.shape[1]):
-                aa.append(aa[-1] * da[:, t])
-                hh.append(hh[-1] * da[:, t] + dbu[:, t])
-            hs = torch.stack(hh, 1) + torch.stack(aa, 1) * state[:, None]
+            aa, hh = pair_scan(da, dbu)
+            hs = hh + aa * state[:, None]
             ys.append(torch.einsum("blcn,bln->blc", hs,
                                    cmat[:, c0:c0 + chunk]))
             state = hs[:, -1]

@@ -309,6 +309,22 @@ def stage_count(params: dict) -> int:
     return tree_leaves(params["slots"])[0].shape[0]
 
 
+def apply_stage(cfg: ModelConfig, slots, x: torch.Tensor, *, mode: str,
+                positions: torch.Tensor, ctx: Optional[ShardCtx] = None,
+                cross: Optional[dict] = None,
+                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One stage of the body: its period's slots, then, for enc-dec, its
+    cross-attention stage (``cross``) over ``enc_out``."""
+    for i, (mk, fk) in enumerate(kinds(cfg)):
+        x = _apply_slot(slots[i], cfg, x, mixer_kind=mk, ffn_kind=fk,
+                        mode=mode, positions=positions, ctx=ctx)
+    if cross is not None:
+        h = norm(cross["norm"], x, cfg.norm_kind)
+        x = x + attention(cross["attn"], cfg, h, mode=mode, causal=False,
+                          positions=positions, kv_x=enc_out).to(x.dtype)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Forward (train/eval)
 # ---------------------------------------------------------------------------
@@ -349,17 +365,10 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     cross = params.get("cross")
 
     def run_stage(x: torch.Tensor, st: int) -> torch.Tensor:
-        slots = stage(params["slots"], st)
-        for i, (mk, fk) in enumerate(kinds(cfg)):
-            x = _apply_slot(slots[i], cfg, x, mixer_kind=mk, ffn_kind=fk,
-                            mode=mode, positions=positions, ctx=ctx)
-        if cross is not None:
-            cr = stage(cross, st)
-            h = norm(cr["norm"], x, cfg.norm_kind)
-            x = x + attention(cr["attn"], cfg, h, mode=mode, causal=False,
-                              positions=positions,
-                              kv_x=enc_out).to(x.dtype)
-        return x
+        return apply_stage(cfg, stage(params["slots"], st), x, mode=mode,
+                           positions=positions, ctx=ctx,
+                           cross=None if cross is None else stage(cross, st),
+                           enc_out=enc_out)
 
     checkpointed = remat and torch.is_grad_enabled()
     for st in range(stage_count(params)):
@@ -384,10 +393,16 @@ def encode(cfg: ModelConfig, params: dict, feats: torch.Tensor, *,
     positions = torch.arange(s, device=feats.device).expand(b, s)
     x = feats.to(params["embed"]["emb"].dtype)
     for st in range(stage_count(enc)):
-        slot = stage(enc["slots"][0], st)
-        h = norm(slot["norm1"], x, cfg.norm_kind)
-        x = x + attention(slot["attn"], cfg, h, mode=mode, causal=False,
-                          positions=positions).to(x.dtype)
-        h = norm(slot["norm2"], x, cfg.norm_kind)
-        x = x + mlp(slot["mlp"], cfg, h, mode).to(x.dtype)
+        x = encoder_stage(cfg, stage(enc["slots"][0], st), x, mode=mode,
+                          positions=positions)
     return norm(enc["final_norm"], x, cfg.norm_kind)
+
+
+def encoder_stage(cfg: ModelConfig, slot: dict, x: torch.Tensor, *,
+                  mode: str, positions: torch.Tensor) -> torch.Tensor:
+    """One bidirectional encoder layer."""
+    h = norm(slot["norm1"], x, cfg.norm_kind)
+    x = x + attention(slot["attn"], cfg, h, mode=mode, causal=False,
+                      positions=positions).to(x.dtype)
+    h = norm(slot["norm2"], x, cfg.norm_kind)
+    return x + mlp(slot["mlp"], cfg, h, mode).to(x.dtype)

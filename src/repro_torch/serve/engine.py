@@ -92,26 +92,35 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     check_ctx(ctx)
     pos = cache["lengths"]
     x = embed(params["embed"], tokens)
-    step_fn = mamba_fns(cfg)[2]
     for st in range(stage_count(params)):
-        slots = stage(params["slots"], st)
-        for i, (mk, fk) in enumerate(kinds(cfg)):
-            slot, c = slots[i], cache["slots"][i]
-            h = norm(slot["norm1"], x, cfg.norm_kind)
-            if mk.startswith("attn"):
-                out = _attn_decode(slot["attn"], cfg, h, c["k"][st],
-                                   c["v"][st], c["pos"][st], pos, mode=mode,
-                                   window=window_of(cfg, mk))
-            else:
-                out, new = step_fn(slot["mamba"], cfg, h,
-                                   {k: v[st] for k, v in c.items()}, mode)
-                for k, v in new.items():
-                    c[k][st] = v.to(c[k].dtype)
-            x = add_mixer_out(slot, cfg, x, out)
-            x = ffn_block(slot, cfg, x, fk, mode, ctx)
+        x = decode_stage(cfg, stage(params["slots"], st), cache["slots"], st,
+                         x, pos, mode=mode, ctx=ctx)
     x = norm(params["final_norm"], x, cfg.norm_kind)
     logits = unembed(params["embed"], cfg, x)[:, 0, :]
     return logits, {"slots": cache["slots"], "lengths": pos + 1}
+
+
+def decode_stage(cfg: ModelConfig, slots, cache_slots, st: int,
+                 x: torch.Tensor, pos: torch.Tensor, *, mode: str,
+                 ctx=None) -> torch.Tensor:
+    """One stage of `decode_step`: its period's slots against stage ``st``
+    of the cache, written in place."""
+    step_fn = mamba_fns(cfg)[2]
+    for i, (mk, fk) in enumerate(kinds(cfg)):
+        slot, c = slots[i], cache_slots[i]
+        h = norm(slot["norm1"], x, cfg.norm_kind)
+        if mk.startswith("attn"):
+            out = _attn_decode(slot["attn"], cfg, h, c["k"][st], c["v"][st],
+                               c["pos"][st], pos, mode=mode,
+                               window=window_of(cfg, mk))
+        else:
+            out, new = step_fn(slot["mamba"], cfg, h,
+                               {k: v[st] for k, v in c.items()}, mode)
+            for k, v in new.items():
+                c[k][st] = v.to(c[k].dtype)
+        x = add_mixer_out(slot, cfg, x, out)
+        x = ffn_block(slot, cfg, x, fk, mode, ctx)
+    return x
 
 
 def sample_tokens(logits: torch.Tensor, temp: torch.Tensor,

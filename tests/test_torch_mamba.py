@@ -14,10 +14,10 @@ Tolerances, and why:
   short last chunk where the reference pads with dt = 0) and a carried
   ``init_state``.
 * `selective_scan_chunked`: within 1e-5·max|y|. The reference's
-  ``lax.associative_scan`` combines the chunk's steps in a tree, the port
-  folds them one by one in the same pair form: the decay products and
-  sums round in another order (a chunk of 4 to 128 steps, each rounding
-  about 1e-7 relative).
+  ``lax.associative_scan`` and the port's `pair_scan` combine the chunk's
+  steps in the same pair form, each in a tree of its own: the decay
+  products and sums round in another order (a chunk of 4 to 128 steps,
+  each rounding about 1e-7 relative).
 * softplus: the port forms logaddexp(x, 0) as ``jax.nn.softplus`` does,
   within 1e-6 relative (and 1e-37 absolute: far below zero one side
   flushes a denormal the other keeps), where ``F.softplus`` (threshold
