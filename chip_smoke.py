@@ -4571,6 +4571,323 @@ def tooling_summary(rec: dict) -> dict:
             "dry_cell": rec["dry_cell"], "wall_s": rec["wall_s"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the production layout (tensor parallelism) on the card
+# ---------------------------------------------------------------------------
+
+TP_ARCH = "chatglm3-6b"        # (a) and (b): its packed projections, train_4k
+TP_MODEL = 16                  # |model| of the production meshes
+TP_CELL = ("chatglm3-6b", "train_4k", "16x16")  # the dry run's record
+TP_HBM = 80e9                  # one card's memory, the dry run's fits bound
+TP_SUM_ROUNDINGS = 32          # 16 partial outputs and 15 f32 additions
+TP_PLAN_ARCH = "mixtral-8x7b"  # (c): phase 15's arch at |model| = 1
+# the cell's peak with every non-MoE leaf gathered whole for the step, the
+# layout before tensor parallelism (PERF.md §6)
+TP_OLD_PEAK_GIB = 89.2
+
+
+class _RankMesh:
+    """A shape-only stand-in of a ('data', 'model') mesh at one rank's
+    coordinates: `dist.sharding.shard_tree` reads the axis sizes and the
+    rank's coordinate on each axis, nothing else."""
+
+    def __init__(self, sizes: tuple, coords: tuple):
+        self.axis_names = tuple(a for a, _ in sizes)
+        self.shape = dict(sizes)
+        self.coords = dict(zip(self.axis_names, coords))
+
+    def get_local_rank(self, axis: str) -> int:
+        return self.coords[axis]
+
+
+def tp_block_check(torch, np, dev, smi: str) -> list:
+    """Phase 17a: chatglm3-6b's packed projections at |model| = 16, M =
+    LM_SLOTS, through the port's tensor-parallel entry: one layer drawn
+    from SEED and deployed (`serve.packed.deploy_lm`), rank r's blocks cut
+    by `dist.sharding.shard_tree` at (data 0, model r), each run by
+    `layers.packed_linear(tp=)` under rank r's `TPPlan` over a one-rank
+    group (its sum over the group is the rank's partial). A column block
+    is bit for bit the same columns of the whole call; a row block's
+    int32 sums (the kernel on the block's codes and words, steps and α at
+    1) add up over the 16 blocks to the whole's exactly, and the 16
+    partial outputs sum to the whole's within TP_SUM_ROUNDINGS roundings
+    of Σ|y_r|; a projection the plan keeps whole is ``down`` alone, its
+    block the whole leaf. The kernel call of rank 0's block and of the
+    whole, CUDA-event and device ms, beside the block's bound. These
+    launches compare, so they are not counted on a path."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.core.quant import quantize_act
+    from repro_torch.dist.sharding import TPPlan, shard_tree
+    from repro_torch.kernels.w1a8_matmul.ops import w1a8_matmul
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models.layers import POPCOUNT, packed_linear
+    from repro_torch.models.transformer import init_lm_params, stage
+    from repro_torch.serve.packed import deploy_lm
+
+    cfg = dataclasses.replace(configs.get_config(TP_ARCH), num_layers=1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    whole_tree = deploy_lm(init_lm_params(cfg, gen, device=dev))
+    sizes = (("data", TP_MODEL), ("model", TP_MODEL))
+    blocks_of = [shard_tree(whole_tree, cfg, _RankMesh(sizes, (0, r)))
+                 for r in range(TP_MODEL)]
+
+    def leaves(tree, name: str) -> dict:
+        slot = stage(tree["slots"], 0)[0]
+        return slot["attn" if name.startswith("w") else "mlp"][name]
+
+    def kernel(pp: dict, codes, kk: int):
+        st = pp["act_step"][:kk]
+        return lambda: w1a8_matmul(codes, pp["w_packed"], st, pp["alpha"],
+                                   torch.zeros_like(pp["alpha"]), k=kk,
+                                   config=POPCOUNT)
+    rng = np.random.default_rng(SEED)
+    m, rows = LM_SLOTS, []
+    with dr.fake_world(1):
+        plans = [TPPlan(cfg, sizes, "model", dist.group.WORLD, TP_MODEL, r)
+                 for r in range(TP_MODEL)]
+        for name, (k, n) in lm_projections(cfg).items():
+            p = leaves(whole_tree, name)
+            ps = [leaves(h, name) for h in blocks_of]
+            projs = [plan.proj(name, k, n, packed=True) for plan in plans]
+            kind = projs[0].kind
+            if any(t.kind != kind for t in projs):
+                raise AssertionError(f"{name}: the ranks' plans differ")
+            # codes over the whole grid and both rails
+            x = torch.from_numpy(rng.uniform(-16.0, 272.0, (m, k)).astype(
+                np.float32)).to(dev) * p["act_step"]
+            codes = quantize_act(x, p["act_step"]).to(torch.uint8)
+            y = packed_linear(p, x)
+            if kind == "whole":
+                if name != "down" or any(
+                        q["w_packed"].shape != p["w_packed"].shape
+                        for q in ps):
+                    raise AssertionError(f"{name} runs whole at |model| 16")
+                rows.append({"what": name, "kind": kind, "whole": [m, k, n]})
+                continue
+            if kind == "col":
+                kb, nb, err = k, n // TP_MODEL, 0.0
+                for r in range(TP_MODEL):
+                    got = packed_linear(ps[r], x, projs[r])
+                    if ps[r]["w_packed"].shape[-1] != nb or not torch.equal(
+                            got, y[:, r * nb:(r + 1) * nb]):
+                        raise AssertionError(f"{name} column block {r} "
+                                             f"differs from the whole call")
+                block = kernel(ps[0], codes, k)
+            else:
+                kb, nb = k // TP_MODEL, n
+                cs = [codes[:, r * kb:(r + 1) * kb].contiguous()
+                      for r in range(TP_MODEL)]
+                ones = {key: torch.ones_like(p[key])
+                        for key in ("act_step", "alpha")}
+                ints = kernel({**p, **ones}, codes, k)()
+                total = torch.stack([kernel({**ps[r], **ones}, cs[r], kb)()
+                                     for r in range(TP_MODEL)]).to(
+                    torch.int64).sum(0)
+                if not torch.equal(total, ints.to(torch.int64)):
+                    raise AssertionError(f"{name}: the row blocks' int32 "
+                                         f"sums do not add up to the whole's")
+                ys = torch.stack([packed_linear(
+                    ps[r], x[:, r * kb:(r + 1) * kb], projs[r])
+                    for r in range(TP_MODEL)])
+                err = float((ys.sum(0) - y).abs().max())
+                tol = TP_SUM_ROUNDINGS * 2.0 ** -24 * float(
+                    ys.abs().sum(0).max())
+                if err > tol:
+                    raise AssertionError(f"{name}: the row blocks' f32 sum "
+                                         f"is {err} off the whole, above "
+                                         f"{tol}")
+                block = kernel(ps[0], cs[0], kb)
+            whole = kernel(p, codes, k)
+            nbytes = m * kb + 4 * (kb // 32) * nb + 8 * nb + 4 * m * nb
+            bound_ms, bound_by = bound(nbytes, 2 * m * nb * kb,
+                                       INT8_OPS_PER_S)
+            rows.append({
+                "what": name, "kind": kind, "whole": [m, k, n],
+                "block": [m, kb, nb], "max_abs_err": err,
+                "ms": cuda_ms(torch, block),
+                "whole_ms": cuda_ms(torch, whole),
+                "device_ms": device_profile(torch, block, tries=2)[
+                    "device_busy_ms"],
+                "whole_device_ms": device_profile(torch, whole, tries=2)[
+                    "device_busy_ms"],
+                "bound_ms": bound_ms, "bound_by": bound_by})
+    del whole_tree, blocks_of
+    gc.collect()
+    torch.cuda.empty_cache()
+    for r in rows:
+        if r["kind"] == "whole":
+            print(f"[tp] (a) {TP_ARCH} {r['what']} {r['whole']}: whole by "
+                  f"the plan (its sign words do not split over "
+                  f"{TP_MODEL})", flush=True)
+            continue
+        held = ("bit for bit the whole call" if r["kind"] == "col" else
+                f"int32 sums add up exactly, f32 sum off "
+                f"{r['max_abs_err']:.3g}")
+        print(f"[tp] (a) {TP_ARCH} {r['what']} {r['kind']}-parallel "
+              f"through packed_linear(tp=), block {r['block']} of "
+              f"{r['whole']}: {held}; block {r['ms']:.4f} ms (device "
+              f"{r['device_ms']:.4f}) against the whole "
+              f"{r['whole_ms']:.4f} ms (device "
+              f"{r['whole_device_ms']:.4f}); bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}) ({smi})", flush=True)
+    return rows
+
+
+def tp_decode(torch, dev, smi: str) -> dict:
+    """Phase 17a': rank 0 of the (16, 16) mesh serving chatglm3-6b packed
+    for real on the card (phase 10's LM_SLOTS rows a rank, max_len
+    LM_MAX_LEN, f32), torch's ``fake`` backend standing in for the other
+    255 ranks: its collectives move no data, so its logits are not
+    checked. Counts zeroed before a decode step and read after: each
+    projection of the plan one popcount launch on the rank's block;
+    its CUDA-event ms."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch.mesh import make_production_mesh
+
+    spec = ShapeSpec("phase17", "decode", LM_MAX_LEN, LM_SLOTS * TP_MODEL)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    with dr.fake_world(TP_MODEL * TP_MODEL):
+        mesh = make_production_mesh(device="cuda")
+        cell = dr.build_decode_cell(TP_ARCH, spec, mesh, dtype=torch.float32,
+                                    device=dev, generator=gen)
+        cell.run()
+        torch.cuda.synchronize()
+        _zero(launch.KERNELS)
+        cell.run()
+        torch.cuda.synchronize()
+        per_step = {k: v for k, v in launch.launch_counts().items() if v}
+        ms = cuda_ms(torch, cell.run, reps=3, n=3)
+        _zero(launch.KERNELS)
+        del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config(TP_ARCH)
+    want = len(lm_projections(cfg)) * cfg.num_layers
+    if per_step != {"w1a8_matmul_popcount": want}:
+        raise AssertionError(f"{TP_ARCH} TP decode step: {per_step}, want "
+                             f"{want} popcount matmuls")
+    print(f"[tp] (a') {TP_ARCH} packed, rank 0 of (16, 16) on the card "
+          f"(fake backend for the other ranks), {LM_SLOTS} rows: a decode "
+          f"step {per_step} on the rank's blocks, {ms:.3f} ms (CUDA "
+          f"events) ({smi})", flush=True)
+    return {"launches_per_decode_step": per_step, "decode_step_ms": ms}
+
+
+def tp_train(torch, dev, smi: str) -> dict:
+    """Phase 17b: rank 0 of the (16, 16) mesh training chatglm3-6b's
+    train_4k cell for real on the card: full depth (28 layers), the
+    rank's 16 rows × 4096 tokens in 8 microbatches, f32 AdamW, remat,
+    every leaf the rank's block (drawn a leaf at a time), the ``fake``
+    backend for the other 255 ranks (its all-gathers leave their outputs
+    as allocated; only memory and time are read). Measured peak memory
+    against the regenerated dry run's prediction for the cell and
+    TP_HBM; one step's CUDA-event ms against the cell's t_compute."""
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_production_mesh
+
+    arch, shape, mesh_name = TP_CELL
+    recs = json.loads((ROOT / "src" / "repro_torch" / "results" /
+                       "dryrun.json").read_text())
+    rec = next(r for r in recs if (r["arch"], r["shape"], r["mesh"]) ==
+               TP_CELL)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with dr.fake_world(TP_MODEL * TP_MODEL):
+        mesh = make_production_mesh(device="cuda")
+        t0 = time.perf_counter()
+        cell = dr.build_train_cell(arch, shape, mesh, device=dev,
+                                   generator=gen)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        cell.run()                                   # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cell.run()
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated(dev) - before
+        del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    predicted = rec["memory"]["peak_bytes"]
+    t_compute_ms = 1e3 * rec["roofline"]["t_compute_s"]
+    old = TP_OLD_PEAK_GIB
+    print(f"[tp] (b) {arch} {shape} at {mesh_name}, rank 0 for real on the "
+          f"card (28 layers, 16 rows × 4096 tokens, 8 microbatches, f32 "
+          f"AdamW, remat; built in {build_s:.1f} s): peak "
+          f"{peak / 2 ** 30:.2f} GiB measured against "
+          f"{predicted / 2 ** 30:.2f} GiB predicted by the dry run (ratio "
+          f"{peak / predicted:.3f}; {old} GiB in the old layout), under "
+          f"{TP_HBM:.0e} B: {peak < TP_HBM}; a step {ms:.1f} ms (CUDA "
+          f"events) against t_compute {t_compute_ms:.1f} ms ({smi})",
+          flush=True)
+    if peak >= TP_HBM:
+        raise AssertionError(f"{arch} {shape}: peak {peak} B on one card")
+    return {"cell": list(TP_CELL), "peak_bytes": peak,
+            "predicted_peak_bytes": predicted,
+            "peak_over_predicted": peak / predicted, "fits": peak < TP_HBM,
+            "step_ms": ms, "t_compute_ms": t_compute_ms,
+            "step_over_t_compute": ms / t_compute_ms, "build_s": build_s}
+
+
+def tp_plan_one_rank() -> dict:
+    """Phase 17c: the plan phase 15's ShardCtx ran at |model| = 1: each
+    projection of mixtral-8x7b column- or row-parallel (its blocks the
+    whole leaves), none whole, so phase 15's holds ran the new code."""
+    from repro_torch import configs
+    from repro_torch.dist.sharding import TPPlan
+
+    cfg = configs.get_config(TP_PLAN_ARCH)
+    plan = TPPlan(cfg, (("data", 1), ("model", 1)), "model", None, 1, 0)
+    kinds = {name: plan.proj(name, k, n, packed).kind
+             for packed in (False, True)
+             for name, (k, n) in lm_projections(cfg).items()
+             if name not in ("up", "gate", "down")}
+    if set(kinds.values()) != {"col", "row"}:
+        raise AssertionError(f"{TP_PLAN_ARCH} at |model| 1: {kinds}")
+    print(f"[tp] (c) {TP_PLAN_ARCH} at |model| 1 (phase 15's mesh): "
+          f"{kinds}, so phase 15 ran the plan's column- and row-parallel "
+          f"paths on whole blocks", flush=True)
+    return kinds
+
+
+def drive_tp(torch, np, dev, smi: str) -> dict:
+    """Phase 17: (a) `tp_block_check`, (a') `tp_decode`, (b) `tp_train`,
+    (c) `tp_plan_one_rank`."""
+    t0 = time.perf_counter()
+    out = {"card": smi, "blocks": tp_block_check(torch, np, dev, smi)}
+    out["decode"] = tp_decode(torch, dev, smi)
+    out["train"] = tp_train(torch, dev, smi)
+    out["one_rank_plan"] = tp_plan_one_rank()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def tp_summary(rec: dict) -> dict:
+    """Phase 17's numbers for the `tp` line and the JSON line."""
+    return {"blocks": [{k: r.get(k) for k in (
+        "what", "kind", "block", "ms", "device_ms", "whole_ms",
+        "whole_device_ms", "bound_ms")} for r in rec["blocks"]],
+        "decode": rec["decode"], "train": rec["train"],
+        "wall_s": rec["wall_s"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4683,13 +5000,20 @@ def main() -> int:
     by_path[TABLES_PATH] = tooling["launches"]
     print(f"[tooling] phase 16 in {tooling['wall_s']:.1f} s", flush=True)
     print("tooling " + json.dumps(tooling_summary(tooling)), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp = drive_tp(torch, np, dev, smi)
+    by_path["tp decode, rank 0 of (16, 16)"] = tp["decode"][
+        "launches_per_decode_step"]
+    print(f"[tp] phase 17 in {tp['wall_s']:.1f} s", flush=True)
+    print("tp " + json.dumps(tp_summary(tp)), flush=True)
     # every driven path's launches: the three launcher runs, phase 5's
     # eager forwards (popcount on both pool routes, dot fused) and int
     # call, phase 7's integer forward, phase 9's QAT pipeline, phase 10's
     # LM serve and int call, phase 11's launcher fleet, real traffic and
     # compose, phase 12's MoE and SSM serves and hybrid decode, phase 13's
-    # trained model served, phase 15's sharded serves and phase 16's
-    # kernel suite
+    # trained model served, phase 15's sharded serves, phase 16's kernel
+    # suite and phase 17's tensor-parallel decode step
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in KERNELS}
 
@@ -4785,6 +5109,17 @@ def main() -> int:
                     "library_ms", "library_device_ms")}}
             entry["lm"]["kernel_device_ms"] = [
                 r["kernel_device_ms"] for r in lm_rows]
+        if name == "w1a8_matmul_popcount":
+            # phase 17: the tensor-parallel blocks at |model| = 16
+            entry["tp"] = {
+                "arch": TP_ARCH, "model": TP_MODEL,
+                "launches_per_decode_step":
+                    tp["decode"]["launches_per_decode_step"].get(name, 0),
+                "decode_step_ms": tp["decode"]["decode_step_ms"],
+                "blocks": [{k: r.get(k) for k in (
+                    "what", "kind", "block", "whole", "ms", "device_ms",
+                    "whole_ms", "whole_device_ms", "bound_ms", "bound_by",
+                    "max_abs_err")} for r in tp["blocks"]]}
         if name in lm_train["serve"]["per_decode_step"]:
             # phase 13: the trained model, deployed and served
             entry["lm_trained"] = {
@@ -4831,7 +5166,7 @@ def main() -> int:
          "int_forward": int_record, "qat": qat_record, "lm": lm_record,
          "tiers": tiers, "families": families, "lm_train": lm_train,
          "dist": dist_rec, "sharded": sharded, "tooling": tooling,
-         "floor_device_ms": floor_ms},
+         "tp": tp, "floor_device_ms": floor_ms},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],
@@ -4871,6 +5206,7 @@ def main() -> int:
                       "dist": dist_summary(dist_rec),
                       "sharded": sharded_summary(sharded),
                       "tooling": tooling_summary(tooling),
+                      "tp": tp_summary(tp),
                       "trace_fallbacks": TRACE_FALLBACKS,
                       "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {

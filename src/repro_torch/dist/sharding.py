@@ -29,18 +29,25 @@ placements, one `Shard(dim)` or `Replicate()` a mesh dim.
 
 A rank holds its block of each leaf (`shard_tree`, which reads only that
 block of a numpy memmap); `gather_tree` all-gathers the blocks back into
-the whole tree. `moe_in_layout` re-lays one MoE layer's held leaves to
+the whole tree. `tp_plan` reads the same rules as the layers' plan: each
+projection runs column-split, row-split or whole on the rank's block as
+``param_spec`` lays its weight out, attention on a head range, the
+embedding and head on a vocabulary block (`models.layers`).
+`moe_in_layout` re-lays one MoE layer's held leaves to
 the reference's ``shard_map`` ``in_specs`` where the two differ.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import re
+from typing import Any, Optional
 
 import numpy as np
 from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.core.packing import packed_dim
-from repro_torch.dist.collectives import all_gather_rows
+from repro_torch.dist.collectives import all_gather_rows, group_rank
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.optim.optimizers import (tree_items, tree_map,
                                           tree_map_with_path)
@@ -49,7 +56,7 @@ from repro_torch.optim.optimizers import (tree_items, tree_map,
 _COL_PARALLEL = ("wq", "wk", "wv", "up", "gate", "in_proj", "x_proj",
                  "dt_proj", "shared_up", "shared_gate")
 # leaf names of row-parallel projections (shard contraction dim over model)
-_ROW_PARALLEL = ("wo", "down", "out_proj", "shared_down")
+ROW_PARALLEL = ("wo", "down", "out_proj", "shared_down")
 
 _KEY_RE = re.compile(r"\['([^']+)'\]")
 
@@ -149,7 +156,7 @@ def param_spec(path: str, shape, cfg, mesh) -> tuple:
 
     # ---- projections (attn / dense mlp / mamba), incl. packed deploy -------
     proj = next((k for k in reversed(keys) if k in _COL_PARALLEL
-                 or k in _ROW_PARALLEL), None)
+                 or k in ROW_PARALLEL), None)
     if proj is not None:
         leaf = keys[-1]
         col = proj in _COL_PARALLEL
@@ -219,6 +226,97 @@ def cache_spec(path: str, shape, cfg, mesh, *, dp: tuple, long_ctx: bool,
         c = model if shape[2] % sizes[model] == 0 else None
         return tuple([None, bspec, c] + [None] * (len(shape) - 3))
     return ()
+
+
+class _Sizes:
+    """A shape-only mesh of {axis: size} (`launch.mesh.axis_sizes`)."""
+
+    def __init__(self, sizes: tuple):
+        self.axis_names = tuple(a for a, _ in sizes)
+        self.shape = dict(sizes)
+
+
+@functools.lru_cache(maxsize=None)
+def _model_split(cfg, sizes: tuple, path: str, shape: tuple) -> bool:
+    return "model" in param_spec(path, shape, cfg, _Sizes(sizes))
+
+
+@dataclasses.dataclass(frozen=True)
+class Proj:
+    """How one projection runs on a rank: ``kind`` is 'col' (the weight
+    and product hold the rank's block of the output columns), 'row' (the
+    rank's block of the contraction dim; the partial products summed over
+    the plan's group) or 'whole'; ``k`` is the whole contraction dim;
+    ``plan`` the `TPPlan` it belongs to."""
+    kind: str
+    k: int
+    plan: "TPPlan"
+
+
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """One rank's tensor-parallel plan over the mesh axis ``axis`` (size
+    ``n``, this rank ``rank``): every answer is `param_spec`'s layout of
+    the leaf at its whole shape, so the layers run on the blocks the rank
+    holds. Attention's query heads split into ranges of ⌊H/n⌋ or ⌈H/n⌉
+    (`heads`); a projection whose column blocks do not fall on whole heads
+    has its product gathered first (`layers.head_block`). Each
+    projection's `Proj` is worked out once."""
+    cfg: Any
+    sizes: tuple
+    axis: str
+    group: Any
+    n: int
+    rank: int
+    _projs: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
+
+    def split(self, path: str, shape: tuple) -> bool:
+        """Whether ``param_spec`` puts the axis on the leaf at ``path``
+        (at n = 1 too: the plan's split paths then run on whole blocks)."""
+        return _model_split(self.cfg, self.sizes, path, tuple(shape))
+
+    def proj(self, name: str, k: int, n_out: int,
+             packed: bool = False) -> Proj:
+        """The plan of projection ``name`` with a whole (k, n_out)
+        weight (sign words (⌈k/32⌉, n_out) where ``packed``)."""
+        key = (name, k, n_out, packed)
+        got = self._projs.get(key)
+        if got is None:
+            leaf, shape = (("w_packed", (packed_dim(k), n_out)) if packed
+                           else ("w", (k, n_out)))
+            kind = "whole"
+            if self.split(f"[{name!r}][{leaf!r}]", shape):
+                kind = "col" if name in _COL_PARALLEL else "row"
+            got = self._projs[key] = Proj(kind, k, self)
+        return got
+
+    def heads(self, h: int) -> tuple:
+        """This rank's query heads [h0, h1) of ``h``: an even block where
+        the axis divides ``h``, else ⌊h/n⌋ or ⌈h/n⌉ of them."""
+        return self.rank * h // self.n, (self.rank + 1) * h // self.n
+
+    def block(self, size: int) -> tuple:
+        """This rank's even block [a, b) of a dim of ``size``."""
+        m = size // self.n
+        return self.rank * m, (self.rank + 1) * m
+
+    def vocab(self) -> Optional[tuple]:
+        """This rank's rows [v0, v1) of the embedding, or None where it
+        is whole (`param_spec` of ``emb``; ``head``, untied, splits
+        alike)."""
+        cfg = self.cfg
+        if not self.split("['emb']", (cfg.vocab_size, cfg.d_model)):
+            return None
+        return self.block(cfg.vocab_size)
+
+
+def tp_plan(cfg, mesh, axis: str = "model") -> TPPlan:
+    """This rank's `TPPlan` over ``axis`` of ``mesh``."""
+    sizes = axis_sizes(mesh)
+    group = mesh.get_group(axis)
+    return TPPlan(cfg, tuple(sizes.items()), axis, group, sizes[axis],
+                  group_rank(group))
 
 
 def spec_block_bytes(spec: tuple, shape, itemsize: int, mesh) -> int:

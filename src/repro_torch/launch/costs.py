@@ -16,15 +16,15 @@ their trip counts:
 
 A unit is the port's own code (`models.transformer.apply_stage`,
 `serve.engine.decode_stage`, the embedding, final norm, LM head and loss
-of `train.step.lm_loss`) on the rank's layout: the MoE leaves its shard,
-every other leaf whole, its rows of the batch. The port's Python loop over
+of `train.step.lm_loss`) on the rank's layout: its block of every leaf
+and of the cache, its rows of the batch. The port's Python loop over
 stages counts every stage, so the assembled FLOPs by dtype equal a
 whole-step trace (`launch.dryrun.run_cell`) but for remat's recompute,
 which the units measure apart (``remat_flops``: each stage's forward run
 once more under ``torch.utils.checkpoint``, which stops once it has
 recomputed what the backward needs). Collectives and bytes of the
-whole train step hold more than the units: the sharded step's gathers of
-the non-MoE leaves, its gradient sums and the microbatch slicing.
+whole train step hold more than the units: the sharded step's gradient
+sums and the microbatch slicing.
 
 The record and its ``roofline`` block are the reference's, on the H100
 terms of `launch.dryrun.roofline_terms`, with the whole step's
@@ -54,7 +54,8 @@ from repro_torch.launch import dryrun as dr
 from repro_torch.launch.mesh import HW, make_production_mesh
 from repro_torch.models.layers import embed, norm, unembed
 from repro_torch.models.transformer import (apply_stage, encoder_stage,
-                                            stage, tree_leaves, tree_map)
+                                            stage, tp_of, tree_leaves,
+                                            tree_map)
 
 KNOBS = ("microbatches", "packed", "a2a_quant", "cache_seq_shard")
 # what a record takes from the dry run's record of its cell: the units
@@ -194,19 +195,19 @@ def _float_leaves(tree) -> list:
     return [t for t in tree_leaves(tree) if t.requires_grad]
 
 
-def _top_fn(cfg, tokens_len: int, loss: bool):
+def _top_fn(cfg, tokens_len: int, loss: bool, tp=None):
     """Embedding (with the vision prefix) → final norm → LM head, and in
-    train the loss of `train.step.lm_loss`."""
+    train the loss of `train.step.lm_loss` (``tp``: the rank's plan)."""
     from repro_torch.train.step import token_loss
 
     def top(embed_p, norm_p, tokens, labels, prefix):
-        x = embed(embed_p, tokens)
+        x = embed(embed_p, tokens, tp)
         if prefix is not None:
             x = torch.cat([prefix.to(x.dtype), x], dim=1)
-        logits = unembed(embed_p, cfg, norm(norm_p, x, cfg.norm_kind))
+        logits = unembed(embed_p, cfg, norm(norm_p, x, cfg.norm_kind), tp)
         if not loss:
             return logits
-        return token_loss(logits[:, -tokens_len:, :], labels)
+        return token_loss(logits[:, -tokens_len:, :], labels, tp)
     return top
 
 
@@ -274,9 +275,9 @@ def _units(arch, cfg, spec, mesh, microbatches: int, variant: dict,
     stages = cfg.num_layers // cfg.period
     train = spec.kind == "train"
     dtype = torch.float32 if train and arch not in dr.BIG else torch.bfloat16
-    whole = dr._whole_params(cfg, dtype, packed=not train and
-                             variant.get("packed", True), device=dev)
-    tree = dr.serve_tree(whole, cfg, mesh)
+    whole = dr._params(cfg, dtype, packed=not train and
+                       variant.get("packed", True), device=dev)
+    tree = dr.rank_tree(whole, cfg, mesh)
     slots = stage(tree["slots"], 0)
     cross = stage(tree["cross"], 0) if "cross" in tree else None
     inputs = dr.batch_specs(cfg, spec)
@@ -296,7 +297,7 @@ def _units(arch, cfg, spec, mesh, microbatches: int, variant: dict,
                              dtype=torch.float32, device=dev)
     tokens = torch.zeros((b, toks if spec.kind != "decode" else 1),
                          dtype=torch.int32, device=dev)
-    top = _top_fn(cfg, toks, loss=train)
+    top = _top_fn(cfg, toks, loss=train, tp=tp_of(ctx, cfg))
     parts, scaled = {}, []
 
     def stage_fwd(sl, x_, enc_):
@@ -342,7 +343,8 @@ def _units(arch, cfg, spec, mesh, microbatches: int, variant: dict,
             enc_slot = _requires_grad(stage(tree["encoder"]["slots"][0], 0))
             c_enc = _trace_unit(lambda: _leaf_grads(
                 lambda e: encoder_stage(cfg, enc_slot, e, mode=mode,
-                                        positions=_pos(e)),
+                                        positions=_pos(e),
+                                        tp=tp_of(ctx, cfg)),
                 _float_leaves(enc_slot), eg))
             parts["encoder_fwdbwd"] = c_enc
             parts["trips"]["encoder"] = cfg.encoder_layers * microbatches
@@ -360,7 +362,8 @@ def _units(arch, cfg, spec, mesh, microbatches: int, variant: dict,
             if enc is not None:
                 enc_slot = stage(tree["encoder"]["slots"][0], 0)
                 c_enc = _trace_unit(lambda: encoder_stage(
-                    cfg, enc_slot, enc, mode=mode, positions=_pos(enc)))
+                    cfg, enc_slot, enc, mode=mode, positions=_pos(enc),
+                    tp=tp_of(ctx, cfg)))
                 parts["encoder_fwd"] = c_enc
                 parts["trips"]["encoder"] = cfg.encoder_layers
                 scaled.append(_scale(c_enc, cfg.encoder_layers))
@@ -369,7 +372,7 @@ def _units(arch, cfg, spec, mesh, microbatches: int, variant: dict,
         from repro_torch.serve.cache import init_cache
         from repro_torch.serve.engine import decode_stage
         cache = init_cache(cfg, rows, spec.seq_len, dtype=torch.bfloat16,
-                           device=dev)
+                           device=dev, ctx=ctx)
         pos = cache["lengths"]
         with torch.no_grad():
             c_stage = _trace_unit(lambda: decode_stage(

@@ -27,14 +27,17 @@ port runs its own program instead, for rank 0 of the real world:
 
 The cells run the port's own entry points under a `ShardCtx` (the
 reference's: ``dp_axes`` empty where the global batch is smaller than the
-dp size, ``tp_axis='model'``, ``ep_axis='data'`` for MoE archs): train is
-`train.step.make_train_step` (8 microbatches, remat) on the rank's
-`dist.sharding.shard_tree` of the params (bf16 with Adafactor for the
-`BIG` archs, f32 with AdamW otherwise) and optimizer state; prefill is
+dp size, and then the KV sequence over 'data' in decode,
+`serve.cache.sp_axis`; ``tp_axis='model'``, ``ep_axis='data'`` for MoE
+archs): train is `train.step.make_train_step` (8 microbatches, remat) on
+the rank's `dist.sharding.shard_tree` of the params (bf16 with Adafactor
+for the `BIG` archs, f32 with AdamW otherwise) and optimizer state;
+prefill is
 `models.transformer.lm_forward` and decode `serve.engine.decode_step` on
-`serve.packed.deploy_lm`'s tree, the MoE leaves the rank's shard and the
-rest whole, with the rank's rows of the batch and of the cache, as the
-engine holds them.
+the rank's `shard_tree` of `serve.packed.deploy_lm`'s tree, with the
+rank's rows of the batch and its block of the cache
+(`serve.cache.init_cache` under the ctx). Every layer runs on the rank's
+blocks, tensor-parallel (`models.layers`).
 
 A record holds, beside the reference's ``arch``, ``shape``, ``mesh``,
 ``chips``, ``status`` and ``pipeline_bubble``:
@@ -98,9 +101,10 @@ from repro_torch.kernels import _build
 from repro_torch.launch.mesh import HW, axis_sizes, link_bw, \
     make_production_mesh
 from repro_torch.models.transformer import (ShardCtx, allocate,
-                                            init_lm_params, lm_param_specs,
-                                            tree_items, tree_leaves,
-                                            tree_map_with_path)
+                                            init_lm_params, keep_all,
+                                            lm_param_specs, tree_items,
+                                            tree_leaves)
+from repro_torch.train.loop import block_cutter
 
 RESULTS_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "results")
@@ -576,20 +580,10 @@ def layout_bytes(tree, cfg, mesh) -> int:
         for p, leaf in tree_items(tree))
 
 
-def serve_tree(tree, cfg, mesh):
-    """The tree a serving rank holds under a `ShardCtx`: each MoE leaf its
-    block (`dist.sharding.tree_shardings`), every other leaf whole."""
-    if mesh is None:
-        return tree
-
-    def one(path, leaf):
-        if "moe" not in sharding.path_keys(path):
-            return leaf
-        pls = sharding.placements(
-            sharding.param_spec(path, tuple(leaf.shape), cfg, mesh), mesh)
-        part = sharding.placement_block(leaf, pls, mesh)
-        return part if part.shape == leaf.shape else part.clone()
-    return tree_map_with_path(one, tree)
+def rank_tree(tree, cfg, mesh):
+    """The tree a rank holds: its `dist.sharding.shard_tree` (the whole
+    tree without a mesh)."""
+    return tree if mesh is None else sharding.shard_tree(tree, cfg, mesh)
 
 
 META = torch.device("meta")
@@ -601,18 +595,20 @@ def fake_device() -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
-def _whole_params(cfg, dtype, packed: bool, device=None,
-                  generator: Optional[torch.Generator] = None):
-    """The whole param tree: drawn from ``generator`` on a real device,
-    left empty (constants filled) on a fake one; packed by
+def _params(cfg, dtype, packed: bool, device=None,
+            generator: Optional[torch.Generator] = None, cut=keep_all):
+    """The param tree, or the part ``cut`` keeps of each leaf
+    (`models.transformer.materialize`): drawn from ``generator`` on a
+    real device, left empty (constants filled) on a fake one; packed by
     `serve.packed.deploy_lm` where asked and the body is W1A8."""
     from repro_torch.serve.packed import deploy_lm
     device = device or META
     if generator is None:
         params = allocate(lm_param_specs(cfg), (), dtype,
-                          torch.device(device))
+                          torch.device(device), cut)
     else:
-        params = init_lm_params(cfg, generator, device=device, dtype=dtype)
+        params = init_lm_params(cfg, generator, device=device, dtype=dtype,
+                                cut=cut)
     return deploy_lm(params) if packed and cfg.w1a8_body else params
 
 
@@ -646,12 +642,14 @@ def build_train_cell(arch: str, shape, mesh, *, microbatches: int = 8,
         optimizer or ("adafactor" if big else "adamw")](1e-3)
     ctx = make_ctx(cfg, mesh, dp if spec.global_batch >= _axsize(mesh, dp)
                    else (), a2a_quant)
-    whole = _whole_params(cfg, dtype, False, device, generator)
     meta = init_lm_params(cfg, None, device="meta", dtype=dtype)
     layout = layout_bytes(meta, cfg, mesh) + \
         layout_bytes(opt[0](meta), cfg, mesh)
-    params = whole if mesh is None else sharding.shard_tree(whole, cfg, mesh)
-    del whole
+    # the rank's blocks, drawn a leaf at a time: the whole tree is never
+    # held
+    params = _params(cfg, dtype, False, device, generator,
+                     keep_all if mesh is None else block_cutter(
+                         sharding.tree_shardings(meta, cfg, mesh), mesh))
     opt_state = opt[0](params)
     step = make_train_step(cfg, opt, mode=mode, microbatches=microbatches,
                            ctx=ctx, remat=True)
@@ -679,8 +677,8 @@ def build_prefill_cell(arch: str, shape, mesh, *, mode: str = "w1a8_eval",
     spec = shape_spec(shape)
     device = device or META
     dp = sharding.dp_axes(mesh) if mesh is not None else ()
-    whole = _whole_params(cfg, dtype, packed, device, generator)
-    params = serve_tree(whole, cfg, mesh)
+    whole = _params(cfg, dtype, packed, device, generator)
+    params = rank_tree(whole, cfg, mesh)
     layout = layout_bytes(whole, cfg, mesh)
     long_ctx = spec.global_batch < _axsize(mesh, dp)
     ctx = make_ctx(cfg, mesh, () if long_ctx else dp, a2a_quant)
@@ -708,11 +706,12 @@ def build_decode_cell(arch: str, shape, mesh, *, mode: str = "w1a8_eval",
     device = device or META
     dp = sharding.dp_axes(mesh) if mesh is not None else ()
     long_ctx = spec.global_batch < _axsize(mesh, dp)
-    whole = _whole_params(cfg, dtype, packed, device, generator)
-    params = serve_tree(whole, cfg, mesh)
+    whole = _params(cfg, dtype, packed, device, generator)
+    params = rank_tree(whole, cfg, mesh)
     ctx = make_ctx(cfg, mesh, () if long_ctx else dp, a2a_quant)
     rows = spec.global_batch // _axsize(mesh, ctx.dp_axes if ctx else ())
-    cache = init_cache(cfg, rows, spec.seq_len, dtype=dtype, device=device)
+    cache = init_cache(cfg, rows, spec.seq_len, dtype=dtype, device=device,
+                       ctx=ctx)
     layout = layout_bytes(whole, cfg, mesh)
     if mesh is None:
         layout += layout_bytes(cache, cfg, None)

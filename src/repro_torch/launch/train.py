@@ -42,13 +42,16 @@ across the layers a stage splits.
 world exits naming the 256 it needs): `ShardCtx(mesh, ("data",),
 "model", "data")` for an MoE arch (None for the experts' axis otherwise),
 `train.step.make_train_step(ctx=)`, each rank holding its block of the
-params and optimizer state under `dist.sharding.tree_shardings`, restored
-elastically (`resume_or_init(shardings=, mesh=)`) from a checkpoint any
-layout wrote; rank 0 writes each checkpoint whole after
-`dist.sharding.gather_tree`. It and ``--pipeline`` are separate mesh
-layouts; Adafactor is refused (its factored moments reduce across a
-leaf's rows and columns, which the blocks split). `train` takes any
-('data', 'model') mesh, so a smaller one drives the same branch.
+params and optimizer state under `dist.sharding.tree_shardings` and
+running tensor-parallel on it, restored elastically
+(`resume_or_init(shardings=, mesh=)`) from a checkpoint any layout wrote,
+or on a fresh start drawn a leaf at a time, the rank keeping its blocks
+(`models.transformer.init_lm_params(cut=)`); rank 0 writes each
+checkpoint whole after `dist.sharding.gather_tree`. It and
+``--pipeline`` are separate mesh layouts; Adafactor is refused (its
+factored moments reduce across a leaf's rows and columns, which the
+blocks split). `train` takes any ('data', 'model') mesh, so a smaller
+one drives the same branch.
 
 Prints the loop's lines, then one JSON line: arch, steps run, first and
 last loss, mean ms a step (CUDA events around each step on the card, the
@@ -80,7 +83,7 @@ from repro_torch.launch.mesh import (axis_sizes, make_pipeline_mesh,
                                      make_production_mesh)
 from repro_torch.device import card_name
 from repro_torch.models.transformer import (ShardCtx, count_lm_params,
-                                            init_lm_params)
+                                            init_lm_params, keep_all)
 from repro_torch.optim import adafactor, adamw, cosine_schedule, sgdm
 from repro_torch.train.loop import StepTimer, resume_or_init, run_train
 from repro_torch.train.step import make_pipeline_train_step, make_train_step
@@ -228,12 +231,17 @@ def train(args, dev: torch.device, mesh=None, backend=None) -> dict:
     sched = cosine_schedule(args.lr, max(args.steps // 20, 1), args.steps)
     opt = OPTIMIZERS[args.optimizer](sched)
 
-    def init_fn(d: torch.device) -> dict:
+    def init_fn(d: torch.device, cut=keep_all) -> dict:
+        """The fresh state on ``d``; with ``cut`` (`train.loop.
+        block_cutter`) the rank's blocks, drawn a leaf at a time (the
+        optimizers' moments start as zeros, element by element)."""
         gen = None
         if d.type != "meta":
             gen = torch.Generator(device=d)
             gen.manual_seed(args.seed)
-        params = init_lm_params(cfg, gen, device=d)
+        params = init_lm_params(
+            cfg, gen, device=d,
+            cut=lambda p, x, st: cut("['params']" + p, x, st))
         return {"params": params, "opt_state": opt[0](params)}
 
     template = init_fn(torch.device("meta"))

@@ -14,6 +14,19 @@ CPU), which reads 1 bit a weight. Float matmuls and attention run inside
 `device.full_f32` (TF32 would flip codes downstream). Where the reference
 divides by a number, the port divides by a tensor on the operand's device:
 CUDA multiplies by the reciprocal of a Python number.
+
+Tensor parallelism (a `dist.sharding.TPPlan`, ``tp=``; Megatron's layout,
+which XLA gives the reference's jitted cells): every weight is the rank's
+block as ``param_spec`` lays it out. A column-parallel projection
+multiplies the whole input by its columns, with `dist.collectives.
+sum_grad` after the quantizer, so the act step's LSQ gradient and dL/dx
+come out whole; a row-parallel one quantizes its slice of the input and
+sums the partial products with ``psum`` (α = Σ|w| summed over the group
+over the whole K; the bias once, after the sum; the act step's gradient a
+partial the train step sums). Attention runs on the rank's query heads
+(`attention_qkv`), the embedding on its vocabulary rows and the head on
+its vocabulary columns. A product whose column blocks do not fall on the
+rank's heads is gathered first (`head_block`).
 """
 from __future__ import annotations
 
@@ -28,6 +41,8 @@ from repro_torch.core.quant import (binarize_ste, binarize_weight,
                                     lsq_fake_quant, lsq_grad_scale,
                                     quantize_act)
 from repro_torch.device import full_f32
+from repro_torch.dist.collectives import (all_reduce, gather_cols, psum,
+                                          sum_grad, take_block)
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.kernels.w1a8_matmul.ops import w1a8_matmul
 
@@ -160,26 +175,54 @@ def init_linear(k: int, n: int, *, w1a8: bool, bias: bool = False,
 POPCOUNT = KernelConfig(op="matmul", accum="popcount")
 
 
-def packed_linear(p: dict, x: torch.Tensor) -> torch.Tensor:
+def packed_linear(p: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """A deployed projection: codes = quantize_act(x, step) as uint8
     (negatives clip to 0), then the popcount matmul's exact int32 Σ
     code·sign, times α·step, plus the bias. ``p["act_step"]`` holds one
     step, broadcast to (K,) by `deploy_lm`, so the kernel's fold of the
-    codes onto one grid is the identity."""
+    codes onto one grid is the identity. ``tp`` (a `dist.sharding.Proj`):
+    'col' launches on the rank's columns; 'row' on its K-slice of the
+    words, the partial products summed over the group and the bias added
+    once after."""
     k = x.shape[-1]
-    step = p["act_step"].to(x.dtype)
+    row = tp is not None and tp.kind == "row"
+    step = p["act_step"]
+    if row:
+        step = step[..., tp.plan.rank * k:(tp.plan.rank + 1) * k]
+    step = step.to(x.dtype)
     codes = quantize_act(x, step).to(torch.uint8)
     alpha = p["alpha"]
-    bias = p["b"] if "b" in p else torch.zeros_like(alpha)
+    bias = p["b"] if "b" in p and not row else torch.zeros_like(alpha)
     y = w1a8_matmul(codes, p["w_packed"], torch.broadcast_to(step, (k,)),
-                    alpha, bias, k=k, config=POPCOUNT)
-    return y.to(x.dtype)
+                    alpha, bias, k=k, config=POPCOUNT).to(x.dtype)
+    if row:
+        y = psum(y, tp.plan.group)
+        if "b" in p:
+            y = y + p["b"].to(y.dtype)
+    return y
 
 
-def linear(p: dict, x: torch.Tensor, mode: str = "float") -> torch.Tensor:
-    """Apply a (possibly W1A8) projection; mode selects the datapath."""
+def _alpha(w: torch.Tensor, tp) -> torch.Tensor:
+    """mean |w| over K, detached; a row-parallel block's sums all-reduced
+    over the group, over the whole K (at one rank the local path's mean,
+    bit for bit)."""
+    if tp is None or tp.kind != "row" or tp.plan.n == 1:
+        return torch.mean(torch.abs(w), dim=0).detach()
+    total = all_reduce(torch.sum(torch.abs(w.detach()), dim=0),
+                       tp.plan.group)
+    return _div(total, tp.k)
+
+
+def linear(p: dict, x: torch.Tensor, mode: str = "float",
+           tp=None) -> torch.Tensor:
+    """Apply a (possibly W1A8) projection; mode selects the datapath.
+    ``tp``: the projection's `dist.sharding.Proj` under tensor
+    parallelism ('col': ``x`` whole, the product the rank's columns;
+    'row': ``x`` the rank's K-slice, the product summed; 'whole' or None:
+    as on one device)."""
     if "w_packed" in p:
-        return packed_linear(p, x)
+        return packed_linear(p, x, tp)
+    kind = "whole" if tp is None else tp.kind
     w = p["w"]
     with full_f32():
         if "act_step" in p and mode != "float":
@@ -190,13 +233,30 @@ def linear(p: dict, x: torch.Tensor, mode: str = "float") -> torch.Tensor:
             else:  # w1a8_eval
                 xq = quantize_act(x, p["act_step"]) * p["act_step"]
                 wb = binarize_weight(w)
-            alpha = torch.mean(torch.abs(w), dim=0).detach()
+            if kind == "col":
+                xq = sum_grad(xq, tp.plan.group)
+            alpha = _alpha(w, tp)
             y = (xq @ wb.to(xq.dtype)) * alpha.to(xq.dtype)
         else:
+            if kind == "col":
+                x = sum_grad(x, tp.plan.group)
             y = x @ w.to(x.dtype)
+    if kind == "row":
+        y = psum(y, tp.plan.group)
     if "b" in p:
         y = y + p["b"].to(y.dtype)
     return y
+
+
+def feed(x: torch.Tensor, split: bool, tp) -> torch.Tensor:
+    """``x`` as projection ``tp`` takes it: a row-parallel one its even
+    block of the last dim, any other the whole. ``split``: ``x`` holds the
+    rank's block (a column-parallel product), else it is whole."""
+    if tp is None:
+        return x
+    if tp.kind == "row":
+        return x if split else take_block(x, tp.plan.group)
+    return gather_cols(x, tp.plan.group) if split else x
 
 
 # ---------------------------------------------------------------------------
@@ -350,15 +410,97 @@ def _blockwise_attention(q, k, v, *, causal: bool, window: int,
     return out[:, :s]
 
 
+def head_block(y: torch.Tensor, tp, proj, heads: int, lo: int, hi: int,
+               hd: int) -> torch.Tensor:
+    """Heads [lo, hi) of a projection's product ``y`` (``proj`` its
+    `dist.sharding.Proj`), which hold ``heads`` heads of ``hd`` columns in
+    all. Where the product is the rank's column block and that block is
+    these heads, ``y`` itself. Otherwise the product is gathered (if it is
+    a block) and sliced, and the slice's cotangent is summed over the
+    group: each rank differentiates its own heads only."""
+    if proj.kind == "col" and heads % tp.n == 0 and \
+            (lo, hi) == tp.block(heads):
+        return y
+    if proj.kind == "col":
+        y = gather_cols(y, tp.group)
+    return sum_grad(y, tp.group)[..., lo * hd:hi * hd]
+
+
+def local_kv(k: torch.Tensor, v: torch.Tensor, h0: int, h1: int, g: int,
+             kv0: int) -> tuple:
+    """k, v (B, T, KV_l, hd) of the KV heads from ``kv0`` on, laid out for
+    query heads [h0, h1) of groups of ``g``: as they are where each of the
+    KV heads serves the same count of consecutive query heads, else one KV
+    head a query head."""
+    hl, kvl = h1 - h0, k.shape[2]
+    want = [(h0 + i) // g - kv0 for i in range(hl)]
+    if hl % kvl == 0 and want == [i // (hl // kvl) for i in range(hl)]:
+        return k, v
+    idx = torch.tensor(want, device=k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def attention_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                  src: torch.Tensor, mode: str, tp,
+                  kv_range: Optional[tuple] = None,
+                  with_q: bool = True) -> tuple:
+    """(q, k, v, (h0, h1), (kv0, kv1)): q (B, S, h1 - h0, hd) of this
+    rank's query heads (None unless ``with_q``), k and v (B, T, kv1 - kv0,
+    hd) of the KV heads [kv0, kv1): those the query heads need, or
+    ``kv_range``. Without ``tp`` every head."""
+    b, s, _ = x.shape
+    t = src.shape[1]
+    hd, h, kvh = cfg.hd, cfg.heads_eff, cfg.num_kv_heads
+    if tp is None:
+        q = linear(p["wq"], x, mode).reshape(b, s, h, hd) if with_q \
+            else None
+        k = linear(p["wk"], src, mode).reshape(b, t, kvh, hd)
+        v = linear(p["wv"], src, mode).reshape(b, t, kvh, hd)
+        return q, k, v, (0, h), (0, kvh)
+    d, packed = cfg.d_model, "w_packed" in p["wq"]
+    h0, h1 = tp.heads(h)
+    g = h // kvh
+    kv0, kv1 = kv_range or (h0 // g, (h1 - 1) // g + 1)
+    tq = tp.proj("wq", d, h * hd, packed)
+    tk = tp.proj("wk", d, kvh * hd, packed)
+    tv = tp.proj("wv", d, kvh * hd, packed)
+    q = head_block(linear(p["wq"], x, mode, tq), tp, tq, h, h0, h1,
+                   hd).reshape(b, s, h1 - h0, hd) if with_q else None
+    k = head_block(linear(p["wk"], src, mode, tk), tp, tk, kvh, kv0, kv1,
+                   hd)
+    v = head_block(linear(p["wv"], src, mode, tv), tp, tv, kvh, kv0, kv1,
+                   hd)
+    return (q, k.reshape(b, t, kv1 - kv0, hd),
+            v.reshape(b, t, kv1 - kv0, hd), (h0, h1), (kv0, kv1))
+
+
+def attention_out(p: dict, cfg: ModelConfig, out: torch.Tensor, mode: str,
+                  tp) -> torch.Tensor:
+    """``wo`` over the attention output of this rank's heads (B, S,
+    (h1 - h0)·hd): row-parallel where those heads are its block of wo's
+    rows; otherwise the heads are summed into the whole output first."""
+    if tp is None:
+        return linear(p["wo"], out, mode)
+    h, hd = cfg.heads_eff, cfg.hd
+    t = tp.proj("wo", h * hd, cfg.d_model, "w_packed" in p["wo"])
+    if t.kind == "row" and h % tp.n == 0:
+        return linear(p["wo"], out, mode, t)
+    h0, h1 = tp.heads(h)
+    whole = psum(F.pad(out, (h0 * hd, (h - h1) * hd)), tp.group)
+    return linear(p["wo"], feed(whole, False, t), mode, t)
+
+
 def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
               mode: str, causal: bool = True, window: int = 0,
               positions: Optional[torch.Tensor] = None,
               kv_x: Optional[torch.Tensor] = None,
-              kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+              kv_positions: Optional[torch.Tensor] = None,
+              tp=None) -> torch.Tensor:
     """Self- or cross-attention (kv_x given ⇒ cross, no RoPE on kv
-    source)."""
+    source). ``tp``: a `dist.sharding.TPPlan`; the rank then attends with
+    its query heads (`attention_qkv`), so its scores are 1/n of the
+    whole."""
     b, s, d = x.shape
-    hd = cfg.hd
     src = kv_x if kv_x is not None else x
     t = src.shape[1]
     if positions is None:
@@ -366,30 +508,30 @@ def attention(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     if kv_positions is None:
         kv_positions = positions if kv_x is None else \
             torch.arange(t, device=x.device).expand(b, t)
-    q = linear(p["wq"], x, mode).reshape(b, s, cfg.heads_eff, hd)
-    k = linear(p["wk"], src, mode).reshape(b, t, cfg.num_kv_heads, hd)
-    v = linear(p["wv"], src, mode).reshape(b, t, cfg.num_kv_heads, hd)
+    q, k, v, (h0, h1), (kv0, _) = attention_qkv(p, cfg, x, src, mode, tp)
     if kv_x is None:                              # RoPE only for self-attn
         q = rope(q, positions, theta=cfg.rope_theta,
                  fraction=cfg.rope_fraction)
         k = rope(k, kv_positions, theta=cfg.rope_theta,
                  fraction=cfg.rope_fraction)
+    g = cfg.heads_eff // cfg.num_kv_heads
     if cfg.flat_head_attn:
-        g = cfg.heads_eff // cfg.num_kv_heads
-        k = torch.repeat_interleave(k, g, dim=2)
-        v = torch.repeat_interleave(v, g, dim=2)
+        idx = torch.arange(h0, h1, device=k.device) // g - kv0
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    elif tp is not None:
+        k, v = local_kv(k, v, h0, h1, g, kv0)
     if cfg.flash_block > 0 and s > cfg.flash_block and kv_x is None:
         out = _blockwise_attention(q, k, v, causal=causal, window=window,
                                    softcap_=cfg.attn_softcap,
                                    q_pos=positions, k_pos=kv_positions,
                                    block=cfg.flash_block)
-        return linear(p["wo"], out.reshape(b, s, -1), mode)
+        return attention_out(p, cfg, out.reshape(b, s, -1), mode, tp)
     probs, g = _attn_weights(q, k, causal=causal and kv_x is None,
                              window=window, softcap_=cfg.attn_softcap,
                              q_pos=positions, k_pos=kv_positions)
     with full_f32():
         out = torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(b, s, -1)
-    return linear(p["wo"], out, mode)
+    return attention_out(p, cfg, out, mode, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -413,14 +555,29 @@ def _act(name: str):
     return F.silu
 
 
-def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor, mode: str
-        ) -> torch.Tensor:
-    up = linear(p["up"], x, mode)
+def mlp(p: dict, cfg: ModelConfig, x: torch.Tensor, mode: str,
+        tp=None) -> torch.Tensor:
+    """``up``/``gate`` then ``down``; under ``tp`` column- then
+    row-parallel where the plan splits them (a whole ``down`` after split
+    ``up`` takes the gathered hidden)."""
+    if tp is None:
+        up = linear(p["up"], x, mode)
+        if "gate" in p:
+            up = up * _act(cfg.act_fn)(linear(p["gate"], x, mode))
+        else:
+            up = _act(cfg.act_fn)(up)
+        return linear(p["down"], up, mode)
+    d, f, packed = cfg.d_model, cfg.d_ff, "w_packed" in p["up"]
+    t_up = tp.proj("up", d, f, packed)
+    t_down = tp.proj("down", f, d, packed)
+    up = linear(p["up"], x, mode, t_up)
     if "gate" in p:
-        up = up * _act(cfg.act_fn)(linear(p["gate"], x, mode))
+        up = up * _act(cfg.act_fn)(linear(p["gate"], x, mode,
+                                          tp.proj("gate", d, f, packed)))
     else:
         up = _act(cfg.act_fn)(up)
-    return linear(p["down"], up, mode)
+    return linear(p["down"], feed(up, t_up.kind == "col", t_down), mode,
+                  t_down)
 
 
 # ---------------------------------------------------------------------------
@@ -434,11 +591,29 @@ def init_embed(cfg: ModelConfig) -> dict:
     return p
 
 
-def embed(p: dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["emb"][tokens.long()]
+def embed(p: dict, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """The tokens' rows of ``emb``; under ``tp`` with the vocabulary
+    split, each rank looks up its rows (zeros for tokens it does not hold)
+    and the ranks' lookups are summed."""
+    vocab = None if tp is None else tp.vocab()
+    if vocab is None:
+        return p["emb"][tokens.long()]
+    v0, v1 = vocab
+    t = tokens.long() - v0
+    held = (t >= 0) & (t < v1 - v0)
+    x = p["emb"][torch.clamp(t, 0, v1 - v0 - 1)]
+    x = torch.where(held[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                    device=x.device))
+    return psum(x, tp.group)
 
 
-def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor,
+            tp=None) -> torch.Tensor:
+    """Logits (…, V), or under ``tp`` with the vocabulary split this
+    rank's block of them (…, V/n): x times its columns of ``head`` (or of
+    the tied ``emb.T``), the cotangent of x summed over the group."""
+    if tp is not None and tp.vocab() is not None:
+        x = sum_grad(x, tp.group)
     with full_f32():
         logits = x @ (p["head"] if "head" in p
                       else p["emb"].T.to(x.dtype))

@@ -11,6 +11,16 @@ steps, and the carry is injected after, as the reference does. Projections run t
 packed ones through the popcount matmul); the einsums run in full f32.
 
 mamba2-1.3b uses SSD; jamba's mamba layers use Mamba-1 (d_state 16).
+
+Under tensor parallelism (``tp``, a `dist.sharding.TPPlan`) the column
+blocks of ``in_proj`` do not fall on its components (z, x, B, C, dt;
+x, z), so each rank multiplies by its columns and the product is
+gathered (`dist.collectives.gather_cols`); the depthwise conv runs on the
+rank's channels and is gathered likewise, ``x_proj`` and ``dt_proj`` as
+``in_proj``; the scan runs whole on every rank, and ``out_proj`` takes the
+rank's slice of its input, row-parallel. A decode step's conv and SSM
+states are the rank's channel (head) blocks where the cache holds them so
+(`serve.cache.init_cache` under a ctx), and the step's output gathered.
 """
 from __future__ import annotations
 
@@ -21,7 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import full_f32, resolve_device
-from repro_torch.models.layers import Leaf, ModelConfig, init_linear, linear
+from repro_torch.dist.collectives import gather_cols, take_block
+from repro_torch.models.layers import (Leaf, ModelConfig, feed, init_linear,
+                                       linear)
 
 
 # ---------------------------------------------------------------------------
@@ -124,6 +136,69 @@ def _conv_state(x_raw: torch.Tensor, width: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Tensor parallelism: products gathered around the whole scan
+# ---------------------------------------------------------------------------
+
+def gathered(p: dict, name: str, x: torch.Tensor, mode: str, tp, k: int,
+             n_out: int) -> torch.Tensor:
+    """The whole product of the column-parallel projection ``name`` (a
+    whole (k, n_out) weight): the rank's columns, gathered."""
+    if tp is None:
+        return linear(p[name], x, mode)
+    t = tp.proj(name, k, n_out, "w_packed" in p[name])
+    y = linear(p[name], x, mode, t)
+    return gather_cols(y, tp.group) if t.kind == "col" else y
+
+
+def out_proj(p: dict, cfg: ModelConfig, y: torch.Tensor, mode: str,
+             tp) -> torch.Tensor:
+    """``out_proj`` of the whole ``y``: row-parallel on the rank's slice
+    where the plan splits it."""
+    if tp is None:
+        return linear(p["out_proj"], y, mode)
+    t = tp.proj("out_proj", d_inner(cfg), cfg.d_model,
+                "w_packed" in p["out_proj"])
+    return linear(p["out_proj"], feed(y, False, t), mode, t)
+
+
+def _conv_split(cfg: ModelConfig, tp, c: int) -> bool:
+    return tp is not None and tp.split("['conv_w']", (cfg.ssm_conv, c))
+
+
+def conv(p: dict, cfg: ModelConfig, x: torch.Tensor, tp) -> torch.Tensor:
+    """`causal_conv` of the whole ``x``: on the rank's channels, gathered,
+    where ``conv_w`` is split."""
+    if not _conv_split(cfg, tp, x.shape[-1]):
+        return causal_conv(x, p["conv_w"], p["conv_b"])
+    y = causal_conv(take_block(x, tp.group), p["conv_w"], p["conv_b"])
+    return gather_cols(y, tp.group)
+
+
+def conv_step(p: dict, cfg: ModelConfig, x_new: torch.Tensor,
+              state: torch.Tensor, tp) -> tuple:
+    """`causal_conv_step` of the whole ``x_new`` (B, C) against
+    ``state``, the rank's channel block where the cache splits it: the
+    whole output, and the state in the cache's layout."""
+    c = x_new.shape[-1]
+    if not _conv_split(cfg, tp, c):
+        return causal_conv_step(x_new, state, p["conv_w"], p["conv_b"])
+    a, b = tp.block(c)
+    whole = state.shape[-1] == c
+    y, new = causal_conv_step(x_new[..., a:b],
+                              state[..., a:b] if whole else state,
+                              p["conv_w"], p["conv_b"])
+    if whole:
+        new = torch.cat([state, x_new[:, None, :]], dim=1)[:, 1:, :]
+    return gather_cols(y, tp.group), new
+
+
+def channel_block(tp, whole: int, held: int) -> tuple:
+    """[a, b) of the rank's block of ``whole`` channels where a cache
+    leaf holds ``held`` of them, else (0, whole)."""
+    return (0, whole) if held == whole else tp.block(whole)
+
+
+# ---------------------------------------------------------------------------
 # Mamba-2: SSD chunked scan
 # ---------------------------------------------------------------------------
 
@@ -181,16 +256,23 @@ def _gated_norm(p: dict, y: torch.Tensor, z: torch.Tensor,
     return (yf * torch.rsqrt(ms + 1e-6) * p["norm_scale"]).to(dtype)
 
 
-def _mamba2_core(p: dict, cfg: ModelConfig, xin: torch.Tensor, mode: str):
+def _mamba2_dims(cfg: ModelConfig) -> tuple:
+    di, n = d_inner(cfg), cfg.ssm_state
+    h = di // cfg.ssm_headdim
+    return di, n, h, 2 * di + 2 * n + h
+
+
+def _mamba2_core(p: dict, cfg: ModelConfig, xin: torch.Tensor, mode: str,
+                 tp=None):
     """in_proj → conv → SSD → gate → norm → out_proj; also the conv's raw
     input and the final state, for a prefill's cache."""
     bsz, s, _ = xin.shape
-    di, n = d_inner(cfg), cfg.ssm_state
-    h, hp = di // cfg.ssm_headdim, cfg.ssm_headdim
-    proj = linear(p["in_proj"], xin, mode)
+    di, n, h, proj_out = _mamba2_dims(cfg)
+    hp = cfg.ssm_headdim
+    proj = gathered(p, "in_proj", xin, mode, tp, cfg.d_model, proj_out)
     z, xbc_raw, dt_raw = torch.tensor_split(proj, [di, 2 * di + 2 * n],
                                             dim=-1)
-    xbc = causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
+    xbc = conv(p, cfg, xbc_raw, tp)
     xs, bmat, cmat = torch.tensor_split(xbc, [di, di + n], dim=-1)
     dt = softplus(dt_raw + p["dt_bias"])                     # (B,S,H)
     a = -torch.exp(p["A_log"])
@@ -198,46 +280,54 @@ def _mamba2_core(p: dict, cfg: ModelConfig, xin: torch.Tensor, mode: str):
     y, state = ssd_chunked(xh, dt, a, bmat, cmat)
     y = y + xh * p["D"][:, None]
     y = _gated_norm(p, y.reshape(bsz, s, di), z, xin.dtype)
-    return linear(p["out_proj"], y, mode), xbc_raw, state
+    return out_proj(p, cfg, y, mode, tp), xbc_raw, state
 
 
 def mamba2_mixer(p: dict, cfg: ModelConfig, xin: torch.Tensor, *,
-                 mode: str) -> torch.Tensor:
+                 mode: str, tp=None) -> torch.Tensor:
     """Full Mamba-2 block: in_proj → conv → SSD → gate → norm →
     out_proj."""
-    return _mamba2_core(p, cfg, xin, mode)[0]
+    return _mamba2_core(p, cfg, xin, mode, tp)[0]
 
 
 def mamba2_prefill(p: dict, cfg: ModelConfig, xin: torch.Tensor, *,
-                   mode: str):
+                   mode: str, tp=None):
     """Like mamba2_mixer but also returns the decode cache after the
-    prompt."""
-    out, xbc_raw, state = _mamba2_core(p, cfg, xin, mode)
+    prompt (whole; the engine keeps the cache's block of it)."""
+    out, xbc_raw, state = _mamba2_core(p, cfg, xin, mode, tp)
     return out, {"conv": _conv_state(xbc_raw, cfg.ssm_conv), "ssm": state}
 
 
 def mamba2_decode_step(p: dict, cfg: ModelConfig, xin: torch.Tensor,
-                       cache: dict, mode: str) -> Tuple[torch.Tensor, dict]:
+                       cache: dict, mode: str,
+                       tp=None) -> Tuple[torch.Tensor, dict]:
     """One-token recurrent update. xin (B,1,D); cache {conv (B,W-1,C),
-    ssm (B,H,P,N)}: O(1) memory in sequence length."""
+    ssm (B,H,P,N)}: O(1) memory in sequence length. Under ``tp`` the
+    cache may hold the rank's channels and heads: the step updates those
+    and gathers its output."""
     bsz = xin.shape[0]
-    di, n = d_inner(cfg), cfg.ssm_state
-    h, hp = di // cfg.ssm_headdim, cfg.ssm_headdim
-    proj = linear(p["in_proj"], xin[:, 0, :], mode)
+    di, n, h, proj_out = _mamba2_dims(cfg)
+    hp = cfg.ssm_headdim
+    proj = gathered(p, "in_proj", xin[:, 0, :], mode, tp, cfg.d_model,
+                    proj_out)
     z, xbc, dt_raw = torch.tensor_split(proj, [di, 2 * di + 2 * n], dim=-1)
-    xbc, conv_state = causal_conv_step(xbc, cache["conv"], p["conv_w"],
-                                       p["conv_b"])
+    xbc, conv_state = conv_step(p, cfg, xbc, cache["conv"], tp)
     xs, bmat, cmat = torch.tensor_split(xbc, [di, di + n], dim=-1)
-    dt = softplus(dt_raw + p["dt_bias"])                     # (B,H)
-    a = -torch.exp(p["A_log"])
-    da = torch.exp(dt * a)                                   # (B,H)
-    xh = xs.reshape(bsz, h, hp)
+    h0, h1 = channel_block(tp, h, cache["ssm"].shape[1])
+    dt = softplus(dt_raw + p["dt_bias"])[:, h0:h1]           # (B,H_l)
+    a = -torch.exp(p["A_log"][h0:h1])
+    da = torch.exp(dt * a)                                   # (B,H_l)
+    xh = xs.reshape(bsz, h, hp)[:, h0:h1]
     with full_f32():
         ssm = cache["ssm"] * da[..., None, None] + torch.einsum(
             "bhp,bn,bh->bhpn", xh, bmat, dt)
-        y = torch.einsum("bhpn,bn->bhp", ssm, cmat) + xh * p["D"][:, None]
-    y = _gated_norm(p, y.reshape(bsz, di), z, xin.dtype)
-    out = linear(p["out_proj"], y, mode)
+        y = torch.einsum("bhpn,bn->bhp", ssm, cmat) + \
+            xh * p["D"][h0:h1, None]
+    y = y.reshape(bsz, -1)
+    if h1 - h0 < h:
+        y = gather_cols(y, tp.group)
+    y = _gated_norm(p, y, z, xin.dtype)
+    out = out_proj(p, cfg, y, mode, tp)
     return out[:, None, :], {"conv": conv_state, "ssm": ssm}
 
 
@@ -292,53 +382,63 @@ def selective_scan_chunked(u: torch.Tensor, dt: torch.Tensor,
     return torch.cat(ys, dim=1), state
 
 
-def _mamba1_core(p: dict, cfg: ModelConfig, xin: torch.Tensor, mode: str):
-    n = cfg.ssm_state
-    xz = linear(p["in_proj"], xin, mode)
+def _dt_rank(cfg: ModelConfig) -> int:
+    return max(1, math.ceil(cfg.d_model / 16))
+
+
+def _mamba1_dt(p: dict, cfg: ModelConfig, xs: torch.Tensor, tp) -> tuple:
+    """(dt, B, C) of Mamba-1 from the conv's whole output ``xs``."""
+    n, di, r = cfg.ssm_state, d_inner(cfg), _dt_rank(cfg)
+    proj = gathered(p, "x_proj", xs, "float", tp, di, r + 2 * n)
+    dt_lr, bmat, cmat = torch.tensor_split(proj, [r, r + n], dim=-1)
+    dt = softplus(gathered(p, "dt_proj", dt_lr, "float", tp, r, di))
+    return dt, bmat, cmat
+
+
+def _mamba1_core(p: dict, cfg: ModelConfig, xin: torch.Tensor, mode: str,
+                 tp=None):
+    di = d_inner(cfg)
+    xz = gathered(p, "in_proj", xin, mode, tp, cfg.d_model, 2 * di)
     xs_raw, z = torch.chunk(xz, 2, dim=-1)
-    xs = causal_conv(xs_raw, p["conv_w"], p["conv_b"])
-    proj = linear(p["x_proj"], xs, "float")
-    dt_rank = proj.shape[-1] - 2 * n
-    dt_lr, bmat, cmat = torch.tensor_split(proj, [dt_rank, dt_rank + n],
-                                           dim=-1)
-    dt = softplus(linear(p["dt_proj"], dt_lr, "float"))
+    xs = conv(p, cfg, xs_raw, tp)
+    dt, bmat, cmat = _mamba1_dt(p, cfg, xs, tp)
     a = -torch.exp(p["A_log"])
     y, state = selective_scan_chunked(xs, dt, a, bmat, cmat)
     y = (y + xs * p["D"]) * F.silu(z)
-    return linear(p["out_proj"], y, mode), xs_raw, state
+    return out_proj(p, cfg, y, mode, tp), xs_raw, state
 
 
 def mamba1_mixer(p: dict, cfg: ModelConfig, xin: torch.Tensor, *,
-                 mode: str) -> torch.Tensor:
-    return _mamba1_core(p, cfg, xin, mode)[0]
+                 mode: str, tp=None) -> torch.Tensor:
+    return _mamba1_core(p, cfg, xin, mode, tp)[0]
 
 
 def mamba1_prefill(p: dict, cfg: ModelConfig, xin: torch.Tensor, *,
-                   mode: str):
-    out, xs_raw, state = _mamba1_core(p, cfg, xin, mode)
+                   mode: str, tp=None):
+    out, xs_raw, state = _mamba1_core(p, cfg, xin, mode, tp)
     return out, {"conv": _conv_state(xs_raw, cfg.ssm_conv), "ssm": state}
 
 
 def mamba1_decode_step(p: dict, cfg: ModelConfig, xin: torch.Tensor,
-                       cache: dict, mode: str) -> Tuple[torch.Tensor, dict]:
-    n = cfg.ssm_state
-    xz = linear(p["in_proj"], xin[:, 0, :], mode)
+                       cache: dict, mode: str,
+                       tp=None) -> Tuple[torch.Tensor, dict]:
+    di = d_inner(cfg)
+    xz = gathered(p, "in_proj", xin[:, 0, :], mode, tp, cfg.d_model, 2 * di)
     xs, z = torch.chunk(xz, 2, dim=-1)
-    xs, conv_state = causal_conv_step(xs, cache["conv"], p["conv_w"],
-                                      p["conv_b"])
-    proj = linear(p["x_proj"], xs, "float")
-    dt_rank = proj.shape[-1] - 2 * n
-    dt_lr, bmat, cmat = torch.tensor_split(proj, [dt_rank, dt_rank + n],
-                                           dim=-1)
-    dt = softplus(linear(p["dt_proj"], dt_lr, "float"))       # (B,C)
-    a = -torch.exp(p["A_log"])                                # (C,N)
+    xs, conv_state = conv_step(p, cfg, xs, cache["conv"], tp)
+    dt, bmat, cmat = _mamba1_dt(p, cfg, xs, tp)               # (B,C)
+    c0, c1 = channel_block(tp, di, cache["ssm"].shape[1])
+    dt, xb = dt[:, c0:c1], xs[:, c0:c1]
+    a = -torch.exp(p["A_log"][c0:c1])                         # (C_l,N)
     da = torch.exp(dt[..., None] * a)
     with full_f32():
         ssm = cache["ssm"] * da + dt[..., None] * bmat[:, None, :] \
-            * xs[..., None]
-        y = torch.einsum("bcn,bn->bc", ssm, cmat) + xs * p["D"]
+            * xb[..., None]
+        y = torch.einsum("bcn,bn->bc", ssm, cmat) + xb * p["D"][c0:c1]
+    if c1 - c0 < di:
+        y = gather_cols(y, tp.group)
     y = y * F.silu(z)
-    out = linear(p["out_proj"], y, mode)
+    out = out_proj(p, cfg, y, mode, tp)
     return out[:, None, :], {"conv": conv_state, "ssm": ssm}
 
 

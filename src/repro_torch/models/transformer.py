@@ -18,10 +18,15 @@ dispatch buffer), the expert hidden dim tensor-parallel over
 ``ctx.tp_axis`` (its sum over the model ranks), as the reference's
 ``shard_map`` does. One rank computes what its shard of the reference's
 global arrays would: under a ctx ``tokens`` are this rank's share of the
-batch over ``ctx.dp_axes``, every non-MoE leaf is whole, and each MoE leaf
-is the rank's shard under `dist.sharding.tree_shardings` (where that
-layout differs from the reference's ``in_specs``, `_apply_moe` re-lays
-the leaf first).
+batch over ``ctx.dp_axes`` and every leaf is the rank's block under
+`dist.sharding.tree_shardings` (where an MoE leaf's layout differs from
+the reference's ``in_specs``, `_apply_moe` re-lays it first). The dense
+layers run tensor-parallel over ``ctx.tp_axis`` by the plan
+`dist.sharding.tp_plan` derives from the same rules (`models.layers`):
+column- and row-parallel projections, attention on the rank's heads, the
+embedding and head on its vocabulary block (`lm_forward` then returns the
+rank's block of the logits), Mamba's products gathered around its whole
+scans (`models.mamba`).
 """
 from __future__ import annotations
 
@@ -68,15 +73,29 @@ class ShardCtx:
     ``mesh`` is a `DeviceMesh` (`launch.mesh`); the axes name its dims."""
     mesh: Any
     dp_axes: tuple            # axes the batch / tokens are sharded over
-    tp_axis: Optional[str]    # tensor-parallel axis (FFN hidden)
+    tp_axis: Optional[str]    # tensor-parallel axis ('model')
     ep_axis: Optional[str]    # expert-parallel axis (None ⇒ replicated)
     a2a_quant: bool = False   # uint8-wire MoE dispatch
+    _plans: dict = dataclasses.field(default_factory=dict, init=False,
+                                     repr=False, compare=False)
 
 
 def check_ctx(ctx) -> None:
     if ctx is not None and not isinstance(ctx, ShardCtx):
         raise TypeError(f"ctx must be a ShardCtx or None, got "
                         f"{type(ctx).__name__}")
+
+
+def tp_of(ctx: Optional[ShardCtx], cfg: ModelConfig):
+    """The rank's `dist.sharding.TPPlan` under ``ctx`` (None: local),
+    made once a ctx and config."""
+    if ctx is None or ctx.tp_axis is None:
+        return None
+    plan = ctx._plans.get(id(cfg))
+    if plan is None or plan.cfg is not cfg:
+        from repro_torch.dist.sharding import tp_plan
+        plan = ctx._plans[id(cfg)] = tp_plan(cfg, ctx.mesh, ctx.tp_axis)
+    return plan
 
 
 # ---------------------------------------------------------------------------
@@ -137,23 +156,37 @@ def lm_param_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
-def allocate(spec, lead: tuple, dtype, dev):
+def keep_all(path: str, leaf, stacked: bool):
+    """The identity ``cut`` (`allocate`): every leaf whole."""
+    return leaf
+
+
+def allocate(spec, lead: tuple, dtype, dev, cut=keep_all,
+             paths: Optional[dict] = None, path: str = ""):
     """Tensors for ``spec`` with constants filled; drawn leaves are left
-    empty."""
+    empty. ``cut(path, whole, stacked)`` gives the part of each leaf to
+    hold (one stage's where ``stacked``; default all of it), and
+    ``paths``, where given, gets each tensor's path by id."""
     if isinstance(spec, Stack):
-        return allocate(spec.tree, (spec.n,), dtype, dev)
+        return allocate(spec.tree, (spec.n,), dtype, dev, cut, paths, path)
     if isinstance(spec, Leaf):
-        t = torch.empty(lead + spec.shape, dtype=dtype, device=dev)
+        meta = torch.empty(spec.shape, dtype=dtype, device="meta")
+        shape = tuple(cut(path, meta, bool(lead)).shape)
+        t = torch.empty(lead + shape, dtype=dtype, device=dev)
         if not spec.std and dev.type != "meta":
             fill = spec.fill
             if callable(fill):
-                t.copy_(fill(dtype, dev))
+                t.copy_(cut(path, fill(dtype, dev), bool(lead)))
             else:
                 t.fill_(fill)
+        if paths is not None:
+            paths[id(t)] = path
         return t
     if isinstance(spec, tuple):
-        return tuple(allocate(s, lead, dtype, dev) for s in spec)
-    return {k: allocate(v, lead, dtype, dev) for k, v in spec.items()}
+        return tuple(allocate(s, lead, dtype, dev, cut, paths,
+                              f"{path}[{i}]") for i, s in enumerate(spec))
+    return {k: allocate(v, lead, dtype, dev, cut, paths, f"{path}[{k!r}]")
+            for k, v in spec.items()}
 
 
 def write_leaf(out: dict, name: str, st: Optional[int],
@@ -188,21 +221,31 @@ def draw(spec, out, gen, dtype, dev, sink=write_leaf,
 
 
 def materialize(specs, generator: Optional[torch.Generator], device=None,
-                dtype=torch.float32):
+                dtype=torch.float32, cut=keep_all):
     """Tensors for a spec tree on ``device`` (default: the card), random
     leaves drawn from ``generator`` (which lives on ``device``). On
-    ``meta`` only the shapes are made and ``generator`` may be None."""
+    ``meta`` only the shapes are made and ``generator`` may be None.
+    ``cut(path, leaf, stacked)`` keeps a part of each leaf (`allocate`;
+    e.g. a rank's block, `train.loop.block_cutter`): each leaf of each
+    stage is still drawn whole, in the same order, and the rest freed
+    before the next draw, so the part is bit for bit the whole draw's
+    and the peak is one stage's leaf beside the parts."""
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         raise ValueError(f"init_lm_params needs a torch.Generator on {dev}")
-    out = allocate(specs, (), dtype, dev)
+    paths: dict = {}
+    out = allocate(specs, (), dtype, dev, cut, paths)
+
+    def sink(node: dict, name: str, st: Optional[int], x: torch.Tensor):
+        t = node[name]
+        write_leaf(node, name, st, cut(paths[id(t)], x, st is not None))
     if dev.type != "meta":
-        draw(specs, out, generator, dtype, dev)
+        draw(specs, out, generator, dtype, dev, sink)
     return out
 
 
 def init_lm_params(cfg: ModelConfig, generator: Optional[torch.Generator],
-                   device=None, dtype=torch.float32) -> dict:
+                   device=None, dtype=torch.float32, cut=keep_all) -> dict:
     """Random-init params in the reference's tree (`lm_param_specs`),
     drawn from ``generator``, which lives on ``device`` (default: the
     card). Each leaf of a stage-stacked subtree is allocated whole and
@@ -210,8 +253,9 @@ def init_lm_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     (`serve.packed.init_packed_lm`) can draw the same values one stage's
     leaf at a time. On ``device="meta"`` only the shapes are made and
     ``generator`` may be None: `count_lm_params` of a full config needs
-    no memory."""
-    return materialize(lm_param_specs(cfg), generator, device, dtype)
+    no memory. ``cut``: `materialize`'s (a rank's blocks of the tree,
+    without the whole tree)."""
+    return materialize(lm_param_specs(cfg), generator, device, dtype, cut)
 
 
 def count_lm_params(params) -> int:
@@ -277,7 +321,7 @@ def ffn_block(slot: dict, cfg: ModelConfig, x: torch.Tensor, ffn_kind: str,
     if ffn_kind == "moe":
         out = _apply_moe(slot["moe"], cfg, h, mode, ctx)
     else:
-        out = mlp(slot["mlp"], cfg, h, mode)
+        out = mlp(slot["mlp"], cfg, h, mode, tp_of(ctx, cfg))
     if cfg.post_norms:
         out = norm(slot["post_norm2"], out, cfg.norm_kind)
     return x + out.to(x.dtype)
@@ -295,12 +339,13 @@ def _apply_slot(slot: dict, cfg: ModelConfig, x: torch.Tensor, *,
                 positions: torch.Tensor,
                 ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     h = norm(slot["norm1"], x, cfg.norm_kind)
+    tp = tp_of(ctx, cfg)
     if mixer_kind.startswith("attn"):
         out = attention(slot["attn"], cfg, h, mode=mode, causal=True,
                         window=window_of(cfg, mixer_kind),
-                        positions=positions)
+                        positions=positions, tp=tp)
     else:
-        out = mamba_fns(cfg)[0](slot["mamba"], cfg, h, mode=mode)
+        out = mamba_fns(cfg)[0](slot["mamba"], cfg, h, mode=mode, tp=tp)
     x = add_mixer_out(slot, cfg, x, out)
     return ffn_block(slot, cfg, x, ffn_kind, mode, ctx)
 
@@ -321,7 +366,8 @@ def apply_stage(cfg: ModelConfig, slots, x: torch.Tensor, *, mode: str,
     if cross is not None:
         h = norm(cross["norm"], x, cfg.norm_kind)
         x = x + attention(cross["attn"], cfg, h, mode=mode, causal=False,
-                          positions=positions, kv_x=enc_out).to(x.dtype)
+                          positions=positions, kv_x=enc_out,
+                          tp=tp_of(ctx, cfg)).to(x.dtype)
     return x
 
 
@@ -351,10 +397,13 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     forward changes, so the recomputed forward quantizes exactly as the
     first did.
 
-    ctx: a `ShardCtx`; MoE layers then run sharded (see the module's
-    docstring for what this rank's ``tokens`` and ``params`` hold)."""
+    ctx: a `ShardCtx`; the layers then run sharded (see the module's
+    docstring for what this rank's ``tokens`` and ``params`` hold), and
+    where the plan splits the vocabulary the logits are the rank's block
+    (B, S_total, vocab / n)."""
     check_ctx(ctx)
-    x = embed(params["embed"], tokens)
+    tp = tp_of(ctx, cfg)
+    x = embed(params["embed"], tokens, tp)
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
@@ -379,30 +428,32 @@ def lm_forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
         else:
             x = run_stage(x, st)
     x = norm(params["final_norm"], x, cfg.norm_kind)
-    return unembed(params["embed"], cfg, x)
+    return unembed(params["embed"], cfg, x, tp)
 
 
 def encode(cfg: ModelConfig, params: dict, feats: torch.Tensor, *,
            mode: str = "float",
            ctx: Optional[ShardCtx] = None) -> torch.Tensor:
-    """Bidirectional encoder over stub features (B, S_enc, D); its layers
-    are dense, so ``ctx`` changes nothing."""
+    """Bidirectional encoder over stub features (B, S_enc, D); under
+    ``ctx`` its layers run tensor-parallel as the decoder's."""
     check_ctx(ctx)
+    tp = tp_of(ctx, cfg)
     enc = params["encoder"]
     b, s, _ = feats.shape
     positions = torch.arange(s, device=feats.device).expand(b, s)
     x = feats.to(params["embed"]["emb"].dtype)
     for st in range(stage_count(enc)):
         x = encoder_stage(cfg, stage(enc["slots"][0], st), x, mode=mode,
-                          positions=positions)
+                          positions=positions, tp=tp)
     return norm(enc["final_norm"], x, cfg.norm_kind)
 
 
 def encoder_stage(cfg: ModelConfig, slot: dict, x: torch.Tensor, *,
-                  mode: str, positions: torch.Tensor) -> torch.Tensor:
-    """One bidirectional encoder layer."""
+                  mode: str, positions: torch.Tensor,
+                  tp=None) -> torch.Tensor:
+    """One bidirectional encoder layer (``tp``: its `TPPlan`)."""
     h = norm(slot["norm1"], x, cfg.norm_kind)
     x = x + attention(slot["attn"], cfg, h, mode=mode, causal=False,
-                      positions=positions).to(x.dtype)
+                      positions=positions, tp=tp).to(x.dtype)
     h = norm(slot["norm2"], x, cfg.norm_kind)
-    return x + mlp(slot["mlp"], cfg, h, mode).to(x.dtype)
+    return x + mlp(slot["mlp"], cfg, h, mode, tp).to(x.dtype)

@@ -11,9 +11,17 @@ projection of an MoE layer one grouped launch of it for all the experts.
 As in the reference, an enc-dec tree's ``cross`` stack is not read here:
 the engine decodes the decoder stack alone.
 
-With a `ShardCtx` (``ctx=``) the MoE layers run sharded, as in
-`models.transformer.lm_forward`: this rank's rows of the batch, every
-non-MoE leaf whole, each MoE leaf the rank's shard.
+With a `ShardCtx` (``ctx=``) the layers run sharded, as in
+`models.transformer.lm_forward`: this rank's rows of the batch and its
+block of every leaf, attention on its query heads, and a cache that holds
+the rank's block (`serve.cache.init_cache` under the ctx: its rows, its
+KV heads where they split over 'model', its Mamba channels). For long
+context (a batch smaller than the data ranks, so ``ctx.dp_axes`` is
+empty) the KV sequence splits over 'data' (`serve.cache.sp_axis`): each
+rank writes the ring slots it
+holds, and a decode step's attention combines the ranks' partial softmax
+(`serve.sp.sp_decode_attention`). The logits come back whole (B, vocab):
+the ranks' vocabulary blocks gathered.
 
 `decode_step` writes the new K/V rows and Mamba states into the cache's
 tensors in place (as a donated buffer would be) and returns the cache with
@@ -31,42 +39,98 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import (ModelConfig, _div, attention, embed,
-                                       linear, norm, rope, softcap, unembed)
+from repro_torch.dist.collectives import gather_cols
+from repro_torch.launch.mesh import axis_sizes
+from repro_torch.models.layers import (ModelConfig, _div, attention,
+                                       attention_out, attention_qkv, embed,
+                                       local_kv, norm, rope, softcap,
+                                       unembed)
 from repro_torch.models.transformer import (add_mixer_out, check_ctx,
                                             ffn_block, kinds, mamba_fns,
-                                            stage, stage_count, window_of)
+                                            stage, stage_count, tp_of,
+                                            window_of)
 from repro_torch.device import full_f32
-from repro_torch.serve.cache import BIGPOS, init_cache  # noqa: F401
+from repro_torch.serve.cache import (BIGPOS, init_cache,  # noqa: F401
+                                     sp_axis)
+from repro_torch.serve.sp import sp_decode_attention
 
 
 # ---------------------------------------------------------------------------
 # Attention with cache (decode: 1 token; ring writes via pos % L)
 # ---------------------------------------------------------------------------
 
+def _cache_heads(cfg: ModelConfig, kc: torch.Tensor, tp) -> tuple:
+    """The KV heads [c0, c1) a cache leaf (…, KV_held, hd) holds: the
+    rank's block where it holds fewer than all."""
+    kvh = cfg.num_kv_heads
+    return (0, kvh) if kc.shape[-2] == kvh else tp.block(kvh)
+
+
+def _ring(ctx, held: int) -> tuple:
+    """(the whole ring's slots, the first this rank holds) where its cache
+    holds ``held`` of them: all of them unless the KV sequence splits over
+    `serve.cache.sp_axis`."""
+    axis = sp_axis(ctx)
+    if axis is None:
+        return held, 0
+    return (held * axis_sizes(ctx.mesh)[axis],
+            ctx.mesh.get_local_rank(axis) * held)
+
+
+def _write(buf: torch.Tensor, bi, slot, new: torch.Tensor, mine) -> None:
+    """``new`` into ``buf[bi, slot]``, only where ``mine`` (None: all)."""
+    if mine is None:
+        buf[bi, slot] = new
+        return
+    shape = mine.shape + (1,) * (new.dim() - 1)
+    buf[bi, slot] = torch.where(mine.reshape(shape), new, buf[bi, slot])
+
+
 def _attn_decode(p, cfg: ModelConfig, x, kc, vc, pc, pos, *, mode,
-                 window: int):
+                 window: int, ctx=None):
     """One token's attention; kc, vc (B, L, KV, hd) and pc (B, L) are one
-    stage's cache, written in place at ring slot pos % L."""
+    stage's cache (this rank's block under ``ctx``), written in place at
+    ring slot pos % L."""
     b = x.shape[0]
-    hd, kvh = cfg.hd, cfg.num_kv_heads
-    length = kc.shape[1]
-    q = linear(p["wq"], x, mode).reshape(b, 1, cfg.num_heads, hd)
-    k = linear(p["wk"], x, mode).reshape(b, 1, kvh, hd)
-    v = linear(p["wv"], x, mode).reshape(b, 1, kvh, hd)
+    hd = cfg.hd
+    tp = tp_of(ctx, cfg)
+    sp = sp_axis(ctx)
+    c0, c1 = _cache_heads(cfg, kc, tp)
+    q, k, v, (h0, h1), _ = attention_qkv(
+        p, cfg, x, x, mode, tp, kv_range=None if tp is None else (c0, c1))
     q = rope(q, pos[:, None], theta=cfg.rope_theta,
              fraction=cfg.rope_fraction)
     k = rope(k, pos[:, None], theta=cfg.rope_theta,
              fraction=cfg.rope_fraction)
-    slot = (pos % length).long()                         # ring position
+    held = kc.shape[1]
+    length, first = _ring(ctx, held)
+    slot, mine = (pos % length).long(), None
+    if held < length:                           # the slots this rank holds
+        mine = (slot >= first) & (slot < first + held)
+        slot = torch.clamp(slot - first, 0, held - 1)
     bi = torch.arange(b, device=x.device)
-    kc[bi, slot] = k[:, 0].to(kc.dtype)
-    vc[bi, slot] = v[:, 0].to(vc.dtype)
-    pc[bi, slot] = pos.to(pc.dtype)
-    g = cfg.num_heads // kvh
-    qg = q.reshape(b, 1, kvh, g, hd)
+    _write(kc, bi, slot, k[:, 0].to(kc.dtype), mine)
+    _write(vc, bi, slot, v[:, 0].to(vc.dtype), mine)
+    _write(pc, bi, slot, pos.to(pc.dtype), mine)
+    g = cfg.heads_eff // cfg.num_kv_heads
+    if tp is None:
+        kl, vl = kc, vc
+    else:
+        g0, g1 = h0 // g, (h1 - 1) // g + 1
+        kl, vl = local_kv(kc[:, :, g0 - c0:g1 - c0],
+                          vc[:, :, g0 - c0:g1 - c0], h0, h1, g, g0)
+    if sp is not None:
+        if cfg.attn_softcap > 0:
+            raise NotImplementedError("sequence-parallel decode attention "
+                                      "has no softcap")
+        out = sp_decode_attention(ctx.mesh, sp, q[:, 0], kl, vl,
+                                  pc, pos)
+        return attention_out(p, cfg, out.reshape(b, 1, -1).to(x.dtype),
+                             mode, tp)
+    kvl = kl.shape[2]
+    qg = q.reshape(b, 1, kvl, (h1 - h0) // kvl, hd)
     with full_f32():
-        logits = _div(torch.einsum("bskgd,btkd->bkgst", qg, kc),
+        logits = _div(torch.einsum("bskgd,btkd->bkgst", qg, kl),
                       math.sqrt(hd))
     logits = logits.to(torch.float32)
     if cfg.attn_softcap > 0:
@@ -77,8 +141,25 @@ def _attn_decode(p, cfg: ModelConfig, x, kc, vc, pc, pos, *, mode,
     logits = torch.where(valid[:, None, None, None, :], logits, -1e30)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     with full_f32():
-        out = torch.einsum("bkgst,btkd->bskgd", probs, vc).reshape(b, 1, -1)
-    return linear(p["wo"], out, mode)
+        out = torch.einsum("bkgst,btkd->bskgd", probs, vl).reshape(b, 1, -1)
+    return attention_out(p, cfg, out, mode, tp)
+
+
+def _whole_logits(logits: torch.Tensor, tp) -> torch.Tensor:
+    """The rank's vocabulary block of logits gathered whole."""
+    if tp is None or tp.vocab() is None:
+        return logits
+    return gather_cols(logits, tp.group)
+
+
+def _to_block(x: torch.Tensor, shape: tuple, tp) -> torch.Tensor:
+    """``x`` cut to the rank's block wherever a dim of the cache leaf
+    ``shape`` holds less of it."""
+    for dim, (have, want) in enumerate(zip(x.shape, shape)):
+        if have != want:
+            a, b = tp.block(have)
+            x = x.narrow(dim, a, b - a)
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -90,13 +171,14 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 ctx=None) -> Tuple[torch.Tensor, dict]:
     """tokens (B, 1) → (logits (B, vocab), the cache advanced by one)."""
     check_ctx(ctx)
+    tp = tp_of(ctx, cfg)
     pos = cache["lengths"]
-    x = embed(params["embed"], tokens)
+    x = embed(params["embed"], tokens, tp)
     for st in range(stage_count(params)):
         x = decode_stage(cfg, stage(params["slots"], st), cache["slots"], st,
                          x, pos, mode=mode, ctx=ctx)
     x = norm(params["final_norm"], x, cfg.norm_kind)
-    logits = unembed(params["embed"], cfg, x)[:, 0, :]
+    logits = _whole_logits(unembed(params["embed"], cfg, x, tp)[:, 0, :], tp)
     return logits, {"slots": cache["slots"], "lengths": pos + 1}
 
 
@@ -106,16 +188,17 @@ def decode_stage(cfg: ModelConfig, slots, cache_slots, st: int,
     """One stage of `decode_step`: its period's slots against stage ``st``
     of the cache, written in place."""
     step_fn = mamba_fns(cfg)[2]
+    tp = tp_of(ctx, cfg)
     for i, (mk, fk) in enumerate(kinds(cfg)):
         slot, c = slots[i], cache_slots[i]
         h = norm(slot["norm1"], x, cfg.norm_kind)
         if mk.startswith("attn"):
             out = _attn_decode(slot["attn"], cfg, h, c["k"][st], c["v"][st],
                                c["pos"][st], pos, mode=mode,
-                               window=window_of(cfg, mk))
+                               window=window_of(cfg, mk), ctx=ctx)
         else:
             out, new = step_fn(slot["mamba"], cfg, h,
-                               {k: v[st] for k, v in c.items()}, mode)
+                               {k: v[st] for k, v in c.items()}, mode, tp)
             for k, v in new.items():
                 c[k][st] = v.to(c[k].dtype)
         x = add_mixer_out(slot, cfg, x, out)
@@ -172,25 +255,31 @@ def decode_step_donemask(cfg: ModelConfig, params: dict, cache: dict,
 
 
 def _attn_prefill(p, cfg: ModelConfig, h, c: dict, st: int, positions, *,
-                  mode: str, window: int):
+                  mode: str, window: int, ctx=None):
     """A prompt's attention; its K/V written into stage ``st`` of the
-    slot's cache ``c``."""
+    slot's cache ``c`` (the ring slots this rank holds under ``ctx``)."""
     b, s = positions.shape
     dev = h.device
-    hd, kvh = cfg.hd, cfg.num_kv_heads
-    k = linear(p["wk"], h, mode).reshape(b, s, kvh, hd)
-    v = linear(p["wv"], h, mode).reshape(b, s, kvh, hd)
+    tp = tp_of(ctx, cfg)
+    c0, c1 = _cache_heads(cfg, c["k"], tp)
+    _, k, v, _, _ = attention_qkv(p, cfg, h, h, mode, tp,
+                                  kv_range=None if tp is None else (c0, c1),
+                                  with_q=False)
     kr = rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
     out = attention(p, cfg, h, mode=mode, causal=True, window=window,
-                    positions=positions)
-    length = c["k"].shape[2]
+                    positions=positions, tp=tp)
+    held = c["k"].shape[2]
+    length, first = _ring(ctx, held)
     take = min(s, length)
     src_from = s - take
     ring = (torch.arange(take, device=dev) + src_from) % length
-    c["k"][st][:, ring] = kr[:, src_from:].to(c["k"].dtype)
-    c["v"][st][:, ring] = v[:, src_from:].to(c["v"].dtype)
-    c["pos"][st][:, ring] = torch.arange(
-        src_from, s, dtype=torch.int32, device=dev)[None, :]
+    src = torch.arange(src_from, s, device=dev)
+    if held < length:                        # the slots this rank holds
+        mine = (ring >= first) & (ring < first + held)
+        ring, src = ring[mine] - first, src[mine]
+    c["k"][st][:, ring] = kr[:, src].to(c["k"].dtype)
+    c["v"][st][:, ring] = v[:, src].to(c["v"].dtype)
+    c["pos"][st][:, ring] = src.to(torch.int32)[None, :]
     return out
 
 
@@ -202,11 +291,12 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     them into a windowed layer's ring; Mamba slots carry the post-prompt
     recurrent state."""
     check_ctx(ctx)
+    tp = tp_of(ctx, cfg)
     b, s = tokens.shape
     dev = tokens.device
     positions = torch.arange(s, device=dev).expand(b, s)
-    x = embed(params["embed"], tokens)
-    cache = init_cache(cfg, b, max_len, dtype=x.dtype, device=dev)
+    x = embed(params["embed"], tokens, tp)
+    cache = init_cache(cfg, b, max_len, dtype=x.dtype, device=dev, ctx=ctx)
     pre_fn = mamba_fns(cfg)[1]
     for st in range(stage_count(params)):
         slots = stage(params["slots"], st)
@@ -215,15 +305,18 @@ def prefill(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             h = norm(slot["norm1"], x, cfg.norm_kind)
             if mk.startswith("attn"):
                 out = _attn_prefill(slot["attn"], cfg, h, c, st, positions,
-                                    mode=mode, window=window_of(cfg, mk))
+                                    mode=mode, window=window_of(cfg, mk),
+                                    ctx=ctx)
             else:
-                out, new = pre_fn(slot["mamba"], cfg, h, mode=mode)
+                out, new = pre_fn(slot["mamba"], cfg, h, mode=mode, tp=tp)
                 for k, v in new.items():
-                    c[k][st] = v.to(c[k].dtype)
+                    c[k][st] = _to_block(v, c[k].shape[1:], tp).to(
+                        c[k].dtype)
             x = add_mixer_out(slot, cfg, x, out)
             x = ffn_block(slot, cfg, x, fk, mode, ctx)
     x = norm(params["final_norm"], x, cfg.norm_kind)
-    logits = unembed(params["embed"], cfg, x)[:, -1, :]
+    logits = _whole_logits(unembed(params["embed"], cfg, x, tp)[:, -1, :],
+                           tp)
     return logits, {"slots": cache["slots"],
                     "lengths": torch.full((b,), s, dtype=torch.int32,
                                           device=dev)}

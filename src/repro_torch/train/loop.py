@@ -18,10 +18,12 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import Shard
 
 from repro_torch import ckpt as ckpt_lib
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import shard_by
+from repro_torch.dist.sharding import placement_block
+from repro_torch.optim.optimizers import tree_items
 
 
 class _PreemptFlag:
@@ -88,6 +90,22 @@ def run_train(*, train_step: Callable, params, opt_state,
     return params, opt_state, step + 1
 
 
+def block_cutter(shardings, mesh) -> Callable:
+    """``cut(path, leaf, stacked)``: this rank's block of the whole leaf
+    at ``path`` of a tree under ``shardings`` (its placements, a tree of
+    `dist.sharding.tree_shardings`), or of one stage of it where
+    ``stacked`` (the leaf's stage dim 0 dropped; no rule splits it)."""
+    by_path = dict(tree_items(shardings))
+
+    def cut(path: str, leaf, stacked: bool):
+        pls = by_path[path]
+        if stacked:
+            pls = [Shard(pl.dim - 1) if isinstance(pl, Shard) else pl
+                   for pl in pls]
+        return placement_block(leaf, pls, mesh)
+    return cut
+
+
 def resume_or_init(ckpt_dir: Optional[str], init_fn: Callable, device=None,
                    print_fn: Callable = print, shardings=None,
                    mesh=None) -> tuple:
@@ -97,7 +115,10 @@ def resume_or_init(ckpt_dir: Optional[str], init_fn: Callable, device=None,
     the restore template without allocating. ``shardings`` (placements,
     `dist.sharding.tree_shardings` of the template) with ``mesh``: elastic
     restore, each leaf this rank's block whatever mesh wrote the
-    checkpoint; a fresh state is cut to the blocks likewise."""
+    checkpoint; a fresh state is ``init_fn(device, cut=)`` with
+    `block_cutter`'s ``cut``: the rank's blocks drawn a leaf at a time
+    (`models.transformer.materialize`), each bit for bit the block
+    `dist.sharding.shard_by` cuts from ``init_fn(device)``."""
     dev = resolve_device(device)
     template = init_fn(torch.device("meta"))    # jax.eval_shape's counterpart
     if ckpt_dir:
@@ -108,10 +129,9 @@ def resume_or_init(ckpt_dir: Optional[str], init_fn: Callable, device=None,
                 mesh=mesh)
             print_fn(f"[resume] restored step {last} from {ckpt_dir}")
             return state, last
-    state = init_fn(dev)
-    if shardings is not None:
-        state = shard_by(state, shardings, mesh)
-    return state, 0
+    if shardings is None:
+        return init_fn(dev), 0
+    return init_fn(dev, cut=block_cutter(shardings, mesh)), 0
 
 
 class StepTimer:

@@ -15,16 +15,20 @@ reference's ``lax.scan`` does. No graph is held across slices.
 With a `ShardCtx` (``make_train_step(ctx=)``, `sharded_train_step`) a rank
 holds its block of every param and optimizer leaf between steps
 (`dist.sharding.shard_tree`) and takes its rows of the global batch over
-``ctx.dp_axes``. The non-MoE leaves are all-gathered whole for the step;
-the MoE layers run sharded on the held leaves (`models.moe`). Each rank
-differentiates its shard's loss over the number of data shards; a leaf's
-gradient is then summed over the data ranks unless the leaf is split over
-them (the experts under EP are whole on their rank), the MoE act step's
-over the model ranks too where the expert hidden dim is split (each model
-rank sees its slice of the quantized activations), and cut back to the
-rank's block. LSQ scales a step's gradient by 1/sqrt(rows · 255), and a
-rank quantizes its own rows: the act steps' gradients are scaled to the
-one-device step's rows (a linear's B·S; an MoE buffer's E·cap at the
+``ctx.dp_axes``. The step runs on those blocks as they are, no leaf
+gathered: the dense layers tensor-parallel over ``ctx.tp_axis``
+(`models.layers`: column- and row-parallel projections, attention on the
+rank's heads, the embedding, head and loss on its vocabulary block), the
+MoE layers expert- and tensor-parallel (`models.moe`). Each rank
+differentiates its shard's loss over the number of data shards, and each
+gradient comes out as the rank's block of its leaf. A leaf's gradient is
+then summed over the data ranks unless the leaf is split over them (the
+experts under EP are whole on their rank); an act step's over the model
+ranks too where its projection runs row-parallel (each model rank
+quantizes its slice of the input), the MoE act step's where the expert
+hidden dim is split. LSQ scales a step's gradient by 1/sqrt(rows · 255),
+and a rank quantizes its own rows: the act steps' gradients are scaled to
+the one-device step's rows (a linear's B·S; an MoE buffer's E·cap at the
 whole batch's capacity). The clip's global norm sums each leaf's squares
 once over the mesh. The optimizer must update element by element (AdamW,
 SGD-M): Adafactor's factored moments reduce across a leaf's rows and
@@ -37,11 +41,12 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.quant import lsq_grad_scale
 from repro_torch.device import full_f32
 from repro_torch.dist import sharding
-from repro_torch.dist.collectives import all_reduce, axis_size
+from repro_torch.dist.collectives import all_reduce, axis_size, psum
 from repro_torch.dist.pipeline import (pipeline_train_local,
                                        reduce_pipeline_outputs)
 from repro_torch.launch.mesh import axis_sizes
@@ -49,8 +54,7 @@ from repro_torch.models.layers import embed, norm, unembed
 from repro_torch.models.moe import plan_dispatch
 from repro_torch.models.transformer import (_apply_slot, check_ctx,
                                             init_lm_params, lm_forward,
-                                            moe_axes, tree_items,
-                                            tree_map_with_path)
+                                            moe_axes, tp_of, tree_items)
 from repro_torch.optim import (apply_updates, clip_by_global_norm,
                                tree_leaves, tree_map)
 from repro_torch.optim.optimizers import (full_like0, sum_of_squares,
@@ -60,14 +64,40 @@ Z_LOSS = 1e-4
 EMBEDS = ("encoder_embeds", "prefix_embeds")
 
 
-def token_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def token_loss(logits: torch.Tensor, labels: torch.Tensor,
+               tp=None) -> torch.Tensor:
     """Mean next-token NLL, log-softmax in f32, plus the z-loss
-    1e-4·mean(logsumexp²)."""
+    1e-4·mean(logsumexp²). ``tp``: a `dist.sharding.TPPlan` whose
+    vocabulary split makes ``logits`` the rank's block (`vocab_loss`)."""
+    if tp is not None and tp.vocab() is not None:
+        return vocab_loss(logits, labels, tp)
     logits = logits.to(torch.float32)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     zloss = Z_LOSS * torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
     return torch.mean(nll) + zloss
+
+
+def vocab_loss(logits: torch.Tensor, labels: torch.Tensor,
+               tp) -> torch.Tensor:
+    """`token_loss` of vocabulary-parallel logits, the rank's block [v0,
+    v1): the global max and the sum of exponentials all-reduced over the
+    group, the target's logit taken on the rank that holds it and summed.
+    The whole (B, S, V) logits never exist on a rank."""
+    v0, v1 = tp.vocab()
+    logits = logits.to(torch.float32)
+    m = all_reduce(torch.amax(logits.detach(), dim=-1), tp.group,
+                   dist.ReduceOp.MAX)
+    sumexp = psum(torch.sum(torch.exp(logits - m[..., None]), dim=-1),
+                  tp.group)
+    lse = m + torch.log(sumexp)
+    t = labels.long() - v0
+    held = (t >= 0) & (t < v1 - v0)
+    picked = torch.gather(logits, -1, torch.clamp(
+        t, 0, v1 - v0 - 1)[..., None])[..., 0]
+    target = psum(torch.where(held, picked, 0.0), tp.group)
+    zloss = Z_LOSS * torch.mean(lse ** 2)
+    return torch.mean(lse - target) + zloss
 
 
 def lm_loss(cfg, params: dict, batch: dict, *, mode: str, ctx=None,
@@ -81,7 +111,8 @@ def lm_loss(cfg, params: dict, batch: dict, *, mode: str, ctx=None,
     logits = lm_forward(cfg, params, batch["tokens"], mode=mode, ctx=ctx,
                         remat=remat, **kw)
     seq = batch["tokens"].shape[1]
-    return token_loss(logits[:, -seq:, :], batch["labels"])
+    return token_loss(logits[:, -seq:, :], batch["labels"],
+                      tp_of(ctx, cfg))
 
 
 def loss_and_grads(loss_fn: Callable, params, batch) -> tuple:
@@ -204,10 +235,19 @@ def sharded_train_step(cfg, optimizer, ctx, *, mode: str = "w1a8_train",
         loss = loss_fn(params, batch)
         return loss / full_like0(loss, dp_n)
 
-    def reduce_axes(keys: list, spec: tuple) -> list:
+    def row_parallel(path: str) -> bool:
+        """Whether the act step at ``path`` feeds a row-parallel
+        projection (its weight split over the model axis)."""
+        w = path[:path.rindex("[")] + "['w']"
+        return sharding.path_keys(path)[-2] in sharding.ROW_PARALLEL and \
+            ctx.tp_axis in specs.get(w, ())
+
+    def reduce_axes(path: str, keys: list, spec: tuple) -> list:
         held = {a for a in spec if a is not None}
         axes = [] if held & set(dp_axes) else list(dp_axes)
-        if "moe" in keys and keys[-1] == "act_step" and moe_tp:
+        if keys[-1] == "act_step" and (
+                ("moe" in keys and moe_tp) or
+                ("moe" not in keys and row_parallel(path))):
             axes.append(ctx.tp_axis)
         return axes
 
@@ -229,25 +269,19 @@ def sharded_train_step(cfg, optimizer, ctx, *, mode: str = "w1a8_train",
         rows = bsz // dp_n
         local = {k: v[shard * rows:(shard + 1) * rows]
                  for k, v in batch.items()}
-        run = tree_map_with_path(
-            lambda p, x: x if "moe" in sharding.path_keys(p)
-            else sharding.gather_leaf(x, specs[p], mesh), params)
-        loss, grads = accumulated_grads(shard_loss, run, local, microbatches)
-        del run
+        loss, grads = accumulated_grads(shard_loss, params, local,
+                                        microbatches)
         seq = local["tokens"].shape[1] + (
             local["prefix_embeds"].shape[1] if "prefix_embeds" in local
             else 0)
         tokens = rows // microbatches * seq
         out, total = [], None
         for i, (path, _) in enumerate(tree_items(params)):
-            g, grads[i] = grads[i], None      # each whole gradient goes
+            g, grads[i] = grads[i], None      # the rank's block
             keys, spec = sharding.path_keys(path), specs[path]
             if keys[-1] == "act_step":
                 g = g * act_step_scale(keys, tokens)
-            g = _sum_over(g, mesh, reduce_axes(keys, spec))
-            if "moe" not in keys:
-                g = sharding.placement_block(
-                    g, sharding.placements(spec, mesh), mesh).contiguous()
+            g = _sum_over(g, mesh, reduce_axes(path, keys, spec))
             out.append(g)
             held = {a for a in spec if a is not None}
             copies = math.prod(n for a, n in sizes.items() if a not in held)

@@ -156,14 +156,21 @@ def test_production_cell_traces(fake_world):
     r = fake_world["production"]
     assert r["status"] == "ok" and r["chips"] == 256
     assert r["cost"]["kernel_calls"]["w1a8_matmul_popcount_grouped"] == 96
+    # the dense projections run on the rank's blocks: wq, wk, wv, wo one
+    # popcount launch each a layer
+    assert r["cost"]["kernel_calls"]["w1a8_matmul_popcount"] == 4 * 32
     # 8 experts do not split over 16 data ranks: no EP; the experts' F
-    # splits over 'model', one TP sum a layer over a group of 16 ranks,
-    # which spans two nodes of 8
+    # splits over 'model', one TP sum a layer; wo row-parallel, one sum a
+    # layer, and the embedding's; 8 KV heads do not split over 16, so the
+    # K and V products are gathered, two a layer, and the vocabulary's
+    # logits once; every group is the 16 'model' ranks, which span two
+    # nodes of 8
     assert r["collectives"]["counts"] == {
-        "all-reduce": 32, "all-gather": 0, "reduce-scatter": 0,
-        "all-to-all": 0, "collective-permute": 0}
-    assert [(g["group"], g["intra_node"]) for g in
-            r["collectives"]["groups"]] == [(16, False)]
+        "all-reduce": 1 + 2 * 32, "all-gather": 2 * 32 + 1,
+        "reduce-scatter": 0, "all-to-all": 0, "collective-permute": 0}
+    assert sorted((g["kind"], g["group"], g["intra_node"]) for g in
+                  r["collectives"]["groups"]) == [
+        ("all-gather", 16, False), ("all-reduce", 16, False)]
     assert r["memory"]["peak_bytes"] > r["memory"]["peak_by_category"][
         "parameters"] > 0
     assert r["roofline"]["bottleneck"] in ("compute", "memory",

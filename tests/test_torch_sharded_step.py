@@ -5,8 +5,10 @@ mesh (`torch_ranks.spawn`, once for the module).
 Reduced mixtral-8x7b (experts over 'data', their hidden dim over 'model')
 and reduced chatglm3-6b (dense: its leaves over 'model' only): each rank
 holds its block of every param and moment (`dist.sharding.shard_tree`),
-takes its row of the batch, and runs `make_train_step(ctx=)` with SGD-M
-and no clip, so its moment after one step is its block of the gradient.
+takes its row of the batch, and runs `make_train_step(ctx=)` on those
+blocks (tensor-parallel, no leaf gathered; tests/test_torch_tp.py holds
+the layout across archs) with SGD-M and no clip, so its moment after one
+step is its block of the gradient.
 The same step runs on one device in this process, and the reference's
 ``jax.value_and_grad`` of `lm_loss` (tests/test_torch_lm_train.py's)
 gives the gradients. Codes that round across a tie are forced to the

@@ -369,8 +369,126 @@ def sharded_step(rank: int, world: int, inputs: dict) -> dict:
     return _np(out)
 
 
+# ---------------------------------------------------------------------------
+# Tensor parallelism (tests/test_torch_tp.py): meshes (1, 2), (1, 4), (2, 2)
+# ---------------------------------------------------------------------------
+
+def _greedy(cfg, params, prompts, ctx, steps: int, max_len: int):
+    """A packed prefill and ``steps`` greedy decode steps: (the logits of
+    each, stacked; the tokens)."""
+    import torch
+
+    from repro_torch.serve.engine import decode_step, prefill
+    with torch.no_grad():
+        logits, cache = prefill(cfg, params, prompts, max_len=max_len,
+                                mode="w1a8_eval", ctx=ctx)
+        out = [logits]
+        for _ in range(steps):
+            nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            logits, cache = decode_step(cfg, params, cache, nxt,
+                                        mode="w1a8_eval", ctx=ctx)
+            out.append(logits)
+    logits = torch.stack(out)
+    return logits, torch.argmax(logits, -1)
+
+
+def tp_ranks(rank: int, world: int, inputs: dict) -> dict:
+    """Each case on its mesh: the forward's logits (gathered over the
+    vocabulary), the sharded SGD-M step (no clip; codes forced by rows)
+    with its gradients gathered, and for served archs the packed prefill
+    and greedy decode steps. Every all-gather records the storage it
+    reads: ``*_leaf_gathers`` name the non-MoE param leaves the step, the
+    serve and (as a check of the probe) `dist.sharding.gather_tree`
+    gathered."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs, convert
+    from repro_torch.dist import collectives, sharding
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.transformer import ShardCtx, lm_forward, tp_of
+    from repro_torch.optim import sgdm
+    from repro_torch.serve.packed import deploy_lm
+    from repro_torch.train.step import make_train_step
+    from repro_torch.models.transformer import tree_items
+    meshes = {shape: make_test_mesh(*shape, device="cpu")
+              for shape in inputs["meshes"]}
+    gathered: set = set()
+    real = collectives.all_gather_rows
+
+    def recording(x, group):
+        gathered.add(x.untyped_storage().data_ptr())
+        return real(x, group)
+    collectives.all_gather_rows = sharding.all_gather_rows = recording
+
+    def leaf_gathers(tree) -> list:
+        """The non-MoE leaves of ``tree`` an all-gather read since the
+        record was cleared."""
+        return [p for p, leaf in tree_items(tree) if "['moe']" not in p
+                and leaf.untyped_storage().data_ptr() in gathered]
+    out = {}
+    for name, case in inputs["cases"].items():
+        mesh = meshes[tuple(case["mesh"])]
+        if mesh.get_coordinate() is None:
+            continue
+        data = mesh.get_local_rank("data")
+        cfg = dataclasses.replace(configs.get_reduced(case["arch"]),
+                                  **case["over"])
+        sp = case.get("sp", False)
+        ctx = ShardCtx(mesh, () if sp else ("data",), "model",
+                       "data" if cfg.num_experts else None)
+        tp = tp_of(ctx, cfg)
+        params = convert.lm_params_from_numpy(case["params"], device="cpu")
+        held = sharding.shard_tree(params, cfg, mesh)
+        res = {"coords": mesh.get_coordinate()}
+        if "batch" in case:
+            batch = _torch(case["batch"])
+            rows = batch["tokens"].shape[0] // mesh.size(0)
+            mine = {k: v[data * rows:(data + 1) * rows]
+                    for k, v in batch.items()}
+            kw = {k: mine[k] for k in ("encoder_embeds", "prefix_embeds")
+                  if k in mine}
+            stack, _ = forced_rows(case["recorded"], mesh.size(1))
+            with torch.no_grad(), stack:
+                logits = lm_forward(cfg, held, mine["tokens"],
+                                    mode="w1a8_train", ctx=ctx, **kw)
+            if tp.vocab() is not None:
+                logits = collectives.gather_cols(logits, tp.group)
+            res["logits"] = logits
+            opt = sgdm(inputs["lr"])
+            step = make_train_step(cfg, opt, ctx=ctx, remat=False,
+                                   max_grad_norm=inputs["max_norm"])
+            stack, counts = forced_rows(case["recorded"], mesh.size(1))
+            gathered.clear()
+            with stack:
+                _, s, metrics = step(held,
+                                     sharding.shard_tree(opt[0](params), cfg,
+                                                         mesh), batch)
+            res["step_leaf_gathers"] = leaf_gathers(held)
+            gathered.clear()
+            res.update(loss=metrics["loss"], grad_norm=metrics["grad_norm"],
+                       forced=sum(map(sum, counts)),
+                       grads=sharding.gather_tree(s["m"], params, cfg, mesh))
+            sharding.gather_tree(held, params, cfg, mesh)
+            res["probe_leaf_gathers"] = leaf_gathers(held)
+        if "prompts" in case:
+            prompts = torch.from_numpy(case["prompts"])
+            rows = prompts.shape[0] // (1 if sp else mesh.size(0))
+            mine = prompts if sp else prompts[data * rows:(data + 1) * rows]
+            packed = sharding.shard_tree(deploy_lm(params), cfg, mesh)
+            gathered.clear()
+            res["serve"] = _greedy(cfg, packed, mine, ctx,
+                                   inputs["decode_steps"], inputs["max_len"])
+            res["serve_leaf_gathers"] = leaf_gathers(packed)
+        out[name] = res
+    collectives.all_gather_rows = sharding.all_gather_rows = real
+    return _np(out)
+
+
 PROGRAMS = {"dist_checks": dist_checks, "lm_pipeline": lm_pipeline,
-            "moe_ep": moe_ep, "sp": sp_ranks, "sharded_step": sharded_step}
+            "moe_ep": moe_ep, "sp": sp_ranks, "sharded_step": sharded_step,
+            "tp": tp_ranks}
 
 
 def main(argv) -> None:
