@@ -11,7 +11,11 @@ Phases (any failure raises and the script exits non-zero):
    count of tensor-core instructions (HMMA, HGMMA, IMMA) in each library's
    SASS (cuobjdump); the three dot libraries must hold HMMA, the three
    popcount ones, the int matmul's and the integer PE's IMMA, and no
-   library may spill a register.
+   library may spill a register. Lists each ``__global__`` of the
+   popcount matmul's library with its tensor-core instructions, registers
+   and spill bytes (`popcount_globals`): each decode kernel must hold IMMA,
+   spill nothing and hold at most `geometry.DECODE_REGS` registers, the
+   residency its launch geometry counts on.
 2. Holds each dot kernel against its plain PyTorch version on the card, at
    every W1A8 layer shape of the 320×320 detector with B = 4 and at one
    shape off its grid (B = 2, 18×18, Cin 24, Cout 40: Cin % 16 != 0, Cout
@@ -115,8 +119,9 @@ Phases (any failure raises and the script exits non-zero):
    mean_abs < 0.002, 100% within 1 LSB of 0.02) against the float
    forward; prints its CUDA-event and device ms per forward and
    ``launch/alignment.py``'s rows (the paper's Table 6 checkpoints at 320).
-8. Prints one ``{"kernels": [...]}`` line with the ten kernels of the
-   nine sources (the popcount matmul's grouped entry beside its 2-D one;
+8. Prints one ``{"kernels": [...]}`` line with the eleven kernels of the
+   nine sources (the popcount matmul's decode route, whose launches are a
+   share of its 2-D entry's, and its grouped entry beside the 2-D one;
    each kernel's launches summed over the driven paths, and by path: the
    three launcher runs, phase 5's forwards and int call, phase 7's
    integer forward, phase 9's QAT pipeline, phase 10's LM serve and int
@@ -126,7 +131,8 @@ Phases (any failure raises and the script exits non-zero):
    ``tables``; the two matmuls also their
    numbers at the LM shapes, under ``lm``, the popcount matmul phase 13's
    launches under ``lm_trained``, the grouped entry its phase 12a
-   shapes), phase 13's, 14's and 15's summaries, and as the last line
+   shapes, the decode route its phase 10a' shapes), phase 13's, 14's,
+   15's and 17's summaries, and as the last line
    ``{"ok": true, "device": {...}}``.
 9. Runs before phase 8's line: the paper's offline workflow (QAT, deploy,
    integer forward, Table 6, decode + NMS). One QAT train step at B = 2,
@@ -157,6 +163,14 @@ Phases (any failure raises and the script exits non-zero):
    (37, 13696, 2061) off the grid, with the row checks there; timed as in
    phase 3 beside f32 ``torch.matmul`` on codes·step and the unpacked ±1
    (the reference's arithmetic), the bound from K·N/8 + M·K + 4·M·N bytes.
+   (a') The decode route alone (`check_decode_route`, DECODE_ROUTE_SHAPES:
+   chatglm3-6b's decode (K, N) at M = 4, (5, 4100, 2061) off the grid with
+   the row checks, M = 1, 8 and 16 at (4096, 13696), the requant among
+   them): bit for bit against its plain version, each launch counted on
+   ``w1a8_matmul_popcount_decode``; device ms from graph replays in turns
+   with the PR-15 tile at the same shape (`tile_sweep.pr15_route`: PR 15,
+   decode, decode, PR 15) beside the plain version, f32 ``torch.matmul``,
+   the bound and a one-element ``torch.add`` in a graph (the floor).
    Then chatglm3-6b at full width from a seeded init on the card,
    deployed and served through the launcher's ``run_lm`` (packed, 8
    requests, 16 new tokens, slots 4, max_len 128) with every launch count
@@ -197,10 +211,15 @@ Phases (any failure raises and the script exits non-zero):
    against its plain version at mixtral-8x7b's (E 8; K, N 4096, 14336
    both ways), kimi-k2's (E 384; 7168, 2048 both ways) and jamba's (E 16;
    8192, 24576 both ways) expert shapes,
-   at cap 8 and 64, expert 0 empty; timed like phase 10's (the plain
-   version on the checked call) beside f32 ``torch.bmm`` on codes·step
-   and every expert's ±1, the bound from the words of the experts that
-   hold rows. (b) mixtral-8x7b at full width and depth (32 layers), drawn
+   at cap 8 (the decode tile) and 64 (the PR-15 tile), expert 0 empty,
+   and at mixtral's cap 8 with every expert empty, one holding cap rows,
+   and counts past cap and below 0; the work items the launch forms from
+   the counts (none for an empty expert: at kimi-k2's cap 8 most of the
+   384 launch no work); timed like phase 10a' (graph replays in turns
+   with the PR-15 tile over the same items; the plain version on the
+   checked call) beside f32 ``torch.bmm`` on codes·step and every
+   expert's ±1, the bound from the words of the experts that hold rows
+   and the floor. (b) mixtral-8x7b at full width and depth (32 layers), drawn
    and packed stage by stage (`init_packed_lm`, 6.37 GB), served through
    ``run_lm`` (8 requests, 16 tokens, slots 4) with every launch count
    zeroed before and read after: done-mask tokens equal to host-checked
@@ -331,6 +350,17 @@ Phases (any failure raises and the script exits non-zero):
    (d) mixtral-8x7b ``decode_32k`` at (16, 16) traced by
    `launch.dryrun.run_cell` on this machine's host, its ``trace_s``.
    Prints one ``tooling`` line.
+17. Runs after phase 16, before phase 8's line: the production layout of
+   PR 29. (a) chatglm3-6b's packed projections as |model| 16's blocks
+   through `layers.packed_linear(tp=)` (column blocks bit for bit the
+   whole call's columns, row blocks' int32 sums adding up exactly); each
+   block's launch alone bit for bit against its plain version, its device
+   ms in turns with the PR-15 tile, the plain version's and f32
+   ``torch.matmul``'s ms, the bound and the floor. (a') Rank 0 of (16,
+   16) serving chatglm3-6b packed (``fake`` backend for the other ranks):
+   a decode step's launches, the decode route's share from the blocks'
+   K. (b) Rank 0 training chatglm3-6b's train_4k cell: peak memory
+   against the dry run's. Prints one ``tp`` line.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -383,6 +413,10 @@ KERNELS = {
     "w1a8_matmul_popcount": (
         "src/repro_torch/csrc/w1a8_matmul_popcount.cu",
         "src/repro/kernels/w1a8_matmul/kernel.py:135"),
+    # the 2-D entry's decode route (M <= 16): a share of its launches
+    "w1a8_matmul_popcount_decode": (
+        "src/repro_torch/csrc/w1a8_matmul_popcount.cu",
+        "src/repro/kernels/w1a8_matmul/kernel.py:135"),
     # the same library's grouped entry: one launch for a stack of experts
     "w1a8_matmul_popcount_grouped": (
         "src/repro_torch/csrc/w1a8_matmul_popcount.cu",
@@ -404,6 +438,7 @@ TENSOR_CORE_KERNELS = {
     "w1a8_conv3x3_pool2": "HMMA", "w1a8_conv3x3": "HMMA",
     "w1a8_matmul": "HMMA", "w1a8_conv3x3_pool2_popcount": "IMMA",
     "w1a8_conv3x3_popcount": "IMMA", "w1a8_matmul_popcount": "IMMA",
+    "w1a8_matmul_popcount_decode": "IMMA",
     "w1a8_matmul_popcount_grouped": "IMMA", "w1a8_matmul_int": "IMMA",
     "w1a8_int_pe": "IMMA"}
 PROFILES = ("tuned", "default")  # the launcher's --profile, both driven
@@ -493,6 +528,56 @@ def tensor_core_counts(_build) -> dict:
             raise AssertionError(f"{name}: spills registers or its build "
                                  f"log is missing: {spills}")
     return counts
+
+
+def popcount_globals(_build) -> dict:
+    """Phase 1, each ``__global__`` of the popcount matmul's library
+    (``csrc/w1a8_matmul_popcount.cu``): its tensor-core instructions in
+    the SASS (cuobjdump) and its registers and spill bytes (ptxas -v in
+    the build log). Raises if a decode kernel holds no IMMA, spills, or
+    holds more registers than `geometry.DECODE_REGS` (the residency its
+    launch geometry counts on)."""
+    import re
+
+    from repro_torch.kernels.w1a8_matmul import geometry
+    source = "w1a8_matmul_popcount.cu"
+    tool = pathlib.Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "--dump-sass",
+                           str(_build.library_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = {op: 0 for op in TENSOR_CORE_OPS}
+        elif name:
+            for op in TENSOR_CORE_OPS:
+                out[name][op] += len(re.findall(rf"\b{op}\b", line))
+    name = None
+    for line in _build.build_log(source).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name in out:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+    for name, rec in out.items():
+        short = re.sub(r"^_ZN\w*?(matmul_popcount\w*?_kernel)", r"\1", name)
+        print(f"[sass] {source} {short[:60]}: " + ", ".join(
+            f"{k} {v}" for k, v in rec.items()), flush=True)
+        if "decode_kernel" in name and (
+                not rec["IMMA"] or rec.get("spill_bytes", 1)
+                or rec.get("registers", 256) > geometry.DECODE_REGS):
+            raise AssertionError(f"{short}: {rec} (IMMA, no spill, at most "
+                                 f"{geometry.DECODE_REGS} registers)")
+    if not any("decode_kernel" in name for name in out):
+        raise AssertionError(f"{source}: no decode kernel in its SASS")
+    return out
 
 
 def layer_operands(torch, np, rng, b, h, cin, cout, dev, *, ksize=3):
@@ -2123,6 +2208,134 @@ def check_lm_kernels(torch, np, dev, cfg) -> tuple:
     return records, {MM: 0.0, INT: 0.0}
 
 
+# (what, M, K, N, requant): the popcount matmul's decode route at
+# chatglm3-6b's decode shapes (M = LM_SLOTS), off the grid (ragged M, K %
+# 32 != 0, ragged N) and across its M range at the widest (K, N)
+DECODE_ROUTE_SHAPES = (
+    ("decode", LM_SLOTS, 4096, 4096, False),
+    ("decode", LM_SLOTS, 4096, 256, False),
+    ("decode", LM_SLOTS, 4096, 13696, False),
+    ("decode", LM_SLOTS, 13696, 4096, False),
+    ("off grid", 5, 4100, 2061, False),
+    ("M 1", 1, 4096, 13696, True), ("M 8", 8, 4096, 13696, False),
+    ("M 16", 16, 4096, 13696, True))
+
+
+def floor_graph_ms(torch, dev) -> float:
+    """Device ms of a one-element ``torch.add`` from graph replays: the
+    smallest launch, timed as the decode route's rows are."""
+    one = torch.zeros(1, device=dev)
+    return graph_ms(torch, lambda: torch.add(one, 1.0))
+
+
+def turns_ms(torch, fn, old) -> tuple:
+    """Device ms of ``fn`` from graph replays in turns with the context
+    ``old`` (another route of the same call): old, new, new, old."""
+    with old():
+        before = [graph_ms(torch, fn)]
+    new = [graph_ms(torch, fn), graph_ms(torch, fn)]
+    with old():
+        before.append(graph_ms(torch, fn))
+    return new, before
+
+
+def check_decode_route(torch, np, dev, smi: str) -> list:
+    """Phase 10a': the popcount matmul's decode route, the kernel alone
+    (codes on one grid, Div carrying the step), bit for bit against its
+    plain version on the card at DECODE_ROUTE_SHAPES (the requant among
+    them; the row checks off the grid), each launch counted on
+    ``w1a8_matmul_popcount_decode``; device ms from graph replays in
+    turns with the PR-15 tile at the same shape (`tile_sweep.pr15_route`:
+    PR 15, decode, decode, PR 15), the plain version's and f32
+    ``torch.matmul``'s (codes·step against the unpacked ±1) ms, the bound
+    (sign words, codes, constants and output at 3.35 TB/s against 2·M·K·N
+    int8 operations) and a one-element ``torch.add``'s device ms, the
+    floor. These launches compare: they are on no path."""
+    import dataclasses
+
+    from repro_torch.core import packing
+    from repro_torch.device import full_f32
+    from repro_torch.kernels.config import KernelConfig
+    from repro_torch.kernels.w1a8_matmul import geometry
+    from repro_torch.kernels.w1a8_matmul import ops as mm_ops
+    from repro_torch.kernels.w1a8_matmul import ref as mm_ref
+    from repro_torch.launch.tile_sweep import pr15_route
+
+    rng = np.random.default_rng(SEED + 30)
+    floor = floor_graph_ms(torch, dev)
+    step = 0.05
+    records = []
+    for what, m, k, n, quant in DECODE_ROUTE_SHAPES:
+        if not geometry.decodes(m, k):
+            raise AssertionError(f"{(m, k, n)} does not take the decode "
+                                 f"route")
+        a2 = torch.from_numpy(rng.integers(0, 256, (m, k), dtype=np.uint8)
+                              ).to(dev)
+        w = torch.from_numpy(rng.standard_normal((k, n)).astype(
+            np.float32)).to(dev)
+        wp = packing.pack_signs(w, axis=0)
+        div = torch.mean(torch.abs(w), dim=0) * step
+        bias = torch.from_numpy(rng.standard_normal(n).astype(
+            np.float32)).to(dev)
+        cfg = KernelConfig(op="matmul", accum="popcount")
+        if quant:
+            y = mm_ref.w1a8_matmul_popcount_ref(a2, wp, k, div, bias)
+            cfg = cfg.replace(out_step=float(y.abs().max()) / 255.0)
+
+        def run(x=a2):
+            return mm_ops.w1a8_matmul(x, wp, None, div, bias, k=k,
+                                      config=cfg)
+
+        def plain():
+            return mm_ref.w1a8_matmul_popcount_ref(a2, wp, k, div, bias,
+                                                   cfg.out_step)
+        before = mm_ops.DECODE_KERNEL.launches
+        got = run()
+        if mm_ops.DECODE_KERNEL.launches != before + 1:
+            raise AssertionError(f"{(m, k, n)}: no decode launch")
+        _exact(torch, got, plain(), f"decode route {what} {(m, k, n)}")
+        if what == "off grid":
+            row_checks(torch, run, a2, got, f"decode route {what}")
+        with pr15_route():
+            _exact(torch, run(), got, f"PR-15 tile {what} {(m, k, n)}")
+        new, old = turns_ms(torch, run, pr15_route)
+        xq = a2.to(torch.float32) * step
+        signs = packing.unpack_signs(wp, k, dtype=torch.float32)
+
+        def library():
+            with full_f32():
+                return torch.matmul(xq, signs)
+        nbytes = 4 * packing.packed_dim(k) * n + m * k + 8 * n \
+            + m * n * (1 if quant else 4)
+        ops = 2 * m * k * n
+        rec = {"kernel": DECODE, "what": what, "shape": [m, k, n],
+               "quant": quant,
+               "launch": dataclasses.asdict(geometry.decode_launch(m, k, n)),
+               "bytes": nbytes, "ops": ops, "ms": cuda_ms(torch, run),
+               "device_ms": sum(new) / 2, "decode_device_ms": new,
+               "pr15_device_ms": old,
+               "plain_ms": cuda_ms(torch, plain, reps=2, n=2),
+               "library_ms": cuda_ms(torch, library),
+               "library_device_ms": graph_ms(torch, library),
+               "floor_device_ms": floor}
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops,
+                                                 INT8_OPS_PER_S)
+        del xq, signs
+        records.append(rec)
+        print(f"[decode route] {what} (M, K, N) = {(m, k, n)}"
+              f"{', requant' if quant else ''}: bit-exact with its plain "
+              f"version, split {rec['launch']['cw']}x{rec['launch']['kw']}"
+              f"x{rec['launch']['cs']}; device ms "
+              f"{' '.join(f'{x:.5f}' for x in new)} against the PR-15 tile "
+              f"{' '.join(f'{x:.5f}' for x in old)} (turns), {rec['ms']:.4f}"
+              f" ms CUDA events; plain {rec['plain_ms']:.3f}, f32 "
+              f"torch.matmul device {rec['library_device_ms']:.5f}, bound "
+              f"{rec['bound_ms']:.6f} by {rec['bound_by']}, floor "
+              f"{floor:.5f} ({smi})", flush=True)
+    torch.cuda.empty_cache()
+    return records
+
+
 def lm_prefill_parity(torch, params, packed, cfg, prompts,
                       tol: float = LM_TOL) -> dict:
     """Phase 10c (and 12c): prefill logits of the packed path against the
@@ -2257,6 +2470,10 @@ def drive_lm(torch, np, dev, smi: str) -> dict:
     kernel_rows, kernel_errs = check_lm_kernels(torch, np, dev, cfg)
     print(f"[lm kernels] {len(kernel_rows)} timed calls in "
           f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    t0 = time.perf_counter()
+    decode_rows = check_decode_route(torch, np, dev, smi)
+    print(f"[decode route] {len(decode_rows)} shapes in "
+          f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
     per_step = len(lm_projections(cfg)) * cfg.num_layers
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -2276,18 +2493,19 @@ def drive_lm(torch, np, dev, smi: str) -> dict:
         torch.cuda.synchronize()
         counts = launch.launch_counts()
         peak = torch.cuda.max_memory_allocated(dev)
-    want = {"w1a8_matmul_popcount": float(per_step)}
-    if record["kernel_launches_per_decode_step"] != want:
+    want = lm_launches_per_step(cfg)
+    if want["w1a8_matmul_popcount"] != per_step or \
+            record["kernel_launches_per_decode_step"] != want:
         raise AssertionError(f"LM decode step: launches "
                              f"{record['kernel_launches_per_decode_step']}, "
                              f"want {want}")
-    if set(n for name, n in counts.items()
-           if name != "w1a8_matmul_popcount") != {0}:
+    if set(n for name, n in counts.items() if name not in want) - {0}:
         raise AssertionError(f"LM serve launched other kernels: {counts}")
     print(f"[lm serve] {LM_ARCH} full width, packed, {LM_REQUESTS} requests "
           f"x {LM_MAX_NEW} tokens, slots {LM_SLOTS}: done-mask tokens equal "
           f"host-checked; {per_step} w1a8_matmul_popcount launches a decode "
-          f"step ({record['decode_steps']} steps), "
+          f"step, {want.get(DECODE, 0):.0f} of them its decode route "
+          f"({record['decode_steps']} steps), "
           f"{counts['w1a8_matmul_popcount']} in the run; "
           f"{record['tok_per_s']:.2f} tok/s, tick p50 "
           f"{record['tick_p50_ms']:.3f} ms, p95 {record['tick_p95_ms']:.3f} "
@@ -2357,7 +2575,8 @@ def drive_lm(torch, np, dev, smi: str) -> dict:
     print(f"[lm decode step] device ms a step "
           f"{_num(prof['device_ms_rest'], '.4f')}: the rest", flush=True)
     return params, {"card": smi, "arch": LM_ARCH, "kernels": kernel_rows,
-            "kernel_errs": kernel_errs, "serve": record,
+            "kernel_errs": kernel_errs, "decode_route": decode_rows,
+            "serve": record,
             "launches": counts, "int_call_launches": int_counts,
             "per_decode_step": per_step, "peak_memory_bytes": peak,
             "init_s": init_s, "parity": parity, "step_ms": step_ms,
@@ -2486,6 +2705,7 @@ def drive_tiers(torch, dev, smi: str, lm_params) -> dict:
 # ---------------------------------------------------------------------------
 
 GROUPED = "w1a8_matmul_popcount_grouped"
+DECODE = "w1a8_matmul_popcount_decode"
 MOE_ARCH, SSM_ARCH = "mixtral-8x7b", "mamba2-1.3b"
 HYBRID_ARCH, HYBRID_LAYERS = "jamba-1.5-large-398b", 8   # one period
 # (arch, experts, K, N) of the expert projections the grouped entry is
@@ -2529,26 +2749,56 @@ def grouped_counts(np, rng, e: int, top_k: int, cap: int, tokens: int):
     return np.minimum(counts, cap).astype(np.int32)
 
 
+# counts of phase 12a's extra cases at mixtral-8x7b's expert shape, cap 8:
+# every expert empty, one expert holding cap rows, counts past cap and
+# below 0 (clamped to [0, cap] on the device)
+GROUPED_COUNT_CASES = {"all empty": [0] * 8,
+                       "one full": [0, 0, 0, 8, 0, 0, 0, 0],
+                       "past cap and negative": [9, -1, 100, 3, -7, 8, 0, 2]}
+
+
+def grouped_items(np, counts_np, e: int, cap: int, k: int, n: int) -> int:
+    """The work items a grouped launch forms on the device: (held expert,
+    row block, column tile), as `geometry.grouped_launch` tiles them."""
+    from repro_torch.kernels.w1a8_matmul import geometry
+    g = geometry.grouped_launch(e, cap, k, n)
+    held = np.clip(counts_np, 0, cap)
+    if g.decode:
+        return int((held > 0).sum()) * -(-n // g.bn)
+    return int((-(-held // g.bm)).sum()) * -(-n // g.bn)
+
+
 def check_grouped(torch, np, dev, smi: str) -> list:
     """Phase 12a: the grouped popcount entry, called as a packed MoE layer
     calls it (div = α·step, bias 0), bit for bit against its plain version
-    on the card at mixtral's and kimi-k2's expert shapes, at a decode and
-    a prefill cap, an empty expert in each. Times it (CUDA events, and
-    device ms from graph replays) beside its plain version and f32
-    ``torch.bmm`` on codes·step and the unpacked ±1 of every expert (the
-    reference's arithmetic); the bound counts the sign words of the
-    experts that hold rows, their codes, every output row and the
-    constants, at 3.35 TB/s, against their int8 operations."""
+    on the card at mixtral's, kimi-k2's and jamba's expert shapes, at a
+    decode and a prefill cap, an empty expert in each, and at mixtral's
+    cap 8 on GROUPED_COUNT_CASES (up projection). The launch's work items
+    are the held experts' (none for an empty one: at kimi-k2's cap 8 most
+    of the 384 hold no row); rows from each count on are zeros. Times it (CUDA
+    events, and device ms from graph replays, at the decode caps in turns
+    with the PR-15 tile over the same items, `tile_sweep.pr15_route`;
+    above them both routes are that tile) beside its plain version
+    and f32 ``torch.bmm`` on codes·step and the unpacked ±1 of every
+    expert (the reference's arithmetic); the bound counts the sign words
+    of the experts that hold rows, their codes, every output row and the
+    constants, at 3.35 TB/s, against their int8 operations; the floor is
+    a one-element ``torch.add``'s device ms."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.core import packing
     from repro_torch.device import full_f32
+    from repro_torch.kernels.w1a8_matmul import geometry
     from repro_torch.kernels.w1a8_matmul import ops as mm_ops
     from repro_torch.kernels.w1a8_matmul import ref as mm_ref
+    from repro_torch.launch.tile_sweep import pr15_route
 
     rng = np.random.default_rng(SEED + 12)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 12)
     step = 0.05
+    floor = floor_graph_ms(torch, dev)
     records = []
     for arch, e, k, n in GROUPED_SHAPES:
         top_k = configs.get_config(arch).top_k
@@ -2557,8 +2807,12 @@ def check_grouped(torch, np, dev, smi: str) -> list:
                           dtype=torch.int32, device=dev, generator=gen)
         div = torch.rand((e, n), device=dev, generator=gen) * step
         bias = torch.zeros_like(div)
-        for what, cap, tokens in GROUPED_CAPS:
-            counts_np = grouped_counts(np, rng, e, top_k, cap, tokens)
+        cases = [(what, cap, grouped_counts(np, rng, e, top_k, cap, tokens))
+                 for what, cap, tokens in GROUPED_CAPS]
+        if (arch, e, k, n) == GROUPED_SHAPES[0]:
+            cases += [(f"decode, {name}", 8, np.array(c, np.int32))
+                      for name, c in GROUPED_COUNT_CASES.items()]
+        for what, cap, counts_np in cases:
             counts = torch.from_numpy(counts_np).to(dev)
             a = torch.from_numpy(rng.integers(0, 256, (e, cap, k),
                                               dtype=np.uint8)).to(dev)
@@ -2579,20 +2833,37 @@ def check_grouped(torch, np, dev, smi: str) -> list:
             want = plain()
             end.record()
             end.synchronize()
-            _exact(torch, run(), want,
+            got = run()
+            _exact(torch, got, want,
                    f"grouped {arch} {what} {(e, cap, k, n)}")
             del want
-            active = int((counts_np > 0).sum())
-            held = int(counts_np.sum())
+            decode = geometry.grouped_launch(e, cap, k, n).decode
+            if decode:
+                with pr15_route():
+                    _exact(torch, run(), got,
+                           f"grouped {arch} {what} PR-15 tile")
+                new, old = turns_ms(torch, run, pr15_route)
+            else:
+                new, old = [graph_ms(torch, run)] * 2, None
+            del got
+            held_np = np.clip(counts_np, 0, cap)
+            active = int((held_np > 0).sum())
+            held = int(held_np.sum())
             nbytes = active * (words * n * 4 + 8 * n) + held * k \
                 + e * cap * n * 4 + e * 4
             ops = 2 * held * k * n
             rec = {"kernel": GROUPED, "arch": arch, "what": what,
                    "shape": [e, cap, k, n], "experts_holding_rows": active,
-                   "rows_held": held, "bytes": nbytes, "ops": ops,
+                   "rows_held": held,
+                   "launch": dataclasses.asdict(
+                       geometry.grouped_launch(e, cap, k, n)),
+                   "items": grouped_items(np, counts_np, e, cap, k, n),
+                   "bytes": nbytes, "ops": ops,
                    "ms": cuda_ms(torch, run),
-                   "device_ms": graph_ms(torch, run),
-                   "plain_ms": start.elapsed_time(end)}
+                   "device_ms": sum(new) / 2, "decode_device_ms": new,
+                   "pr15_device_ms": old,
+                   "plain_ms": start.elapsed_time(end),
+                   "floor_device_ms": floor}
             rec["bound_ms"], rec["bound_by"] = bound(nbytes, ops,
                                                      INT8_OPS_PER_S)
             signs = torch.empty((e, k, n), dtype=torch.float32, device=dev)
@@ -2605,36 +2876,66 @@ def check_grouped(torch, np, dev, smi: str) -> list:
                     return torch.bmm(xq, signs)
             rec["library_ms"] = cuda_ms(torch, library, reps=3, n=5)
             rec["library_device_ms"] = graph_ms(torch, library, n=5, reps=3)
-            del signs, xq
+            del signs, xq, a
             records.append(rec)
+            tile = "decode tile" if rec["launch"]["decode"] else "PR-15 tile"
             print(f"[grouped] {arch} {what} (E, cap, K, N) = "
-                  f"{(e, cap, k, n)}, {active} experts hold {held} rows: "
-                  f"bit-exact with its plain version; {rec['ms']:.4f} ms, "
-                  f"device {rec['device_ms']:.5f} ms (plain "
+                  f"{(e, cap, k, n)}, {active} experts hold {held} rows, "
+                  f"{e - active} launch no work ({rec['items']} items of "
+                  f"the {tile} over {rec['launch']['blocks']} persistent "
+                  f"blocks): bit-exact with its plain version; device ms "
+                  f"{' '.join(f'{x:.5f}' for x in new)}"
+                  + (f" against the PR-15 tile "
+                     f"{' '.join(f'{x:.5f}' for x in old)} (turns)"
+                     if old else "") + ", "
+                  f"{rec['ms']:.4f} ms CUDA events (plain "
                   f"{rec['plain_ms']:.2f}, f32 torch.bmm "
                   f"{rec['library_ms']:.4f}, device "
                   f"{rec['library_device_ms']:.5f}, bound "
-                  f"{rec['bound_ms']:.5f} by {rec['bound_by']}) ({smi})",
-                  flush=True)
+                  f"{rec['bound_ms']:.5f} by {rec['bound_by']}, floor "
+                  f"{floor:.5f}) ({smi})", flush=True)
         del w, div, bias
     torch.cuda.empty_cache()
     return records
 
 
+def dense_ks(cfg) -> list:
+    """K of each 2-D popcount launch one packed decode step makes, from
+    the config: an attention mixer's q, k, v (d_model) and o (heads·hd)
+    projections, a Mamba mixer's in (d_model) and out (d_inner), a dense
+    MLP's up and gate (d_model) and down (d_ff)."""
+    from repro_torch.models.mamba import d_inner
+    d, ks = cfg.d_model, []
+    for i in range(cfg.num_layers):
+        mk, fk = cfg.mixer_kind(i % cfg.period), cfg.ffn_kind(i % cfg.period)
+        if mk.startswith("attn"):
+            ks += [d, d, d, cfg.heads_eff * cfg.hd]
+        else:
+            ks += [d, d_inner(cfg)]
+        if fk == "dense":
+            ks += [d] * (2 if cfg.gated_mlp else 1) + [cfg.d_ff]
+    return ks
+
+
+def with_decode_share(want: dict, ks, m: int = LM_SLOTS) -> dict:
+    """``want`` with the decode route's share of its 2-D popcount
+    launches (those at M = m over the K's ``ks`` that
+    `geometry.decodes`), where there is one."""
+    from repro_torch.kernels.w1a8_matmul import geometry
+    share = sum(geometry.decodes(m, k) for k in ks)
+    return {**want, DECODE: float(share)} if share else dict(want)
+
+
 def lm_launches_per_step(cfg) -> dict:
     """Launches of each popcount entry one packed decode step makes, from
     the config: one 2-D launch a dense projection (4 an attention mixer,
-    2 a Mamba mixer's in and out projections, 2 or 3 a dense MLP), one
-    grouped launch an expert projection (3 an MoE FFN)."""
-    dense = grouped = 0
-    for i in range(cfg.num_layers):
-        mk, fk = cfg.mixer_kind(i % cfg.period), cfg.ffn_kind(i % cfg.period)
-        dense += 4 if mk.startswith("attn") else 2
-        if fk == "moe":
-            grouped += 3
-        elif fk == "dense":
-            dense += 3 if cfg.gated_mlp else 2
-    out = {"w1a8_matmul_popcount": float(dense)}
+    2 a Mamba mixer's in and out projections, 2 or 3 a dense MLP), of
+    which the decode route's share (`with_decode_share`), one grouped
+    launch an expert projection (3 an MoE FFN)."""
+    grouped = 3 * sum(cfg.ffn_kind(i % cfg.period) == "moe"
+                      for i in range(cfg.num_layers))
+    ks = dense_ks(cfg)
+    out = with_decode_share({"w1a8_matmul_popcount": float(len(ks))}, ks)
     if grouped:
         out[GROUPED] = float(grouped)
     return out
@@ -2780,7 +3081,8 @@ def time_decode_step(torch, cfg, packed, prompts, smi: str) -> dict:
         def step():
             return decode_step(cfg, packed, cache, tok, mode="w1a8_eval")
         step_ms = cuda_ms(torch, step, reps=3, n=5)
-        prof = step_profile(torch, step, int(sum(per.values())))
+        prof = step_profile(torch, step, int(sum(
+            v for name, v in per.items() if name != DECODE)))
         experts = expert_bytes_read(torch, step, packed)
     dense = sum(int(x.numel()) * 4 for name, x in tree_items(packed)
                 if "w_packed" in name)
@@ -4622,8 +4924,13 @@ def tp_block_check(torch, np, dev, smi: str) -> list:
     from repro_torch import configs
     from repro_torch.core.quant import quantize_act
     from repro_torch.dist.sharding import TPPlan, shard_tree
-    from repro_torch.kernels.w1a8_matmul.ops import w1a8_matmul
+    from repro_torch.core import packing
+    from repro_torch.device import full_f32
+    from repro_torch.kernels.w1a8_matmul import geometry
+    from repro_torch.kernels.w1a8_matmul import ref as mm_ref
+    from repro_torch.kernels.w1a8_matmul.ops import fold_operands, w1a8_matmul
     from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.tile_sweep import pr15_route
     from repro_torch.models.layers import POPCOUNT, packed_linear
     from repro_torch.models.transformer import init_lm_params, stage
     from repro_torch.serve.packed import deploy_lm
@@ -4647,6 +4954,37 @@ def tp_block_check(torch, np, dev, smi: str) -> list:
                                    config=POPCOUNT)
     rng = np.random.default_rng(SEED)
     m, rows = LM_SLOTS, []
+    floor = floor_graph_ms(torch, dev)
+
+    def kernel_alone(torch, pp: dict, codes, kk: int) -> dict:
+        """The block's launch alone (codes folded once, Div carrying the
+        step): bit for bit with its plain version; device ms from graph
+        replays in turns with the PR-15 tile, the plain version's and f32
+        ``torch.matmul``'s ms, the floor."""
+        folded, dv = fold_operands(codes, pp["act_step"][:kk], pp["alpha"])
+        zeros = torch.zeros_like(pp["alpha"])
+
+        def run():
+            return w1a8_matmul(folded, pp["w_packed"], None, dv, zeros, k=kk,
+                               config=POPCOUNT)
+
+        def plain():
+            return mm_ref.w1a8_matmul_popcount_ref(folded, pp["w_packed"],
+                                                   kk, dv, zeros)
+        _exact(torch, run(), plain(), "TP block alone")
+        xq = folded.to(torch.float32)
+        signs = packing.unpack_signs(pp["w_packed"], kk, dtype=torch.float32)
+
+        def library():
+            with full_f32():
+                return torch.matmul(xq, signs)
+        new, old = turns_ms(torch, run, pr15_route)
+        return {"route": "decode" if geometry.decodes(m, kk) else "pr15",
+                "kernel_device_ms": new, "pr15_device_ms": old,
+                "plain_ms": cuda_ms(torch, plain, reps=2, n=2),
+                "library_ms": cuda_ms(torch, library),
+                "library_device_ms": graph_ms(torch, library),
+                "floor_device_ms": floor}
     with dr.fake_world(1):
         plans = [TPPlan(cfg, sizes, "model", dist.group.WORLD, TP_MODEL, r)
                  for r in range(TP_MODEL)]
@@ -4678,6 +5016,7 @@ def tp_block_check(torch, np, dev, smi: str) -> list:
                         raise AssertionError(f"{name} column block {r} "
                                              f"differs from the whole call")
                 block = kernel(ps[0], codes, k)
+                blk = (ps[0], codes, k)
             else:
                 kb, nb = k // TP_MODEL, n
                 cs = [codes[:, r * kb:(r + 1) * kb].contiguous()
@@ -4702,7 +5041,9 @@ def tp_block_check(torch, np, dev, smi: str) -> list:
                                          f"is {err} off the whole, above "
                                          f"{tol}")
                 block = kernel(ps[0], cs[0], kb)
+                blk = (ps[0], cs[0], kb)
             whole = kernel(p, codes, k)
+            alone = kernel_alone(torch, *blk)
             nbytes = m * kb + 4 * (kb // 32) * nb + 8 * nb + 4 * m * nb
             bound_ms, bound_by = bound(nbytes, 2 * m * nb * kb,
                                        INT8_OPS_PER_S)
@@ -4715,7 +5056,7 @@ def tp_block_check(torch, np, dev, smi: str) -> list:
                     "device_busy_ms"],
                 "whole_device_ms": device_profile(torch, whole, tries=2)[
                     "device_busy_ms"],
-                "bound_ms": bound_ms, "bound_by": bound_by})
+                "bound_ms": bound_ms, "bound_by": bound_by, **alone})
     del whole_tree, blocks_of
     gc.collect()
     torch.cuda.empty_cache()
@@ -4733,19 +5074,27 @@ def tp_block_check(torch, np, dev, smi: str) -> list:
               f"{r['whole']}: {held}; block {r['ms']:.4f} ms (device "
               f"{r['device_ms']:.4f}) against the whole "
               f"{r['whole_ms']:.4f} ms (device "
-              f"{r['whole_device_ms']:.4f}); bound {r['bound_ms']:.5f} ms "
+              f"{r['whole_device_ms']:.4f}); the block's launch alone, "
+              f"{r['route']} route, device "
+              f"{' '.join(f'{x:.5f}' for x in r['kernel_device_ms'])} "
+              f"against the PR-15 tile "
+              f"{' '.join(f'{x:.5f}' for x in r['pr15_device_ms'])} "
+              f"(turns), plain {r['plain_ms']:.3f} ms, f32 torch.matmul "
+              f"device {r['library_device_ms']:.5f}, floor "
+              f"{r['floor_device_ms']:.5f}; bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}) ({smi})", flush=True)
     return rows
 
 
-def tp_decode(torch, dev, smi: str) -> dict:
+def tp_decode(torch, dev, smi: str, blocks: list) -> dict:
     """Phase 17a': rank 0 of the (16, 16) mesh serving chatglm3-6b packed
     for real on the card (phase 10's LM_SLOTS rows a rank, max_len
     LM_MAX_LEN, f32), torch's ``fake`` backend standing in for the other
     255 ranks: its collectives move no data, so its logits are not
     checked. Counts zeroed before a decode step and read after: each
-    projection of the plan one popcount launch on the rank's block;
-    its CUDA-event ms."""
+    projection of the plan one popcount launch on the rank's block (of
+    them the decode route's share, from the blocks' K in ``blocks``,
+    phase 17a's records); its CUDA-event ms."""
     from repro_torch import configs
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch import dryrun as dr
@@ -4771,10 +5120,12 @@ def tp_decode(torch, dev, smi: str) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     cfg = configs.get_config(TP_ARCH)
-    want = len(lm_projections(cfg)) * cfg.num_layers
-    if per_step != {"w1a8_matmul_popcount": want}:
+    ks = [(r["whole"] if r["kind"] == "whole" else r["block"])[1]
+          for r in blocks] * cfg.num_layers
+    want = with_decode_share({"w1a8_matmul_popcount": float(len(ks))}, ks)
+    if per_step != want:
         raise AssertionError(f"{TP_ARCH} TP decode step: {per_step}, want "
-                             f"{want} popcount matmuls")
+                             f"{want}")
     print(f"[tp] (a') {TP_ARCH} packed, rank 0 of (16, 16) on the card "
           f"(fake backend for the other ranks), {LM_SLOTS} rows: a decode "
           f"step {per_step} on the rank's blocks, {ms:.3f} ms (CUDA "
@@ -4872,7 +5223,7 @@ def drive_tp(torch, np, dev, smi: str) -> dict:
     (c) `tp_plan_one_rank`."""
     t0 = time.perf_counter()
     out = {"card": smi, "blocks": tp_block_check(torch, np, dev, smi)}
-    out["decode"] = tp_decode(torch, dev, smi)
+    out["decode"] = tp_decode(torch, dev, smi, out["blocks"])
     out["train"] = tp_train(torch, dev, smi)
     out["one_rank_plan"] = tp_plan_one_rank()
     out["wall_s"] = time.perf_counter() - t0
@@ -4883,7 +5234,9 @@ def tp_summary(rec: dict) -> dict:
     """Phase 17's numbers for the `tp` line and the JSON line."""
     return {"blocks": [{k: r.get(k) for k in (
         "what", "kind", "block", "ms", "device_ms", "whole_ms",
-        "whole_device_ms", "bound_ms")} for r in rec["blocks"]],
+        "whole_device_ms", "bound_ms", "route", "kernel_device_ms",
+        "pr15_device_ms", "plain_ms", "library_device_ms")}
+        for r in rec["blocks"]],
         "decode": rec["decode"], "train": rec["train"],
         "wall_s": rec["wall_s"]}
 
@@ -4914,6 +5267,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {src}: {line.strip()}")
     sass = tensor_core_counts(_build)
+    popcount_sass = popcount_globals(_build)
 
 
     t0 = time.perf_counter()
@@ -5055,6 +5409,40 @@ def main() -> int:
                 raise AssertionError(f"{name}: no launch on its path")
             kernels.append(entry)
             continue
+        if name == DECODE:
+            rows = lm_record["decode_route"]
+            t_ops = sum(r["ops"] / INT8_OPS_PER_S for r in rows)
+            t_bytes = sum(r["bytes"] / HBM_BYTES_PER_S for r in rows)
+            decode_globals = {g: rec for g, rec in popcount_sass.items()
+                              if "decode_kernel" in g}
+            entry.update({
+                "share_of": "w1a8_matmul_popcount",
+                "max_abs_err": 0.0,
+                "tensor_core_instructions": {
+                    op: sum(g[op] for g in decode_globals.values())
+                    for op in TENSOR_CORE_OPS},
+                "globals": decode_globals,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "shapes": [[r["what"], *r["shape"]] for r in rows],
+                "launches_per_decode_step": {
+                    LM_ARCH: lm_record["serve"][
+                        "kernel_launches_per_decode_step"].get(name, 0),
+                    **{families[key]["arch"]: lm_launches_per_step_of(
+                        families[key]).get(name, 0)
+                       for key in ("moe", "hybrid")},
+                    f"{TP_ARCH} rank 0 of (16, 16)": tp["decode"][
+                        "launches_per_decode_step"].get(name, 0)},
+                **{k: sum(r[k] for r in rows) for k in (
+                    "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                    "library_device_ms")},
+                "by_shape": {k: [r[k] for r in rows] for k in (
+                    "ms", "decode_device_ms", "pr15_device_ms", "plain_ms",
+                    "library_device_ms", "bound_ms")},
+                "floor_device_ms": rows[0]["floor_device_ms"]})
+            if not entry["launches"]:
+                raise AssertionError(f"{name}: no launch on its path")
+            kernels.append(entry)
+            continue
         if name == GROUPED:
             rows = families["grouped"]
             t_ops = sum(r["ops"] / INT8_OPS_PER_S for r in rows)
@@ -5076,7 +5464,9 @@ def main() -> int:
                     "library_device_ms")},
                 "by_shape": {k: [r[k] for r in rows] for k in (
                     "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
-                    "library_device_ms", "experts_holding_rows")}})
+                    "library_device_ms", "experts_holding_rows", "items",
+                    "decode_device_ms", "pr15_device_ms")},
+                "floor_device_ms": rows[0]["floor_device_ms"]})
             if not entry["launches"]:
                 raise AssertionError(f"{name}: no launch on its path")
             kernels.append(entry)
@@ -5119,7 +5509,10 @@ def main() -> int:
                 "blocks": [{k: r.get(k) for k in (
                     "what", "kind", "block", "whole", "ms", "device_ms",
                     "whole_ms", "whole_device_ms", "bound_ms", "bound_by",
-                    "max_abs_err")} for r in tp["blocks"]]}
+                    "max_abs_err", "route", "kernel_device_ms",
+                    "pr15_device_ms", "plain_ms", "library_ms",
+                    "library_device_ms", "floor_device_ms")}
+                    for r in tp["blocks"]]}
         if name in lm_train["serve"]["per_decode_step"]:
             # phase 13: the trained model, deployed and served
             entry["lm_trained"] = {
@@ -5166,7 +5559,8 @@ def main() -> int:
          "int_forward": int_record, "qat": qat_record, "lm": lm_record,
          "tiers": tiers, "families": families, "lm_train": lm_train,
          "dist": dist_rec, "sharded": sharded, "tooling": tooling,
-         "tp": tp, "floor_device_ms": floor_ms},
+         "tp": tp, "floor_device_ms": floor_ms,
+         "popcount_globals": popcount_sass},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
                       "requests": record["requests"],

@@ -23,8 +23,9 @@
 // --use_fast_math, which would replace the IEEE division of the requant.
 //
 // The tiles' PTX (ldmatrix, mma.sync, cp.async) sits in small functions,
-// `ldmatrix_x4`, `mma_bf16_16816`, `mma_u8s8_16832`, `cp_async_16` and
-// `cp_async_wait_all`, so that a host emulation of the warp can stand in
+// `ldmatrix_x4`, `mma_bf16_16816`, `mma_u8s8_16832`, `mma_u8u8_16832`,
+// `cp_async_16`, `cp_async_wait_all`, `cp_async_lane`, `cp_async_commit`
+// and `cp_async_wait`, so that a host emulation of the warp can stand in
 // for them.
 #pragma once
 
@@ -214,6 +215,31 @@ __device__ __forceinline__ void cp_async_wait_all() {
                    : "memory");
 }
 
+// A lane's own copy pipeline (the popcount matmul's decode tile): copies
+// kBytes (4, 8 or 16) from global to shared memory through L1 without
+// waiting, the first src_bytes of them read and the rest zero, ordered
+// with this thread's other shared memory accesses; `cp_async_commit`
+// closes a group of them and `cp_async_wait<N>` waits until at most N of
+// this thread's groups are in flight.
+template <int kBytes>
+__device__ __forceinline__ void cp_async_lane(void* dst, const void* src,
+                                              int src_bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %3, %2;\n"
+               :
+               : "r"(d), "l"(src), "r"(src_bytes), "n"(kBytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // stage_words(w, wsm, n_words, cout, co0, ct, 1) for the dot conv kernels:
 // with cout % 4 == 0 and `w` 16-byte aligned, 16 bytes at a time, all in
 // flight together (cp_async_wait_all before reading them).
@@ -392,6 +418,18 @@ __device__ __forceinline__ void mma_u8s8_16832(int (&d)[4],
                                                const uint32_t (&b)[2]) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a * b on one 16x8x32 tile: u8 A, u8 B, s32 accumulation (the
+// popcount matmul's decode tile: 0/128 sign bytes against codes).
+__device__ __forceinline__ void mma_u8u8_16832(int (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));

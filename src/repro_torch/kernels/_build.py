@@ -124,13 +124,17 @@ class Kernel:
     launched and reports no error, and nowhere else, so a run can show
     that its main path went through the kernel. A call inside a CUDA graph
     capture (`capturing`) launches nothing until the graph replays it, so
-    there the count moves with the replays instead.
+    there the count moves with the replays instead. A route of another
+    entry's wrapper (``share_of``) adds its launches to that entry's count
+    as well: its own count is the route's share.
     """
 
-    def __init__(self, source: str, symbol: str, argtypes: Sequence):
+    def __init__(self, source: str, symbol: str, argtypes: Sequence,
+                 share_of: "Kernel" = None):
         self.source, self.symbol = source, symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.share_of = share_of
         self._fn = None
         KERNELS.append(self)
 
@@ -145,6 +149,8 @@ class Kernel:
             raise RuntimeError(
                 f"{self.symbol} launch failed with CUDA error {err}")
         self.launches += 1
+        if self.share_of is not None:
+            self.share_of.launches += 1
 
 
 class Captured:

@@ -5,8 +5,14 @@
 ``csrc/w1a8_matmul_popcount.cu`` (popcount: exact int32 sum over the codes'
 bit-planes, after folding a per-channel Mul_prev into the codes and the
 uniform step m̄ into Div; ``mul_prev=None`` means the caller has done so).
+Where `geometry.decodes` (M ≤ DECODE_MAX_M rows over K ≥ DECODE_MIN_K)
+the popcount route launches the library's decode entry
+(`geometry.decode_launch`; its launches counted on `DECODE_KERNEL` as a
+share of `POPCOUNT_KERNEL`'s), elsewhere the PR-15 tile
+(`geometry.matmul_launch`).
 `w1a8_matmul_grouped` launches the popcount kernel's grouped entry once
-for a stack of experts (the MoE FFN's packed experts).
+for a stack of experts (the MoE FFN's packed experts), the decode tile at
+cap ≤ DECODE_MAX_M (`geometry.grouped_launch`).
 `w1a8_matmul_int` runs ``csrc/w1a8_matmul_int.cu``, the exact int32 sum
 Σ_k sign·a (the reference forms it as (a − 128)·(±1) plus 128·colsum).
 
@@ -15,7 +21,8 @@ version in ``ref.py``; a fake or meta tensor gives the result's shape
 alone (`_build.shape_only`), and every call reports its work
 (`_build.work`). Leading dims of ``a_u8`` fold into M. All three
 kernels run on the tensor cores with the launch geometry of
-`geometry.matmul_launch` (the int kernel with popcount's); they mask the
+`geometry.matmul_launch` (the int kernel with popcount's), the popcount
+kernel's decode route with `geometry.decode_launch`'s; they mask the
 ragged M, N and K edges themselves, so nothing is padded.
 """
 from __future__ import annotations
@@ -28,6 +35,7 @@ from repro_torch.core.packing import pack_signs, packed_dim
 from repro_torch.core.quant import fold_codes_to_uniform_step
 from repro_torch.kernels import _build
 from repro_torch.kernels.config import KernelConfig
+from repro_torch.kernels.w1a8_matmul import geometry
 from repro_torch.kernels.w1a8_matmul import ref as _ref
 from repro_torch.kernels.w1a8_matmul.geometry import matmul_launch
 
@@ -39,11 +47,19 @@ KERNEL = _build.Kernel("w1a8_matmul.cu", "w1a8_matmul",
 POPCOUNT_KERNEL = _build.Kernel("w1a8_matmul_popcount.cu",
                                 "w1a8_matmul_popcount",
                                 [_build.P] * 5 + _GEOMETRY_ARGS)
-# (a, w, div, bias, counts, out, experts, cap, k, n, grid_x, grid_y, bm, bn,
-# wm, wn, threads, stream)
+# (a, w, div, bias, out, m, k, n, out_step, quant, blocks, threads, bm, bn,
+# wm, wn, cs, stream): the popcount entry's decode route, a share of its
+# launches
+DECODE_KERNEL = _build.Kernel("w1a8_matmul_popcount.cu",
+                              "w1a8_matmul_popcount_decode",
+                              [_build.P] * 5 + [_build.I] * 3 + [_build.F]
+                              + [_build.I] * 8 + [_build.P],
+                              share_of=POPCOUNT_KERNEL)
+# (a, w, div, bias, counts, out, experts, cap, k, n, decode, blocks,
+# threads, bm, bn, wm, wn, cs, stream)
 GROUPED_KERNEL = _build.Kernel("w1a8_matmul_popcount.cu",
                                "w1a8_matmul_popcount_grouped",
-                               [_build.P] * 6 + [_build.I] * 11 + [_build.P])
+                               [_build.P] * 6 + [_build.I] * 12 + [_build.P])
 # (a, w, out, m, k, n, grid_x, grid_y, bm, bn, wm, wn, threads, stream)
 INT_KERNEL = _build.Kernel("w1a8_matmul_int.cu", "w1a8_matmul_int",
                            [_build.P] * 3 + [_build.I] * 10 + [_build.P])
@@ -139,14 +155,21 @@ def _launch(kernel: _build.Kernel, a2, w_packed, mul_prev, div_post, bias,
         raise ValueError("mul_prev must be (k,), div_post and bias (N,)")
     quant = cfg.out_step is not None
     out = _result(m, n, cfg, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    epilogue = (float(cfg.out_step if quant else 1.0), int(quant))
+    if kernel is POPCOUNT_KERNEL and geometry.decodes(m, k):
+        d = geometry.decode_launch(m, k, n)
+        DECODE_KERNEL(a2.data_ptr(), w.data_ptr(), div.data_ptr(),
+                      bs.data_ptr(), out.data_ptr(), m, k, n, *epilogue,
+                      d.blocks, d.threads, d.bm, d.bn, d.wm, d.wn, d.cs,
+                      stream)
+        return out
     g = matmul_launch(m, n, cfg.accum)
-    geometry = (m, k, n, float(cfg.out_step if quant else 1.0), int(quant),
-                *g.grid, g.bm, g.bn, g.wm, g.wn, g.threads,
-                torch.cuda.current_stream(dev).cuda_stream)
     ptrs = [a2.data_ptr(), w.data_ptr()]
     if mul is not None:
         ptrs.append(mul.data_ptr())
-    kernel(*ptrs, div.data_ptr(), bs.data_ptr(), out.data_ptr(), *geometry)
+    kernel(*ptrs, div.data_ptr(), bs.data_ptr(), out.data_ptr(), m, k, n,
+           *epilogue, *g.grid, g.bm, g.bn, g.wm, g.wn, g.threads, stream)
     return out
 
 
@@ -158,9 +181,9 @@ def w1a8_matmul_grouped(a_u8: torch.Tensor, w_packed: torch.Tensor,
     times div, for the rows e holds; rows from counts[e] on are 0.
 
     a_u8: (E, cap, k) uint8 codes on one grid; w_packed: (E, ceil(k/32),
-    N) int32 words; counts: (E,) int (read on the device: an expert with
-    no row reads none of its words); div_post, bias: (E, N) f32. Returns
-    (E, cap, N) f32.
+    N) int32 words; counts: (E,) int (read on the device: no block works
+    for an expert with no row, and it reads none of its words); div_post,
+    bias: (E, N) f32. Returns (E, cap, N) f32.
     """
     e, cap = a_u8.shape[0], a_u8.shape[1]
     n = w_packed.shape[-1]
@@ -210,11 +233,11 @@ def _launch_grouped(a_u8, w_packed, counts, div_post, bias,
         flat(bias, torch.float32, e * n)
     cnt = flat(counts, torch.int32, e)
     out = torch.empty((e, cap, n), dtype=torch.float32, device=dev)
-    g = matmul_launch(cap, n, "popcount")
+    g = geometry.grouped_launch(e, cap, k, n)
     GROUPED_KERNEL(a.data_ptr(), w.data_ptr(), div.data_ptr(), bs.data_ptr(),
-                   cnt.data_ptr(), out.data_ptr(), e, cap, k, n, *g.grid,
-                   g.bm, g.bn, g.wm, g.wn, g.threads,
-                   torch.cuda.current_stream(dev).cuda_stream)
+                   cnt.data_ptr(), out.data_ptr(), e, cap, k, n,
+                   int(g.decode), g.blocks, g.threads, g.bm, g.bn, g.wm, g.wn,
+                   g.cs, torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 

@@ -147,6 +147,86 @@ def w1a8_matmul_grouped_ref(a_u8: torch.Tensor, w_packed: torch.Tensor,
     return torch.where(held, out, 0.0)
 
 
+# ---------------------------------------------------------------------------
+# The decode tile's decomposition (csrc/w1a8_matmul_popcount.cu), in torch:
+# K in spans of SPAN codes, span s to K slice s % slices, each slice's sum
+# formed as 2·Σ bit·a − Σ a from the sign bits as 0/1, the slices' int32
+# partial sums added in slice order, then the epilogue. The grouped entry's
+# work list: the held experts' row blocks by column tiles.
+# ---------------------------------------------------------------------------
+
+SPAN = 128
+
+
+def split_k_sums(a_u8: torch.Tensor, w_packed: torch.Tensor, k: int,
+                 slices: int) -> torch.Tensor:
+    """Σ_k s_k·a_k, exact int32, as the decode tile forms it: a_u8 (M, ≥k)
+    codes, w_packed (ceil(k/32), N) words; K slice q holds the spans q,
+    q + slices, …; within a slice 2·Σ bit·a − Σ a. The products run in
+    float64, where every partial sum is an exact integer."""
+    a = pad_codes(a_u8, k).to(torch.float64)
+    bits = packing.unpack_signs(w_packed, a.shape[1], axis=0,
+                                dtype=torch.float64).add(1.0).mul(0.5)
+    span = torch.arange(a.shape[1], device=a_u8.device) // SPAN
+    acc = torch.zeros((a.shape[0], w_packed.shape[1]), dtype=torch.int32,
+                      device=a_u8.device)
+    for q in range(slices):
+        sel = span % slices == q
+        part = 2.0 * (a[:, sel] @ bits[sel]) - a[:, sel].sum(1, keepdim=True)
+        acc = acc + part.to(torch.int32)
+    return acc
+
+
+def w1a8_matmul_popcount_split(a_u8: torch.Tensor, w_packed: torch.Tensor,
+                               k: int, div_post: torch.Tensor,
+                               bias: torch.Tensor,
+                               out_step: Optional[float] = None, *,
+                               slices: int = 1) -> torch.Tensor:
+    """`w1a8_matmul_popcount_ref` through the decode tile's decomposition
+    of K into ``slices`` slices (`split_k_sums`): the same bits."""
+    return popcount_epilogue(split_k_sums(a_u8, w_packed, k, slices),
+                             div_post, bias, out_step)
+
+
+def grouped_items(counts: torch.Tensor, cap: int, unit: int,
+                  tiles: int) -> list:
+    """The grouped entry's work items in order, as every block forms them
+    on the device: (expert, row block, column tile) over the row blocks of
+    ``unit`` rows each expert holds (counts clamped to [0, cap]), item
+    i = row block i // tiles, column tile i % tiles."""
+    held = counts.to(torch.int64).clamp(0, cap)
+    blocks = (held + unit - 1) // unit
+    pre = [0] + torch.cumsum(blocks, 0).tolist()
+    items = []
+    for i in range(pre[-1] * tiles):
+        h = i // tiles
+        e = max(j for j in range(len(held)) if pre[j] <= h)
+        items.append((e, h - pre[e], i % tiles))
+    return items
+
+
+def w1a8_matmul_grouped_split(a_u8: torch.Tensor, w_packed: torch.Tensor,
+                              counts: torch.Tensor, k: int,
+                              div_post: torch.Tensor, bias: torch.Tensor, *,
+                              unit: int, bn: int,
+                              slices: int = 1) -> torch.Tensor:
+    """`w1a8_matmul_grouped_ref` through the grouped entry's work list
+    (`grouped_items`): each item the rows of its row block an expert
+    holds by ``bn`` columns, split into ``slices`` K slices; every other
+    row 0."""
+    e, cap = a_u8.shape[0], a_u8.shape[1]
+    n = w_packed.shape[-1]
+    held = counts.to(torch.int64).clamp(0, cap)
+    out = torch.zeros((e, cap, n), dtype=torch.float32, device=a_u8.device)
+    for x, rb, tile in grouped_items(counts, cap, unit, -(-n // bn)):
+        r0, r1 = rb * unit, min((rb + 1) * unit, int(held[x]))
+        c0, c1 = tile * bn, min((tile + 1) * bn, n)
+        out[x, r0:r1, c0:c1] = w1a8_matmul_popcount_split(
+            a_u8[x, r0:r1], w_packed[x, :, c0:c1], k, div_post[x, c0:c1],
+            bias[x, c0:c1], slices=slices)
+    return out
+
+
 def w1a8_matmul_int_ref(a_u8: torch.Tensor, w_packed: torch.Tensor,
                         colsum: torch.Tensor) -> torch.Tensor:
     """Exact Σ_k s·a as (a − 128)·(±1) plus 128·colsum, int32.

@@ -178,7 +178,7 @@ def _call(op: str, operands: dict, cfg: KernelConfig) -> torch.Tensor:
 
 
 def _port_launches() -> int:
-    return sum(k.launches for k in _build.KERNELS)
+    return sum(k.launches for k in _build.KERNELS if k.share_of is None)
 
 
 def _time_us(fn, on_card: bool, tries: int = 5) -> float:

@@ -106,12 +106,15 @@ DEFAULT_OUT = str(pathlib.Path(__file__).resolve().parents[1] / "results"
 # `detect_nms` (the same kernel on decoded boxes) are called directly, and
 # the integer PE (`w1a8_int_pe`) runs the integer forward, one launch a
 # layer (`yolo.yolo_forward_int`); a packed MoE layer launches the popcount
-# matmul's grouped entry (`w1a8_matmul_popcount_grouped`) once a projection.
+# matmul's grouped entry (`w1a8_matmul_popcount_grouped`) once a projection;
+# `w1a8_matmul_popcount_decode` counts the share of `w1a8_matmul_popcount`'s
+# launches that took its decode route (M ≤ 16).
 KERNELS = {"w1a8_conv3x3_pool2": fused_pool.KERNEL,
            "w1a8_conv3x3": conv_ops.KERNEL, "w1a8_matmul": mm_ops.KERNEL,
            "w1a8_conv3x3_pool2_popcount": fused_pool.POPCOUNT_KERNEL,
            "w1a8_conv3x3_popcount": conv_ops.POPCOUNT_KERNEL,
            "w1a8_matmul_popcount": mm_ops.POPCOUNT_KERNEL,
+           "w1a8_matmul_popcount_decode": mm_ops.DECODE_KERNEL,
            "w1a8_matmul_popcount_grouped": mm_ops.GROUPED_KERNEL,
            "w1a8_matmul_int": mm_ops.INT_KERNEL,
            "detect_nms": detection.NMS_KERNEL,

@@ -8,6 +8,7 @@ digit planes, its 1×1 layers also on the M = B·H·W outputs in rows of
 16 (`sweep_1x1`).
 
     PYTHONPATH=src python -m repro_torch.launch.tile_sweep
+    PYTHONPATH=src python -m repro_torch.launch.tile_sweep --decode
 
 For each layer and accum mode the kernel the fused-pool route runs there
 (the fused conv+pool kernel at pool layers, the conv kernel elsewhere, the
@@ -19,6 +20,18 @@ the geometry's heuristic chooses (for the integer PE,
 the device time per call: the union of the calls' traced device intervals
 (torch.profiler) over 20 calls, divided by 20. Prints one JSON object with
 the card's name and power limit. Needs the card.
+
+``--decode`` sweeps the popcount matmul's decode route instead
+(`sweep_decode`): at the LM decode shapes (chatglm3-6b's projections at
+M = 4 and its tensor-parallel blocks at |model| 16) every K split the
+decode kernel takes, (cw, kw, cs) as `only_decode_split` forces it, each
+held bit for bit against the PR-15 tile; and at (K, N) = (4096, 13696)
+for M = 1 to 32 the route `decode_launch` picks against the PR-15 tile
+(`pr15_route`), timed in turns (PR 15, decode, decode, PR 15): the
+crossover that sets `geometry.DECODE_MAX_M`; likewise at M = 4, N = 4096
+for K = 128 to 2048, the crossover that sets `geometry.DECODE_MIN_K`.
+These times are device ms from CUDA-graph replays of 20 calls
+(`graph_ms`).
 """
 from __future__ import annotations
 
@@ -98,6 +111,163 @@ def sweep_matmul(rng, m: int, k: int, n: int, dev, layer: str) -> list:
                         "picked": f"{g.wm}x{g.wn}",
                         "device_ms": times})
     return records
+
+
+@contextlib.contextmanager
+def pr15_route():
+    """Makes the popcount matmul take the PR-15 tile (`matmul_launch`) at
+    every M, and the grouped entry at every cap."""
+    saved = mm_geometry.DECODE_MAX_M
+    mm_geometry.DECODE_MAX_M = 0
+    try:
+        yield
+    finally:
+        mm_geometry.DECODE_MAX_M = saved
+
+
+@contextlib.contextmanager
+def only_decode_split(cw: int, kw: int, cs: int):
+    """Makes the popcount matmul take the decode route at any K and
+    `decode_launch` split K as (cw, kw, cs) wherever the shape has the
+    spans and columns for it (fewer where it has not)."""
+    names = ("DECODE_COL_WARPS", "DECODE_K_WARPS", "DECODE_MAX_CLUSTER",
+             "DECODE_MIN_SPANS", "DECODE_MIN_WARPS", "SMS", "DECODE_MIN_K")
+    saved = [getattr(mm_geometry, name) for name in names]
+    for name, v in zip(names, (cw, kw, cs, 1, 1 << 30, 1 << 30, 1)):
+        setattr(mm_geometry, name, v)
+    try:
+        yield
+    finally:
+        for name, v in zip(names, saved):
+            setattr(mm_geometry, name, v)
+
+
+@contextlib.contextmanager
+def decode_any_k():
+    """Makes the popcount matmul take the decode route at any K of M ≤
+    DECODE_MAX_M, split as `decode_launch` picks it."""
+    saved = mm_geometry.DECODE_MIN_K
+    mm_geometry.DECODE_MIN_K = 1
+    try:
+        yield
+    finally:
+        mm_geometry.DECODE_MIN_K = saved
+
+
+# (what, M, K, N): chatglm3-6b's packed projections at M = 4 (decode) and
+# their blocks at |model| 16 (PR 29's tensor-parallel layout)
+DECODE_SHAPES = (("qkv wq, wo", 4, 4096, 4096), ("wk, wv", 4, 4096, 256),
+                 ("up, gate", 4, 4096, 13696), ("down", 4, 13696, 4096),
+                 ("tp wk, wv", 4, 4096, 16), ("tp wo", 4, 256, 4096),
+                 ("tp up, gate", 4, 4096, 856))
+DECODE_SPLITS = tuple((cw, kw, cs) for cw in (1, 2) for kw in (1, 2, 4, 8)
+                      for cs in (1, 2, 4, 8) if cw * kw <= 8)
+CROSSOVER = (4096, 13696, tuple(range(1, 33)))
+K_CROSSOVER = (4, 4096, (128, 256, 384, 512, 768, 1024, 2048))
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device ms per call of ``fn``: CUDA events around replays of one
+    CUDA graph of ``n`` calls (median of ``reps``)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return sorted(times)[reps // 2]
+
+
+def _decode_operands(rng, m: int, k: int, n: int, dev):
+    a = torch.from_numpy(rng.integers(0, 256, (m, k), dtype=np.uint8)).to(dev)
+    w = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31 - 1, (-(-k // 32), n)
+                                      ).astype(np.int32)).to(dev)
+    div = torch.from_numpy(rng.uniform(1e-4, 1e-3, n).astype(np.float32)
+                           ).to(dev)
+    bias = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    cfg = KernelConfig(op="matmul", accum="popcount")
+    return lambda: mm_ops.w1a8_matmul(a, w, None, div, bias, k=k, config=cfg)
+
+
+def sweep_decode(rng, dev) -> dict:
+    """The decode route's K splits at DECODE_SHAPES and its crossover with
+    the PR-15 tile at CROSSOVER; each split and route held bit for bit
+    against the PR-15 tile's result."""
+    shapes = []
+    for what, m, k, n in DECODE_SHAPES:
+        run = _decode_operands(rng, m, k, n, dev)
+        with pr15_route():
+            want = run()
+            pr15 = graph_ms(run)
+        times, seen = {}, set()
+        for split in DECODE_SPLITS:
+            with only_decode_split(*split):
+                d = mm_geometry.decode_launch(m, k, n)
+                key = f"{d.cw}x{d.kw}x{d.cs}"
+                if key in seen:
+                    continue
+                seen.add(key)
+                if not torch.equal(run(), want):
+                    raise AssertionError(f"decode split {key} at "
+                                         f"{(m, k, n)} differs from PR 15's")
+                times[key] = graph_ms(run)
+        d = mm_geometry.decode_launch(m, k, n)
+        rec = {"what": what, "shape": [m, k, n],
+               "picked": f"{d.cw}x{d.kw}x{d.cs}",
+               "picked_ms": graph_ms(run), "pr15_ms": pr15,
+               "best": min(times, key=times.get), "device_ms": times}
+        print(json.dumps(rec), flush=True)
+        shapes.append(rec)
+    k, n, ms = CROSSOVER
+    crossover = []
+    for m in ms:
+        run = _decode_operands(rng, m, k, n, dev)
+        if m > 16:
+            with pr15_route():
+                rec = {"m": m, "pr15_ms": [graph_ms(run), graph_ms(run)]}
+            crossover.append(rec)
+            print(json.dumps(rec), flush=True)
+            continue
+        with pr15_route():
+            want = run()
+            old = [graph_ms(run)]
+        if not torch.equal(run(), want):
+            raise AssertionError(f"decode route at M = {m} differs")
+        new = [graph_ms(run), graph_ms(run)]
+        with pr15_route():
+            old.append(graph_ms(run))
+        rec = {"m": m, "shape": [m, k, n], "pr15_ms": old, "decode_ms": new}
+        crossover.append(rec)
+        print(json.dumps(rec), flush=True)
+    m, n, ks = K_CROSSOVER
+    k_crossover = []
+    for k in ks:
+        run = _decode_operands(rng, m, k, n, dev)
+        with pr15_route():
+            want = run()
+            old = [graph_ms(run)]
+        with decode_any_k():
+            if not torch.equal(run(), want):
+                raise AssertionError(f"decode route at K = {k} differs")
+            new = [graph_ms(run), graph_ms(run)]
+        with pr15_route():
+            old.append(graph_ms(run))
+        rec = {"k": k, "shape": [m, k, n], "pr15_ms": old, "decode_ms": new}
+        k_crossover.append(rec)
+        print(json.dumps(rec), flush=True)
+    return {"shapes": shapes, "crossover": crossover,
+            "k_crossover": k_crossover}
 
 
 @contextlib.contextmanager
@@ -227,10 +397,16 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--decode", action="store_true",
+                    help="sweep the popcount matmul's decode route alone")
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
     card = card_name(dev)
     rng = np.random.default_rng(args.seed)
+    if args.decode:
+        record = {"card": card, **sweep_decode(rng, dev)}
+        print(json.dumps(record))
+        return record
     sizes = yolo.spatial_sizes(yolo.INPUT_SIZE)
     layers = []
     for spec in yolo.YOLO_LAYERS:
