@@ -361,6 +361,23 @@ Phases (any failure raises and the script exits non-zero):
    a decode step's launches, the decode route's share from the blocks'
    K. (b) Rank 0 training chatglm3-6b's train_4k cell: peak memory
    against the dry run's. Prints one ``tp`` line.
+18. Runs after phase 17, before phase 8's line: the launchers' gates
+   (``launch/serve.py --gate-bench``) against a record file in a
+   temporary directory, never the package's ``results/``. detect at 320
+   (16 requests, slots 4, depth 2), multires at 256,320 (8 requests),
+   lm ``--reduced --packed --arch chatglm3-6b`` and compose ``--reduced``
+   each run twice: the first records, the second enforces. The committed
+   img/s is taken out between the two, since one run's img/s spreads
+   28–35% on the card: the second run's gates are the exact ones, host
+   sync bytes a tick (lm, detect: equal across the runs) and compose's 0
+   lost, 0 duplicated. detect's device-NMS wire is at least 10× smaller
+   a sync than the raw wire's. Then the launcher over the second run's
+   record (its runner replaced by one returning it) against doctored
+   committed records: img/s at 0.5× the measured passes and at 2× fails
+   (detect, multires), host sync bytes at 0.5× fails (lm, detect), and a
+   record with one request lost fails compose's gate; each failure names
+   its key and leaves the file byte for byte as it was. Prints one
+   ``gates`` line.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -5241,6 +5258,129 @@ def tp_summary(rec: dict) -> dict:
         "wall_s": rec["wall_s"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the launchers' gates on the card
+# ---------------------------------------------------------------------------
+
+# each workload's launcher arguments, run twice with --gate-bench
+GATE_RUNS = {
+    "detect": ["--buckets", "320", "--requests", "16", "--slots", "4",
+               "--depth", "2"],
+    "multires": ["--buckets", "256,320", "--requests", "8", "--slots", "4"],
+    "lm": ["--reduced", "--packed", "--arch", LM_ARCH],
+    "compose": ["--reduced"],
+}
+# (workload, committed keys scaled, record keys changed, the failure's
+# first words or None for a pass): doctored against a measured record
+GATE_DOCTORED = (
+    ("detect", {"img_per_s": 0.5}, {}, None),
+    ("detect", {"img_per_s": 2.0}, {}, "img_per_s at depth=2 regressed"),
+    ("detect", {"host_sync_bytes_per_tick": 0.5}, {},
+     "host_sync_bytes_per_tick regressed"),
+    ("multires", {"img_per_s": 0.5}, {}, None),
+    ("multires", {"img_per_s": 2.0}, {}, "img_per_s at depth=2 regressed"),
+    ("lm", {"host_sync_bytes_per_tick": 0.5}, {},
+     "host_sync_bytes_per_tick regressed"),
+    ("compose", {}, {"lost": 1}, "compose conservation"),
+)
+
+
+def gate_pair(launch, workload: str, path) -> tuple:
+    """Phase 18: ``workload`` through the launcher twice with
+    ``--gate-bench`` against ``path``, the committed img/s taken out
+    between the runs; (first record, second record)."""
+    argv = (["--workload", workload] + GATE_RUNS[workload]
+            + ["--gate-bench", "--out", str(path)])
+    first = launch.main(argv)
+    data = json.loads(path.read_text())
+    if data[workload] != json.loads(json.dumps(first)):
+        raise AssertionError(f"gates: {workload}'s first run did not "
+                             f"record itself")
+    data[workload].pop("img_per_s", None)
+    path.write_text(json.dumps(data))
+    second = launch.main(argv)
+    if workload in ("lm", "detect") and second["host_sync_bytes_per_tick"] \
+            != first["host_sync_bytes_per_tick"]:
+        raise AssertionError(f"gates: {workload}'s host sync bytes a tick "
+                             f"moved: {first['host_sync_bytes_per_tick']} "
+                             f"then {second['host_sync_bytes_per_tick']}")
+    return first, second
+
+
+def gate_doctored(launch, workload: str, record: dict, scale: dict,
+                  change: dict, fails, path) -> str:
+    """Phase 18: the launcher, its runner returning ``record`` updated by
+    ``change``, against ``record`` committed with the keys of ``scale``
+    scaled; raises unless it fails with ``fails`` leaving the file as it
+    was, or passes (``fails`` None) writing the record. Returns what the
+    gate said."""
+    import io
+    path.write_text(json.dumps({workload: {
+        **record, **{k: record[k] * f for k, f in scale.items()}}}))
+    before = path.read_bytes()
+    served = {**record, **change}
+    name = f"run_{workload}"
+    run, out = getattr(launch, name), io.StringIO()
+    setattr(launch, name, lambda args: served)
+    try:
+        with contextlib.redirect_stdout(out):
+            launch.main(["--workload", workload, "--gate-bench", "--out",
+                         str(path)])
+        said = None
+    except AssertionError as e:
+        said = str(e)
+    finally:
+        setattr(launch, name, run)
+    what = f"gates: {workload} committed x {scale}, record {change}"
+    if fails is None:
+        if said is not None or json.loads(path.read_text())[workload] != \
+                json.loads(json.dumps(served)):
+            raise AssertionError(f"{what}: {said or 'record not written'}")
+        return [line for line in out.getvalue().splitlines()
+                if line.startswith("[gate]")][-1]
+    if said is None or not said.startswith(fails):
+        raise AssertionError(f"{what}: expected {fails!r}, got {said!r}")
+    if path.read_bytes() != before:
+        raise AssertionError(f"{what}: the failed gate wrote the file")
+    return said
+
+
+def drive_gates(smi: str) -> dict:
+    """Phase 18: `gate_pair` for each of GATE_RUNS, then `gate_doctored`
+    for each of GATE_DOCTORED over the second runs' records."""
+    import tempfile
+    from repro_torch.launch import serve as launch
+    t0 = time.perf_counter()
+    out = {"card": smi, "runs": {}, "doctored": []}
+    second = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "BENCH_serve_gate.json"
+        for workload in GATE_RUNS:
+            first, second[workload] = gate_pair(launch, workload, path)
+            out["runs"][workload] = {
+                k: [first.get(k), second[workload].get(k)] for k in (
+                    "host_sync_bytes_per_tick", "img_per_s", "lost",
+                    "duplicated")}
+        reduction = second["detect"]["sync_bytes_reduction_vs_raw_wire"]
+        if not reduction >= 10.0:
+            raise AssertionError(f"gates: detect's device-NMS wire only "
+                                 f"{reduction:.2f}x smaller")
+        out["detect_reduction_vs_raw_wire"] = reduction
+        for workload, scale, change, fails in GATE_DOCTORED:
+            said = gate_doctored(launch, workload, second[workload], scale,
+                                 change, fails,
+                                 path.with_name("doctored.json"))
+            out["doctored"].append({"workload": workload, "scale": scale,
+                                    "change": change, "said": said})
+            print(f"[gates] {workload} committed x {scale}, record "
+                  f"{change}: {said}", flush=True)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[gates] record then enforce: {out['runs']}; detect's device-NMS "
+          f"wire {reduction:.2f}x smaller a sync than the raw wire's at 320 "
+          f"({smi})", flush=True)
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5361,6 +5501,11 @@ def main() -> int:
         "launches_per_decode_step"]
     print(f"[tp] phase 17 in {tp['wall_s']:.1f} s", flush=True)
     print("tp " + json.dumps(tp_summary(tp)), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gates = drive_gates(smi)
+    print(f"[gates] phase 18 in {gates['wall_s']:.1f} s", flush=True)
+    print("gates " + json.dumps(gates), flush=True)
     # every driven path's launches: the three launcher runs, phase 5's
     # eager forwards (popcount on both pool routes, dot fused) and int
     # call, phase 7's integer forward, phase 9's QAT pipeline, phase 10's
@@ -5559,7 +5704,7 @@ def main() -> int:
          "int_forward": int_record, "qat": qat_record, "lm": lm_record,
          "tiers": tiers, "families": families, "lm_train": lm_train,
          "dist": dist_rec, "sharded": sharded, "tooling": tooling,
-         "tp": tp, "floor_device_ms": floor_ms,
+         "tp": tp, "gates": gates, "floor_device_ms": floor_ms,
          "popcount_globals": popcount_sass},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
@@ -5601,6 +5746,9 @@ def main() -> int:
                       "sharded": sharded_summary(sharded),
                       "tooling": tooling_summary(tooling),
                       "tp": tp_summary(tp),
+                      "gates": {k: gates[k] for k in (
+                          "runs", "detect_reduction_vs_raw_wire",
+                          "wall_s")},
                       "trace_fallbacks": TRACE_FALLBACKS,
                       "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {

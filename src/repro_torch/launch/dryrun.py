@@ -3,7 +3,7 @@
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
         [--shape S] [--multi-pod | --both-meshes] [--out PATH]
-        [--bubble-table]
+        [--save-hlo] [--bubble-table]
 
 The reference lowers and compiles each cell for 256 or 512 virtual XLA
 devices and reads XLA's cost analysis, memory analysis and HLO text. The
@@ -70,8 +70,13 @@ A record holds, beside the reference's ``arch``, ``shape``, ``mesh``,
 * ``hw``: the constants' source.
 
 The records hold counts and bounds from specs, never a measured time but
-``trace_s``. The reference's ``--save-hlo`` has no counterpart: the port
-runs eagerly, and no compiled module exists whose text could be saved.
+``trace_s``. ``--save-hlo`` (the reference's flag, which saves the
+compiled module's HLO text) writes the eager port's counterpart, rank 0's
+program as the `Counter` saw it, to
+``results/ops_{arch}_{shape}_{mesh}.txt`` and records the path under
+``ops_text``: one line a counted op in dispatch order (`Counter`'s
+``lines``). The lines are kept only when asked, so a cell without the
+flag costs and records what it did.
 Importing this module starts no process group and reads no environment
 variable.
 """
@@ -381,6 +386,12 @@ def _group_ranks(args) -> list:
     return [dist.get_rank()]
 
 
+def _shapes(ts: list) -> str:
+    """``f32[4, 8], i32[4]``: each tensor's dtype and shape."""
+    return ", ".join(f"{str(t.dtype).replace('torch.', '')}{list(t.shape)}"
+                     for t in ts)
+
+
 def _storage(t: torch.Tensor):
     try:
         return t.untyped_storage()
@@ -401,10 +412,17 @@ class Counter(TorchDispatchMode):
       (a list's summed), group size and whether its ranks lie in one node;
     * ``memory``: live storages by category (see the module's docstring),
       each rounded up to 512 B, and the peak with its split. Only storages
-      made inside, or handed to `hold`, are seen.
+      made inside, or handed to `hold`, are seen;
+    * ``lines`` (with ``lines=True``; else None): the program's text, one
+      line a counted op, in dispatch order. ``op``: an aten (or other
+      non-collective) op, the FLOPs it added and their class (``-``: none),
+      its operands' and results' dtypes and shapes; ``kernel``: a
+      wrapper's report, its 2·M·N·K, their class and its bytes; ``c10d``:
+      a collective, its kind, group size, bytes and whether the group lies
+      in one node. ``op`` and ``c10d`` lines add up to ``ops``.
     """
 
-    def __init__(self):
+    def __init__(self, lines: bool = False):
         super().__init__()
         from torch.utils.flop_counter import flop_registry
         self._formulas = flop_registry
@@ -413,6 +431,7 @@ class Counter(TorchDispatchMode):
         self.kernels: dict = {}
         self.collectives: list = []
         self.ops = 0
+        self.lines: Optional[list] = [] if lines else None
         self.live: dict = {}
         self.current: dict = {}
         self.peak = 0
@@ -471,6 +490,9 @@ class Counter(TorchDispatchMode):
             self.flops[kind] = self.flops.get(kind, 0) + flops
         self.bytes += nbytes
         self.kernels[name] = self.kernels.get(name, 0) + 1
+        if self.lines is not None:
+            self.lines.append(f"kernel {name} flops={flops} class={kind} "
+                              f"bytes={nbytes}")
 
     def _collective(self, kind: str, args) -> None:
         nbytes = sum(t.numel() * t.element_size()
@@ -485,6 +507,9 @@ class Counter(TorchDispatchMode):
             intra = len({r // node for r in ranks}) == 1
         self.collectives.append({"kind": kind, "bytes": nbytes,
                                  "group": group, "intra_node": intra})
+        if self.lines is not None:
+            self.lines.append(f"c10d {kind} group={group} bytes={nbytes} "
+                              f"intra_node={intra}")
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -497,21 +522,26 @@ class Counter(TorchDispatchMode):
         if _build.hidden():
             return out
         self.ops += 1
+        k, flops = None, 0
         if func.namespace in ("c10d", "_c10d_functional"):
             kind = collective_kind(func._opname)
             if kind is not None:
                 self._collective(kind, args)
-            return out
-        if func.is_view:
-            return out
-        ins = _tensors(list(args) + list(kwargs.values()))
-        self.bytes += sum(t.numel() * t.element_size()
-                          for t in ins + _tensors(out))
-        formula = self._formulas.get(func._overloadpacket)
-        if formula is not None and ins:
-            k = dtype_class(ins[0].dtype)
-            self.flops[k] = self.flops.get(k, 0) + int(
-                formula(*args, **kwargs, out_val=out))
+                return out
+        elif not func.is_view:
+            ins = _tensors(list(args) + list(kwargs.values()))
+            self.bytes += sum(t.numel() * t.element_size()
+                              for t in ins + _tensors(out))
+            formula = self._formulas.get(func._overloadpacket)
+            if formula is not None and ins:
+                k = dtype_class(ins[0].dtype)
+                flops = int(formula(*args, **kwargs, out_val=out))
+                self.flops[k] = self.flops.get(k, 0) + flops
+        if self.lines is not None:
+            ins = _tensors(list(args) + list(kwargs.values()))
+            self.lines.append(f"op {func} flops={flops} class={k or '-'} "
+                              f"({_shapes(ins)}) -> "
+                              f"({_shapes(_tensors(out))})")
         return out
 
     # -- summary ----------------------------------------------------------
@@ -753,10 +783,10 @@ def fake_mode():
     return FakeTensorMode(allow_non_fake_inputs=True)
 
 
-def count(cell: Cell) -> tuple:
+def count(cell: Cell, lines: bool = False) -> tuple:
     """(counter, seconds) of one run of ``cell`` under a `Counter` that
-    holds the cell's inputs."""
-    counter = Counter()
+    holds the cell's inputs (and keeps its ``lines`` where asked)."""
+    counter = Counter(lines)
     for tree, category in cell.held:
         counter.hold(tree, category)
     counter.add_bytes("inputs", cell.input_bytes)
@@ -766,16 +796,27 @@ def count(cell: Cell) -> tuple:
     return counter, time.perf_counter() - t0
 
 
-def trace(build: Callable, *, fake: bool = False) -> tuple:
+def trace(build: Callable, *, fake: bool = False,
+          lines: bool = False) -> tuple:
     """(cell, counter, seconds) of ``build(device)``'s cell run once under
-    a `Counter`: on ``meta``, or with ``fake`` under a fresh
-    ``FakeTensorMode`` on `fake_device`."""
+    a `Counter` (keeping its ``lines`` where asked): on ``meta``, or with
+    ``fake`` under a fresh ``FakeTensorMode`` on `fake_device`."""
     if not fake:
         cell = build(META)
-        return (cell,) + count(cell)
+        return (cell,) + count(cell, lines)
     with fake_mode():
         cell = build(fake_device())
-        return (cell,) + count(cell)
+        return (cell,) + count(cell, lines)
+
+
+def write_ops(path: str, counter: Counter, title: str) -> str:
+    """Writes ``counter``'s lines to ``path`` under a ``#`` line of
+    ``title``; returns ``path``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(f"# {title}\n")
+        f.writelines(line + "\n" for line in counter.lines)
+    return path
 
 
 def counted_record(counter: Counter) -> dict:
@@ -798,7 +839,7 @@ def mesh_name(multi_pod: bool) -> str:
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
-             microbatches: int = 8, **kw) -> dict:
+             microbatches: int = 8, save_hlo: bool = False, **kw) -> dict:
     n_chips = 512 if multi_pod else 256
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name(multi_pod),
            "chips": n_chips, "hw": HW["name"]}
@@ -815,8 +856,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
         mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
         cell, counter, secs = trace(lambda dev: build_cell(
             arch, shape_name, mesh, microbatches=microbatches, device=dev,
-            **kw))
+            **kw), lines=save_hlo)
     rec["trace_s"] = round(secs, 1)
+    if save_hlo:
+        rec["ops_text"] = write_ops(
+            os.path.join(RESULTS_DIR, f"ops_{arch}_{shape_name}_"
+                                      f"{rec['mesh']}.txt"), counter,
+            f"rank 0 of {arch} x {shape_name} x {rec['mesh']}: "
+            f"{counter.ops} ops, {len(counter.collectives)} c10d")
     rec.update(counted_record(counter))
     rec["memory"] = counter.memory()
     rec["fits"] = counter.peak <= HW["hbm_bytes"]
@@ -895,6 +942,10 @@ def main(argv=None) -> int:
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--both-meshes", action="store_true")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--save-hlo", action="store_true",
+                    help="also write rank 0's traced program, one line an "
+                         "op, kernel call and collective in dispatch "
+                         "order, to results/ops_{arch}_{shape}_{mesh}.txt")
     ap.add_argument("--bubble-table", action="store_true",
                     help="write results/BENCH_bubble_fraction.json (gpipe "
                          "vs 1f1b idle fractions) and exit")
@@ -906,7 +957,9 @@ def main(argv=None) -> int:
     shapes = list(SHAPES) if args.shape == "all" else [args.shape]
     meshes = [False, True] if args.both_meshes else [args.multi_pod]
     out = args.out or os.path.join(RESULTS_DIR, "dryrun.json")
-    results = run_matrix(run_cell, archs, shapes, meshes, out, "")
+    results = run_matrix(lambda arch, shape, multi_pod: run_cell(
+        arch, shape, multi_pod=multi_pod, save_hlo=args.save_hlo),
+        archs, shapes, meshes, out, "")
     return 1 if any(r.get("status") == "error" for r in results) else 0
 
 

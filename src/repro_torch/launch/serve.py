@@ -24,7 +24,11 @@ included; "default": the dot kernels on the unfused pool route).
              depth sweep K ∈ {1, 2, 4, 8, --depth}, each K's completions in
              dispatch order and its payloads bit-exact with K = 1; the
              headline record is the ``--depth`` run, the curve sits under
-             ``depth_sweep``. ``--burst 4x`` makes the stream at least
+             ``depth_sweep``. At 320, the reference's size, the
+             device-NMS wire must carry at most a tenth of the raw wire's
+             bytes a sync (``sync_bytes_reduction_vs_raw_wire``, recorded
+             at any size). ``--reduced`` serves 2 requests, as the
+             reference's. ``--burst 4x`` makes the stream at least
              4 × slots requests, all submitted at once, and checks zero
              drops and at most one host sync a tick. ``--replicas N`` (and
              ``--autoscale``, N to 2N replicas) also routes the same stream
@@ -63,11 +67,16 @@ card's name and power limit. Prints one JSON summary line. ``--out
 workload's key (default path: ``results/BENCH_serve_cuda.json`` in this
 package, the record `launch.traffic` calibrates from).
 
-Not ported: the reference's ``--gate-bench``, which fails one run whose
-img/s falls below the committed record × 0.95. On the card, launcher runs
-of one commit spread by 28–35% in img/s, so a gate on one run would fire
-on noise; a gate on the median of several runs belongs to a benchmark
-harness.
+``--gate-bench`` (the reference's) reads the committed record of the
+workload at the record path (``--out``, else the default above) before
+the run, gates the new record against it (`gate`) and, once every gate
+passes, merges the new record in, so the next run enforces it: host sync
+bytes a tick at most committed × 1.05 (lm, detect), img/s at least
+committed × 0.95 (detect, multires), 0 lost and 0 duplicated (compose),
+each where the committed record has the key. A failed gate raises and
+leaves the file as it was. The byte and conservation gates are exact;
+one run's img/s spreads 28–35% on the card (``PERF.md`` §2), so the img/s
+gate can fire on noise.
 """
 from __future__ import annotations
 
@@ -241,7 +250,7 @@ def run_detect(args) -> dict:
     dev = resolve_device(args.device)
     size = _buckets(args, "320")[0]
     burst = _parse_burst(args.burst, args.slots)
-    n_req = max(args.requests, burst)
+    n_req = max(2 if args.reduced else args.requests, burst)
     imgs_u8 = make_images(n_req, args.seed, size)
     params, art = yolo.build_detector(
         args.seed, imgs_u8[:1].astype(np.float32) / 256.0, device=dev)
@@ -260,6 +269,11 @@ def run_detect(args) -> dict:
     dn, summaries = depth_sweep(dn_t, imgs_u8, depths)
     summary = summaries[args.depth]
     check_nms_wire(dn[args.depth], raw_1)
+    reduction = (raw_summary["host_sync_bytes_per_sync"]
+                 / max(summary["host_sync_bytes_per_sync"], 1e-9))
+    if size == 320 and reduction < 10.0:
+        raise AssertionError(f"device-NMS wire only {reduction:.1f}x "
+                             f"smaller (need >= 10x)")
     rep = check_alignment(params, imgs_u8, raw_1, dev)
     if burst and summary["host_syncs_per_tick"] > 1.0:
         raise AssertionError(f"burst: {summary['host_syncs_per_tick']} "
@@ -278,13 +292,17 @@ def run_detect(args) -> dict:
         "checks": ["zero drops", "depth-K bit-exact with depth 1, completions "
                    "in dispatch order", "device-NMS set equals raw-wire set",
                    "raw head within verify envelope"]
+        + (["device-NMS wire >= 10x smaller a sync"] if size == 320 else [])
         + (["at most one host sync a tick"] if burst else []),
         "alignment": _alignment(rep),
         "configs": _configs(raw_t),
         **{k: summary[k] for k in ("img_per_s", "wall_s", "ticks",
                                    "tick_p50_ms", "tick_p95_ms",
-                                   "host_syncs_per_tick", "queue_depth_max",
+                                   "host_syncs", "host_syncs_per_tick",
+                                   "queue_depth_max",
+                                   "host_sync_bytes_per_tick",
                                    "host_sync_bytes_per_sync")},
+        "sync_bytes_reduction_vs_raw_wire": reduction,
         "depth_sweep": {str(k): {key: summaries[k][key] for key in SWEEP_KEYS}
                         for k in depths},
         "raw_wire": {k: raw_summary[k] for k in
@@ -550,20 +568,66 @@ def run_compose(args, params=None) -> dict:
             "detect": summary["detect"], "lm": summary["lm"]}
 
 
+def read_records(path: str) -> dict:
+    """The JSON file at ``path``; a missing or unparsable one counts as
+    empty, as the reference's."""
+    p = pathlib.Path(path)
+    if not p.exists():
+        return {}
+    try:
+        return json.loads(p.read_text())
+    except json.JSONDecodeError:
+        return {}
+
+
 def write_record(path: str, workload: str, record: dict) -> None:
     """Merges ``record`` into the JSON file at ``path`` under
     ``workload``."""
     p = pathlib.Path(path)
     p.parent.mkdir(parents=True, exist_ok=True)
-    data = {}
-    if p.exists():
-        try:
-            data = json.loads(p.read_text())
-        except json.JSONDecodeError:
-            data = {}
+    data = read_records(path)
     data[workload] = record
     p.write_text(json.dumps(data, indent=2, sort_keys=True) + "\n")
     print(f"[bench] wrote {path} [{workload}]", flush=True)
+
+
+def gate(workload: str, committed: dict, record: dict) -> list:
+    """The reference's ``--gate-bench`` of ``record`` against the
+    ``committed`` record of ``workload`` (an empty one gates nothing),
+    each gate where ``committed`` has its key: ``host_sync_bytes_per_tick``
+    at most committed × 1.05 (lm, detect), ``img_per_s`` at least
+    committed × 0.95 (detect, multires), ``lost`` and ``duplicated`` 0
+    (compose). Raises AssertionError at the first that fails (in the
+    reference's words; compose's names its counts); returns the lines of
+    those that passed."""
+    passed = []
+    if not committed:
+        return passed
+    ref = committed.get("host_sync_bytes_per_tick")
+    if workload in ("lm", "detect") and ref is not None:
+        got = record["host_sync_bytes_per_tick"]
+        if not got <= ref * 1.05:
+            raise AssertionError(f"host_sync_bytes_per_tick regressed: "
+                                 f"{got:.1f} > committed {ref:.1f} x 1.05")
+        passed.append(f"[gate] host_sync_bytes_per_tick {got:.1f} <= "
+                      f"committed {ref:.1f} x 1.05 OK")
+    ref = committed.get("img_per_s")
+    if workload in ("detect", "multires") and ref is not None:
+        got = record["img_per_s"]
+        if not got >= ref * 0.95:
+            raise AssertionError(f"img_per_s at depth={record['depth']} "
+                                 f"regressed: {got:.2f} < committed "
+                                 f"{ref:.2f} x 0.95")
+        passed.append(f"[gate] img_per_s {got:.2f} >= committed {ref:.2f} "
+                      f"x 0.95 OK")
+    if workload == "compose":
+        if record["lost"] or record["duplicated"]:
+            raise AssertionError(f"compose conservation: lost "
+                                 f"{record['lost']}, duplicated "
+                                 f"{record['duplicated']}")
+        passed.append("[gate] compose conservation OK (0 lost, "
+                      "0 duplicated)")
+    return passed
 
 
 def _buckets(args, default: str) -> tuple:
@@ -603,11 +667,20 @@ def main(argv=None) -> dict:
                     help="also merge the record into this JSON file, "
                          "under the workload's key (bare --out: "
                          "results/BENCH_serve_cuda.json in the package)")
+    ap.add_argument("--gate-bench", action="store_true",
+                    help="gate the run against the committed record at "
+                         "--out (default: results/BENCH_serve_cuda.json) "
+                         "before merging it in: host_sync_bytes_per_tick "
+                         "<= committed x 1.05 (lm, detect), img_per_s >= "
+                         "committed x 0.95 (detect, multires), 0 lost and "
+                         "0 duplicated (compose); one run's img/s spreads "
+                         "28-35%% on the card, so that gate can fire on "
+                         "noise")
     lm = ap.add_argument_group("lm and compose workloads")
     lm.add_argument("--arch", default="granite-20b",
                     choices=configs.SERVED)
     lm.add_argument("--reduced", action="store_true",
-                    help="the arch's small variant")
+                    help="the arch's small variant (detect: 2 requests)")
     lm.add_argument("--max-new", type=int, default=16)
     lm.add_argument("--max-len", type=int, default=128)
     lm.add_argument("--packed", action="store_true",
@@ -615,11 +688,21 @@ def main(argv=None) -> dict:
     lm.add_argument("--temperature", type=float, default=0.0)
     lm.add_argument("--stop-token", type=int, action="append", default=[])
     args = ap.parse_args(argv)
+    path = args.out or (DEFAULT_OUT if args.gate_bench else None)
+    committed = {}
+    if args.gate_bench:
+        committed = read_records(path).get(args.workload) or {}
     run = {"detect": run_detect, "multires": run_multires,
            "lm": run_lm, "compose": run_compose}[args.workload]
     record = run(args)
-    if args.out:
-        write_record(args.out, args.workload, record)
+    if args.gate_bench:
+        if not committed:
+            print(f"[gate] no committed {args.workload} record in {path} "
+                  f"— gate records, next run enforces", flush=True)
+        for line in gate(args.workload, committed, record):
+            print(line, flush=True)
+    if path:
+        write_record(path, args.workload, record)
     print(json.dumps(record))
     return record
 
