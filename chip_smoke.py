@@ -128,11 +128,11 @@ Phases (any failure raises and the script exits non-zero):
    call, phase 11's launcher fleet, real traffic and compose runs, phase
    12's MoE and SSM serves and hybrid decode, phase 13's trained model
    served, phase 15's sharded MoE serves, phase 16's kernel suite under
-   ``tables``; the two matmuls also their
+   ``tables``, phase 19's tick replays; the two matmuls also their
    numbers at the LM shapes, under ``lm``, the popcount matmul phase 13's
    launches under ``lm_trained``, the grouped entry its phase 12a
    shapes, the decode route its phase 10a' shapes), phase 13's, 14's,
-   15's and 17's summaries, and as the last line
+   15's, 17's and 19's summaries, and as the last line
    ``{"ok": true, "device": {...}}``.
 9. Runs before phase 8's line: the paper's offline workflow (QAT, deploy,
    integer forward, Table 6, decode + NMS). One QAT train step at B = 2,
@@ -173,7 +173,8 @@ Phases (any failure raises and the script exits non-zero):
    the bound and a one-element ``torch.add`` in a graph (the floor).
    Then chatglm3-6b at full width from a seeded init on the card,
    deployed and served through the launcher's ``run_lm`` (packed, 8
-   requests, 16 new tokens, slots 4, max_len 128) with every launch count
+   requests, 16 new tokens, slots 4, max_len 128; each decode tick one
+   CUDA graph replay, its launches the capture's) with every launch count
    zeroed before and read after: done-mask tokens equal to host-checked
    ones, and per decode step exactly one popcount matmul launch a packed
    projection (7 × 28 = 196, derived from the config) and no other
@@ -184,7 +185,7 @@ Phases (any failure raises and the script exits non-zero):
    matmul launch), its sums equal to an int64 product on the CPU. Prints
    tok/s, tick p50/p95, the decode step's CUDA-event ms, device busy ms,
    idle share (torch.profiler) and bound, and peak memory, with the card's
-   name and power limit.
+   name and power limit; then phase 19c's tick timing on the same tree.
 
 11. Runs before phase 8's line: the serving tiers above one backend, each
    with every launch count zeroed just before and read just after. (a) The
@@ -227,13 +228,14 @@ Phases (any failure raises and the script exits non-zero):
    from the config) and no other kernel; the decode step's CUDA-event
    ms, device busy ms and idle share (torch.profiler) and its bound (the
    dense words, the words of the experts that held rows in that step,
-   the f32 unembedding). (c) Packed against unpacked ``w1a8_eval``
+   the f32 unembedding); the tick as a graph replay and eager (phase
+   19c). (c) Packed against unpacked ``w1a8_eval``
    prefill, tie codes forced, within PARITY_TOL·max|logit|: at
    mixtral's full width over 2 layers, mamba2-1.3b's over its 48 (the
    served tree against the f32 one of the same seed) and jamba's over its
    period with 2 experts (the f32 tree of 16 would be 155 GB). (d)
    mamba2-1.3b at full width and depth, served and timed as (b) (96
-   popcount launches a step). (e)
+   popcount launches a step), its tick as (b)'s. (e)
    jamba-1.5-large-398b at full width over one period (8 layers: 1
    attention, 7 Mamba-1, 4 MoE), packed: prefill and 5 decode steps,
    each step's launches equal to the config's (30 popcount, 12 grouped),
@@ -378,6 +380,28 @@ Phases (any failure raises and the script exits non-zero):
    record with one request lost fails compose's gate; each failure names
    its key and leaves the file byte for byte as it was. Prints one
    ``gates`` line.
+19. Runs after phase 18, before phase 8's line: the LM decode tick as one
+   CUDA graph replay (`serve.engine.capture_tick`, the counterpart of the
+   reference's jitted tick). chatglm3-6b at full width, packed
+   (`init_packed_lm` from SEED: phase 10's deployed tree), slots 4,
+   max_len 128. (a) For each tick variant, host-checked and done-mask,
+   greedy and sampled (temperature 0.8 on two rows), 16 ticks of
+   `LMBackend.step` against an eager `decode_step` (+ `sample_tokens`) or
+   `decode_step_donemask` on clones of the backend's state and
+   generator, tick for tick: tokens, done bits, counts, the token buffer
+   and every cache leaf equal bit for bit, the generator left where the
+   eager draws leave its clone; after the capturing tick each tick calls
+   ``CUDAGraph.replay`` once and `decode_step` never. (a') `generate` at
+   temperature 0 and 0.8: one capture, one replay a token, tokens equal
+   to the eager loop's bit for bit. (b) Each replay's launches (the
+   backend's ``decode_launches``) equal the eager tick's. (c) The
+   done-mask greedy tick's CUDA-event ms as a replay and as an eager
+   `decode_tick` on the same state, in turns (replay, eager, eager,
+   replay), and each's device busy ms and idle share (torch.profiler, as
+   phases 10 and 12 time a decode step; and busy over the CUDA-event
+   ms), taken in phase 10 on its deployed tree and in phase 12 on
+   mixtral-8x7b's and mamba2-1.3b's (late in the smoke a trace of
+   replays loses its device records). Prints one ``ticks`` line.
 
 Sixteen requests make four dispatches: enough for the checks, too few for
 a rate. Throughput and tick latency come from a longer launcher run
@@ -389,6 +413,7 @@ record to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -2392,8 +2417,8 @@ def lm_prefill_parity(torch, params, packed, cfg, prompts,
             "decided_rows": int(decided.sum()), "rows": int(len(decided))}
 
 
-def step_profile(torch, fn, popcount_per_call: int, n: int = 5,
-                 tries: int = 5, top: int = 12) -> dict:
+def step_profile(torch, fn, popcount_per_call: int, n: int = 2,
+                 tries: int = 3, top: int = 12) -> dict:
     """torch.profiler over ``n`` calls of ``fn`` (a decode step) after a
     warm one: device busy ms per call (the union of the traced device
     intervals), profiled wall ms and idle share, device records per call
@@ -2577,6 +2602,7 @@ def drive_lm(torch, np, dev, smi: str) -> dict:
             return decode_step(cfg, packed, cache, tok, mode="w1a8_eval")
         step_ms = cuda_ms(torch, step, reps=3, n=5)
         prof = step_profile(torch, step, per_step)
+    tick = tick_timing(torch, cfg, packed, dev, smi)
     step_bound = (sign_bytes + emb_bytes) / HBM_BYTES_PER_S * 1e3
     print(f"[lm decode step] {LM_ARCH} at M = {LM_SLOTS}: {step_ms:.3f} ms "
           f"(CUDA events), device busy {prof['device_busy_ms']:.4f} ms, "
@@ -2598,7 +2624,7 @@ def drive_lm(torch, np, dev, smi: str) -> dict:
             "per_decode_step": per_step, "peak_memory_bytes": peak,
             "init_s": init_s, "parity": parity, "step_ms": step_ms,
             "step_profile": prof, "step_bound_ms": step_bound,
-            "sign_bytes": sign_bytes, "emb_bytes": emb_bytes}
+            "sign_bytes": sign_bytes, "emb_bytes": emb_bytes, "tick": tick}
 
 
 def check_dispatch_launches(launches: dict, dispatches: int, configs,
@@ -3224,7 +3250,8 @@ def drive_families(torch, np, dev, smi: str) -> dict:
     out["launches"]["lm moe serve"] = counts
     out["moe"] = {"arch": MOE_ARCH, "init_s": init_s, "serve": record,
                   "peak_memory_bytes": peak,
-                  **time_decode_step(torch, cfg, packed, prompts, smi)}
+                  **time_decode_step(torch, cfg, packed, prompts, smi),
+                  "tick": tick_timing(torch, cfg, packed, dev, smi)}
     del packed
     torch.cuda.empty_cache()
     # (c) packed against unpacked prefill, mixtral's full width, 2 layers
@@ -3238,6 +3265,7 @@ def drive_families(torch, np, dev, smi: str) -> dict:
     out["ssm"] = {"arch": SSM_ARCH, "init_s": init_s, "serve": record,
                   "peak_memory_bytes": peak,
                   **time_decode_step(torch, cfg, packed, prompts, smi),
+                  "tick": tick_timing(torch, cfg, packed, dev, smi),
                   "decode_vs_forward": decode_vs_forward(torch, cfg, packed,
                                                          prompts)}
     # its packed prefill against the unpacked one over all 48 layers, the
@@ -5381,6 +5409,329 @@ def drive_gates(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the LM decode tick as one CUDA graph replay
+# ---------------------------------------------------------------------------
+
+TICKS = 16                     # (a): ticks held replay against eager
+TICK_TEMPS = (0.0, 0.0, 0.8, 0.8)  # the sampled variants' rows
+TICK_GENERATE_NEW = 8          # (a'): generate's tokens a prompt
+
+
+def tick_backend(cfg, params, dev, *, done_mask: bool, sampled: bool):
+    """An `LMBackend` on ``params`` (packed) at LM_SLOTS, LM_MAX_LEN, seed
+    SEED, every slot admitted with a prompt of LM_PROMPT tokens and room
+    for LM_MAX_LEN new ones; two rows sample at 0.8 where ``sampled``."""
+    from repro_torch.serve import LMBackend, SamplingParams, ServeRequest
+    backend = LMBackend(cfg, params, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                        mode="w1a8_eval", seed=SEED, done_mask=done_mask,
+                        device=dev)
+    backend.admit([(i, ServeRequest(
+        rid=i, prompt=[2 + i, 11, 7 + i % 3], sampling=SamplingParams(
+            max_new=LM_MAX_LEN,
+            temperature=TICK_TEMPS[i] if sampled else 0.0)))
+        for i in range(LM_SLOTS)])
+    return backend
+
+
+def eager_tick(torch, np, backend, snap: dict, gen) -> dict:
+    """The eager step a tick of ``backend`` stands for, on ``snap`` (a
+    clone of its state) with the host's per-row inputs: `decode_step` and
+    `sample_tokens`, or `decode_step_donemask`. Returns its outputs under
+    the state's keys."""
+    from repro_torch.serve.engine import (decode_step, decode_step_donemask,
+                                          sample_tokens)
+    dev, cfg, params = backend.device, backend.cfg, backend.params
+    temp = torch.from_numpy(backend.temp.copy()).to(dev)
+    if not backend.done_mask:
+        logits, cache = decode_step(cfg, params, snap["cache"],
+                                    snap["last_tok"][:, None],
+                                    mode=backend.mode)
+        return {"cache": cache,
+                "last_tok": sample_tokens(logits, temp, gen)}
+    cache, tok, tok_buf, n_gen, done = decode_step_donemask(
+        cfg, params, snap["cache"], snap["last_tok"], snap["tok_buf"],
+        snap["n_gen"], snap["done"],
+        torch.from_numpy(backend._stops_pad.copy()).to(dev),
+        torch.from_numpy(backend._max_new_host.astype(np.int32)).to(dev),
+        temp, gen, mode=backend.mode)
+    return {"cache": cache, "last_tok": tok, "tok_buf": tok_buf,
+            "n_gen": n_gen, "done": done}
+
+
+@contextlib.contextmanager
+def counting_calls(module, name: str):
+    """Counts the calls of ``module.name`` inside (a list of one int)."""
+    real, calls = getattr(module, name), [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+    setattr(module, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def _symbol_counts(_build) -> dict:
+    return {k.symbol: k.launches for k in _build.KERNELS}
+
+
+def tick_parity(torch, np, cfg, params, dev, smi: str) -> dict:
+    """Phase 19a, b: for each tick variant (host-checked and done-mask,
+    greedy and sampled), TICKS ticks of the backend against an eager
+    `decode_step` (+ `sample_tokens`) or `decode_step_donemask` on clones
+    of its state and of its generator, tick for tick: tokens, done bits,
+    counts, the token buffer and every cache leaf equal bit for bit; each
+    replay's launches (the backend's ``decode_launches``) equal the eager
+    tick's; after the capturing tick no tick calls `decode_step` and each
+    replays one CUDA graph. Returns (the record, the replays' launches
+    summed by kernel symbol)."""
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import tree_items, tree_leaves
+    from repro_torch.serve import engine
+    from repro_torch.serve.engine import clone_generator, clone_state
+
+    out, launches = {}, collections.Counter()
+    for done_mask in (False, True):
+        for sampled in (False, True):
+            name = (f"{'done-mask' if done_mask else 'host-checked'} "
+                    f"{'sampled' if sampled else 'greedy'}")
+            t0 = time.perf_counter()
+            backend = tick_backend(cfg, params, dev, done_mask=done_mask,
+                                   sampled=sampled)
+            eager_launches, replay_launches, compared = None, None, 0
+            steps_called = replays = 0
+            with torch.no_grad():
+                for t in range(TICKS):
+                    snap = clone_state(backend._state)
+                    gen = clone_generator(backend._gen) if sampled else None
+                    before = _symbol_counts(_build)
+                    want = eager_tick(torch, np, backend, snap, gen)
+                    torch.cuda.synchronize()
+                    eager = {k: n - before[k] for k, n in
+                             _symbol_counts(_build).items()
+                             if n != before[k]}
+                    done_before = dict(backend.decode_launches)
+                    with counting_calls(engine, "decode_step") as calls, \
+                            counting_calls(torch.cuda.CUDAGraph,
+                                           "replay") as graph_replays:
+                        backend.step()
+                    torch.cuda.synchronize()
+                    replay = {k: n - done_before.get(k, 0) for k, n in
+                              backend.decode_launches.items()
+                              if n != done_before.get(k, 0)}
+                    if t > 0:
+                        steps_called += calls[0]
+                        replays += graph_replays[0]
+                    if replay != eager:
+                        raise AssertionError(f"tick {name} {t}: replay "
+                                             f"launches {replay}, eager "
+                                             f"{eager}")
+                    eager_launches, replay_launches = eager, replay
+                    launches.update(replay)
+                    got = backend._state
+                    for key, w in want.items():
+                        pairs = (zip(tree_items(got["cache"]),
+                                     tree_leaves(w)) if key == "cache"
+                                 else [((key, got[key]), w)])
+                        for (path, g), x in pairs:
+                            if not torch.equal(g, x):
+                                raise AssertionError(
+                                    f"tick {name} {t}: {path} differs from "
+                                    f"the eager step")
+                            compared += 1
+                    if sampled and not torch.equal(
+                            backend._gen.get_state(), gen.get_state()):
+                        raise AssertionError(f"tick {name} {t}: the "
+                                             f"generator moved otherwise")
+            wall = time.perf_counter() - t0
+            if steps_called or replays != TICKS - 1:
+                raise AssertionError(f"tick {name}: {steps_called} eager "
+                                     f"decode_step calls and {replays} "
+                                     f"graph replays over {TICKS - 1} ticks")
+            sampled_rows = sum(t > 0 for t in backend.temp)
+            print(f"[ticks] (a) {cfg.name} {name}: {TICKS} ticks, replay "
+                  f"== eager on cloned state and generator bit for bit "
+                  f"({compared} tensors; tokens, done, n_gen, tok_buf, "
+                  f"every cache leaf), {sampled_rows} rows sampled; (b) "
+                  f"launches a replay {replay_launches} == an eager "
+                  f"tick's; after the capture {replays} CUDAGraph.replay "
+                  f"calls and {steps_called} decode_step calls; {wall:.1f} s "
+                  f"({smi})", flush=True)
+            out[name] = {"ticks": TICKS, "tensors_compared": compared,
+                         "launches_per_replay": replay_launches,
+                         "launches_per_eager_tick": eager_launches,
+                         "graph_replays": replays,
+                         "eager_decode_step_calls": steps_called,
+                         "wall_s": wall}
+            del backend
+    return out, dict(launches)
+
+
+def generate_parity(torch, cfg, params, dev, smi: str) -> dict:
+    """Phase 19a': `generate` on the card at ``ctx=None`` (greedy, and
+    sampled at 0.8 from a seeded generator): one capture, then one graph
+    replay a token and no `decode_step` call, its tokens equal to the
+    eager loop's (`decode_step` then `sample_tokens` from a generator in
+    the same state) bit for bit."""
+    from repro_torch.serve import engine
+    from repro_torch.serve.engine import (decode_step, generate, prefill,
+                                          sample_tokens)
+
+    prompts = torch.tensor([[2 + i, 11, 7 + i % 3] for i in range(LM_SLOTS)],
+                           dtype=torch.int32, device=dev)
+    out = {}
+    for temperature in (0.0, 0.8):
+        gens = []
+        for _ in range(2):
+            g = torch.Generator(device=dev)
+            g.manual_seed(SEED)
+            gens.append(g)
+        with torch.no_grad(), \
+                counting_calls(engine, "decode_step") as calls, \
+                counting_calls(engine, "capture_tick") as captures, \
+                counting_calls(torch.cuda.CUDAGraph, "replay") as replays:
+            got = generate(cfg, params, prompts, max_new=TICK_GENERATE_NEW,
+                           max_len=LM_MAX_LEN, mode="w1a8_eval",
+                           temperature=temperature, generator=gens[0])
+            torch.cuda.synchronize()
+        # the warm tick and the capture each call decode_step once
+        with torch.no_grad():
+            logits, cache = prefill(cfg, params, prompts, max_len=LM_MAX_LEN,
+                                    mode="w1a8_eval")
+            temp = torch.full((LM_SLOTS,), temperature, device=dev)
+            gen = gens[1] if temperature > 0 else None
+            nxt, want = sample_tokens(logits, temp, gen), []
+            for i in range(TICK_GENERATE_NEW):
+                want.append(nxt)
+                if i < TICK_GENERATE_NEW - 1:
+                    logits, cache = decode_step(cfg, params, cache,
+                                                nxt[:, None],
+                                                mode="w1a8_eval")
+                    nxt = sample_tokens(logits, temp, gen)
+            want = torch.stack(want, dim=1)
+        if not torch.equal(got, want) or captures[0] != 1 or \
+                calls[0] != 2 or replays[0] != TICK_GENERATE_NEW - 1:
+            raise AssertionError(
+                f"generate at {temperature}: tokens equal "
+                f"{torch.equal(got, want)}, {captures[0]} captures, "
+                f"{calls[0]} decode_step calls, {replays[0]} replays")
+        print(f"[ticks] (a') generate {cfg.name} at temperature "
+              f"{temperature}: {TICK_GENERATE_NEW} tokens x {LM_SLOTS} "
+              f"prompts equal to the eager loop's bit for bit; 1 capture "
+              f"(its warm tick and capture the only 2 decode_step calls), "
+              f"{replays[0]} CUDAGraph.replay calls ({smi})", flush=True)
+        out[str(temperature)] = {"tokens": got.cpu().tolist(),
+                                 "graph_replays": replays[0]}
+    return out
+
+
+def tick_timing(torch, cfg, params, dev, smi: str) -> dict:
+    """Phase 19c: the done-mask greedy tick on ``params`` (packed, all
+    LM_SLOTS rows live) as a graph replay and as an eager `decode_tick`
+    on the same state: CUDA-event ms (`cuda_ms`) in turns (replay, eager,
+    eager, replay), and each's device busy ms and idle share from
+    `step_profile` (torch.profiler: the union of a call's device
+    intervals against its profiled wall time), the clock of phases 10 and
+    12's decode steps."""
+    from repro_torch.serve.engine import decode_tick
+
+    t0 = time.perf_counter()
+    per = lm_launches_per_step(cfg)
+    popcount = int(sum(v for name, v in per.items() if name != DECODE))
+    backend = tick_backend(cfg, params, dev, done_mask=True, sampled=False)
+    with torch.no_grad():
+        backend.step()                              # captures the graph
+        graph = backend._graphs[False]
+        state = backend._state
+
+        def eager():
+            decode_tick(cfg, params, state, None, mode="w1a8_eval")
+        replay_ms = [cuda_ms(torch, graph.replay, reps=3, n=3)]
+        eager_ms = [cuda_ms(torch, eager, reps=3, n=3) for _ in range(2)]
+        replay_ms.append(cuda_ms(torch, graph.replay, reps=3, n=3))
+        prof = {"replay": step_profile(torch, graph.replay, popcount),
+                "eager": step_profile(torch, eager, popcount)}
+    rec = {"arch": cfg.name, "layers": cfg.num_layers,
+           "replay_ms": replay_ms, "eager_ms": eager_ms,
+           **{f"{k}_device_busy_ms": p["device_busy_ms"]
+              for k, p in prof.items()},
+           **{f"{k}_idle_share": p["idle_share"] for k, p in prof.items()},
+           # the traced busy time over the CUDA-event ms, no profiler on
+           **{f"{k}_event_idle_share": None
+              if p["device_timing"] != "torch.profiler" else
+              1.0 - p["device_busy_ms"] / statistics.mean(ms)
+              for (k, p), ms in zip(prof.items(), (replay_ms, eager_ms))},
+           **{f"{k}_device_records": p["device_records"]
+              for k, p in prof.items()},
+           "device_timing": {k: p["device_timing"] for k, p in prof.items()},
+           "launches_per_replay": {
+               k.symbol: n for k, n in graph.launches.counts.items()},
+           "wall_s": time.perf_counter() - t0}
+    print(f"[ticks] (c) {cfg.name} ({cfg.num_layers} layers) done-mask "
+          f"greedy tick at M = {LM_SLOTS}, CUDA-event ms in turns: replay "
+          f"{replay_ms[0]:.3f}, eager {eager_ms[0]:.3f}, eager "
+          f"{eager_ms[1]:.3f}, replay {replay_ms[1]:.3f}; device busy "
+          f"replay {prof['replay']['device_busy_ms']:.4f} ms, eager "
+          f"{prof['eager']['device_busy_ms']:.4f} ms; idle share replay "
+          f"{_num(prof['replay']['idle_share'], '.4f')}, eager "
+          f"{_num(prof['eager']['idle_share'], '.4f')} (torch.profiler: "
+          f"union of device intervals over profiled wall; "
+          f"{prof['replay']['device_timing']}, "
+          f"{prof['eager']['device_timing']}), busy over the CUDA-event "
+          f"ms replay {_num(rec['replay_event_idle_share'], '.4f')}, "
+          f"eager {_num(rec['eager_event_idle_share'], '.4f')}; launches "
+          f"a replay "
+          f"{rec['launches_per_replay']}; {rec['wall_s']:.1f} s ({smi})",
+          flush=True)
+    del backend, graph, state
+    return rec
+
+
+def drive_ticks(torch, np, dev, smi: str, timing: dict) -> dict:
+    """Phase 19: chatglm3-6b at full width, packed (`init_packed_lm` from
+    SEED, which equals phase 10's `deploy_lm` of its seeded init leaf for
+    leaf), slots LM_SLOTS, max_len LM_MAX_LEN: `tick_parity` (a, b) and
+    `generate_parity` (a'); (c) is ``timing``, `tick_timing` by arch,
+    taken where each tree was served (phase 10's chatglm3-6b, phase 12's
+    mixtral-8x7b and mamba2-1.3b): late in the smoke a trace of replays
+    loses its device records."""
+    from repro_torch import configs
+    from repro_torch.serve import init_packed_lm
+
+    t0 = time.perf_counter()
+    cfg = configs.get_config(LM_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    with torch.no_grad():
+        packed = init_packed_lm(cfg, gen, device=dev)
+    parity, launches = tick_parity(torch, np, cfg, packed, dev, smi)
+    out = {"card": smi, "arch": LM_ARCH, "parity": parity,
+           "launches": launches,
+           "generate": generate_parity(torch, cfg, packed, dev, smi),
+           "timing": timing}
+    del packed
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def ticks_summary(rec: dict) -> dict:
+    """Phase 19's numbers for the JSON lines."""
+    return {"card": rec["card"], "arch": rec["arch"],
+            "parity": {k: {f: v[f] for f in (
+                "ticks", "tensors_compared", "graph_replays",
+                "eager_decode_step_calls")}
+                for k, v in rec["parity"].items()},
+            "generate_replays": {k: v["graph_replays"]
+                                 for k, v in rec["generate"].items()},
+            "timing": {arch: {k: v for k, v in t.items()
+                              if k not in ("launches_per_replay",)}
+                       for arch, t in rec["timing"].items()},
+            "wall_s": rec["wall_s"]}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -5506,13 +5857,23 @@ def main() -> int:
     gates = drive_gates(smi)
     print(f"[gates] phase 18 in {gates['wall_s']:.1f} s", flush=True)
     print("gates " + json.dumps(gates), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ticks = drive_ticks(torch, np, dev, smi, {
+        LM_ARCH: lm_record["tick"],
+        **{families[key]["arch"]: families[key]["tick"]
+           for key in ("moe", "ssm")}})
+    by_path["lm tick replays"] = ticks["launches"]
+    print(f"[ticks] phase 19 in {ticks['wall_s']:.1f} s", flush=True)
+    print("ticks " + json.dumps(ticks_summary(ticks)), flush=True)
     # every driven path's launches: the three launcher runs, phase 5's
     # eager forwards (popcount on both pool routes, dot fused) and int
     # call, phase 7's integer forward, phase 9's QAT pipeline, phase 10's
     # LM serve and int call, phase 11's launcher fleet, real traffic and
     # compose, phase 12's MoE and SSM serves and hybrid decode, phase 13's
     # trained model served, phase 15's sharded serves, phase 16's kernel
-    # suite and phase 17's tensor-parallel decode step
+    # suite, phase 17's tensor-parallel decode step and phase 19's tick
+    # replays
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in KERNELS}
 
@@ -5704,7 +6065,8 @@ def main() -> int:
          "int_forward": int_record, "qat": qat_record, "lm": lm_record,
          "tiers": tiers, "families": families, "lm_train": lm_train,
          "dist": dist_rec, "sharded": sharded, "tooling": tooling,
-         "tp": tp, "gates": gates, "floor_device_ms": floor_ms,
+         "tp": tp, "gates": gates, "ticks": ticks,
+         "floor_device_ms": floor_ms,
          "popcount_globals": popcount_sass},
         indent=1))
     print(json.dumps({"kernels": kernels, "img_per_s": record["img_per_s"],
@@ -5749,6 +6111,7 @@ def main() -> int:
                       "gates": {k: gates[k] for k in (
                           "runs", "detect_reduction_vs_raw_wire",
                           "wall_s")},
+                      "ticks": ticks_summary(ticks),
                       "trace_fallbacks": TRACE_FALLBACKS,
                       "floor_device_ms": floor_ms, "card": smi}))
     print(json.dumps({"ok": True, "device": {

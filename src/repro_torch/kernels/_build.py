@@ -166,6 +166,18 @@ class Captured:
             kernel.launches += n
 
 
+class Graph:
+    """A captured CUDA graph and the launches its capture recorded
+    (`capturing`): each replay credits them to the kernels' counts."""
+
+    def __init__(self, graph, launches: Captured):
+        self.graph, self.launches = graph, launches
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.launches.replayed()
+
+
 @contextlib.contextmanager
 def capturing():
     """Wraps a CUDA graph capture: yields a `Captured` that holds, on exit,

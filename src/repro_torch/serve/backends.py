@@ -2,10 +2,12 @@
 dispatch window (counterpart of ``repro/serve/backends.py``).
 
 `LMBackend` — autoregressive decode over the stage-stacked LM params: one
-`engine.decode_step` per tick for every pool row, batched multi-row prefill
+`engine.decode_tick` per tick for every pool row (on the card one CUDA
+graph replay, as the reference's jitted tick), batched multi-row prefill
 at admission (requests arriving together prefill as one batch per prompt
-length, then scatter into the pool via `cache.merge_rows`), per-row
-temperature sampling. Two termination paths, token for token the same:
+length, then scatter into the pool in place via `cache.write_rows`),
+per-row temperature sampling. Two termination paths, token for token the
+same:
 host-checked (the sampled token row syncs to the host every tick) and
 ``done_mask=True`` (`engine.decode_step_donemask` keeps the token buffer
 and the stop tests on the device; the host reads a (B,) bool a tick and
@@ -36,8 +38,8 @@ from repro_torch.models.layers import ModelConfig
 from repro_torch.models.transformer import tree_leaves
 from repro_torch.serve import cache as cache_mod
 from repro_torch.serve.api import Emission, ServeRequest
-from repro_torch.serve.engine import (decode_step, decode_step_donemask,
-                                      prefill, sample_tokens)
+from repro_torch.serve.engine import (capture_tick, decode_tick, prefill,
+                                      sample_tokens)
 
 
 class DispatchWindow:
@@ -88,19 +90,15 @@ class DispatchWindow:
         return item
 
 
-class _Graph:
+class _Graph(_build.Graph):
     """One bucket's dispatch captured as a CUDA graph: its static input
     images (width, S, S, 3) f32, its outputs packed into one static byte
     buffer, and the kernel launches each replay makes."""
 
     def __init__(self, graph, images: torch.Tensor, packed: torch.Tensor,
                  launches: _build.Captured):
-        self.graph, self.images, self.packed = graph, images, packed
-        self.launches = launches
-
-    def replay(self) -> None:
-        self.graph.replay()
-        self.launches.replayed()
+        super().__init__(graph, launches)
+        self.images, self.packed = images, packed
 
 
 class DetectionBackend:
@@ -406,6 +404,17 @@ class LMBackend:
     ``seed``; both termination paths consume it alike. ``decode_steps``
     counts the fused ticks and ``decode_launches`` the CUDA kernel
     launches they made, by kernel symbol.
+
+    The decode state (the cache, the last tokens, the per-row temperature,
+    stop tokens and max_new, and the done-mask path's token buffer,
+    counts and done bits) lives in fixed tensors from the start: admission
+    writes prefilled rows into them (`cache.write_rows`) and a tick writes
+    its outputs back (`engine.decode_tick`). On the card each tick is one
+    replay of a CUDA graph (`engine.capture_tick`), captured at the first
+    tick that needs it, one for greedy ticks and one for sampled ones, as
+    the reference jits one executable a ``use_key``; a replay adds the
+    launches its capture recorded. On the CPU the tick runs eagerly. There
+    is no switch between the two, and a capture that fails raises.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
@@ -423,6 +432,11 @@ class LMBackend:
         self.cache = cache_mod.init_cache(cfg, slots, max_len, device=dev)
         self.last_tok = torch.zeros((slots,), dtype=torch.int32, device=dev)
         self.temp = np.zeros((slots,), np.float32)
+        # the tick's fixed tensors (`engine.decode_tick`)
+        self._state = {"cache": self.cache, "last_tok": self.last_tok,
+                       "temp": torch.zeros((slots,), dtype=torch.float32,
+                                           device=dev)}
+        self._graphs: Dict[bool, _build.Graph] = {}  # by "a row samples"
         self._active = np.zeros((slots,), bool)
         self._emissions: Dict[int, List[Emission]] = collections.defaultdict(
             list)
@@ -441,6 +455,12 @@ class LMBackend:
             self.n_gen = torch.zeros((slots,), dtype=torch.int32,
                                      device=dev)
             self.done = torch.ones((slots,), dtype=torch.bool, device=dev)
+            self._state.update(
+                tok_buf=self.tok_buf, n_gen=self.n_gen, done=self.done,
+                stop_tokens=torch.full((slots, max_stop_tokens), -1,
+                                       dtype=torch.int32, device=dev),
+                max_new=torch.zeros((slots,), dtype=torch.int32,
+                                    device=dev))
             # host mirrors — derivable from the admission record plus the
             # done-mask reads, so tracking them costs no extra transfers
             self._n_host = np.zeros((slots,), np.int64)
@@ -464,7 +484,7 @@ class LMBackend:
                 [list(r.prompt) for _, r in group], np.int32))
             logits, cache1 = prefill(self.cfg, self.params, prompts,
                                      max_len=self.max_len, mode=self.mode)
-            self.cache = cache_mod.merge_rows(self.cache, cache1, rows)
+            cache_mod.write_rows(self.cache, cache1, rows)
             first = self._sample(logits, np.asarray(
                 [r.sampling.temperature for _, r in group], np.float32))
             self.last_tok[self._tensor(np.asarray(rows, np.int64))] = \
@@ -508,18 +528,18 @@ class LMBackend:
     def step(self) -> None:
         if not self._active.any():
             return
+        use_gen = bool((self.temp > 0).any())          # same rule as _sample
+        tick = self._tick(use_gen)
         before = {k.symbol: k.launches for k in _build.KERNELS}
+        with torch.no_grad():
+            tick()
         if self.done_mask:
-            self._step_done_mask()
+            # rows live at dispatch grew by one token (mirrors device n_gen)
+            self._n_host += (self._active & ~self._done_host)
         else:
-            logits, self.cache = decode_step(self.cfg, self.params,
-                                             self.cache,
-                                             self.last_tok[:, None],
-                                             mode=self.mode)
-            nxt = self._sample(logits, self.temp)      # token-row host sync
+            nxt = self.last_tok.cpu().numpy()          # token-row host sync
             self.host_syncs += 1
             self.host_sync_bytes += 4 * self.capacity  # (B,) int32 tokens
-            self.last_tok = self._tensor(nxt)
             for slot in np.flatnonzero(self._active):
                 self._emissions[int(slot)].append(
                     Emission(kind="token", payload=int(nxt[slot])))
@@ -529,17 +549,25 @@ class LMBackend:
                 self.decode_launches[k.symbol] += \
                     k.launches - before[k.symbol]
 
-    def _step_done_mask(self) -> None:
-        use_gen = bool((self.temp > 0).any())          # same rule as _sample
-        (self.cache, self.last_tok, self.tok_buf, self.n_gen,
-         self.done) = decode_step_donemask(
-            self.cfg, self.params, self.cache, self.last_tok, self.tok_buf,
-            self.n_gen, self.done, self._tensor(self._stops_pad),
-            self._tensor(self._max_new_host.astype(np.int32)),
-            self._tensor(self.temp), self._gen if use_gen else None,
-            mode=self.mode)
-        # rows live at dispatch grew by one token (mirrors device n_gen)
-        self._n_host += (self._active & ~self._done_host)
+    def _tick(self, use_gen: bool):
+        """This tick, ready to run: the host's per-row inputs copied into
+        their fixed tensors, then on the card the replay of the graph of
+        ``use_gen`` (captured here the first time, which launches a warm
+        tick on clones: not this tick's launches), on the CPU the tick."""
+        state = self._state
+        state["temp"].copy_(torch.from_numpy(self.temp))
+        if self.done_mask:
+            state["stop_tokens"].copy_(torch.from_numpy(self._stops_pad))
+            state["max_new"].copy_(torch.from_numpy(
+                self._max_new_host.astype(np.int32)))
+        gen = self._gen if use_gen else None
+        if self.device.type != "cuda":
+            return lambda: decode_tick(self.cfg, self.params, state, gen,
+                                       mode=self.mode)
+        if use_gen not in self._graphs:
+            self._graphs[use_gen] = capture_tick(
+                self.cfg, self.params, state, gen, mode=self.mode)
+        return self._graphs[use_gen].replay
 
     def harvest(self) -> Dict[int, List[Emission]]:
         if not self.done_mask:

@@ -10,8 +10,9 @@ SSM state. Per-row ``lengths`` (B,) drive causal masking, so rows at
 different positions coexist in one batch (continuous batching).
 
 Every leaf under ``cache["slots"]`` carries the batch on axis 1 (after the
-stage axis) and ``cache["lengths"]`` on axis 0 — `merge_rows` relies on
-that invariant to scatter freshly prefilled rows into the serving pool.
+stage axis) and ``cache["lengths"]`` on axis 0 — `merge_rows` and
+`write_rows` rely on that invariant to scatter freshly prefilled rows
+into the serving pool.
 
 Under a `ShardCtx` a rank allocates its block of each leaf by
 `dist.sharding.cache_spec`, the reference's dry-run layout: its rows
@@ -126,6 +127,17 @@ def merge_rows(pool: dict, new: dict, rows: Sequence[int]) -> dict:
     lengths[idx] = new["lengths"].to(lengths.dtype)
     return {"slots": tree_map(scatter, pool["slots"], new["slots"]),
             "lengths": lengths}
+
+
+def write_rows(pool: dict, new: dict, rows: Sequence[int]) -> None:
+    """`merge_rows` in place: the rows of ``new`` written into the pool's
+    own tensors, so that a decode tick captured over them (`engine.
+    capture_tick`) reads the admitted rows. ``new`` is left as it was."""
+    idx = torch.as_tensor(list(rows), dtype=torch.long,
+                          device=pool["lengths"].device)
+    for p, n in zip(tree_leaves(pool["slots"]), tree_leaves(new["slots"])):
+        p[:, idx] = n.to(p.dtype)
+    pool["lengths"][idx] = new["lengths"].to(pool["lengths"].dtype)
 
 
 def cache_bytes(cfg: ModelConfig, batch: int, max_len: int,

@@ -27,6 +27,12 @@ the ranks' vocabulary blocks gathered.
 tensors in place (as a donated buffer would be) and returns the cache with
 the lengths advanced; `prefill` builds a fresh cache.
 
+`decode_tick` runs a whole serving tick (`decode_step` and the sampling,
+or `decode_step_donemask`) on fixed state tensors and writes every output
+back into them; `capture_tick` captures it as one CUDA graph, the
+counterpart of the reference's jitted tick, which `serve.backends.
+LMBackend` and `generate` replay once a token on the card.
+
 Sampling draws from a `torch.Generator` on the logits' device (Gumbel-max
 over exponential draws): the reference's ``jax.random.categorical`` draws
 cannot be reproduced without JAX. Greedy rows (temperature 0) take the
@@ -40,6 +46,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.dist.collectives import gather_cols
+from repro_torch.kernels import _build
 from repro_torch.launch.mesh import axis_sizes
 from repro_torch.models.layers import (ModelConfig, _div, attention,
                                        attention_out, attention_qkv, embed,
@@ -48,7 +55,7 @@ from repro_torch.models.layers import (ModelConfig, _div, attention,
 from repro_torch.models.transformer import (add_mixer_out, check_ctx,
                                             ffn_block, kinds, mamba_fns,
                                             stage, stage_count, tp_of,
-                                            window_of)
+                                            tree_map, window_of)
 from repro_torch.device import full_f32
 from repro_torch.serve.cache import (BIGPOS, init_cache,  # noqa: F401
                                      sp_axis)
@@ -254,6 +261,89 @@ def decode_step_donemask(cfg: ModelConfig, params: dict, cache: dict,
     return cache, tok, tok_buf, n_gen, done
 
 
+# ---------------------------------------------------------------------------
+# The tick on fixed state tensors, and its CUDA graph
+# ---------------------------------------------------------------------------
+
+def decode_tick(cfg: ModelConfig, params: dict, state: dict,
+                generator: Optional[torch.Generator], *,
+                mode: str = "float", ctx=None) -> None:
+    """One decode tick on the fixed tensors of ``state``, every output
+    written back into them, so that a CUDA graph captured over the tick
+    (`capture_tick`) replays it; on the CPU it is called as it is.
+
+    ``state``: ``cache`` (an `init_cache` tree), ``last_tok`` (B,) int32
+    and ``temp`` (B,) f32. With ``done`` also in it (and ``tok_buf``,
+    ``n_gen``, ``stop_tokens``, ``max_new``, as `decode_step_donemask`
+    takes them) the tick is the done-mask one; else the host-checked one,
+    `decode_step` then `sample_tokens`. Either way ``last_tok`` gets the
+    sampled row and the cache's ``lengths`` advance by one.
+    """
+    cache = state["cache"]
+    if "done" in state:
+        new, tok, _, n_gen, done = decode_step_donemask(
+            cfg, params, cache, state["last_tok"], state["tok_buf"],
+            state["n_gen"], state["done"], state["stop_tokens"],
+            state["max_new"], state["temp"], generator, mode=mode,
+            ctx=ctx)
+        state["n_gen"].copy_(n_gen)
+        state["done"].copy_(done)
+    else:
+        logits, new = decode_step(cfg, params, cache,
+                                  state["last_tok"][:, None], mode=mode,
+                                  ctx=ctx)
+        tok = sample_tokens(logits, state["temp"], generator)
+    cache["lengths"].copy_(new["lengths"])
+    state["last_tok"].copy_(tok)
+
+
+def clone_state(state: dict) -> dict:
+    """A copy of a `decode_tick` state, every tensor cloned."""
+    return tree_map(torch.clone, state)
+
+
+def clone_generator(generator: Optional[torch.Generator]
+                    ) -> Optional[torch.Generator]:
+    """A generator on the same device in the same state (None for None)."""
+    if generator is None:
+        return None
+    twin = torch.Generator(device=generator.device)
+    twin.set_state(generator.get_state())
+    return twin
+
+
+def capture_tick(cfg: ModelConfig, params: dict, state: dict,
+                 generator: Optional[torch.Generator], *,
+                 mode: str = "float") -> _build.Graph:
+    """`decode_tick` on ``state`` captured as a CUDA graph (the counterpart
+    of the reference's jitted tick). One eager warm tick runs first on a
+    side stream, on clones of the state and of the generator, so it loads
+    the kernels and fills lazy caches while the live rows and draws stay
+    as they were; the capture itself runs nothing. A ``generator`` is
+    registered with the graph, so each replay draws from it anew, as an
+    eager tick would; a PyTorch that cannot register one raises, and so
+    does a capture that fails."""
+    dev = state["last_tok"].device
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.no_grad(), torch.cuda.stream(side):
+        decode_tick(cfg, params, clone_state(state),
+                    clone_generator(generator), mode=mode)
+    cur.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                f"torch {torch.__version__} cannot register a generator "
+                f"with a CUDA graph: a sampled tick cannot be captured")
+        graph.register_generator_state(generator)
+    with _build.capturing() as launches, torch.no_grad(), \
+            torch.cuda.device(dev), torch.cuda.graph(graph):
+        decode_tick(cfg, params, state, generator, mode=mode)
+    return _build.Graph(graph, launches)
+
+
 def _attn_prefill(p, cfg: ModelConfig, h, c: dict, st: int, positions, *,
                   mode: str, window: int, ctx=None):
     """A prompt's attention; its K/V written into stage ``st`` of the
@@ -328,7 +418,12 @@ def generate(cfg: ModelConfig, params: dict, prompts: torch.Tensor, *,
              generator: Optional[torch.Generator] = None,
              ctx=None) -> torch.Tensor:
     """Greedy / temperature sampling: (B, S) prompts → (B, max_new)
-    tokens. A positive temperature draws from ``generator``."""
+    tokens. A positive temperature draws from ``generator``.
+
+    Without a ``ctx`` each token after the first is one `decode_tick`: on
+    the card one replay of a graph captured before the first
+    (`capture_tick`), as the reference jits its step; on the CPU the tick
+    itself. Under a `ShardCtx` each step runs eagerly."""
     logits, cache = prefill(cfg, params, prompts, max_len=max_len,
                             mode=mode, ctx=ctx)
     temp = torch.full((prompts.shape[0],), float(temperature),
@@ -338,11 +433,16 @@ def generate(cfg: ModelConfig, params: dict, prompts: torch.Tensor, *,
         raise ValueError("temperature > 0 needs a generator")
     toks = []
     nxt = sample_tokens(logits, temp, gen)
+    state = {"cache": cache, "last_tok": nxt, "temp": temp}
+    graph = None
     for i in range(max_new):
-        toks.append(nxt)
+        toks.append(nxt.clone())
         if i == max_new - 1:
             break
-        logits, cache = decode_step(cfg, params, cache, nxt[:, None],
-                                    mode=mode, ctx=ctx)
-        nxt = sample_tokens(logits, temp, gen)
+        if ctx is not None or not nxt.is_cuda:
+            decode_tick(cfg, params, state, gen, mode=mode, ctx=ctx)
+            continue
+        if graph is None:
+            graph = capture_tick(cfg, params, state, gen, mode=mode)
+        graph.replay()
     return torch.stack(toks, dim=1)
