@@ -135,23 +135,39 @@ Phases (any failure raises and the script exits non-zero):
    15's, 17's and 19's summaries, and as the last line
    ``{"ok": true, "device": {...}}``.
 9. Runs before phase 8's line: the paper's offline workflow (QAT, deploy,
-   integer forward, Table 6, decode + NMS). One QAT train step at B = 2,
-   320×320, on the card against the same step on the CPU from the same
-   params and batch, with cuDNN's TF32 flag at its default outside the
-   trainer: loss and gradient norm within rtol 1e-4, each gradient leaf
-   within 1e-3·max|g| (codes that round across a tie on one side only
-   forced to the CPU's, `train.ties`), which a TF32 backward would miss
-   (its error is printed). Then ``launch/train_yolo_qat.train``: 30
-   AdamW steps at B = 16, 320×320; the held-out loss must fall; ms a
-   step (CUDA events), img/s, peak memory, and device busy ms and idle
-   share a step (torch.profiler). On the trained params, each with every
-   launch count zeroed before and read after: ``yolo_forward_int`` on 4
-   test images (11 integer PE launches and no other kernel, bit-exact
-   with the plain version, in ``tests/test_system.py``'s envelope of the
-   float head: corr > 0.99, mean_abs < 0.01, 100% within 1 LSB),
-   ``postprocess`` on that head (one ``detect_postprocess`` launch, bit
-   for bit with ``decode_head`` + ``nms_plain`` on the card) and
-   ``launch/alignment.py``'s Table 6 rows (the launches the kernel
+   integer forward, Table 6, decode + NMS). (9a) One QAT train step of
+   the eager body (`train.yolo_qat.make_eager_step`) at B = 2, 320×320,
+   on the card against the same step on the CPU from the same params and
+   batch, with cuDNN's TF32 flag at its default outside the trainer: loss
+   and gradient norm within rtol 1e-4, each gradient leaf within
+   1e-3·max|g| (codes that round across a tie on one side only forced to
+   the CPU's, `train.ties`), which a TF32 backward would miss (its error
+   is printed). (9b) The trainer's step (`make_yolo_train_step`: one CUDA
+   graph replay a step after its capture) against the eager body on the
+   card over 3 steps at B = 16 from the same calibrated params and
+   batches, with cuDNN restricted to its deterministic algorithms and
+   then at its default: the eager body runs twice first and the two
+   runs' difference is printed; where they agree bit for bit every param,
+   mu, nu, step, loss and grad norm of the replay must too, else each
+   step is taken again from the first run's state before it and the
+   replay held within 9a's contract (loss and grad norm rtol 1e-4, each
+   param and moment leaf 1e-3·max|x|); after the capture a step is one
+   ``CUDAGraph.replay`` and no ``yolo_loss`` call, and no kernel of the
+   port launches (cuDNN runs the convs). Then ``launch/train_yolo_qat.
+   train``, 30 AdamW steps at B = 16, 320×320, in turns (replay, eager,
+   eager, replay; eager with the trainer's step swapped for the eager
+   body): the held-out loss must fall in each; ms a step (CUDA events),
+   img/s, peak memory, the 30 steps' wall seconds and the host ms of each
+   ``data.detection_batch`` call in the loop, the sampler's host ms a
+   batch alone, and device busy ms, records and idle share a step of
+   each (torch.profiler). On the last replayed run's params, each with
+   every launch count zeroed before and read after: ``yolo_forward_int``
+   on 4 test images (11 integer PE launches and no other kernel,
+   bit-exact with the plain version, in ``tests/test_system.py``'s
+   envelope of the float head: corr > 0.99, mean_abs < 0.01, 100% within
+   1 LSB), ``postprocess`` on that head (one ``detect_postprocess``
+   launch, bit for bit with ``decode_head`` + ``nms_plain`` on the card)
+   and ``launch/alignment.py``'s Table 6 rows (the launches the kernel
    path's tuned configs give, and 12 integer PE launches).
 
 10. Runs before phase 8's line: the LM stack's dense family. The popcount
@@ -307,17 +323,18 @@ Phases (any failure raises and the script exits non-zero):
 15. Runs after phase 14, before phase 8's line: the sharded model on a
    one-rank NCCL ('data', 'model') = (1, 1) mesh (no kernel of the port
    beyond the grouped popcount entry: the reference's sharded layer
-   reaches no Pallas kernel). (a) mixtral-8x7b at full width and depth,
-   packed, served greedy (two waves of 4 slots, prefill and 15 decode
-   steps each) under a `ShardCtx` with the uint8 dispatch wire off and
-   on: off, every step's logits and tokens equal the local path's bit
-   for bit (at ep = 1 the all-to-all is a copy and the grouped launches
-   see the same codes and counts); on, equal bit for bit to the local
-   path with its expert outputs rounded through bf16 (codes · step
-   re-quantize to the same codes; the return leg is bf16); 96 grouped
-   launches a decode step; a decode step's CUDA-event ms with the wire
-   off and on. (b) mixtral at full width cut to 2 layers (3.03 G params),
-   B 8 × S 256, SGD-M without clip: `make_train_step(ctx=)` from
+   reaches no Pallas kernel). (a) mixtral-8x7b at full width cut to 8
+   of its 32 layers (phases 12 and 19 serve it whole), packed, served
+   greedy (two waves of 4 slots, prefill and 15 decode steps each)
+   under a `ShardCtx` with the uint8 dispatch wire off and on: off,
+   every step's logits and tokens equal the local path's bit for bit
+   (at ep = 1 the all-to-all is a copy and the grouped launches see the
+   same codes and counts); on, equal bit for bit to the local path with
+   its expert outputs rounded through bf16 (codes · step re-quantize to
+   the same codes; the return leg is bf16); 3 grouped launches a layer
+   and decode step; a decode step's CUDA-event ms with the wire off and
+   on. (b) mixtral at full width cut to 2 layers (3.03 G params), B 8 ×
+   S 256, SGD-M without clip: `make_train_step(ctx=)` from
    `shard_tree` of the seeded params against the one-device step, whose
    gradients are moved to the host first, codes forced to its
    (`train.ties`): loss within 1e-5 relative, every leaf within
@@ -510,6 +527,7 @@ INT_BEFORE_DEVICE_MS = {
 INT_ENVELOPE = (0.02, 0.002)
 QAT_PARITY_BATCH = 2           # phase 9's one step on the card and the CPU
 QAT_BATCH, QAT_STEPS = 16, 30  # phase 9's training run at 320×320
+QAT_REPLAY_STEPS = 3           # phase 9b's replayed steps against eager
 LM_ARCH = "chatglm3-6b"        # phase 10's LM, at full width
 LM_SLOTS, LM_PROMPT = 4, 3     # the launcher's slots and prompt length
 LM_REQUESTS, LM_MAX_NEW, LM_MAX_LEN = 8, 16, 128
@@ -1938,7 +1956,9 @@ def check_qat_step(torch, np, dev) -> dict:
     host = lambda t: tree_map(lambda v: v.cpu(), t)  # noqa: E731
     target = data.yolo_target(boxes, classes)
     opt = adamw(1e-3)
-    step = yolo_qat.make_yolo_train_step(opt)
+    # the eager body: a graph captured inside ties.forced would keep the
+    # forced codes in every replay (9b holds the replay against this body)
+    step = yolo_qat.make_eager_step(opt)
 
     t0 = time.perf_counter()
     with ties.record() as recorded:
@@ -1986,12 +2006,274 @@ def check_qat_step(torch, np, dev) -> dict:
     return record
 
 
-def drive_qat(torch, np, dev) -> dict:
-    """Phase 9: the paper's offline workflow on the card. `check_qat_step`,
-    then `launch/train_yolo_qat.train` (QAT_STEPS AdamW steps at
-    B = QAT_BATCH, 320×320): the held-out loss must fall; ms per step (CUDA
-    events) and images per second, peak memory, and from torch.profiler
-    the device busy ms and idle share of a step. Then, with every launch
+def _rel_diff(torch, got, want) -> float:
+    """max|got − want| / max|want| (max|got| where want is all zero), in
+    float64 on the device; 0.0 exactly where they are equal."""
+    g, w = got.double(), want.double()
+    scale = float(torch.max(torch.abs(w)))
+    diff = float(torch.max(torch.abs(g - w)))
+    return diff / scale if scale > 0 else diff
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, value):
+    """``module.name`` is ``value`` inside."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def check_qat_replay(torch, np, dev, smi: str) -> dict:
+    """Phase 9b: the trainer's step (`make_yolo_train_step`: one CUDA
+    graph replay a step after its capture) against its eager body
+    (`make_eager_step`) on the card, from the same calibrated params and
+    QAT_REPLAY_STEPS batches at B = QAT_BATCH, 320×320, once with cuDNN
+    restricted to its deterministic algorithms and once as the trainer
+    runs (cuDNN's default, whose backward algorithms may sum in an order
+    that changes from run to run). In each, the eager body runs twice
+    first. If the two runs agree bit for bit, every param, mu, nu, step,
+    loss and grad norm of the replayed steps must too. Else each step is
+    taken again from the first eager run's state before it, eagerly and
+    replayed, and the replay held within 9a's contract of that step's
+    eager result: loss and grad norm within rtol 1e-4, each param, mu and
+    nu leaf within 1e-3·max|x| (its difference printed beside the two
+    eager runs'; over several steps the runs part, since a code that
+    flips at a rounding tie changes the next step's gradients). After the
+    capture each step is one `CUDAGraph.replay` and no `yolo_loss` call;
+    no kernel of the port launches (cuDNN runs the convs), so the replays
+    credit none."""
+    from repro_torch.data import pipeline as data
+    from repro_torch.launch import serve as launch
+    from repro_torch.launch.train_yolo_qat import LR
+    from repro_torch.models import yolo
+    from repro_torch.optim import adamw, tree_map
+    from repro_torch.optim.optimizers import tree_items
+    from repro_torch.train import yolo_qat
+
+    t0 = time.perf_counter()
+    ds = data.make_detection_dataset(QAT_BATCH, seed=SEED)
+    batches = [data.detection_batch(ds, i, device=dev)
+               for i in range(QAT_REPLAY_STEPS)]
+    with torch.no_grad():
+        params = yolo.calibrate_yolo(yolo.init_yolo_params(SEED, device=dev),
+                                     batches[0][0])
+    opt = adamw(LR)
+    first = tree_map(torch.clone, params)
+    clone = lambda t: tree_map(torch.clone, t)  # noqa: E731
+
+    def leaves(out) -> dict:
+        return {path: t.clone() for path, t in tree_items(out)}
+
+    def diffs(got: list, want: list) -> list:
+        return [{k: _rel_diff(torch, g[k], w[k]) for k in w}
+                for g, w in zip(got, want)]
+
+    def worst(ds: list) -> list:
+        return [max(d.values()) for d in ds]
+
+    def counted(fn, *args):
+        with counting_calls(yolo_qat, "yolo_loss") as n_loss, \
+                counting_calls(torch.cuda.CUDAGraph, "replay") as n_replay:
+            out = fn(*args)
+        torch.cuda.synchronize()
+        return out, n_loss[0], n_replay[0]
+
+    def chain(fn) -> tuple:
+        """QAT_REPLAY_STEPS steps of ``fn`` from ``params``: the leaves
+        after each, the (params, state) before each, and the yolo_loss
+        and CUDAGraph.replay calls a step."""
+        p, s = params, opt[0](params)
+        out, before, calls = [], [], []
+        for b in batches:
+            before.append(clone((p, s)))
+            (p, s, m), n_loss, n_replay = counted(fn, p, s, *b)
+            calls.append((n_loss, n_replay))
+            out.append(leaves((p, s, m)))
+        return out, before, calls
+
+    def one_mode(name: str) -> dict:
+        body = yolo_qat.make_eager_step(opt)
+        eager, before, _ = chain(body)
+        eager_diff = diffs(chain(body)[0], eager)
+        _zero(launch.KERNELS)
+        step = yolo_qat.make_yolo_train_step(opt)
+        replay, _, calls = chain(step)
+        bitwise = not any(worst(eager_diff))
+        rec = {"eager_vs_eager_worst": worst(eager_diff),
+               "eager_vs_eager_differing_leaves": [
+                   sum(v > 0 for v in d.values()) for d in eager_diff]}
+        if bitwise:
+            rec["contract"] = "bit for bit"
+            replay_diff = diffs(replay, eager)
+            bad = [(i, k, v) for i, d in enumerate(replay_diff)
+                   for k, v in d.items() if v]
+        else:
+            rec["contract"] = ("from each step's eager state: loss and grad "
+                               "norm rtol 1e-4, each leaf 1e-3·max|x|")
+            again, replay_diff, bad = [], [], []
+            for i, b in enumerate(batches):
+                e1, _, _ = counted(body, *clone(before[i]), *b)
+                r, n_loss, n_replay = counted(step, *clone(before[i]), *b)
+                calls.append((n_loss, n_replay))
+                again.append(leaves(e1))
+                replay_diff += diffs([leaves(r)], [eager[i]])
+            rec["same_state_eager_vs_eager_worst"] = worst(
+                diffs(again, eager))
+            for i, d in enumerate(replay_diff):
+                for k, v in d.items():
+                    limit = (0.0 if k.endswith("['step']") else 1e-4
+                             if k.startswith("[2]") else 1e-3)
+                    if v > limit:
+                        bad.append((i, k, v))
+        counts = {k: n for k, n in launch.launch_counts().items() if n}
+        want = [(yolo_qat.WARM_STEPS + 1, 1)] + [(0, 1)] * (len(calls) - 1)
+        if calls != want or counts or step.graph.launches.counts:
+            raise AssertionError(
+                f"QAT replay ({name}): (yolo_loss, CUDAGraph.replay) calls a "
+                f"step {calls}, port launches {counts}, captured "
+                f"{step.graph.launches.counts}")
+        if bad:
+            raise AssertionError(f"QAT replay ({name}) against the eager "
+                                 f"body, {rec['contract']}: {bad[:8]} "
+                                 f"({len(bad)} leaves)")
+        rec.update({"replay_vs_eager_worst": worst(replay_diff),
+                    "tensors_compared": sum(len(d) for d in replay_diff),
+                    "calls": calls,
+                    "loss": [float(e["[2]['loss']"]) for e in eager]})
+        print(f"[qat] (9b) {name}: eager body twice at B={QAT_BATCH} "
+              f"320x320 over {QAT_REPLAY_STEPS} steps, worst leaf "
+              f"difference a step {rec['eager_vs_eager_worst']} "
+              f"(max|a-b|/max|b|; leaves that differ "
+              f"{rec['eager_vs_eager_differing_leaves']}); "
+              + ("" if bitwise else
+                 f"from each step's eager state, eager again "
+                 f"{rec['same_state_eager_vs_eager_worst']}, ")
+              + f"the replayed step {rec['replay_vs_eager_worst']}, held "
+              f"{rec['contract']} ({rec['tensors_compared']} tensors: "
+              f"params, mu, nu, step, loss, grad norm); (yolo_loss, "
+              f"CUDAGraph.replay) calls a step {calls}, no port launch "
+              f"({smi})", flush=True)
+        return rec
+
+    with swapped(torch.backends.cudnn, "deterministic", True):
+        out = {"deterministic cuDNN": one_mode("deterministic cuDNN")}
+    out["default cuDNN"] = one_mode("default cuDNN")
+    if any(not torch.equal(params[n][k], first[n][k])
+           for n in first for k in first[n]):
+        raise AssertionError("QAT replay: the caller's params were written")
+    out.update({"steps": QAT_REPLAY_STEPS, "batch": QAT_BATCH,
+                "wall_s": time.perf_counter() - t0})
+    return out
+
+
+def qat_turns(torch, np, dev, smi: str) -> tuple:
+    """Phase 9's 30-step run, `launch/train_yolo_qat.train` (QAT_STEPS
+    steps at B = QAT_BATCH, 320×320) with its step a graph replay (the
+    trainer's) and, with `make_yolo_train_step` swapped for the eager body,
+    eager, in turns (replay, eager, eager, replay): CUDA-event ms a step
+    (median), peak memory, the 30 steps' wall seconds, and the host ms of
+    each `data.detection_batch` call in the loop (its copies to the card
+    wait for the stream, so a call also holds the previous step's device
+    work); the held-out loss must fall in each. Then the sampler alone (30
+    batches, then a sync), and `device_profile` of 5 more steps of each
+    from the trained params: device busy ms, records and idle share of
+    the step's CUDA-event ms. Returns (the record, the last replayed run's
+    params, its dataset)."""
+    from repro_torch.data import pipeline as data
+    from repro_torch.launch import train_yolo_qat
+    from repro_torch.optim import adamw, tree_map
+    from repro_torch.train import yolo_qat
+
+    makes = {"replay": yolo_qat.make_yolo_train_step,
+             "eager": yolo_qat.make_eager_step}
+    sampler = data.detection_batch
+    runs = {"replay": [], "eager": []}
+    for kind in ("replay", "eager", "eager", "replay"):
+        host = []
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = sampler(*args, **kwargs)
+            host.append(1e3 * (time.perf_counter() - t0))
+            return out
+        with swapped(train_yolo_qat, "make_yolo_train_step", makes[kind]), \
+                swapped(data, "detection_batch", timed):
+            params, ds, rec = train_yolo_qat.train(QAT_STEPS, QAT_BATCH, SEED,
+                                                   dev)
+        if not rec["held_out_loss_after"] < rec["held_out_loss_before"]:
+            raise AssertionError(f"QAT ({kind}): the held-out loss did not "
+                                 f"fall: {rec}")
+        rec["sampler_host_ms_in_loop"] = statistics.median(host[-QAT_STEPS:])
+        runs[kind].append(rec)
+        print(f"[qat] (turn: {kind}) {QAT_STEPS} steps at B={QAT_BATCH}: "
+              f"{rec['ms_per_step']:.4f} ms a step (CUDA events, median; "
+              f"first step {rec['first_step_ms']:.1f}), "
+              f"{rec['img_per_s']:.1f} img/s, peak memory "
+              f"{rec['peak_memory_bytes'] / 2 ** 20:.1f} MiB, wall "
+              f"{rec['wall_s']:.3f} s, sampler "
+              f"{rec['sampler_host_ms_in_loop']:.3f} host ms a call in the "
+              f"loop; held-out {rec['held_out_loss_before']:.6g} -> "
+              f"{rec['held_out_loss_after']:.6g} ({smi})", flush=True)
+    t0 = time.perf_counter()
+    for i in range(QAT_STEPS):
+        sampler(ds, i, device=dev)
+    torch.cuda.synchronize()
+    sampler_alone_ms = 1e3 * (time.perf_counter() - t0) / QAT_STEPS
+
+    opt = adamw(train_yolo_qat.LR)
+    batch = sampler(ds, QAT_STEPS, device=dev)
+    profiles = {}
+    for kind, make in makes.items():
+        step = make(opt)
+        live = {"params": tree_map(torch.clone, params)}
+        live["state"] = opt[0](live["params"])
+
+        def one_step():
+            live["params"], live["state"], _ = step(live["params"],
+                                                    live["state"], *batch)
+        prof = device_profile(torch, one_step, n=5)
+        ms = statistics.mean(r["ms_per_step"] for r in runs[kind])
+        prof["idle_share_of_step"] = (
+            None if prof["device_launches"] is None
+            else 1.0 - prof["device_busy_ms"] / ms)
+        profiles[kind] = prof
+        del step, live
+    out = {"runs": runs, "profile": profiles,
+           "sampler_host_ms_alone": sampler_alone_ms}
+    per = {k: [r["ms_per_step"] for r in v] for k, v in runs.items()}
+    mib = {k: [round(r["peak_memory_bytes"] / 2 ** 20, 1) for r in v]
+           for k, v in runs.items()}
+    print(f"[qat] turns (replay, eager, eager, replay): ms a step "
+          f"{per['replay'][0]:.4f}, {per['eager'][0]:.4f}, "
+          f"{per['eager'][1]:.4f}, {per['replay'][1]:.4f}; device busy "
+          f"replay {profiles['replay']['device_busy_ms']:.4f} ms "
+          f"({_num(profiles['replay']['device_launches'], '.1f')} device "
+          f"records), eager {profiles['eager']['device_busy_ms']:.4f} ms "
+          f"({_num(profiles['eager']['device_launches'], '.1f')}); idle "
+          f"share of the step replay "
+          f"{_num(profiles['replay']['idle_share_of_step'], '.4f')}, eager "
+          f"{_num(profiles['eager']['idle_share_of_step'], '.4f')} "
+          f"({profiles['replay']['device_timing']}, "
+          f"{profiles['eager']['device_timing']}); peak memory replay "
+          f"{mib['replay']} MiB, eager {mib['eager']} MiB; wall s replay {[r['wall_s'] for r in runs['replay']]}, "
+          f"eager {[r['wall_s'] for r in runs['eager']]}; the sampler "
+          f"{sampler_alone_ms:.3f} host ms a batch alone ({smi})",
+          flush=True)
+    return out, params, ds
+
+
+def drive_qat(torch, np, dev, smi: str) -> dict:
+    """Phase 9: the paper's offline workflow on the card. `check_qat_step`
+    (9a, the eager body, card against CPU), `check_qat_replay` (9b, the
+    replayed step against the eager body on the card), then `qat_turns`
+    (`launch/train_yolo_qat.train`, QAT_STEPS AdamW steps at B =
+    QAT_BATCH, 320×320, replayed and eager in turns): the held-out loss
+    must fall; ms per step (CUDA events) and images per second, peak
+    memory, and from torch.profiler the device busy ms and idle share of a
+    step. Then, on the last replayed run's params, with every launch
     count zeroed just before each and read just after: `yolo_forward_int`
     of the trained artifact on BATCH test images (11 integer PE launches
     and no other kernel, bit-exact with the plain version on the CPU, the
@@ -2007,39 +2289,13 @@ def drive_qat(torch, np, dev) -> dict:
     from repro_torch.launch import alignment, train_yolo_qat
     from repro_torch.launch import serve as launch
     from repro_torch.models import detection, yolo
-    from repro_torch.optim import adamw, tree_map
-    from repro_torch.train import yolo_qat
 
-    record = {"step_parity": check_qat_step(torch, np, dev)}
-    params, ds, train = train_yolo_qat.train(QAT_STEPS, QAT_BATCH, SEED, dev)
-    if not train["held_out_loss_after"] < train["held_out_loss_before"]:
-        raise AssertionError(f"QAT: the held-out loss did not fall: {train}")
-    # device busy per step: more steps from the trained params, profiled
-    opt = adamw(train_yolo_qat.LR)
-    step = yolo_qat.make_yolo_train_step(opt)
-    batch = data.detection_batch(ds, QAT_STEPS, device=dev)
-    live = {"params": tree_map(lambda v: v.clone(), params)}
-    live["state"] = opt[0](live["params"])
-
-    def one_step():
-        live["params"], live["state"], _ = step(live["params"],
-                                                live["state"], *batch)
-
-    prof = device_profile(torch, one_step, n=5)
-    prof["idle_share_of_step"] = (
-        None if prof["device_launches"] is None
-        else 1.0 - prof["device_busy_ms"] / train["ms_per_step"])
-    record.update({"train": train, "step_profile": prof})
-    print(f"[qat] {QAT_STEPS} steps at B={QAT_BATCH} 320x320: loss "
-          f"{train['loss']}, held-out {train['held_out_loss_before']:.6g} -> "
-          f"{train['held_out_loss_after']:.6g}; {train['ms_per_step']:.4f} "
-          f"ms a step (CUDA events, median; first step "
-          f"{train['first_step_ms']:.1f}), {train['img_per_s']:.1f} img/s, "
-          f"peak memory {train['peak_memory_bytes'] / 2 ** 20:.1f} MiB; "
-          f"device busy {prof['device_busy_ms']:.4f} ms a step "
-          f"({_num(prof['device_launches'], '.0f')} device records), idle "
-          f"share {_num(prof['idle_share_of_step'], '.3f')} of the step",
-          flush=True)
+    record = {"step_parity": check_qat_step(torch, np, dev),
+              "replay_parity": check_qat_replay(torch, np, dev, smi)}
+    turns, params, ds = qat_turns(torch, np, dev, smi)
+    train = turns["runs"]["replay"][-1]
+    record.update({"train": train, "turns": turns,
+                   "step_profile": turns["profile"]["replay"]})
 
     by_path = {}
     art = yolo.deploy_yolo(params)
@@ -4268,6 +4524,7 @@ def dist_summary(rec: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 SHARD_WAVES = 2                # (a): 8 requests through slots 4, 16 tokens
+SHARD_SERVE_LAYERS = 8         # (a): mixtral cut from 32 layers to keep time
 SHARD_TRAIN_LAYERS = 2         # (b): mixtral at full width, 3.03 G params
 SHARD_TIMED_STEPS = 3          # (b): sharded steps timed, the first a warm-up
 SHARD_LR, SHARD_NO_CLIP = 1e-2, 1e9
@@ -4343,7 +4600,8 @@ def _decode_step_fn(torch, dev, cfg, params, ctx):
 
 
 def sharded_serve(torch, dev, mesh, smi: str) -> tuple:
-    """Phase 15a: mixtral-8x7b at full width and depth, packed, served
+    """Phase 15a: mixtral-8x7b at full width cut to SHARD_SERVE_LAYERS
+    layers (phases 12 and 19 serve it at full depth), packed, served
     greedy (prefill and 15 decode steps, two waves of LM_SLOTS) under a
     `ShardCtx` on the (1, 1) mesh with the uint8 wire off and on, against
     the local path: off, every step's logits and tokens bit for bit; on,
@@ -4352,13 +4610,16 @@ def sharded_serve(torch, dev, mesh, smi: str) -> tuple:
     launches; its CUDA-event ms local, wire off and on, in turns (local,
     off, on, on, off, local). No torch.profiler trace: traces of the
     sharded step lost their device records on the card (every try)."""
+    import dataclasses
+
     from repro_torch import configs
     from repro_torch.launch import serve as launch
     from repro_torch.models import moe
     from repro_torch.models.transformer import ShardCtx
     from repro_torch.serve import init_packed_lm
 
-    cfg = configs.get_config(MOE_ARCH)
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH),
+                              num_layers=SHARD_SERVE_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     t0 = time.perf_counter()
@@ -5792,7 +6053,7 @@ def main() -> int:
     int_record = drive_int(torch, np, dev)
     by_path["int forward"] = int_record["launches"]
     t0 = time.perf_counter()
-    qat_record = drive_qat(torch, np, dev)
+    qat_record = drive_qat(torch, np, dev, smi)
     print(f"[qat] phase 9 in {time.perf_counter() - t0:.1f} s", flush=True)
     by_path["qat pipeline"] = qat_record["launches"]
     t0 = time.perf_counter()
@@ -6087,6 +6348,16 @@ def main() -> int:
                       "qat_idle_share": qat_record["step_profile"][
                           "idle_share_of_step"],
                       "qat_final_raw": qat_record["final_raw"],
+                      "qat_turns_ms_per_step": {
+                          k: [r["ms_per_step"] for r in v] for k, v in
+                          qat_record["turns"]["runs"].items()},
+                      "qat_eager_step_device_busy_ms":
+                          qat_record["turns"]["profile"]["eager"][
+                              "device_busy_ms"],
+                      "qat_replay_contract": {
+                          k: v["contract"] for k, v in
+                          qat_record["replay_parity"].items()
+                          if k.endswith("cuDNN")},
                       "lm": {"arch": LM_ARCH, "packed": True,
                              **{k: lm_record["serve"][k] for k in (
                                  "tok_per_s", "tick_p50_ms", "tick_p95_ms",

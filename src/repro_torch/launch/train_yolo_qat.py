@@ -15,7 +15,9 @@ reference example's lines (``examples/train_yolo_qat.py``), then one JSON
 line: the loss at each logged step, the held-out loss before and after, ms
 per train step (CUDA events around each step on the card, the host clock
 on the CPU; the first step, which warms up, left out) and images per
-second from it, peak device memory, and the alignment row.
+second from it, peak device memory, and the alignment row. On the card a
+step is one CUDA graph replay (`train.yolo_qat.make_yolo_train_step`):
+the first step's ms include its warm steps and its capture.
 """
 from __future__ import annotations
 

@@ -257,10 +257,14 @@ def _record_reference_lsq(monkeypatch) -> list:
     return inputs
 
 
-def test_train_step_matches_reference(monkeypatch):
+@pytest.mark.parametrize("make_step", [yolo_qat.make_eager_step,
+                                       yolo_qat.make_yolo_train_step])
+def test_train_step_matches_reference(monkeypatch, make_step):
     """Two AdamW steps from converted params, loss and gradient norm per
-    step. A float32 conv summed in another order moves a code across a
-    rounding tie now and then, and the flip spreads (at this seed one at
+    step, for the eager body and for the step on fixed tensors that the
+    trainer runs (on the CPU it calls that body directly). A float32
+    conv summed in another order moves a code across a rounding tie now
+    and then, and the flip spreads (at this seed one at
     conv6's input changes 156 of conv11's input codes), and the first
     AdamW update, ±lr wherever a gradient is not tiny, carries the
     difference into every param. So the first step's forward runs with
@@ -276,7 +280,7 @@ def test_train_step_matches_reference(monkeypatch):
     jp = _jax_tree(params_np)
     jstate = jopt[0](jp)
     opt = adamw(1e-3)
-    step = yolo_qat.make_yolo_train_step(opt)
+    step = make_step(opt)
     p = convert.params_from_numpy(params_np, device="cpu")
     state = opt[0](p)
     recorded = _record_reference_lsq(monkeypatch)
