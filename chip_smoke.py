@@ -127,8 +127,10 @@ Phases (any failure raises and the script exits non-zero):
    integer forward, phase 9's QAT pipeline, phase 10's LM serve and int
    call, phase 11's launcher fleet, real traffic and compose runs, phase
    12's MoE and SSM serves and hybrid decode, phase 13's trained model
-   served, phase 15's sharded MoE serves, phase 16's kernel suite under
-   ``tables``, phase 19's tick replays; the two matmuls also their
+   served, phase 15's sharded MoE serves and its `generate(ctx=)` tick
+   replays, phase 16's kernel suite under ``tables``, phase 17's rank 0
+   decode step and tick replay, phase 19's tick replays; the two
+   matmuls also their
    numbers at the LM shapes, under ``lm``, the popcount matmul phase 13's
    launches under ``lm_trained``, the grouped entry its phase 12a
    shapes, the decode route its phase 10a' shapes), phase 13's, 14's,
@@ -332,8 +334,17 @@ Phases (any failure raises and the script exits non-zero):
    same codes and counts); on, equal bit for bit to the local path with
    its expert outputs rounded through bf16 (codes · step re-quantize to
    the same codes; the return leg is bf16); 3 grouped launches a layer
-   and decode step; a decode step's CUDA-event ms with the wire off and
-   on. (b) mixtral at full width cut to 2 layers (3.03 G params), B 8 ×
+   and decode step. The decode tick under the `ShardCtx` as one CUDA
+   graph replay (`serve.engine.capture_tick(ctx=)`, the counterpart of
+   the reference's jitted sharded step; the NCCL all-to-alls of the
+   dispatch, of the counts and of the return leg captured in the graph):
+   `generate(ctx=)`'s tokens equal the eager waves' bit for bit, one
+   capture a wave and one replay a token; the replayed tick, greedy and
+   sampled, bit for bit against the eager tick on clones of the state
+   and generator (`last_tok` and every cache leaf, 4 ticks); a replay's
+   launches an eager step's. The eager step's and the tick replay's
+   CUDA-event ms, local, wire off and on, in turns. (b) mixtral at full
+   width cut to 2 layers (3.03 G params), B 8 ×
    S 256, SGD-M without clip: `make_train_step(ctx=)` from
    `shard_tree` of the seeded params against the one-device step, whose
    gradients are moved to the host first, codes forced to its
@@ -378,7 +389,11 @@ Phases (any failure raises and the script exits non-zero):
    ``torch.matmul``'s ms, the bound and the floor. (a') Rank 0 of (16,
    16) serving chatglm3-6b packed (``fake`` backend for the other ranks):
    a decode step's launches, the decode route's share from the blocks'
-   K. (b) Rank 0 training chatglm3-6b's train_4k cell: peak memory
+   K; the rank's tick captured as one CUDA graph on the cell's params,
+   cache and ctx, a replay's launches the eager step's (196, 168 of them
+   on the decode route), replay and eager CUDA-event ms in turns; no
+   value compared (the fake collectives move no data). (b) Rank 0
+   training chatglm3-6b's train_4k cell: peak memory
    against the dry run's. Prints one ``tp`` line.
 18. Runs after phase 17, before phase 8's line: the launchers' gates
    (``launch/serve.py --gate-bench``) against a record file in a
@@ -4525,6 +4540,7 @@ def dist_summary(rec: dict) -> dict:
 
 SHARD_WAVES = 2                # (a): 8 requests through slots 4, 16 tokens
 SHARD_SERVE_LAYERS = 8         # (a): mixtral cut from 32 layers to keep time
+SHARD_TICKS = 4                # (a): sharded tick replays held against eager
 SHARD_TRAIN_LAYERS = 2         # (b): mixtral at full width, 3.03 G params
 SHARD_TIMED_STEPS = 3          # (b): sharded steps timed, the first a warm-up
 SHARD_LR, SHARD_NO_CLIP = 1e-2, 1e9
@@ -4543,6 +4559,13 @@ def _shard_mesh(torch, name: str):
     return make_test_mesh(1, 1, device="cuda")
 
 
+def _wave_prompts(torch, dev, w: int):
+    """Wave ``w``'s LM_SLOTS prompts of three tokens."""
+    return torch.tensor([[2 + i + LM_SLOTS * w, 11, 7 + (i + w) % 3]
+                         for i in range(LM_SLOTS)], dtype=torch.int32,
+                        device=dev)
+
+
 def _greedy_waves(torch, dev, cfg, params, ctx) -> tuple:
     """SHARD_WAVES waves of LM_SLOTS prompts, each a prefill and
     LM_MAX_NEW - 1 greedy decode steps: (every step's logits, tokens)."""
@@ -4550,9 +4573,7 @@ def _greedy_waves(torch, dev, cfg, params, ctx) -> tuple:
     logits_all, toks_all = [], []
     with torch.no_grad():
         for w in range(SHARD_WAVES):
-            prompts = torch.tensor(
-                [[2 + i + LM_SLOTS * w, 11, 7 + (i + w) % 3]
-                 for i in range(LM_SLOTS)], dtype=torch.int32, device=dev)
+            prompts = _wave_prompts(torch, dev, w)
             logits, cache = prefill(cfg, params, prompts, max_len=LM_MAX_LEN,
                                     mode="w1a8_eval", ctx=ctx)
             for i in range(LM_MAX_NEW):
@@ -4599,6 +4620,125 @@ def _decode_step_fn(torch, dev, cfg, params, ctx):
     return step
 
 
+def _sharded_generate(torch, dev, cfg, params, ctx, want_toks) -> dict:
+    """Phase 15a: `generate(ctx=)` greedy over the SHARD_WAVES waves: one
+    capture a wave (`engine.capture_tick` under ``ctx``), then one graph
+    replay a token and no other `decode_step` call (the warm tick and the
+    capture make the wave's two); the tokens ``want_toks`` (the eager
+    waves', stacked as `_greedy_waves` stacks them) bit for bit. Returns
+    the counts and the launches of the runs by kernel."""
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import engine
+
+    _zero(launch.KERNELS)
+    with torch.no_grad(), \
+            counting_calls(engine, "decode_step") as calls, \
+            counting_calls(engine, "capture_tick") as captures, \
+            counting_calls(torch.cuda.CUDAGraph, "replay") as replays:
+        got = torch.cat([engine.generate(
+            cfg, params, _wave_prompts(torch, dev, w), max_new=LM_MAX_NEW,
+            max_len=LM_MAX_LEN, mode="w1a8_eval", ctx=ctx).T
+            for w in range(SHARD_WAVES)])
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in launch.launch_counts().items() if v}
+    if not torch.equal(got, want_toks) or captures[0] != SHARD_WAVES or \
+            calls[0] != 2 * SHARD_WAVES or \
+            replays[0] != SHARD_WAVES * (LM_MAX_NEW - 1):
+        raise AssertionError(
+            f"generate under a ShardCtx (wire {ctx.a2a_quant}): tokens "
+            f"equal {torch.equal(got, want_toks)}, {captures[0]} captures, "
+            f"{calls[0]} decode_step calls, {replays[0]} replays")
+    return {"tokens_equal": True, "captures": captures[0],
+            "decode_step_calls": calls[0], "graph_replays": replays[0],
+            "launches": launches}
+
+
+def _sharded_tick_parity(torch, dev, cfg, params, ctx, sampled: bool
+                         ) -> dict:
+    """Phase 15a: the tick under ``ctx`` captured once (`engine.
+    capture_tick`; greedy, or TICK_TEMPS with a generator from SEED where
+    ``sampled``) and replayed SHARD_TICKS times, each replay against an
+    eager `decode_step(ctx=)` and `sample_tokens` on clones of the state
+    and of the generator: ``last_tok`` and every cache leaf bit for bit,
+    the generator where the eager draws leave its clone, and the replay's
+    launches (what `_build.Graph` credits) the eager step's."""
+    from repro_torch.kernels import _build
+    from repro_torch.models.transformer import tree_items, tree_leaves
+    from repro_torch.serve.engine import (capture_tick, clone_generator,
+                                          clone_state, decode_step, prefill,
+                                          sample_tokens)
+
+    temp = torch.tensor(TICK_TEMPS if sampled else (0.0,) * LM_SLOTS,
+                        dtype=torch.float32, device=dev)
+    gen = None
+    if sampled:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+    compared, replay = 0, None
+    with torch.no_grad():
+        logits, cache = prefill(cfg, params, _wave_prompts(torch, dev, 0),
+                                max_len=LM_MAX_LEN, mode="w1a8_eval",
+                                ctx=ctx)
+        state = {"cache": cache, "last_tok": sample_tokens(logits, temp, gen),
+                 "temp": temp}
+        graph = capture_tick(cfg, params, state, gen, mode="w1a8_eval",
+                             ctx=ctx)
+        for t in range(SHARD_TICKS):
+            snap, twin = clone_state(state), clone_generator(gen)
+            before = _symbol_counts(_build)
+            logits, want = decode_step(cfg, params, snap["cache"],
+                                       snap["last_tok"][:, None],
+                                       mode="w1a8_eval", ctx=ctx)
+            want_tok = sample_tokens(logits, snap["temp"], twin)
+            torch.cuda.synchronize()
+            eager = {k: n - before[k] for k, n in
+                     _symbol_counts(_build).items() if n != before[k]}
+            before = _symbol_counts(_build)
+            graph.replay()
+            torch.cuda.synchronize()
+            replay = {k: n - before[k] for k, n in
+                      _symbol_counts(_build).items() if n != before[k]}
+            if replay != eager:
+                raise AssertionError(f"sharded tick {t}: replay launches "
+                                     f"{replay}, eager {eager}")
+            pairs = list(zip(tree_items(state["cache"]), tree_leaves(want)))
+            for (path, g), x in pairs + [(("last_tok", state["last_tok"]),
+                                          want_tok)]:
+                if not torch.equal(g, x):
+                    raise AssertionError(f"sharded tick {t} (sampled "
+                                         f"{sampled}): {path} differs from "
+                                         f"the eager step")
+                compared += 1
+            if sampled and not torch.equal(gen.get_state(),
+                                           twin.get_state()):
+                raise AssertionError(f"sharded tick {t}: the generator "
+                                     f"moved otherwise")
+    return {"ticks": SHARD_TICKS, "tensors_compared": compared,
+            "launches_per_replay": replay}
+
+
+def _replay_fn(torch, dev, cfg, params, ctx):
+    """The greedy tick under ``ctx`` (None: local) captured after a
+    prefill of wave 0: a closure that replays its graph (each replay
+    advances the state) and holds the state, whose tensors the graph
+    reads and writes."""
+    from repro_torch.serve.engine import capture_tick, prefill
+    with torch.no_grad():
+        logits, cache = prefill(cfg, params, _wave_prompts(torch, dev, 0),
+                                max_len=LM_MAX_LEN, mode="w1a8_eval",
+                                ctx=ctx)
+        state = {"cache": cache,
+                 "last_tok": torch.argmax(logits, -1).to(torch.int32),
+                 "temp": torch.zeros((LM_SLOTS,), device=dev)}
+        graph = capture_tick(cfg, params, state, None, mode="w1a8_eval",
+                             ctx=ctx)
+
+    def replay():
+        graph.replay()
+        return state
+    return replay
+
+
 def sharded_serve(torch, dev, mesh, smi: str) -> tuple:
     """Phase 15a: mixtral-8x7b at full width cut to SHARD_SERVE_LAYERS
     layers (phases 12 and 19 serve it at full depth), packed, served
@@ -4607,9 +4747,14 @@ def sharded_serve(torch, dev, mesh, smi: str) -> tuple:
     the local path: off, every step's logits and tokens bit for bit; on,
     bit for bit against the local path with its expert outputs rounded
     through bf16. Launches counted over the sharded runs; a decode step's
-    launches; its CUDA-event ms local, wire off and on, in turns (local,
-    off, on, on, off, local). No torch.profiler trace: traces of the
-    sharded step lost their device records on the card (every try)."""
+    launches. For each wire, `generate(ctx=)` (`_sharded_generate`: a
+    graph replay a token, the eager waves' tokens bit for bit) and the
+    replayed tick greedy and sampled against the eager one
+    (`_sharded_tick_parity`; a replay's launches an eager step's). The
+    eager step's and the tick replay's CUDA-event ms local, wire off and
+    on, in turns (local, its replay, off, its replay, on, its replay,
+    then back). No torch.profiler trace: traces of the sharded step lost
+    their device records on the card (every try)."""
     import dataclasses
 
     from repro_torch import configs
@@ -4631,8 +4776,9 @@ def sharded_serve(torch, dev, mesh, smi: str) -> tuple:
         local_bf16 = _greedy_waves(torch, dev, cfg, packed, None)
     out = {"arch": MOE_ARCH, "layers": cfg.num_layers, "init_s": init_s,
            "steps": SHARD_WAVES * LM_MAX_NEW}
-    counts, steps = {}, {"local": _decode_step_fn(torch, dev, cfg, packed,
-                                                  None)}
+    counts, replay_counts = {}, {}
+    steps = {"local": _decode_step_fn(torch, dev, cfg, packed, None),
+             "local_replay": _replay_fn(torch, dev, cfg, packed, None)}
     for wire in (False, True):
         ctx = ShardCtx(mesh, ("data",), "model", "data", a2a_quant=wire)
         _zero(launch.KERNELS)
@@ -4656,20 +4802,45 @@ def sharded_serve(torch, dev, mesh, smi: str) -> tuple:
         if per_step.get(GROUPED) != 3 * cfg.num_layers:
             raise AssertionError(f"{MOE_ARCH} sharded decode step: {per_step}"
                                  f", want {3 * cfg.num_layers} grouped")
-        out[key] = {"launches_per_decode_step": per_step}
+        gen_rec = _sharded_generate(torch, dev, cfg, packed, ctx,
+                                    want_toks)
+        for k, v in gen_rec.pop("launches").items():
+            replay_counts[k] = replay_counts.get(k, 0) + v
+        parity = {name: _sharded_tick_parity(torch, dev, cfg, packed, ctx,
+                                             name == "sampled")
+                  for name in ("greedy", "sampled")}
+        per_replay = parity["greedy"]["launches_per_replay"]
+        if per_replay != per_step:
+            raise AssertionError(f"{MOE_ARCH} sharded tick replay: "
+                                 f"{per_replay}, an eager step {per_step}")
+        out[key] = {"launches_per_decode_step": per_step,
+                    "launches_per_replay": per_replay,
+                    "generate": gen_rec, "tick_parity": parity}
+        steps[key + "_replay"] = _replay_fn(torch, dev, cfg, packed, ctx)
+    order = ("local", "local_replay", "wire_off", "wire_off_replay",
+             "wire_on", "wire_on_replay")
     ms = {key: [] for key in steps}
-    for key in ("local", "wire_off", "wire_on", "wire_on", "wire_off",
-                "local"):
+    for key in order + order[::-1]:
         ms[key].append(cuda_ms(torch, steps[key], reps=3, n=3))
-    for key in steps:
-        out.setdefault(key, {})["decode_step_ms"] = ms[key]
+    for key in ("local", "wire_off", "wire_on"):
+        out.setdefault(key, {}).update(decode_step_ms=ms[key],
+                                       replay_ms=ms[key + "_replay"])
+    # the replays' device busy (a trace of the eager sharded step loses its
+    # device records); the popcount records a replay: 2-D and grouped
+    popcount = int(sum(v for k, v in out["wire_off"][
+        "launches_per_replay"].items() if k != DECODE))
+    for key in ("local", "wire_off", "wire_on"):
+        prof = step_profile(torch, steps[key + "_replay"], popcount)
+        out[key]["replay_profile"] = {k: prof[k] for k in (
+            "device_busy_ms", "wall_ms", "idle_share", "device_records",
+            "device_timing")}
     wire_gap = float((local_bf16[0] - local[0]).abs().max())
     del packed, steps
     gc.collect()
     torch.cuda.empty_cache()
 
-    def timed(key):
-        return " and ".join(f"{m:.3f}" for m in out[key]["decode_step_ms"])
+    def timed(key, what="decode_step_ms"):
+        return " and ".join(f"{m:.3f}" for m in out[key][what])
 
     print(f"[sharded] (a) {MOE_ARCH} full width, {cfg.num_layers} layers, "
           f"packed (init {init_s:.1f} s), under a ShardCtx on (data 1, "
@@ -4681,8 +4852,32 @@ def sharded_serve(torch, dev, mesh, smi: str) -> tuple:
           f"(CUDA events, in turns) local {timed('local')}, wire off "
           f"{timed('wire_off')}, wire on {timed('wire_on')} ({smi})",
           flush=True)
+    local_busy = out["local"]["replay_profile"]["device_busy_ms"]
+    for key in ("wire_off", "wire_on"):
+        rec = out[key]
+        print(f"[sharded] (a) {MOE_ARCH} as one CUDA graph replay a tick "
+              f"under the ShardCtx, {key.replace('_', ' ')}: generate's "
+              f"{SHARD_WAVES} waves x {LM_MAX_NEW} tokens equal the eager "
+              f"waves' bit for bit ({rec['generate']['captures']} captures,"
+              f" {rec['generate']['graph_replays']} CUDAGraph.replay calls,"
+              f" {rec['generate']['decode_step_calls']} decode_step calls); "
+              f"the replayed tick greedy and sampled == the eager tick on "
+              f"clones bit for bit ({SHARD_TICKS} ticks each, "
+              f"{rec['tick_parity']['greedy']['tensors_compared']} + "
+              f"{rec['tick_parity']['sampled']['tensors_compared']} "
+              f"tensors: last_tok and every cache leaf); launches a replay "
+              f"{rec['launches_per_replay']} == an eager step's; tick "
+              f"replay ms {timed(key, 'replay_ms')} against eager "
+              f"{timed(key)} and the local replay "
+              f"{timed('local', 'replay_ms')} (CUDA events, in turns); "
+              f"device busy a replay "
+              f"{_num(rec['replay_profile']['device_busy_ms'], '.4f')} ms "
+              f"against the local replay's {_num(local_busy, '.4f')}, "
+              f"{_num(rec['replay_profile']['device_records'], '.1f')} "
+              f"records ({rec['replay_profile']['device_timing']}) ({smi})",
+              flush=True)
     out["wire_logit_gap"] = wire_gap
-    return out, counts
+    return out, counts, replay_counts
 
 
 def sharded_train_step_check(torch, np, dev, mesh, smi: str) -> dict:
@@ -4938,7 +5133,8 @@ def drive_sharded(torch, np, dev, smi: str) -> dict:
     mesh = _shard_mesh(torch, "phase15_nccl")
     try:
         out = {"card": smi}
-        out["serve"], out["launches"] = sharded_serve(torch, dev, mesh, smi)
+        out["serve"], out["launches"], out["replay_launches"] = \
+            sharded_serve(torch, dev, mesh, smi)
         out["train_step"] = sharded_train_step_check(torch, np, dev, mesh,
                                                      smi)
         out["launcher"] = sharded_launcher(torch, dev, mesh, smi)
@@ -4957,8 +5153,15 @@ def sharded_summary(rec: dict) -> dict:
                   "steps": serve["steps"],
                   **{k: serve[k]["decode_step_ms"]
                      for k in ("local", "wire_off", "wire_on")},
+                  **{k + "_replay": serve[k]["replay_ms"]
+                     for k in ("local", "wire_off", "wire_on")},
+                  **{k + "_replay_busy": serve[k]["replay_profile"][
+                      "device_busy_ms"]
+                     for k in ("local", "wire_off", "wire_on")},
                   "launches_per_decode_step":
-                      serve["wire_off"]["launches_per_decode_step"]},
+                      serve["wire_off"]["launches_per_decode_step"],
+                  "launches_per_replay":
+                      serve["wire_off"]["launches_per_replay"]},
         "train_step": {k: step[k] for k in (
             "arch", "layers", "params", "loss_rel_err", "max_grad_rel_err",
             "codes_forced", "ms_per_step", "tokens_per_s",
@@ -5396,16 +5599,26 @@ def tp_decode(torch, dev, smi: str, blocks: list) -> dict:
     """Phase 17a': rank 0 of the (16, 16) mesh serving chatglm3-6b packed
     for real on the card (phase 10's LM_SLOTS rows a rank, max_len
     LM_MAX_LEN, f32), torch's ``fake`` backend standing in for the other
-    255 ranks: its collectives move no data, so its logits are not
-    checked. Counts zeroed before a decode step and read after: each
+    255 ranks. Counts zeroed before a decode step and read after: each
     projection of the plan one popcount launch on the rank's block (of
     them the decode route's share, from the blocks' K in ``blocks``,
-    phase 17a's records); its CUDA-event ms."""
+    phase 17a's records). Then the rank's tick on the cell's params,
+    cache and ctx captured as one CUDA graph (`engine.capture_tick`): a
+    replay's launches those of the eager step; the replay's and the eager
+    step's CUDA-event ms in turns (replay, eager, eager, replay).
+
+    No value is compared, of the step or of the replay: the ``fake``
+    backend's collectives launch nothing and leave their outputs as they
+    were allocated, so the TP sums and the vocabulary gather hand on
+    whatever memory held, and only the rank's launches and times are the
+    card's."""
     from repro_torch import configs
     from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.dist.sharding import dp_axes
     from repro_torch.launch import dryrun as dr
     from repro_torch.launch import serve as launch
     from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.serve.engine import capture_tick
 
     spec = ShapeSpec("phase17", "decode", LM_MAX_LEN, LM_SLOTS * TP_MODEL)
     gen = torch.Generator(device=dev)
@@ -5420,23 +5633,53 @@ def tp_decode(torch, dev, smi: str, blocks: list) -> dict:
         cell.run()
         torch.cuda.synchronize()
         per_step = {k: v for k, v in launch.launch_counts().items() if v}
-        ms = cuda_ms(torch, cell.run, reps=3, n=3)
+        # the cell's own tree, cache and ctx (`build_decode_cell`'s)
+        params, cache = cell.held[0][0], cell.held[1][0]
+        rows = cache["lengths"].shape[0]
+        state = {"cache": cache,
+                 "last_tok": torch.zeros((rows,), dtype=torch.int32,
+                                         device=dev),
+                 "temp": torch.zeros((rows,), device=dev)}
+        graph = capture_tick(cell.cfg, params, state, None,
+                             mode="w1a8_eval",
+                             ctx=dr.make_ctx(cell.cfg, mesh, dp_axes(mesh)))
         _zero(launch.KERNELS)
-        del cell
+        graph.replay()
+        torch.cuda.synchronize()
+        per_replay = {k: v for k, v in launch.launch_counts().items() if v}
+        replay_ms = [cuda_ms(torch, graph.replay, reps=3, n=3)]
+        eager_ms = [cuda_ms(torch, cell.run, reps=3, n=3) for _ in range(2)]
+        replay_ms.append(cuda_ms(torch, graph.replay, reps=3, n=3))
+        popcount = int(sum(v for k, v in per_step.items() if k != DECODE))
+        prof = {"replay": step_profile(torch, graph.replay, popcount),
+                "eager": step_profile(torch, cell.run, popcount)}
+        _zero(launch.KERNELS)
+        del cell, graph, state, params, cache
     gc.collect()
     torch.cuda.empty_cache()
     cfg = configs.get_config(TP_ARCH)
     ks = [(r["whole"] if r["kind"] == "whole" else r["block"])[1]
           for r in blocks] * cfg.num_layers
     want = with_decode_share({"w1a8_matmul_popcount": float(len(ks))}, ks)
-    if per_step != want:
-        raise AssertionError(f"{TP_ARCH} TP decode step: {per_step}, want "
-                             f"{want}")
+    if per_step != want or per_replay != per_step:
+        raise AssertionError(f"{TP_ARCH} TP decode step: {per_step}, a "
+                             f"replay {per_replay}, want {want}")
     print(f"[tp] (a') {TP_ARCH} packed, rank 0 of (16, 16) on the card "
           f"(fake backend for the other ranks), {LM_SLOTS} rows: a decode "
-          f"step {per_step} on the rank's blocks, {ms:.3f} ms (CUDA "
-          f"events) ({smi})", flush=True)
-    return {"launches_per_decode_step": per_step, "decode_step_ms": ms}
+          f"step {per_step} on the rank's blocks, a tick replay the same; "
+          f"CUDA-event ms in turns: replay {replay_ms[0]:.3f}, eager "
+          f"{eager_ms[0]:.3f}, eager {eager_ms[1]:.3f}, replay "
+          f"{replay_ms[1]:.3f}; device busy replay "
+          f"{_num(prof['replay']['device_busy_ms'], '.4f')} ms, eager "
+          f"{_num(prof['eager']['device_busy_ms'], '.4f')} "
+          f"({prof['replay']['device_timing']}, "
+          f"{prof['eager']['device_timing']}) ({smi})", flush=True)
+    return {"launches_per_decode_step": per_step,
+            "launches_per_replay": per_replay, "decode_step_ms": eager_ms,
+            "replay_ms": replay_ms,
+            **{f"{k}_profile": {f: p[f] for f in (
+                "device_busy_ms", "wall_ms", "idle_share", "device_records",
+                "device_timing")} for k, p in prof.items()}}
 
 
 def tp_train(torch, dev, smi: str) -> dict:
@@ -6098,6 +6341,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = drive_sharded(torch, np, dev, smi)
     by_path["sharded moe serve"] = sharded["launches"]
+    by_path["sharded generate, tick replays"] = sharded["replay_launches"]
     print(f"[sharded] phase 15 in {sharded['wall_s']:.1f} s", flush=True)
     print("sharded " + json.dumps(sharded_summary(sharded)), flush=True)
     gc.collect()
@@ -6111,6 +6355,8 @@ def main() -> int:
     tp = drive_tp(torch, np, dev, smi)
     by_path["tp decode, rank 0 of (16, 16)"] = tp["decode"][
         "launches_per_decode_step"]
+    by_path["tp tick replay, rank 0 of (16, 16)"] = tp["decode"][
+        "launches_per_replay"]
     print(f"[tp] phase 17 in {tp['wall_s']:.1f} s", flush=True)
     print("tp " + json.dumps(tp_summary(tp)), flush=True)
     gc.collect()
@@ -6273,6 +6519,7 @@ def main() -> int:
                 "launches_per_decode_step":
                     tp["decode"]["launches_per_decode_step"].get(name, 0),
                 "decode_step_ms": tp["decode"]["decode_step_ms"],
+                "replay_ms": tp["decode"]["replay_ms"],
                 "blocks": [{k: r.get(k) for k in (
                     "what", "kind", "block", "whole", "ms", "device_ms",
                     "whole_ms", "whole_device_ms", "bound_ms", "bound_by",

@@ -436,7 +436,10 @@ def local_kv(k: torch.Tensor, v: torch.Tensor, h0: int, h1: int, g: int,
     want = [(h0 + i) // g - kv0 for i in range(hl)]
     if hl % kvl == 0 and want == [i // (hl // kvl) for i in range(hl)]:
         return k, v
-    idx = torch.tensor(want, device=k.device)
+    # made on the device: a copy from the host would sync, which a CUDA
+    # graph capture of a sharded decode tick refuses
+    idx = torch.div(torch.arange(h0, h1, device=k.device), g,
+                    rounding_mode="floor") - kv0
     return k.index_select(2, idx), v.index_select(2, idx)
 
 

@@ -31,7 +31,10 @@ the lengths advanced; `prefill` builds a fresh cache.
 or `decode_step_donemask`) on fixed state tensors and writes every output
 back into them; `capture_tick` captures it as one CUDA graph, the
 counterpart of the reference's jitted tick, which `serve.backends.
-LMBackend` and `generate` replay once a token on the card.
+LMBackend` and `generate` replay once a token on the card. Under a
+`ShardCtx` the graph holds the step's NCCL collectives too (the EP
+all-to-alls, the TP sums and gathers, the SP softmax reductions), as the
+reference jits its step under a ctx.
 
 Sampling draws from a `torch.Generator` on the logits' device (Gumbel-max
 over exponential draws): the reference's ``jax.random.categorical`` draws
@@ -314,22 +317,29 @@ def clone_generator(generator: Optional[torch.Generator]
 
 def capture_tick(cfg: ModelConfig, params: dict, state: dict,
                  generator: Optional[torch.Generator], *,
-                 mode: str = "float") -> _build.Graph:
+                 mode: str = "float", ctx=None) -> _build.Graph:
     """`decode_tick` on ``state`` captured as a CUDA graph (the counterpart
-    of the reference's jitted tick). One eager warm tick runs first on a
-    side stream, on clones of the state and of the generator, so it loads
-    the kernels and fills lazy caches while the live rows and draws stay
-    as they were; the capture itself runs nothing. A ``generator`` is
-    registered with the graph, so each replay draws from it anew, as an
-    eager tick would; a PyTorch that cannot register one raises, and so
-    does a capture that fails."""
+    of the reference's jitted tick), under ``ctx`` if one is given. One
+    eager warm tick runs first on a side stream, on clones of the state
+    and of the generator, so it loads the kernels, fills lazy caches and
+    creates the process groups' NCCL communicators (none can be created
+    under capture) while the live rows and draws stay as they were; the
+    capture itself runs nothing. A ``generator`` is registered with the
+    graph, so each replay draws from it anew, as an eager tick would; a
+    PyTorch that cannot register one raises, and so does a capture that
+    fails.
+
+    The capture's error mode is ``thread_local``: it holds this thread to
+    the capture's rules and leaves other threads alone, since the NCCL
+    process group's watchdog thread queries the events of the collectives
+    that ran before the capture while it runs."""
     dev = state["last_tok"].device
     cur = torch.cuda.current_stream(dev)
     side = torch.cuda.Stream(dev)
     side.wait_stream(cur)
     with torch.no_grad(), torch.cuda.stream(side):
         decode_tick(cfg, params, clone_state(state),
-                    clone_generator(generator), mode=mode)
+                    clone_generator(generator), mode=mode, ctx=ctx)
     cur.wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
@@ -339,8 +349,9 @@ def capture_tick(cfg: ModelConfig, params: dict, state: dict,
                 f"with a CUDA graph: a sampled tick cannot be captured")
         graph.register_generator_state(generator)
     with _build.capturing() as launches, torch.no_grad(), \
-            torch.cuda.device(dev), torch.cuda.graph(graph):
-        decode_tick(cfg, params, state, generator, mode=mode)
+            torch.cuda.device(dev), \
+            torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        decode_tick(cfg, params, state, generator, mode=mode, ctx=ctx)
     return _build.Graph(graph, launches)
 
 
@@ -420,10 +431,11 @@ def generate(cfg: ModelConfig, params: dict, prompts: torch.Tensor, *,
     """Greedy / temperature sampling: (B, S) prompts → (B, max_new)
     tokens. A positive temperature draws from ``generator``.
 
-    Without a ``ctx`` each token after the first is one `decode_tick`: on
-    the card one replay of a graph captured before the first
-    (`capture_tick`), as the reference jits its step; on the CPU the tick
-    itself. Under a `ShardCtx` each step runs eagerly."""
+    Each token after the first is one `decode_tick` (under ``ctx``, a
+    `ShardCtx`, if one is given): on the card one replay of a graph
+    captured before the first (`capture_tick`), as the reference jits its
+    step, with a ctx's collectives in the graph; on the CPU the tick
+    itself."""
     logits, cache = prefill(cfg, params, prompts, max_len=max_len,
                             mode=mode, ctx=ctx)
     temp = torch.full((prompts.shape[0],), float(temperature),
@@ -439,10 +451,11 @@ def generate(cfg: ModelConfig, params: dict, prompts: torch.Tensor, *,
         toks.append(nxt.clone())
         if i == max_new - 1:
             break
-        if ctx is not None or not nxt.is_cuda:
+        if not nxt.is_cuda:
             decode_tick(cfg, params, state, gen, mode=mode, ctx=ctx)
             continue
         if graph is None:
-            graph = capture_tick(cfg, params, state, gen, mode=mode)
+            graph = capture_tick(cfg, params, state, gen, mode=mode,
+                                 ctx=ctx)
         graph.replay()
     return torch.stack(toks, dim=1)

@@ -13,7 +13,8 @@ at d_ff 64 (F and its packed words split over the model ranks) and 96 (3
 packed words do not split: the packed layer runs F whole, its held
 ``up_packed`` gathered), reduced kimi-k2 (8 experts, a shared expert).
 Every config has capacity_factor = num_experts, so nothing drops and EP
-equals the local path.
+equals the local path. The four ranks also serve reduced mixtral whole
+through greedy `generate(ctx=)`, held to their eager steps' tokens.
 
 The quantizer inputs whose codes round across a tie are forced to the
 reference's (`train.ties.forced_by_rows`: rows matched by content, since
@@ -198,7 +199,12 @@ def four_ranks(tmp_path_factory):
                 cases[key] = {"arch": CASES[name][0], "over": CASES[name][1],
                               "mode": run, "a2a": a2a, "params": p, "x": x,
                               "recorded": rec + rec_local}
-    got = torch_ranks.spawn("moe_ep", WORLD, {"cases": cases},
+    gen = {"arch": "mixtral-8x7b", "seed": 7, "max_new": 5, "max_len": 16,
+           "prompts": np.random.default_rng(41).integers(
+               0, configs.get_reduced("mixtral-8x7b").vocab_size,
+               (4, 3)).astype(np.int32)}
+    got = torch_ranks.spawn("moe_ep", WORLD, {"cases": cases,
+                                              "generate": gen},
                             tmp_path_factory.mktemp("moe_ep_ranks"))
     return got, want
 
@@ -230,6 +236,20 @@ def test_ep_moe_on_four_ranks_against_reference(case, four_ranks):
             if mode != "packed" and not a2a:
                 err = float(np.abs(y - want[key]["local"]).max())
                 assert err < 2e-5, f"{key} against local: {err}"
+
+
+@pytest.mark.parametrize("wire", [False, True])
+def test_generate_on_four_ranks_equals_eager_steps(wire, four_ranks):
+    """(data 2, model 2), reduced mixtral packed and served whole: each
+    rank's greedy `generate(ctx=)` tokens, its ticks `decode_tick` under
+    the ctx, equal the eager `decode_step(ctx=)` loop's bit for bit, with
+    the uint8 dispatch wire off and on (on the card each tick is one CUDA
+    graph replay of that tick, `chip_smoke.py` phase 15a)."""
+    got, _ = four_ranks
+    for r in got:
+        rec = r[f"generate-{wire}"]
+        assert rec["generate"].shape == (2, 5)
+        assert np.array_equal(rec["generate"], rec["eager"]), r["coords"]
 
 
 def test_plan_dispatch_carries_ep():

@@ -33,6 +33,8 @@ Tolerances, and why:
   one-device unpacked path's and the reference's (`repro.serve.engine`),
   and the logits within 1e-3 of each (chip phase 10's bound: Σ
   code·sign·α·step against f32 sums of the same products).
+* greedy `generate(ctx=)` on the same blocks (its ticks `decode_tick`
+  under the ctx): the eager steps' tokens bit for bit (the same ops).
 * no non-MoE leaf is all-gathered in the step, the prefill or the decode
   steps (the probe does see `dist.sharding.gather_tree`'s gathers).
 * a fresh sharded draw (`train.loop.resume_or_init`): bit for bit the
@@ -269,6 +271,18 @@ def test_tp_packed_prefill_and_decode_against_one_device(case, ranks):
             assert np.array_equal(toks, want_toks[:, rows]), (case, what)
             err = float(np.abs(logits - want_logits[:, rows]).max())
             assert err <= 1e-3, f"{case}: logits {err} off the {what}'s"
+
+
+@pytest.mark.parametrize("case", SERVED + [SP_CASE])
+def test_tp_generate_equals_eager_greedy(case, ranks):
+    """Greedy `generate(ctx=)` on the ranks' packed blocks, its ticks
+    `decode_tick` under the ctx: the eager prefill and decode steps'
+    tokens bit for bit (on the card each tick is one CUDA graph replay
+    of that tick, `chip_smoke.py` phases 15a and 17a')."""
+    for r in _ranks_of(ranks, case):
+        toks = r["serve"][1]
+        assert r["generate"].shape == toks.T.shape, case
+        assert np.array_equal(r["generate"], toks.T), (case, r["coords"])
 
 
 def test_no_non_moe_leaf_gathered_whole(ranks):

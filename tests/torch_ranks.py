@@ -266,7 +266,10 @@ def moe_ep(rank: int, world: int, inputs: dict) -> dict:
     from repro_torch import configs
     from repro_torch.dist import sharding
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.models.transformer import ShardCtx, _apply_moe
+    from repro_torch.models.transformer import (ShardCtx, _apply_moe,
+                                                init_lm_params)
+    from repro_torch.serve.engine import generate
+    from repro_torch.serve.packed import deploy_lm
     mesh = make_test_mesh(2, 2, device="cpu")
     shard = mesh.get_local_rank("data")
     out = {"coords": (shard, mesh.get_local_rank("model"))}
@@ -284,6 +287,24 @@ def moe_ep(rank: int, world: int, inputs: dict) -> dict:
             y = _apply_moe(held, cfg, x[shard * rows:(shard + 1) * rows],
                            case["mode"], ctx)
         out[name] = {"y": y, "forced": sum(map(sum, counts))}
+    # served whole: the rank's rows through greedy generate, whose ticks
+    # run decode_tick under the ctx, against the eager steps' tokens
+    case = inputs["generate"]
+    cfg = configs.get_reduced(case["arch"])
+    held = sharding.shard_tree(deploy_lm(init_lm_params(
+        cfg, torch.Generator().manual_seed(case["seed"]), device="cpu")),
+        cfg, mesh)
+    rows = case["prompts"].shape[0] // 2
+    mine = torch.from_numpy(case["prompts"][shard * rows:(shard + 1) * rows])
+    for wire in (False, True):
+        ctx = ShardCtx(mesh, ("data",), "model", "data", a2a_quant=wire)
+        with torch.no_grad():
+            got = generate(cfg, held, mine, max_new=case["max_new"],
+                           max_len=case["max_len"], mode="w1a8_eval",
+                           ctx=ctx)
+        _, eager = _greedy(cfg, held, mine, ctx, case["max_new"] - 1,
+                           case["max_len"])
+        out[f"generate-{wire}"] = {"generate": got, "eager": eager.T}
     return _np(out)
 
 
@@ -409,6 +430,7 @@ def tp_ranks(rank: int, world: int, inputs: dict) -> dict:
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models.transformer import ShardCtx, lm_forward, tp_of
     from repro_torch.optim import sgdm
+    from repro_torch.serve.engine import generate
     from repro_torch.serve.packed import deploy_lm
     from repro_torch.train.step import make_train_step
     from repro_torch.models.transformer import tree_items
@@ -481,6 +503,10 @@ def tp_ranks(rank: int, world: int, inputs: dict) -> dict:
             res["serve"] = _greedy(cfg, packed, mine, ctx,
                                    inputs["decode_steps"], inputs["max_len"])
             res["serve_leaf_gathers"] = leaf_gathers(packed)
+            with torch.no_grad():
+                res["generate"] = generate(
+                    cfg, packed, mine, max_new=inputs["decode_steps"] + 1,
+                    max_len=inputs["max_len"], mode="w1a8_eval", ctx=ctx)
         out[name] = res
     collectives.all_gather_rows = sharding.all_gather_rows = real
     return _np(out)
